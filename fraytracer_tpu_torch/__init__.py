@@ -2,9 +2,10 @@
 
 The SDF/CSG sphere tracer of the JAX package, forward frame first: scenes
 flatten to parameter tensors, rays march through hand-written CUDA kernels
-(``csrc/``) on an NVIDIA GPU, or through the kernels' plain PyTorch
-versions on the CPU.  Importing the package builds nothing and needs no
-GPU.
+(``csrc/``) on an NVIDIA GPU — culled per-tile candidate tables by
+default, every primitive each step with ``cull=False`` — or through the
+kernels' plain PyTorch versions on the CPU.  Importing the package builds
+nothing and needs no GPU.
 
 Quick start::
 
@@ -13,7 +14,7 @@ Quick start::
 
     scene = ft.flatten(torus_csg_scene(19, 1000), device="cuda")
     camera = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60, device="cuda")
-    cfg = ft.RenderConfig(march=ft.MarchConfig(backend="cuda", cull=False,
+    cfg = ft.RenderConfig(march=ft.MarchConfig(backend="cuda",
                                                relax_omega=1.4))
     img = ft.render(scene, camera, cfg)
 """

@@ -3,8 +3,9 @@
 
     python -m fraytracer_tpu_torch.cli render --size 1024 --out x.png
 
-renders the seed-19 1000-torus scene through the CUDA kernels (``--device
-cuda``, the default) and prints the frame time.  Without a GPU it stops
+renders the seed-19 1000-torus scene through the culled CUDA kernels
+(``--device cuda``, the default; the JAX bench's configuration) and prints
+the frame time.  Without a GPU it stops
 with an error unless ``--device cpu`` is given, which runs the kernels'
 plain PyTorch versions.
 """
@@ -43,7 +44,7 @@ def cmd_render(args) -> int:
                           epsilon=args.epsilon, length=args.length,
                           gamma=args.gamma,
                           march=MarchConfig(max_steps=args.max_steps,
-                                            backend="cuda", cull=False,
+                                            backend="cuda",
                                             relax_omega=1.4))
     print("Rendering...", flush=True)
     t0 = time.perf_counter()

@@ -1,8 +1,8 @@
 // Shared device code of the march and surface kernels: the flattened
 // scene program, the seven primitive distance functions (written once,
 // templated over the scalar type: float for marching, a 3-component
-// forward-mode dual number for exact leaf gradients), and the scene
-// program interpreter.
+// forward-mode dual number for exact leaf gradients), the scene program
+// interpreter, and the culled groups' candidate-table passes.
 //
 // The formulas are those of fraytracer_tpu_torch/ops/sdf.py (the plain
 // PyTorch versions the kernels are held against), which are algebraically
@@ -15,6 +15,12 @@
 #define FT_BIG 3.0e38f
 #define FT_PSTRIDE 10    // floats per primitive row (widest kind: triangle)
 #define FT_MAX_STACK 16  // CSG value-stack depth; the host checks plans
+// culled tables (ops/cuda/cull.py: TILE, CAND_UNROLL, PSTRIDE + 2, MAX_PAIRS)
+#define FT_TILE 1024       // rays per candidate table
+#define FT_CAND_UNROLL 8   // table rows per window chunk
+#define FT_TABLE_W 12      // floats per table row: params, material, slot
+#define FT_MAX_PAIRS 8     // culled (group, kind) pairs per launch
+#define FT_FULL_MASK 0xffffffffu
 
 // primitive kinds, in the flattener's KINDS order
 enum { K_SPHERE = 0, K_CAPSULE, K_TORUS, K_TRIANGLE, K_BOX, K_CONE, K_PLANE };
@@ -26,7 +32,10 @@ enum { G_MIN = 0, G_MAX, G_SUMEXP };
 // The scene lowered to a small program (built by ops/cuda/march_kernel.py,
 // mirrored there as a ctypes Structure — keep the field order in step).
 // Entries are the primitives ordered by group, members of a group in
-// ascending global slot; each group is one contiguous entry range.
+// ascending global slot; each group is one contiguous entry range.  The
+// rows of culled pairs come after every group's range: their group reads
+// them from the per-tile candidate tables (FtCull), and K3 finds the
+// winning leaf's parameters through slot_entry.
 struct FtProgram {
   const int* ops;           // [n_ops * 2] (opcode, arg): arg = group id or
                             // operand count
@@ -42,6 +51,39 @@ struct FtProgram {
   int n_ent;
   const int* slot_entry;    // [n_slots] entry of a global slot
   int n_slots;
+  const int* group_pairs;   // [n_groups * 2] the group's pairs [start, end)
+};
+
+// One culled (group, kind) pair: per-tile tables built on the host
+// (ops/cuda/cull.py build_pair_tables), G = number of ray tiles.
+struct FtPair {
+  const float* table;  // [G, m, FT_TABLE_W] candidates, ascending axial key
+  const float* keys;   // [G, 2, m / FT_CAND_UNROLL] chunk max(a+r), min(a-r)
+  const float* misc;   // [G, 4] count, cos_lo, window clamp, surface margin
+  const float* hsuf;   // [G, m / FT_CAND_UNROLL] suffix-min of a-r per chunk
+  int m;               // table rows per tile (whole chunks)
+  int kind;            // primitive kind of every row
+  int group_size;      // the pair's rows (count < group_size: cone-excluded)
+  int pad_;
+};
+
+// What a launch reads besides rays and program; n_pairs == 0 is the dense
+// form.
+struct FtCull {
+  const float* oa;  // [n] (origin - apex) . axis of the lane's tile cone
+  const float* ca;  // [n] direction . axis
+  int n_pairs;
+  int early_out;    // running-min early-out of min-group windows
+  FtPair pairs[FT_MAX_PAIRS];
+};
+
+// A lane as the culled passes see it.  K1/K2 call the scene with every
+// lane of a warp (inactive ones included): the window is warp-collective.
+struct Lane {
+  int tile;       // the warp's ray tile
+  float oa, ca;   // axial origin offset and direction cosine
+  float t, eps;   // ray parameter of this step, hit threshold
+  bool active;    // takes part in the window statistics
 };
 
 // ---------------------------------------------------------------------------
@@ -253,6 +295,24 @@ __device__ __forceinline__ T prim_dist(int kind, const float* g, T px, T py,
 }
 
 // ---------------------------------------------------------------------------
+// warp reductions of floats (order-preserving int image, sm_80+ redux)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int ft_ord(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float ft_unord(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+__device__ __forceinline__ float warp_min(float x) {
+  return ft_unord(__reduce_min_sync(FT_FULL_MASK, ft_ord(x)));
+}
+__device__ __forceinline__ float warp_max(float x) {
+  return ft_unord(__reduce_max_sync(FT_FULL_MASK, ft_ord(x)));
+}
+
+// ---------------------------------------------------------------------------
 // scene program interpreter
 // ---------------------------------------------------------------------------
 //
@@ -262,8 +322,10 @@ __device__ __forceinline__ T prim_dist(int kind, const float* g, T px, T py,
 //   CSG-winning leaf (K3, slot mode): min/max keep the first extremum,
 //   subtract flips the sign of its b side.  A smooth reduction names no
 //   single leaf (code 0); the host keeps smooth plans out of K3.
-// The per-type rules are the overloads below; on_prim(d, e) sees every
-// primitive distance (K3's material argmin).
+// The per-type rules are the overloads below; on_prim(d, mat, slot) sees
+// every primitive distance (K3's material argmin).  A group with culled
+// pairs folds each pair first (culled_pair: the windowed march pass for
+// Dist, the whole-table surface scan for DistCode), then its dense entries.
 
 struct Dist {
   float v;
@@ -304,11 +366,129 @@ __device__ __forceinline__ DistCode csg_pick(DistCode out, DistCode v,
 }
 
 struct NoPrimHook {
-  __device__ __forceinline__ void operator()(float, int) const {}
+  __device__ __forceinline__ void operator()(float, int, int) const {}
 };
 
+// K1/K2: one culled pair's windowed pass (march_kernel.py culled_pass
+// :877-980 with _pair_window :641-697), collective over the warp.  The
+// window is the hull of the chunks that are neither behind
+// (max(a+r) < min p_ax - clamp) nor ahead (min(a-r) > max p_ax + clamp) of
+// the warp's active lanes; each lane splits the chunk keys, and redux
+// instructions combine the statistics.  A min group takes
+// min(window min, cap) with the per-lane cap min(AH - p_ax, p_ax - BH)
+// over the skipped chunks; a max group max(window max, skip_lb, excl),
+// where excl = 2 eps floors a group whose cone excluded members.
+template <typename OnPrim>
+__device__ __forceinline__ void culled_pair(Dist& acc, const FtPair& q,
+                                            const Lane& L, bool mn,
+                                            int early_out, float px, float py,
+                                            float pz, OnPrim&) {
+  const int chunks = q.m / FT_CAND_UNROLL;
+  const int lane = threadIdx.x & 31;
+  const float* keys = q.keys + (size_t)L.tile * 2 * chunks;
+  const float* misc = q.misc + (size_t)L.tile * 4;
+  const float clamp = __ldg(misc + 2);
+  // the plain version rounds o + t*c twice: no FMA here, same windows
+  const float p_ax = __fadd_rn(L.oa, __fmul_rn(L.t, L.ca));
+  const float plo = warp_min(L.active ? p_ax : FT_BIG);
+  const float phi = warp_max(L.active ? p_ax : -FT_BIG);
+  const float lo_lim = plo - clamp, hi_lim = phi + clamp;
+  int w_lo = chunks, w_hi = 0;
+  float bh = -FT_BIG, ah = FT_BIG, bh_min = FT_BIG, ah_max = -FT_BIG;
+  bool any_b = false, any_a = false;
+  for (int c = lane; c < chunks; c += 32) {
+    const float lo = __ldg(keys + c), hi = __ldg(keys + chunks + c);
+    const bool behind = lo < lo_lim, ahead = hi > hi_lim;
+    if (!behind && !ahead) {
+      w_lo = min(w_lo, c);
+      w_hi = max(w_hi, c + 1);
+    }
+    if (behind) {
+      bh = fmaxf(bh, lo);
+      bh_min = fminf(bh_min, lo);
+      any_b = true;
+    }
+    if (ahead) {
+      ah = fminf(ah, hi);
+      ah_max = fmaxf(ah_max, hi);
+      any_a = true;
+    }
+  }
+  w_lo = __reduce_min_sync(FT_FULL_MASK, w_lo);
+  w_hi = __reduce_max_sync(FT_FULL_MASK, w_hi);
+
+  const float* tab = q.table + (size_t)L.tile * q.m * FT_TABLE_W;
+  const float* hsuf = q.hsuf + (size_t)L.tile * chunks;
+  float win = mn ? FT_BIG : -FT_BIG;
+  for (int c = w_lo; c < w_hi; ++c) {
+    if (mn && early_out) {
+      // no later candidate can lower any active lane's running min
+      const float amax = warp_max(L.active ? win : -FT_BIG);
+      if (!(amax + phi > __ldg(hsuf + c))) break;
+    }
+    const float* row = tab + (size_t)c * FT_CAND_UNROLL * FT_TABLE_W;
+#pragma unroll 2
+    for (int k = 0; k < FT_CAND_UNROLL; ++k) {
+      const float d = prim_dist(q.kind, row + k * FT_TABLE_W, px, py, pz);
+      win = mn ? fminf(win, d) : fmaxf(win, d);
+    }
+  }
+  if (mn) {
+    bh = warp_max(bh);
+    ah = warp_min(ah);
+    acc.v = fminf(acc.v, fminf(win, fminf(ah - p_ax, p_ax - bh)));
+  } else {
+    bh_min = warp_min(bh_min);
+    ah_max = warp_max(ah_max);
+    any_b = __any_sync(FT_FULL_MASK, any_b);
+    any_a = __any_sync(FT_FULL_MASK, any_a);
+    const float skip_lb = fmaxf(any_b ? p_ax - bh_min : -FT_BIG,
+                                any_a ? ah_max - p_ax : -FT_BIG);
+    const float excl =
+        __ldg(misc) < (float)q.group_size ? 2.f * L.eps : -FT_BIG;
+    acc.v = fmaxf(acc.v, fmaxf(fmaxf(win, skip_lb), excl));
+  }
+}
+
+// K3: one culled pair over the tile's whole candidate list (culled_sp
+// :1051-1144): the first ceil8(min(count, m)) rows, leaf arg-extremum with
+// ties to the lower slot, every row seen by the material hook; a max
+// group's partial is floored at 2 eps with code 0 when the cone excluded
+// members (:1122-1138).  Folded into the group strictly, before its dense
+// entries.
+template <typename OnPrim>
+__device__ __forceinline__ void culled_pair(DistCode& acc, const FtPair& q,
+                                            const Lane& L, bool mn, int,
+                                            float px, float py, float pz,
+                                            OnPrim& on_prim) {
+  const float* misc = q.misc + (size_t)L.tile * 4;
+  const float count = __ldg(misc);
+  const int n_c = (int)fminf(count, (float)q.m);
+  const int rows = (n_c + FT_CAND_UNROLL - 1) / FT_CAND_UNROLL * FT_CAND_UNROLL;
+  const float* tab = q.table + (size_t)L.tile * q.m * FT_TABLE_W;
+  float bd = mn ? FT_BIG : -FT_BIG;
+  int bslot = 0x7fffffff;
+  for (int r = 0; r < rows; ++r) {
+    const float* row = tab + (size_t)r * FT_TABLE_W;
+    const float d = prim_dist(q.kind, row, px, py, pz);
+    const int slot = (int)__ldg(row + FT_PSTRIDE + 1);
+    on_prim(d, (int)__ldg(row + FT_PSTRIDE), slot);
+    if ((mn ? d < bd : d > bd) || (d == bd && slot < bslot)) {
+      bd = d;
+      bslot = slot;
+    }
+  }
+  float code = bslot == 0x7fffffff ? 0.f : (float)(bslot + 1);
+  if (!mn && count < (float)q.group_size && bd < 2.f * L.eps) {
+    bd = 2.f * L.eps;
+    code = 0.f;
+  }
+  if (mn ? bd < acc.v : bd > acc.v) acc = {bd, code};
+}
+
 template <typename V, typename OnPrim>
-__device__ __forceinline__ V eval_group(const FtProgram& P, int gid, float px,
+__device__ __forceinline__ V eval_group(const FtProgram& P, const FtCull& C,
+                                        const Lane& L, int gid, float px,
                                         float py, float pz, OnPrim& on_prim) {
   const int e0 = __ldg(P.groups + 3 * gid), e1 = __ldg(P.groups + 3 * gid + 1);
   const int op = __ldg(P.groups + 3 * gid + 2);
@@ -320,7 +500,7 @@ __device__ __forceinline__ V eval_group(const FtProgram& P, int gid, float px,
       const float d = prim_dist(__ldg(P.ent_kind + e),
                                 P.ent_params + (size_t)e * FT_PSTRIDE, px, py,
                                 pz);
-      on_prim(d, e);
+      on_prim(d, __ldg(P.ent_mat + e), __ldg(P.ent_slot + e));
       s += expf(-d / k);
     }
     smooth_value(acc, -k * logf(fmaxf(s, 1e-30f)));
@@ -328,25 +508,32 @@ __device__ __forceinline__ V eval_group(const FtProgram& P, int gid, float px,
   }
   const bool mn = op == G_MIN;
   smooth_value(acc, mn ? FT_BIG : -FT_BIG);
+  if (C.n_pairs > 0) {
+    const int q1 = __ldg(P.group_pairs + 2 * gid + 1);
+    for (int q = __ldg(P.group_pairs + 2 * gid); q < q1; ++q) {
+      culled_pair(acc, C.pairs[q], L, mn, C.early_out, px, py, pz, on_prim);
+    }
+  }
   for (int e = e0; e < e1; ++e) {
     const float d = prim_dist(__ldg(P.ent_kind + e),
                               P.ent_params + (size_t)e * FT_PSTRIDE, px, py,
                               pz);
-    on_prim(d, e);
+    on_prim(d, __ldg(P.ent_mat + e), __ldg(P.ent_slot + e));
     take_member(acc, mn, d, P, e);
   }
   return acc;
 }
 
 template <typename V, typename OnPrim>
-__device__ __forceinline__ V eval_scene(const FtProgram& P, float px, float py,
+__device__ __forceinline__ V eval_scene(const FtProgram& P, const FtCull& C,
+                                        const Lane& L, float px, float py,
                                         float pz, OnPrim& on_prim) {
   V st[FT_MAX_STACK];
   int sp = 0;
   for (int i = 0; i < P.n_ops; ++i) {
     const int op = __ldg(P.ops + 2 * i), arg = __ldg(P.ops + 2 * i + 1);
     if (op == OP_GROUP) {
-      st[sp++] = eval_group<V>(P, arg, px, py, pz, on_prim);
+      st[sp++] = eval_group<V>(P, C, L, arg, px, py, pz, on_prim);
       continue;
     }
     if (op == OP_SUBTRACT) {
@@ -372,8 +559,9 @@ __device__ __forceinline__ V eval_scene(const FtProgram& P, float px, float py,
   return st[0];
 }
 
-__device__ __forceinline__ float scene_distance(const FtProgram& P, float px,
-                                                float py, float pz) {
+__device__ __forceinline__ float scene_distance(const FtProgram& P,
+                                                const FtCull& C, const Lane& L,
+                                                float px, float py, float pz) {
   NoPrimHook none;
-  return eval_scene<Dist>(P, px, py, pz, none).v;
+  return eval_scene<Dist>(P, C, L, px, py, pz, none).v;
 }

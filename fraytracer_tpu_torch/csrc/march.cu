@@ -1,34 +1,43 @@
-// K1 (march), K2 (occlusion) and K3 (surface pass, slot mode): the dense
-// sphere-trace kernels of the forward frame.
+// K1 (march), K2 (occlusion) and K3 (surface pass, slot mode): the
+// sphere-trace kernels of the forward frame, dense and culled.
 //
 // Replaces: fraytracer_tpu/ops/pallas/march_kernel.py::_build_kernel, the
 // three programs launched by pallas_march_raw — mode="march" (kernel,
 // :1637), mode="occlusion" (same body, hit output only) and mode="surface"
-// (surf_kernel :1606 with surface_eval_slot :1022), in their dense form
-// (cull=False: no candidate tables, every primitive evaluated each step).
+// (surf_kernel :1606 with surface_eval_slot :1022) — in their dense form
+// (cull=False: every primitive each step) and their culled form (per-tile
+// candidate tables: culled_pass :877-980 with _pair_window :641 in K1/K2,
+// culled_sp :1051-1144 and the normal sweep :1231-1269 in K3).
 //
-// What bounds it on an H100: arithmetic.  A step of one ray evaluates every
-// primitive of the scene (about 30 flops and 2 square roots per torus), so
-// a 1024^2 frame against 1000 tori is ~1e12 flops; the ray state (~40
-// bytes) and the scene (40 bytes a primitive, 40 KB at 1000 tori) are
-// tiny, and parameters are read through the read-only cache.
+// What bounds it on an H100: arithmetic and its instruction overhead.  A
+// dense step of one ray evaluates every primitive (about 30 flops and 2
+// square roots per torus, 1002 primitives on the benchmark scene); a
+// culled step evaluates the dense rest plus the window chunks of its
+// warp's tile table (tens of candidates).  Ray state (~40 bytes), the
+// program and the tables (48 bytes a row, <= 25 MB at 1024^2) are read
+// through the read-only cache; a warp reads the same row at once.
 //
 // Design, simple first:
 // - one thread per ray over a 1-D grid; rays are flat [N] (origin and
-//   direction [N, 3]); there is no padding, the grid masks the ragged end;
+//   direction [N, 3]); the grid masks the ragged end, and lanes past N
+//   stay in the loop as inactive lanes (the window is warp-collective);
 // - the scene is not compiled into the kernel: the host lowers the CSG
 //   plan to a small program (groups of primitives with a min/max/sumexp
 //   reduction + the tree in postfix) that every thread interprets with a
 //   fixed-depth value stack (ft_sdf.cuh).  All threads of a warp read the
 //   same primitive at the same time, so __ldg reads are broadcasts;
-// - each lane stops at its own hit / budget / max_steps: a per-thread cap
-//   of max_steps evaluations reproduces the TPU tile loop's i < max_steps,
-//   since a lane there evaluates once per tile iteration while active;
+// - culled groups read the tile's candidate table (a tile = 1024 lanes =
+//   one 32x32 screen block) through a window computed per warp: the TPU
+//   kernel's window spans its whole tile, a warp's is narrower and keeps
+//   the scan warp-uniform (no divergence, broadcast reads);
+// - the march loop runs while any lane of the warp is active; a lane
+//   evaluates once per iteration while active, so a cap of max_steps
+//   iterations reproduces the TPU tile loop's i < max_steps per lane;
 // - omega-relaxed stepping with the overstep revert and the
 //   budget-crossing rule of march_kernel.py:1697-1722, exactly;
 // - the surface pass evaluates the CSG-winning leaf once more with dual
 //   numbers, so the normal is that leaf's exact gradient.
-// Later work (ROADMAP): candidate culling, shared-memory staging of the
+// Later work (ROADMAP): shared-memory staging of the tables and
 // parameters, a warp-cooperative layout.
 #include "ft_sdf.cuh"
 
@@ -39,25 +48,45 @@
 __global__ void __launch_bounds__(128)
 march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
              const float* __restrict__ length, const float* __restrict__ eps,
-             const float* __restrict__ t0, int n, FtProgram P, int max_steps,
-             float omega, int occlusion, float* __restrict__ t_out,
-             int* __restrict__ hit_out, float* __restrict__ d_out,
-             int* __restrict__ steps_out) {
+             const float* __restrict__ t0, int n, FtProgram P, FtCull C,
+             int max_steps, float omega, int occlusion,
+             float* __restrict__ t_out, int* __restrict__ hit_out,
+             float* __restrict__ d_out, int* __restrict__ steps_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float ox = origin[3 * i], oy = origin[3 * i + 1], oz = origin[3 * i + 2];
-  const float dx = dir[3 * i], dy = dir[3 * i + 1], dz = dir[3 * i + 2];
-  const float L = length[i], e = eps[i];
-  float t = t0[i];
-  bool active = (L > 0.f) && (t < L);
+  const bool valid = i < n;
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  float L = 0.f, t = 0.f;
+  Lane lane;
+  lane.tile = (i & ~31) / FT_TILE;   // the warp's tile (its first lane < n)
+  lane.oa = lane.ca = 0.f;
+  lane.eps = 1.f;
+  if (valid) {
+    ox = origin[3 * i]; oy = origin[3 * i + 1]; oz = origin[3 * i + 2];
+    dx = dir[3 * i]; dy = dir[3 * i + 1]; dz = dir[3 * i + 2];
+    L = length[i];
+    t = t0[i];
+    lane.eps = eps[i];
+    if (C.n_pairs > 0) {
+      lane.oa = C.oa[i];
+      lane.ca = C.ca[i];
+    }
+  }
+  const float e = lane.eps;
+  bool active = valid && (L > 0.f) && (t < L);
   bool hit = false;
   float d_last = FT_BIG;
   int steps = 0;
   const bool relaxed = omega > 1.f;
   float d_start = FT_BIG, step_taken = 0.f;
 
-  for (int it = 0; active && it < max_steps; ++it) {
-    const float d = scene_distance(P, ox + t * dx, oy + t * dy, oz + t * dz);
+  for (int it = 0; it < max_steps; ++it) {
+    if (!__any_sync(FT_FULL_MASK, active)) break;
+    lane.t = t;
+    lane.active = active;
+    // every lane of the warp evaluates (the culled window is collective)
+    const float d = scene_distance(P, C, lane, ox + t * dx, oy + t * dy,
+                                   oz + t * dz);
+    if (!active) continue;
     ++steps;
     if (relaxed) {
       // overstep: the relaxed step left the union of the two safety
@@ -86,6 +115,7 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
       active = still;
     }
   }
+  if (!valid) return;
   hit_out[i] = hit ? 1 : 0;
   steps_out[i] = steps;
   if (!occlusion) {
@@ -101,14 +131,10 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
 // argmin of the raw leaf distance over CSG-visible slots; equal distances
 // go to the lower slot
 struct MaterialArgmin {
-  const int* ent_mat;
-  const int* ent_slot;
   float md = FT_BIG;
   int mat = -1, mslot = 0x7fffffff;
-  __device__ __forceinline__ void operator()(float d, int e) {
-    const int m = __ldg(ent_mat + e);
+  __device__ __forceinline__ void operator()(float d, int m, int slot) {
     if (m < 0) return;
-    const int slot = __ldg(ent_slot + e);
     if (d < md || (d == md && slot < mslot)) {
       md = d;
       mat = m;
@@ -120,7 +146,7 @@ struct MaterialArgmin {
 __global__ void __launch_bounds__(128)
 surface_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
                const float* __restrict__ tt, const float* __restrict__ eps,
-               const int* __restrict__ hitm, int n, FtProgram P,
+               const int* __restrict__ hitm, int n, FtProgram P, FtCull C,
                float* __restrict__ normal, int* __restrict__ midx_out,
                float* __restrict__ code_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -139,8 +165,14 @@ surface_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
   const float py = origin[3 * i + 1] + ts * dir[3 * i + 1];
   const float pz = origin[3 * i + 2] + ts * dir[3 * i + 2];
 
-  MaterialArgmin material{P.ent_mat, P.ent_slot};
-  const float code = eval_scene<DistCode>(P, px, py, pz, material).code;
+  Lane lane;
+  lane.tile = i / FT_TILE;
+  lane.oa = lane.ca = lane.t = 0.f;   // the surface scan needs no window
+  lane.eps = eps[i];
+  lane.active = true;
+  MaterialArgmin material;
+  const float code =
+      eval_scene<DistCode>(P, C, lane, px, py, pz, material).code;
 
   // the winning leaf's exact gradient (forward-mode dual numbers)
   float gx = 0.f, gy = 0.f, gz = 0.f;
@@ -174,24 +206,26 @@ static inline int blocks_for(int n, int threads) {
 
 extern "C" int ft_march(const float* origin, const float* dir,
                         const float* length, const float* eps, const float* t0,
-                        int n, const FtProgram* prog, int max_steps,
-                        float omega, int occlusion, float* t_out, int* hit_out,
-                        float* d_out, int* steps_out, void* stream) {
+                        int n, const FtProgram* prog, const FtCull* cull,
+                        int max_steps, float omega, int occlusion,
+                        float* t_out, int* hit_out, float* d_out,
+                        int* steps_out, void* stream) {
   if (n > 0) {
     march_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-        origin, dir, length, eps, t0, n, *prog, max_steps, omega, occlusion,
-        t_out, hit_out, d_out, steps_out);
+        origin, dir, length, eps, t0, n, *prog, *cull, max_steps, omega,
+        occlusion, t_out, hit_out, d_out, steps_out);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int ft_surface(const float* origin, const float* dir,
                           const float* t, const float* eps, const int* hit,
-                          int n, const FtProgram* prog, float* normal,
-                          int* midx, float* code, void* stream) {
+                          int n, const FtProgram* prog, const FtCull* cull,
+                          float* normal, int* midx, float* code,
+                          void* stream) {
   if (n > 0) {
     surface_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-        origin, dir, t, eps, hit, n, *prog, normal, midx, code);
+        origin, dir, t, eps, hit, n, *prog, *cull, normal, midx, code);
   }
   return (int)cudaGetLastError();
 }

@@ -33,12 +33,13 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
-    # rays: origin, direction, length, epsilon, t0, n; program*;
+    # rays: origin, direction, length, epsilon, t0, n; program*, cull*;
     # max_steps, omega, occlusion; outputs t, hit, d, steps; stream
-    "ft_march": [_P, _P, _P, _P, _P, _I, _P, _I, _F, _I, _P, _P, _P, _P, _P],
-    # origin, direction, t, epsilon, hit, n; program*;
+    "ft_march": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P, _P,
+                 _P],
+    # origin, direction, t, epsilon, hit, n; program*, cull*;
     # outputs normal [n,3], midx, code; stream
-    "ft_surface": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "ft_surface": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     # x, idx, n_in_blocks, n_out_blocks, block_words (16-byte words), out,
     # stream
     "ft_block_gather": [_P, _P, _I, _I, _I, _P, _P],

@@ -1,30 +1,34 @@
-"""K1/K2/K3 host side: the counterpart of ``pallas_march_raw`` for
-``cull=False`` (``fraytracer_tpu/ops/pallas/march_kernel.py``).
+"""K1/K2/K3 host side: the counterpart of ``pallas_march_raw``
+(``fraytracer_tpu/ops/pallas/march_kernel.py`` :1785), dense and culled.
 
 The CSG plan is lowered to a small program (:func:`lower_program`) that the
 kernels in ``csrc/march.cu`` interpret per ray: groups of primitives with a
-min/max/sumexp reduction (``_build_groups``, the TPU kernel's grouping) and
-the tree over them in postfix.  Parameters stay runtime tensors, so a scene
-edit rebuilds nothing.
+min/max/sumexp reduction (``cull._build_groups``, the TPU kernel's
+grouping) and the tree over them in postfix.  Parameters stay runtime
+tensors, so a scene edit rebuilds nothing.  With culling (``cull=True``)
+the rows of each culled (group, kind) pair leave their group's dense entry
+range; the kernels read them from the per-tile candidate tables of
+``cull.build_pair_tables`` instead, through a windowed scan.
 
 Each kernel has a wrapper and a plain PyTorch version beside it:
 
 * :func:`march_kernel` / :func:`march_plain` — K1 (march) and K2
-  (occlusion, hit mask only);
+  (occlusion, hit mask only), dense or culled;
 * :func:`surface_kernel` / :func:`surface_plain` — K3, the slot-mode
   surface pass (winning leaf code, its gradient as the normal, material
-  argmin).
+  argmin), dense or culled.
 
 A wrapper launches the kernel for CUDA tensors and counts the launch in
-``LAUNCHES``; for CPU tensors it runs the plain version (the CPU tests go
-through the same host glue); any other device raises.
+``LAUNCHES`` (``march``/``occlusion``/``surface`` for the dense form,
+``*_culled`` for the culled one); for CPU tensors it runs the plain
+version (the CPU tests go through the same host glue); any other device
+raises.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import List
 
 import numpy as np
 import torch
@@ -34,69 +38,24 @@ from ...scene.flatten import FlatScene, Plan, PARAM_WIDTH, KINDS, \
 from ...types import MarchResult, Rays, normalize
 from .. import sdf
 from ..march import (MarchConfig, bound_skip_start, check_config, chunked,
-                     sphere_trace)
+                     _chunk_elems, sphere_trace)
+from .cull import (CAND_UNROLL, MAX_PAIRS, PSTRIDE, TILE, WINDOW_LANES,
+                   CullTables, PairTable, _build_groups, _cull_pairs,
+                   build_pair_tables, kind_offset)
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"march": 0, "occlusion": 0, "surface": 0}
+LAUNCHES = {"march": 0, "occlusion": 0, "surface": 0,
+            "march_culled": 0, "occlusion_culled": 0, "surface_culled": 0}
 
-PSTRIDE = 10      # floats per primitive row (csrc/ft_sdf.cuh FT_PSTRIDE)
 MAX_STACK = 16    # CSG value-stack depth (FT_MAX_STACK)
+_BIG = 3.0e38
 
 _OPCODE = {"union": 1, "intersect": 2, "subtract": 3, "smooth_union": 4}
 _GROUP_OP = {"min": 0, "max": 1, "sumexp": 2}
 
 _AD_ITEM = ("the surface kernel's AD mode (smooth unions) is not ported "
             "yet: ROADMAP Queue 2, 'K3 AD mode'; use fuse_surface=False")
-
-
-# ---------------------------------------------------------------------------
-# Plan → group-reduced form (port of march_kernel.py:_build_groups)
-# ---------------------------------------------------------------------------
-
-class _Group:
-    """A plan node's primitive set with its reduction op
-    ('min', 'max' or 'sumexp'; k is the smooth strength)."""
-
-    __slots__ = ("op", "slots", "k", "gid")
-
-    def __init__(self, op, slots, k, gid):
-        self.op, self.slots, self.k, self.gid = op, tuple(slots), k, gid
-
-
-def _build_groups(plan: Plan):
-    """One _Group per plan node that reduces primitives, and the eval tree
-    over group ids: tree := ('g', gid) | (op, k, [tree...])."""
-    groups: List[_Group] = []
-
-    def visit(p: Plan):
-        if p.op == "prim":
-            g = _Group("min", p.prim_slots, 0.0, len(groups))
-            groups.append(g)
-            return ("g", g.gid)
-        if p.op == "subtract":
-            return ("subtract", 0.0, [visit(p.children[0]),
-                                      visit(p.children[1])])
-        kids = [visit(c) for c in p.children]
-        if p.op in ("union", "intersect"):
-            if p.prim_slots:
-                op = "min" if p.op == "union" else "max"
-                g = _Group(op, p.prim_slots, 0.0, len(groups))
-                groups.append(g)
-                kids.append(("g", g.gid))
-            if len(kids) == 1:
-                return kids[0]
-            return (p.op, 0.0, kids)
-        if p.op == "smooth_union":
-            if p.prim_slots:
-                g = _Group("sumexp", p.prim_slots, p.k, len(groups))
-                groups.append(g)
-                kids.append(("g", g.gid))
-            return ("smooth_union", p.k, kids)
-        raise ValueError(p.op)
-
-    tree = visit(plan)
-    return groups, tree
 
 
 def slot_surface_mode(plan: Plan) -> bool:
@@ -123,7 +82,41 @@ class FtProgram(ctypes.Structure):
         ("ent_mat", ctypes.c_void_p), ("ent_params", ctypes.c_void_p),
         ("n_ent", ctypes.c_int),
         ("slot_entry", ctypes.c_void_p), ("n_slots", ctypes.c_int),
+        ("group_pairs", ctypes.c_void_p),
     ]
+
+
+class FtPair(ctypes.Structure):
+    """Mirror of ``struct FtPair`` (csrc/ft_sdf.cuh)."""
+    _fields_ = [
+        ("table", ctypes.c_void_p), ("keys", ctypes.c_void_p),
+        ("misc", ctypes.c_void_p), ("hsuf", ctypes.c_void_p),
+        ("m", ctypes.c_int), ("kind", ctypes.c_int),
+        ("group_size", ctypes.c_int), ("pad_", ctypes.c_int),
+    ]
+
+
+class FtCull(ctypes.Structure):
+    """Mirror of ``struct FtCull`` (csrc/ft_sdf.cuh)."""
+    _fields_ = [
+        ("oa", ctypes.c_void_p), ("ca", ctypes.c_void_p),
+        ("n_pairs", ctypes.c_int), ("early_out", ctypes.c_int),
+        ("pairs", FtPair * MAX_PAIRS),
+    ]
+
+
+def _cull_struct(cull: CullTables | None) -> FtCull:
+    """The launch's ``FtCull`` (no pairs for the dense form)."""
+    s = FtCull()
+    if cull is None:
+        return s
+    s.oa, s.ca = cull.oa.data_ptr(), cull.ca.data_ptr()
+    s.n_pairs, s.early_out = len(cull.tables), int(cull.early_out)
+    for i, q in enumerate(cull.tables):
+        s.pairs[i] = FtPair(q.table.data_ptr(), q.keys.data_ptr(),
+                            q.misc.data_ptr(), q.hsuf.data_ptr(), q.m,
+                            KINDS.index(q.kind), q.row_hi - q.row_lo, 0)
+    return s
 
 
 @dataclasses.dataclass
@@ -138,6 +131,7 @@ class Program:
     ent_mat: Tensor      # int32 [E]
     ent_params: Tensor   # float32 [E, PSTRIDE]
     slot_entry: Tensor   # int32 [K]
+    group_pairs: Tensor  # int32 [G, 2] the group's culled pairs [start, end)
 
     def struct(self) -> FtProgram:
         return FtProgram(
@@ -147,20 +141,38 @@ class Program:
             self.ent_kind.data_ptr(), self.ent_slot.data_ptr(),
             self.ent_mat.data_ptr(), self.ent_params.data_ptr(),
             self.ent_kind.shape[0],
-            self.slot_entry.data_ptr(), self.slot_entry.shape[0])
+            self.slot_entry.data_ptr(), self.slot_entry.shape[0],
+            self.group_pairs.data_ptr())
+
+
+def _culled_slots(kind_counts, pairs) -> set:
+    """Global slots read from the candidate tables instead of entries."""
+    offsets, off = {}, 0
+    for k, c in kind_counts:
+        offsets[k] = off
+        off += c
+    return {offsets[kind] + r for (_g, kind, _ki, r0, r1) in pairs
+            for r in range(r0, r1)}
 
 
 @functools.lru_cache(maxsize=32)
-def _lower_static(plan: Plan, kind_counts, prim_material):
+def _lower_static(plan: Plan, kind_counts, prim_material, pairs=()):
     """The static part of the program as numpy arrays (cached per scene
-    structure): postfix ops, groups, entry order and per-entry tables."""
+    structure and cull pairs): postfix ops, groups, entry order and
+    per-entry tables.  A culled pair's rows sit after every group's range
+    (read through the tables; K3 still finds the winning leaf's entry)."""
     groups, tree = _build_groups(plan)
-    entries, rows = [], []
+    culled = _culled_slots(kind_counts, pairs)
+    entries, rows, gpairs = [], [], []
     for g in groups:
-        members = sorted(g.slots)   # ascending slot: first extremum wins
+        # ascending slot: the first extremum wins
+        members = sorted(s for s in g.slots if s not in culled)
         rows.append((len(entries), len(entries) + len(members),
                      _GROUP_OP[g.op]))
         entries += members
+        mine = [i for i, p in enumerate(pairs) if p[0] == g.gid]
+        gpairs.append((mine[0], mine[-1] + 1) if mine else (0, 0))
+    entries += sorted(culled)
 
     ops, op_k = [], []
     depth = max_depth = 0
@@ -202,12 +214,13 @@ def _lower_static(plan: Plan, kind_counts, prim_material):
         ent_mat=mat_vis[ent],
         slot_entry=slot_entry,
         entries=ent,
+        group_pairs=np.asarray(gpairs, np.int32).reshape(-1, 2),
     )
 
 
 @functools.lru_cache(maxsize=32)
-def _static_on(plan: Plan, kind_counts, prim_material, device: str):
-    st = _lower_static(plan, kind_counts, prim_material)
+def _static_on(plan: Plan, kind_counts, prim_material, pairs, device: str):
+    st = _lower_static(plan, kind_counts, prim_material, pairs)
     return {k: torch.as_tensor(v, device=device) for k, v in st.items()}
 
 
@@ -224,43 +237,46 @@ def slot_param_rows(scene: FlatScene) -> Tensor:
     return torch.cat(rows, 0).contiguous()
 
 
-def _lowered_for(scene: FlatScene, device: str):
-    """The scene's memoized program for ``device``, if the plan and every
-    parameter tensor (identity and in-place version) are unchanged."""
-    memo = scene.__dict__.get("_lowered")
+def _lowered_for(scene: FlatScene, key):
+    """The scene's memoized program for ``key`` (device, pairs), if the
+    plan and every parameter tensor (identity and in-place version) are
+    unchanged."""
+    memo = scene.__dict__.get("_lowered", {}).get(key)
     if memo is None:
         return None
-    dev, plan, params, versions, prog = memo
+    plan, params, versions, prog = memo
     cur = tuple(scene.prim_params.values())
-    if (dev == device and plan is scene.plan and len(params) == len(cur)
+    if (plan is scene.plan and len(params) == len(cur)
             and all(a is b for a, b in zip(params, cur))
             and versions == tuple(p._version for p in cur)):
         return prog
     return None
 
 
-def lower_program(scene: FlatScene, device) -> Program:
-    """Lower ``scene`` to the kernels' program on ``device``.  The program
+def lower_program(scene: FlatScene, device, pairs=()) -> Program:
+    """Lower ``scene`` to the kernels' program on ``device`` (``pairs``:
+    the culled pairs of the launch, none for the dense form).  The program
     is kept on the scene object and reused by every launch until the plan
     or a parameter tensor changes (an in-place edit bumps the tensor's
     version; an edit through ``.data`` does not, and is not seen), so a
     frame lowers its scene once."""
-    device = str(torch.device(device))
-    prog = _lowered_for(scene, device)
+    key = (str(torch.device(device)), tuple(pairs))
+    prog = _lowered_for(scene, key)
     if prog is not None:
         return prog
     st = _static_on(scene.plan, scene.kind_counts, scene.prim_material,
-                    device)
-    params = slot_param_rows(scene).to(device)
+                    key[1], key[0])
+    params = slot_param_rows(scene).to(key[0])
     prog = Program(ops=st["ops"], op_k=st["op_k"], groups=st["groups"],
                    group_k=st["group_k"], ent_kind=st["ent_kind"],
                    ent_slot=st["ent_slot"], ent_mat=st["ent_mat"],
                    ent_params=params.index_select(0, st["entries"])
                    .contiguous(),
-                   slot_entry=st["slot_entry"])
+                   slot_entry=st["slot_entry"],
+                   group_pairs=st["group_pairs"])
     cur = tuple(scene.prim_params.values())
-    scene.__dict__["_lowered"] = (device, scene.plan, cur,
-                                  tuple(p._version for p in cur), prog)
+    scene.__dict__.setdefault("_lowered", {})[key] = (
+        scene.plan, cur, tuple(p._version for p in cur), prog)
     return prog
 
 
@@ -305,54 +321,279 @@ def _f32(name, x):
     return x
 
 
+# ---------------------------------------------------------------------------
+# plain versions of the culled passes
+# ---------------------------------------------------------------------------
+
+def _warp_window(q: PairTable, lane: Tensor, p_ax: Tensor):
+    """The kernel's per-step window of pair ``q`` (``_pair_window``
+    :641-697), computed per WINDOW_LANES group over the active lanes
+    ``lane`` (ascending; whole groups only).  Returns the per-lane
+    ``cap`` and ``skip_lb`` and the per-group ``(inv, tile, phi, w_lo,
+    w_hi)``: each lane's group, the group's tile, its largest axial
+    coordinate and its window ``[w_lo, w_hi)`` in chunks."""
+    warp = lane // WINDOW_LANES
+    uw, inv = torch.unique_consecutive(warp, return_inverse=True)
+    nw, dev = uw.shape[0], p_ax.device
+    plo = torch.full((nw,), _BIG, device=dev).scatter_reduce(
+        0, inv, p_ax, "amin")
+    phi = torch.full((nw,), -_BIG, device=dev).scatter_reduce(
+        0, inv, p_ax, "amax")
+    tile = uw * WINDOW_LANES // TILE
+    lo_c, hi_c = q.keys[tile, 0], q.keys[tile, 1]          # [nw, C]
+    clamp = q.misc[tile, 2]
+    behind = lo_c < (plo - clamp)[:, None]
+    ahead = hi_c > (phi + clamp)[:, None]
+    rel = ~behind & ~ahead
+    chunks = lo_c.shape[1]
+    ci = torch.arange(chunks, device=dev)
+    w_lo = torch.where(rel, ci, chunks).amin(1)
+    w_hi = torch.where(rel, ci + 1, 0).amax(1)
+    bh = torch.where(behind, lo_c, -_BIG).amax(1)[inv]
+    ah = torch.where(ahead, hi_c, _BIG).amin(1)[inv]
+    bh_min = torch.where(behind, lo_c, _BIG).amin(1)[inv]
+    ah_max = torch.where(ahead, hi_c, -_BIG).amax(1)[inv]
+    cap = torch.minimum(ah - p_ax, p_ax - bh)
+    skip_lb = torch.maximum(
+        torch.where(behind.any(1)[inv], p_ax - bh_min, -_BIG),
+        torch.where(ahead.any(1)[inv], ah_max - p_ax, -_BIG))
+    return cap, skip_lb, (inv, tile, phi, w_lo, w_hi)
+
+
+def _early_out_end(q: PairTable, dch: Tensor, warp) -> Tensor:
+    """Per-group end of the window scan with the running-min early-out
+    (:884-959): the scan stops before chunk ``c`` once the largest running
+    min over the group's active lanes, plus ``phi``, is at most the
+    suffix-min ``hsuf[c]`` — no later candidate can lower any lane's min."""
+    inv, tile, phi, w_lo, w_hi = warp
+    n, chunks = dch.shape
+    ci = torch.arange(chunks, device=dch.device)
+    started = ci >= w_lo[inv][:, None]
+    run = torch.cummin(torch.where(started, dch, _BIG), 1).values
+    before = torch.cat([torch.full((n, 1), _BIG, device=dch.device),
+                        run[:, :-1]], 1)              # acc before chunk c
+    amax = torch.full((w_lo.shape[0], chunks), -_BIG,
+                      device=dch.device).scatter_reduce(
+        0, inv[:, None].expand(n, chunks), before, "amax")
+    stop = ~(amax + phi[:, None] > q.hsuf[tile]) & (ci >= w_lo[:, None])
+    return torch.minimum(w_hi, torch.where(stop, ci, chunks).amin(1))
+
+
+def _culled_distance(scene: FlatScene, cull: CullTables, lane: Tensor,
+                     p: Tensor, t: Tensor, eps: Tensor) -> Tensor:
+    """Plain version of the culled scene distance of K1/K2 for the active
+    lanes ``lane`` (whole WINDOW_LANES groups) at ray parameter ``t``.
+
+    Every primitive is evaluated; each pair's rows then take the pair's
+    windowed value — ``min(window min, cap)`` for a min group,
+    ``max(window max, skip_lb, excl)`` for a max group (:960-973) — and the
+    plan combines as usual (the pair's rows all belong to its group, so
+    the group reduces to the same value the kernel folds in)."""
+    d = sdf.prim_distances(scene, p)
+    oa, ca = cull.oa[lane], cull.ca[lane]
+    p_ax = oa + t * ca
+    for q in cull.tables:
+        mn = q.op == "min"
+        off = kind_offset(scene, q.kind) + q.row_lo
+        g = q.row_hi - q.row_lo
+        cap, skip_lb, warp = _warp_window(q, lane, p_ax)
+        inv, _tile, _phi, w_lo, w_hi = warp
+        cols = off + q.idx[lane // TILE]                   # [n, m]
+        rows = d.gather(1, cols).reshape(-1, q.m // CAND_UNROLL,
+                                         CAND_UNROLL)
+        dch = rows.amin(-1) if mn else rows.amax(-1)       # [n, C]
+        if mn and cull.early_out:
+            w_hi = _early_out_end(q, dch, warp)
+        ci = torch.arange(dch.shape[1], device=d.device)
+        inwin = (ci >= w_lo[inv][:, None]) & (ci < w_hi[inv][:, None])
+        if mn:
+            win = torch.where(inwin, dch, _BIG).amin(1)
+            val = torch.minimum(win, cap)
+        else:
+            win = torch.where(inwin, dch, -_BIG).amax(1)
+            excl = torch.where(q.count[lane // TILE] < g, 2.0 * eps, -_BIG)
+            val = torch.maximum(torch.maximum(win, skip_lb), excl)
+        d[:, off:off + g] = val[:, None]
+    return sdf.combine(scene.plan, d)
+
+
+def _lane_chunks(lane: Tensor, rows: int):
+    """Split the ascending active lanes into pieces of about ``rows``
+    that never cut a WINDOW_LANES group (one host sync)."""
+    n = lane.shape[0]
+    rows = max(rows, WINDOW_LANES)
+    if n <= rows:
+        return [(0, n)]
+    at = torch.arange(rows, n, rows, device=lane.device)
+    start = lane[at] // WINDOW_LANES * WINDOW_LANES
+    cuts = torch.searchsorted(lane, start).tolist()
+    bounds = sorted({0, n, *cuts})
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def _culled_march_dist(scene: FlatScene, cull: CullTables, epsilon: Tensor):
+    """``sphere_trace``'s distance hook for the culled plain march."""
+    rows = _chunk_elems(epsilon.device) // max(scene.num_prims, 1)
+
+    def dist(idx, p, t):
+        out = torch.empty_like(t)
+        for s, e in _lane_chunks(idx, rows):
+            out[s:e] = _culled_distance(scene, cull, idx[s:e], p[s:e],
+                                        t[s:e], epsilon[idx[s:e]])
+        return out
+    return dist
+
+
+def _walk_codes(scene: FlatScene, d: Tensor, pair_vals, culled) -> Tensor:
+    """Signed winning-leaf code of slot mode on the distances ``d [n, K]``,
+    group by group as K3 folds them: each group's pair results first
+    (``pair_vals[gid]``, strict), then its dense members (lowest slot
+    first, strict), then the CSG tree (earlier operand wins ties)."""
+    groups, tree = _build_groups(scene.plan)
+    n, dev = d.shape[0], d.device
+    vals = []
+    for g in groups:
+        mn = g.op == "min"
+        v = torch.full((n,), _BIG if mn else -_BIG, device=dev)
+        c = torch.zeros(n, device=dev)
+        for pv, pc in pair_vals.get(g.gid, ()):
+            better = pv < v if mn else pv > v
+            v, c = torch.where(better, pv, v), torch.where(better, pc, c)
+        dense = sorted(s for s in g.slots if s not in culled)
+        if dense:
+            sub = d[:, dense]
+            win = sub.argmin(1) if mn else sub.argmax(1)
+            red = sub.gather(1, win[:, None])[:, 0]
+            code = torch.as_tensor(dense, device=dev)[win].float() + 1.0
+            better = red < v if mn else red > v
+            v, c = torch.where(better, red, v), torch.where(better, code, c)
+        vals.append((v, c))
+
+    def walk(node):
+        if node[0] == "g":
+            return vals[node[1]]
+        op, _k, kids = node
+        parts = [walk(k) for k in kids]
+        if op == "subtract":
+            (va, ca), (vb, cb) = parts
+            sel = va > -vb
+            return torch.maximum(va, -vb), torch.where(sel, ca, -cb)
+        out = parts[0]
+        for v in parts[1:]:
+            sel = out[0] <= v[0] if op == "union" else out[0] >= v[0]
+            out = (torch.where(sel, out[0], v[0]),
+                   torch.where(sel, out[1], v[1]))
+        return out
+
+    return walk(tree)[1]
+
+
+def _culled_surface(scene: FlatScene, cull: CullTables, lane: Tensor,
+                    p: Tensor, eps: Tensor):
+    """Plain version of culled K3 at hit points ``p`` of lanes ``lane``:
+    each pair scans its tile's first ``ceil8(min(count, m))`` table rows
+    (``culled_sp`` :1051-1144; ties to the lowest slot), a max group's
+    partial is floored at 2·eps with code 0 when the cone excluded
+    members (:1122-1138), and the material argmin runs over the dense
+    entries plus the scanned rows.  Returns ``(code, material)``."""
+    d = sdf.prim_distances(scene, p)
+    n, dev = d.shape[0], d.device
+    tile = lane // TILE
+    evaluated = torch.ones_like(d, dtype=torch.bool)
+    pair_vals, culled = {}, _culled_slots(scene.kind_counts, cull.pairs)
+    for q in cull.tables:
+        mn = q.op == "min"
+        off = kind_offset(scene, q.kind) + q.row_lo
+        g = q.row_hi - q.row_lo
+        count = q.count[tile]
+        n_rows = (torch.clamp_max(count, q.m) + CAND_UNROLL - 1) \
+            // CAND_UNROLL * CAND_UNROLL
+        scanned = torch.arange(q.m, device=dev)[None, :] < n_rows[:, None]
+        cols = off + q.idx[tile]
+        rows = d.gather(1, cols)
+        bd = torch.where(scanned, rows, _BIG if mn else -_BIG)
+        bd = bd.amin(1) if mn else bd.amax(1)
+        wins = scanned & (rows == bd[:, None])
+        slot = torch.where(wins, cols, 2 ** 62).amin(1)
+        code = torch.where(wins.any(1), slot + 1, 0).float()
+        if not mn:
+            low = (count < g) & (bd < 2.0 * eps)
+            bd = torch.where(low, 2.0 * eps, bd)
+            code = torch.where(low, 0.0, code)
+        pair_vals.setdefault(q.gid, []).append((bd, code))
+        seen = torch.zeros((n, g), device=dev).scatter_add_(
+            1, q.idx[tile], scanned.float())
+        evaluated[:, off:off + g] = seen > 0
+    code = _walk_codes(scene, d, pair_vals, culled)
+    vis = torch.as_tensor(scene.visible_material_slots(), device=dev)
+    midx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if vis.numel():
+        ok = evaluated[:, vis]
+        win = torch.where(ok, d[:, vis], _BIG).argmin(1)
+        mat = torch.as_tensor(np.asarray(scene.visible_material(),
+                                         np.int32), device=dev)[vis]
+        midx = torch.where(ok.any(1), mat[win], -1)
+    return code, midx
+
+
 def march_plain(scene: FlatScene, origin: Tensor, direction: Tensor,
                 length: Tensor, epsilon: Tensor, t0: Tensor, *,
-                max_steps: int, omega: float, occlusion: bool = False):
+                max_steps: int, omega: float, occlusion: bool = False,
+                cull: CullTables | None = None):
     """Plain version of K1/K2: the kernel's stepping (per-lane
     ``max_steps`` cap, ω-relaxation with the overstep revert) on tensors,
-    over ``sdf.scene_distance``.  Returns ``(t, hit, d, steps)``, or
-    ``(hit, steps)`` for occlusion."""
+    over ``sdf.scene_distance`` — or, with ``cull``, over the windowed
+    culled distance at the kernel's WINDOW_LANES granularity.  Returns
+    ``(t, hit, d, steps)``, or ``(hit, steps)`` for occlusion."""
+    dist = None if cull is None else \
+        _culled_march_dist(scene, cull, epsilon)
     t, hit, d, steps, _it = sphere_trace(scene, origin, direction, length,
-                                         epsilon, t0, max_steps, omega)
+                                         epsilon, t0, max_steps, omega,
+                                         dist=dist)
     return (hit, steps) if occlusion else (t, hit, d, steps)
 
 
 def march_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
                  length: Tensor, epsilon: Tensor, t0: Tensor, *,
-                 max_steps: int, omega: float, occlusion: bool = False):
+                 max_steps: int, omega: float, occlusion: bool = False,
+                 cull: CullTables | None = None):
     """K1 (``occlusion=False``) / K2 (``occlusion=True``) over flat lanes:
     ``origin``/``direction [N, 3]``, ``length``/``epsilon``/``t0 [N]``
-    (lanes with ``length <= 0`` or ``t0 >= length`` never step).
-    Returns ``(t, hit, d, steps)``, or ``(hit, steps)`` for occlusion."""
+    (lanes with ``length <= 0`` or ``t0 >= length`` never step); ``cull``
+    selects the culled form.  Returns ``(t, hit, d, steps)``, or
+    ``(hit, steps)`` for occlusion."""
     if not _route(origin):
         return march_plain(scene, origin, direction, length, epsilon, t0,
                            max_steps=max_steps, omega=omega,
-                           occlusion=occlusion)
+                           occlusion=occlusion, cull=cull)
     n = origin.shape[0]
     _check_lanes(n, origin=_f32("origin", origin),
                  direction=_f32("direction", direction),
                  length=_f32("length", length),
                  epsilon=_f32("epsilon", epsilon), t0=_f32("t0", t0))
+    if cull is not None:
+        _check_lanes(n, oa=_f32("oa", cull.oa), ca=_f32("ca", cull.ca))
     from .build import check, library
     lib = library()
     dev = origin.device
-    prog = lower_program(scene, dev)
+    prog = lower_program(scene, dev, () if cull is None else cull.pairs)
     f32 = dict(dtype=torch.float32, device=dev)
     hit = torch.empty(n, dtype=torch.int32, device=dev)
     steps = torch.empty(n, dtype=torch.int32, device=dev)
     t = None if occlusion else torch.empty(n, **f32)
     d = None if occlusion else torch.empty(n, **f32)
-    s = prog.struct()
+    s, c = prog.struct(), _cull_struct(cull)
     with torch.cuda.device(dev):
         err = lib.ft_march(
             origin.data_ptr(), direction.data_ptr(), length.data_ptr(),
             epsilon.data_ptr(), t0.data_ptr(), n, ctypes.byref(s),
-            int(max_steps), float(omega), int(occlusion),
+            ctypes.byref(c), int(max_steps), float(omega), int(occlusion),
             None if occlusion else t.data_ptr(), hit.data_ptr(),
             None if occlusion else d.data_ptr(), steps.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, "ft_march")
-    LAUNCHES["occlusion" if occlusion else "march"] += 1
+    name = "occlusion" if occlusion else "march"
+    LAUNCHES[name if cull is None else name + "_culled"] += 1
     if occlusion:
         return hit.bool(), steps
     return t, hit.bool(), d, steps
@@ -378,11 +619,14 @@ def leaf_gradient(scene: FlatScene, p: Tensor, code: Tensor) -> Tensor:
 
 
 def surface_plain(scene: FlatScene, origin: Tensor, direction: Tensor,
-                  t: Tensor, epsilon: Tensor, hit: Tensor):
+                  t: Tensor, epsilon: Tensor, hit: Tensor,
+                  cull: CullTables | None = None):
     """Plain version of K3 at ``p = o + (t - ε)·d`` on hit lanes:
     ``winning_leaf_code`` + the leaf gradient by autograd (unit normal via
-    ``g·rsqrt(g·g + 1e-20)``) + the material argmin.  Miss lanes: normal
-    (0, 0, 1), material -1, code 0.  Returns ``(normal, midx, code)``."""
+    ``g·rsqrt(g·g + 1e-20)``) + the material argmin; with ``cull``, culled
+    groups see only their tile's scanned candidates (:func:`_culled_surface`).
+    Miss lanes: normal (0, 0, 1), material -1, code 0.  Returns
+    ``(normal, midx, code)``."""
     n = origin.shape[0]
     dev = origin.device
     normal = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -392,22 +636,32 @@ def surface_plain(scene: FlatScene, origin: Tensor, direction: Tensor,
     idx = torch.nonzero(hit).squeeze(1)
     if idx.numel():
         p = origin[idx] + (t[idx] - epsilon[idx])[:, None] * direction[idx]
-        c = chunked(sdf.winning_leaf_code, scene, p)
+        if cull is None:
+            c = chunked(sdf.winning_leaf_code, scene, p)
+            midx[idx] = chunked(sdf.material_index_at, scene, p)
+        else:
+            rows = max(1, _chunk_elems(dev) // max(scene.num_prims, 1))
+            parts = [_culled_surface(scene, cull, idx[s:s + rows],
+                                     p[s:s + rows], epsilon[idx[s:s + rows]])
+                     for s in range(0, idx.numel(), rows)]
+            c = torch.cat([a for a, _ in parts])
+            midx[idx] = torch.cat([b for _, b in parts]).to(torch.int32)
         g = leaf_gradient(scene, p, c)
         normal[idx] = g * torch.rsqrt(torch.sum(g * g, -1) + 1e-20)[:, None]
-        midx[idx] = chunked(sdf.material_index_at, scene, p)
         code[idx] = c
     return normal, midx, code
 
 
 def surface_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
-                   t: Tensor, epsilon: Tensor, hit: Tensor):
+                   t: Tensor, epsilon: Tensor, hit: Tensor,
+                   cull: CullTables | None = None):
     """K3, slot mode: ``(normal [N, 3], material [N] int32, code [N])`` at
     the epsilon backed-off hit points (see :func:`surface_plain`)."""
     if not slot_surface_mode(scene.plan):
         raise NotImplementedError(_AD_ITEM)
     if not _route(origin):
-        return surface_plain(scene, origin, direction, t, epsilon, hit)
+        return surface_plain(scene, origin, direction, t, epsilon, hit,
+                             cull=cull)
     n = origin.shape[0]
     hit_i = hit.to(torch.int32).contiguous()
     _check_lanes(n, origin=_f32("origin", origin),
@@ -416,36 +670,66 @@ def surface_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
     from .build import check, library
     lib = library()
     dev = origin.device
-    prog = lower_program(scene, dev)
+    prog = lower_program(scene, dev, () if cull is None else cull.pairs)
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
     midx = torch.empty(n, dtype=torch.int32, device=dev)
     code = torch.empty(n, dtype=torch.float32, device=dev)
-    s = prog.struct()
+    s, c = prog.struct(), _cull_struct(cull)
     with torch.cuda.device(dev):
         err = lib.ft_surface(
             origin.data_ptr(), direction.data_ptr(), t.data_ptr(),
             epsilon.data_ptr(), hit_i.data_ptr(), n, ctypes.byref(s),
-            normal.data_ptr(), midx.data_ptr(), code.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            ctypes.byref(c), normal.data_ptr(), midx.data_ptr(),
+            code.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "ft_surface")
-    LAUNCHES["surface"] += 1
+    LAUNCHES["surface" if cull is None else "surface_culled"] += 1
     return normal, midx, code
 
 
 # ---------------------------------------------------------------------------
-# host glue (pallas_march_raw, cull=False)
+# host glue (pallas_march_raw)
 # ---------------------------------------------------------------------------
+
+def cull_pairs_for(scene: FlatScene, cfg: MarchConfig):
+    """The culled pairs a march with ``cfg`` uses (none when ``cull`` is
+    off or no group reaches ``cull_threshold``)."""
+    if not cfg.cull:
+        return ()
+    return _cull_pairs(scene.kind_counts, scene.plan, cfg.cull_threshold)
+
+
+def _overflow_on_host(cull: CullTables | None):
+    """Start copying the overflow flag to the host; returns a callable
+    that waits for the copy only (not for kernels queued after it)."""
+    if cull is None or cull.overflow is None:
+        return lambda: False
+    if not cull.overflow.is_cuda:
+        return lambda: bool(cull.overflow)
+    flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+    flag.copy_(cull.overflow, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def read():
+        done.synchronize()
+        return bool(flag)
+    return read
+
 
 @torch.no_grad()
 def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
-                   want_surface: bool = False, occlusion: bool = False):
+                   want_surface: bool = False, occlusion: bool = False,
+                   cone_apex: Tensor | None = None):
     """March a flat ray batch ``[N]`` through K1 (or K2), then K3.
 
     Applies the root-bound skip and clamps the budget to the bound's exit
     (march_kernel.py:1809-1818); lanes that miss the bound get a zero
-    budget.  ``occlusion=True`` returns the hit mask ``[N] bool`` only;
-    ``want_surface=True`` returns ``(MarchResult, normal [N, 3],
-    material [N], code [N])`` with ``material = -1`` off hit lanes."""
+    budget.  With ``cfg.cull`` and culled pairs the launches read per-tile
+    candidate tables (``cull.build_pair_tables``; ``cone_apex`` selects the
+    converging cone of point-light shadow rays).  ``occlusion=True``
+    returns the hit mask ``[N] bool`` only; ``want_surface=True`` returns
+    ``(MarchResult, normal [N, 3], material [N], code [N])`` with
+    ``material = -1`` off hit lanes."""
     check_config(cfg)
     if want_surface and not slot_surface_mode(scene.plan):
         raise NotImplementedError(_AD_ITEM)
@@ -460,17 +744,37 @@ def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
         t0, miss0, t_exit = bound_skip_start(scene, rays)
         length = torch.minimum(length, t_exit)
     length = torch.where(miss0, 0.0, length).contiguous()
-    kw = dict(max_steps=cfg.max_steps, omega=cfg.relax_omega)
+    t0 = t0.contiguous()
+    pairs = cull_pairs_for(scene, cfg)
+    cull = None
+    if pairs:
+        cull = build_pair_tables(scene, origin, direction, t0, length,
+                                 epsilon, pairs, cfg.cull_m,
+                                 cfg.cull_window_clamp, cone_apex,
+                                 cfg.cull_early_out)
+    overflowed = _overflow_on_host(cull)
+    kw = dict(max_steps=cfg.max_steps, omega=cfg.relax_omega, cull=cull)
     if occlusion:
         hit, _steps = march_kernel(scene, origin, direction, length, epsilon,
-                                   t0.contiguous(), occlusion=True, **kw)
-        return hit & ~miss0
-    t, hit_k, d, steps = march_kernel(scene, origin, direction, length,
-                                      epsilon, t0.contiguous(), **kw)
-    hit = hit_k & ~miss0
-    res = MarchResult(hit=hit, t=t, distance=d, steps=steps)
-    if not want_surface:
-        return res
-    normal, midx, code = surface_kernel(scene, origin, direction, t,
-                                        epsilon, hit_k)
-    return res, normal, torch.where(hit, midx, -1), code
+                                   t0, occlusion=True, **kw)
+        out = hit & ~miss0
+    else:
+        t, hit_k, d, steps = march_kernel(scene, origin, direction, length,
+                                          epsilon, t0, **kw)
+        hit = hit_k & ~miss0
+        out = MarchResult(hit=hit, t=t, distance=d, steps=steps)
+        if want_surface:
+            normal, midx, code = surface_kernel(scene, origin, direction, t,
+                                                epsilon, hit_k, cull=cull)
+            out = (out, normal, torch.where(hit, midx, -1), code)
+    # the one host sync of a culled call: a tile's candidate count
+    # exceeded its table, so its windows were unsound — run the same path
+    # again with full-group tables (m >= every group: cannot overflow,
+    # march_kernel.py:2018-2043, :2092-2096); its launches count too
+    if overflowed():
+        big = max(r1 - r0 for (_g, _k, _ki, r0, r1) in pairs)
+        return cuda_march_raw(
+            scene, rays, dataclasses.replace(cfg, cull_m=big,
+                                             cull_m_shadow=big),
+            want_surface, occlusion, cone_apex)
+    return out

@@ -8,11 +8,13 @@ below ``epsilon``, otherwise step forward by the distance.
 Backends (``MarchConfig.backend``):
 
 * ``"torch"`` — the plain dense march over every primitive, the
-  counterpart of JAX ``"jnp"``; it ignores ``relax_omega`` like
-  ``_march_raw`` does.
+  counterpart of JAX ``"jnp"``; it ignores ``relax_omega`` and ``cull``
+  like ``_march_raw`` does.
 * ``"cuda"`` — the hand-written CUDA kernels (``ops/cuda``), the
-  counterpart of JAX ``"pallas"``.  For CPU tensors the kernel wrappers run
-  their plain versions, so CPU tests exercise the same host glue.
+  counterpart of JAX ``"pallas"``: culled per-tile candidate tables by
+  default (``cull=True``), every primitive each step with ``cull=False``.
+  For CPU tensors the kernel wrappers run their plain versions, so CPU
+  tests exercise the same host glue.
 
 Gradients (the implicit-differentiation custom VJPs) are not ported yet:
 everything here runs without autograd.
@@ -35,15 +37,15 @@ BACKENDS = ("torch", "cuda")
 @dataclasses.dataclass(frozen=True, eq=True)
 class MarchConfig:
     """Static march configuration; every field and default of the JAX
-    ``MarchConfig``.  Fields that only steer the culled kernel or the
-    backward pass are accepted and unused until those land (ROADMAP)."""
+    ``MarchConfig``.  The ``cull_*`` fields steer the "cuda" backend's
+    culled kernels; ``bwd_*`` steer the backward pass, which is not ported
+    yet (ROADMAP)."""
 
     max_steps: int = 192
     bound_skip: bool = True
     min_denom: float = 0.05
     backend: str = "torch"
-    # per-tile cone culling of the kernel path; the "cuda" path raises
-    # NotImplementedError for cull=True until the culled kernels land
+    # per-tile cone culling of the kernel path (ops/cuda/cull.py)
     cull: bool = True
     cull_m: int = 256
     cull_m_shadow: int = 512
@@ -68,11 +70,6 @@ class MarchConfig:
     shadow_compact: bool = False
 
 
-_CULL_ITEM = ("the culled march (per-tile candidate tables for K1-K3) is "
-              "not ported yet: ROADMAP Queue 2, 'Culled K1-K3'; pass "
-              "cull=False")
-
-
 def check_config(cfg: MarchConfig) -> None:
     """Raise for a backend or option this port does not run."""
     if cfg.backend not in BACKENDS:
@@ -80,8 +77,6 @@ def check_config(cfg: MarchConfig) -> None:
                          f"(one of {BACKENDS})")
     if cfg.backend != "cuda":
         return
-    if cfg.cull:
-        raise NotImplementedError(_CULL_ITEM)
     knobs = {"shadow_axial_sort": cfg.shadow_axial_sort,
              "shadow_block_sort": cfg.shadow_block_sort,
              "shadow_block_compact": cfg.shadow_block_compact,
@@ -92,7 +87,7 @@ def check_config(cfg: MarchConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"MarchConfig {bad}: TPU layout knobs the cuda path does not "
-            "implement")
+            "implement (ROADMAP, 'Not to port')")
 
 
 def flat_rays(rays: Rays) -> Rays:
@@ -153,7 +148,8 @@ def bound_skip_start(scene: FlatScene, rays: Rays, sign: Tensor | None = None):
 @torch.no_grad()
 def sphere_trace(scene: FlatScene, origin: Tensor, direction: Tensor,
                  length: Tensor, epsilon: Tensor, t0: Tensor, max_steps: int,
-                 omega: float = 1.0, sign: Tensor | None = None):
+                 omega: float = 1.0, sign: Tensor | None = None,
+                 dist=None):
     """The plain masked march over flat ``[N]`` lanes.
 
     Lanes start at ``t0`` and are active while ``length > 0`` and
@@ -161,7 +157,9 @@ def sphere_trace(scene: FlatScene, origin: Tensor, direction: Tensor,
     every active lane (only those lanes are evaluated), so a lane evaluates
     at most ``max_steps`` times.  ``omega > 1`` steps by ``omega·d`` with
     the overstep revert and budget-crossing rule of the TPU kernel
-    (march_kernel.py:1684-1722).
+    (march_kernel.py:1684-1722).  ``dist(idx, p, t)`` replaces the scene
+    distance of the active lanes ``idx`` at points ``p`` / parameters ``t``
+    (the culled plain march).
 
     Returns ``(t, hit, d, steps, iterations)``: per-lane final t, hit mask,
     last distance, evaluation count (int32), and the iteration count."""
@@ -184,7 +182,8 @@ def sphere_trace(scene: FlatScene, origin: Tensor, direction: Tensor,
             break
         ti, li = t[idx], length[idx]
         p = origin[idx] + ti[:, None] * direction[idx]
-        d = chunked(sdf.scene_distance, scene, p)
+        d = chunked(sdf.scene_distance, scene, p) if dist is None \
+            else dist(idx, p, ti)
         if sign is not None:
             d = sign[idx] * d
         steps[idx] += 1
@@ -265,16 +264,22 @@ def march_occlusion(scene: FlatScene, rays: Rays,
                     cone_apex: Tensor | None = None,
                     axial_key: Tensor | None = None) -> Tensor:
     """Any-hit occlusion test: the hit mask only, identical to
-    ``march(...).hit`` (same stepping, same termination).  ``cone_apex``
-    and ``axial_key`` only steer the culled kernel and are unused while
-    ``cull=False``."""
-    del cone_apex, axial_key
+    ``march(...).hit`` (same stepping, same termination).  ``cone_apex
+    [3]``: every ray ends at this point (point-light shadow rays); the
+    culled kernel then selects candidates with the converging cone, which
+    may flip grazing lanes.  ``axial_key`` only steers the TPU layout knob
+    ``shadow_axial_sort``, which the port does not run."""
+    del axial_key
     check_config(cfg)
     if cfg.backend == "cuda":
         from .cuda.march_kernel import cuda_march_raw
         _no_sign(sign)
         batch = rays.batch_shape
-        hit = cuda_march_raw(scene, flat_rays(rays), cfg, occlusion=True)
+        # the shadow-sized candidate table (march.py:636-638)
+        cfg = dataclasses.replace(
+            cfg, cull_m=max(cfg.cull_m, cfg.cull_m_shadow))
+        hit = cuda_march_raw(scene, flat_rays(rays), cfg, occlusion=True,
+                             cone_apex=cone_apex)
         return hit.reshape(batch)
     return _march_raw(scene, rays, cfg, sign).hit
 

@@ -141,8 +141,8 @@ def shade_with_stats(scene: FlatScene, rays: Rays, hit: SurfaceHit,
                            # zero budget de-activates non-facing lanes
                            length=torch.where(facing, budget, 0.0),
                            epsilon=rays.epsilon)
-        # the point light's apex and the axial key only steer the culled
-        # kernel (not ported yet); they are passed for the same call shape
+        # the point light's apex selects the culled kernel's converging
+        # cone; the axial key only steers a TPU layout knob
         if scene.light_kind[i] == LIGHT_POINT:
             apex, akey = scene.light_vec[i].detach(), budget
         else:

@@ -3,8 +3,9 @@
 The pixel grid → camera rays → masked march → shading, as one call over the
 whole image (reference ``Image.render`` + ``SdfScene.trace``).  On the
 "cuda" backend rays are put in 32×32 screen-block order before marching, as
-the JAX kernel path does; dense marching does not need it, the culled
-kernels will.
+the JAX kernel path does: each block is one 1024-ray tile of the culled
+kernels' candidate tables (``ops/cuda/cull.py``), so a tile's rays are
+coherent and its cone is tight.
 """
 from __future__ import annotations
 

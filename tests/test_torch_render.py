@@ -28,41 +28,58 @@ from fraytracer_tpu_torch.ops.march import MarchConfig as TMC
 from fraytracer_tpu_torch.ops.march import march as tmarch
 from fraytracer_tpu_torch.ops.march import march_occlusion as tocclusion
 from fraytracer_tpu_torch.scene import generators as TG
+from fraytracer_tpu_torch.scene.nodes import LIGHT_POINT
 from test_torch_scene import SCENES, scene_pair
 
 EPS = 0.01
 CAM = (0.0, 0.0, -10.0)
 
 
-def jax_masks(js, cfg, w, h):
-    """Primary hit, then facing and occlusion bits per light (JAX)."""
+def jax_masks(js, cfg, w, h, with_t=False):
+    """Primary hit, then facing and occlusion bits per light (JAX), marched
+    in the frame's 32×32 block order (the kernels' tiles), the point
+    light's occlusion with its converging cone, as the frame runs them;
+    ``with_t`` adds the winning material and returns the primary t."""
+    from fraytracer_tpu.render import _from_blocks, _to_blocks
     cam = jft.look_at(CAM, (0, 0, 0), fov_degrees=60.0)
-    rays = jft.camera_rays(cam, w, h, EPS, 30.0)
+    rays = jax.tree.map(lambda x: _to_blocks(x, h, w, 32),
+                        jft.camera_rays(cam, w, h, EPS, 30.0))
     sh = jshade.surface_hit(js, rays, cfg)
-    masks = [np.asarray(sh.hit)]
+    masks = [sh.hit]
     for i in range(js.num_lights):
         ldir, budget, _ = jshade.light_dir_and_dist(js, i, sh.position)
         facing = sh.hit & (jnp.sum(sh.normal * ldir, -1) > 0.0)
         sr = JRays(origin=sh.position, direction=ldir,
                    length=jnp.where(facing, budget, 0.0),
                    epsilon=rays.epsilon)
-        masks += [np.asarray(facing), np.asarray(jocclusion(js, sr, cfg))]
-    return masks
+        apex = js.light_vec[i] if js.light_kind[i] == LIGHT_POINT else None
+        masks += [facing, jocclusion(js, sr, cfg, cone_apex=apex)]
+    if with_t:      # + the winning material, a discrete outcome too
+        masks.insert(1, sh.material)
+    out = [np.asarray(_from_blocks(m, h, w, 32)) for m in masks]
+    return (out, np.asarray(_from_blocks(sh.t, h, w, 32))) if with_t \
+        else out
 
 
-def port_masks(ts, cfg, w, h):
+def port_masks(ts, cfg, w, h, with_t=False):
+    from fraytracer_tpu_torch.render import _from_blocks, _to_blocks
     cam = tft.look_at(CAM, (0, 0, 0), fov_degrees=60.0)
-    rays = tft.camera_rays(cam, w, h, EPS, 30.0)
+    rays = tft.camera_rays(cam, w, h, EPS, 30.0).map(
+        lambda x: _to_blocks(x, h, w, 32))
     sh = tshade.surface_hit(ts, rays, cfg)
-    masks = [sh.hit.numpy()]
+    masks = [sh.hit]
     for i in range(ts.num_lights):
         ldir, budget, _ = tshade.light_dir_and_dist(ts, i, sh.position)
         facing = sh.hit & ((sh.normal * ldir).sum(-1) > 0.0)
         sr = tft.Rays(origin=sh.position, direction=ldir,
                       length=torch.where(facing, budget, 0.0),
                       epsilon=rays.epsilon)
-        masks += [facing.numpy(), tocclusion(ts, sr, cfg).numpy()]
-    return masks
+        apex = ts.light_vec[i] if ts.light_kind[i] == LIGHT_POINT else None
+        masks += [facing, tocclusion(ts, sr, cfg, cone_apex=apex)]
+    if with_t:
+        masks.insert(1, sh.material)
+    out = [_from_blocks(m, h, w, 32).numpy() for m in masks]
+    return (out, _from_blocks(sh.t, h, w, 32).numpy()) if with_t else out
 
 
 @pytest.mark.parametrize("size", [64])
@@ -88,6 +105,46 @@ def test_render_matches_jax_pallas(size):
     assert float(np.median(diff)) < 1e-5
     # marched-ray count: primary + facing shadow lanes
     assert abs(int(tn) - float(jn)) <= flipped.sum() * 2
+
+
+def test_culled_render_matches_jax_pallas():
+    """The culled frame (cull_threshold=64, cull_m=128: the 96 tori form a
+    culled pair) against the JAX culled render
+    (tests/test_pallas_march.py:118) with the frame tolerance above, off
+    flipped pixels (a different winning material counts as a flip too)
+    and off pixels whose primary hit landed at another
+    point of the ε-shell (|Δt| > 1e-3: the port's per-warp windows step
+    differently from JAX's per-tile ones).  Shell pixels at |Δ| ≥ 2e-3 are
+    ≤ 0.5% of the frame and below 3e-2 (the oracle gate's shell bound)."""
+    size = 64
+    js, ts = scene_pair("torus96")
+    kw = dict(cull=True, cull_threshold=64, cull_m=128, relax_omega=1.4)
+    jcfg = JMC(backend="pallas_interpret", **kw)
+    tcfg = TMC(backend="cuda", **kw)
+    from fraytracer_tpu_torch.ops.cuda import cull as tcull
+    assert tcull._cull_pairs(ts.kind_counts, ts.plan, 64)
+    jimg = np.asarray(jft.render(js, jft.look_at(CAM, (0, 0, 0),
+                                                 fov_degrees=60.0),
+                                 jft.RenderConfig(width=size, height=size,
+                                                  march=jcfg)))
+    timg = tft.render(ts, tft.look_at(CAM, (0, 0, 0), fov_degrees=60.0),
+                      tft.RenderConfig(width=size, height=size,
+                                       march=tcfg)).numpy()
+    assert np.isfinite(timg).all()
+    (jm, jt), (tm, tt) = (jax_masks(js, jcfg, size, size, with_t=True),
+                          port_masks(ts, tcfg, size, size, with_t=True))
+    flipped = np.zeros((size, size), bool)
+    for a, b in zip(jm, tm):
+        flipped |= a != b
+    assert flipped.mean() <= 0.005
+    shell = ~flipped & tm[0] & (np.abs(jt - tt) > 1e-3)
+    diff = np.abs(timg - jimg).max(-1)
+    assert diff[~flipped & ~shell].max() < 2e-3
+    off = shell & (diff >= 2e-3)
+    assert off.mean() <= 0.005
+    if off.any():
+        assert diff[off].max() < 3e-2
+    assert float(np.median(diff)) < 1e-5
 
 
 def test_torch_backend_render_matches_jnp():
@@ -131,11 +188,23 @@ def test_tonemap_matches_jax_with_shared_dither(monkeypatch):
 
 def test_benchmark_scene_image_allclose_oracle():
     """tests/test_benchmark_oracle.py on the port's "cuda" path (plain
-    versions on CPU), bounds unchanged."""
+    versions on CPU), dense, bounds unchanged."""
+    oracle_gate(TMC(backend="cuda", cull=False, bound_skip=True,
+                    max_steps=512))
+
+
+def test_benchmark_scene_image_allclose_oracle_culled():
+    """The same gate on the default, culled "cuda" configuration."""
+    mcfg = TMC(backend="cuda", bound_skip=True, max_steps=512)
+    assert mcfg.cull
+    oracle_gate(mcfg)
+
+
+def oracle_gate(mcfg):
+    """The f64-oracle gate of tests/test_benchmark_oracle.py at 64²."""
     W = H = 64
     scene = TG.torus_csg_scene(seed=19, n_tori=1000)
     fscene = tft.flatten(scene)
-    mcfg = TMC(backend="cuda", cull=False, bound_skip=True, max_steps=512)
     cfg = tft.RenderConfig(width=W, height=H, epsilon=EPS, length=30.0,
                            march=mcfg)
     cam = tft.look_at(CAM, (0, 0, 0), fov_degrees=60.0)
@@ -209,10 +278,17 @@ def _jax_modules():
 
 
 def test_cuda_backend_refuses_cull_and_missing_gpu(tmp_path):
+    """The default (culled) "cuda" configuration renders; a smooth union
+    in the fused surface pass (K3 AD mode, not ported) raises naming its
+    ROADMAP item; without a GPU the CUDA device is refused."""
     _js, ts = scene_pair("torus16")
     cam = tft.look_at(CAM, (0, 0, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tft.render(ts, cam, tft.RenderConfig(
+    img = tft.render(ts, cam, tft.RenderConfig(
+        width=8, height=8, march=TMC(backend="cuda", cull_threshold=8)))
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+    _js, smooth = scene_pair("smooth_subtract")
+    with pytest.raises(NotImplementedError, match="AD mode.*ROADMAP"):
+        tft.render(smooth, cam, tft.RenderConfig(
             width=8, height=8, march=TMC(backend="cuda")))
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
