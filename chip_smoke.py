@@ -9,8 +9,11 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
 3. kernels — each kernel against its plain PyTorch version on the same
    CUDA tensors: K4 block gather (exact), dense K1/K2/K3 on small scenes,
    culled K1/K2/K3 on the 96-torus scene, a 256-sphere intersect and
-   point-light rays with the converging cone; then each kernel's time
-   beside its plain version's at the main path's shapes.
+   point-light rays with the converging cone; K3 in AD mode (plans with a
+   smooth union) dense and culled, also against the dense autograd normal;
+   K1/K2 with per-lane sign; then each kernel's time beside its plain
+   version's, its bound and, where one PyTorch call computes the same
+   function, that call's time, at the main path's shapes.
 4. main    — the culled forward frame (the default configuration):
    render_with_stats at 1024² on the seed-19 1000-torus scene (max_steps
    192, bound_skip, relax_omega 1.4, the default cull_*) with launch
@@ -25,6 +28,22 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    itself).
 6. parity  — 256² frames (dense and culled) through the kernels against
    the plain versions, and the 1024² culled frame against the dense one.
+7. blend   — the blended frame: the same 1000-torus scene smooth-united
+   with a sphere (every hit lies on a smooth union, so the surface pass
+   runs in AD mode), 1024², culled, with its launch counts, timing,
+   profile and peak memory; the same frame with cull=False once; culled
+   against dense; the 256² blended frame kernels against plain.
+
+Two more modes time the culled torus frame alone (neither is the smoke
+test; both need the card):
+
+    python3 chip_smoke.py --frame-only [--tree DIR] [--reps 9]
+    python3 chip_smoke.py --compare DIR [--pairs 8] [--reps 9]
+
+``DIR`` is a directory inside the checkout (``_checkout/`` is ignored by
+git) that holds another commit, e.g. ``git archive HEAD | tar -x -C
+_checkout/parent``; ``--compare`` runs the two trees in turns, a fresh
+process each, and prints the paired differences of their medians.
 
 The second-to-last line of output is the card's name and power limit, the
 line before it a JSON object with each kernel's launches, error and times;
@@ -32,12 +51,14 @@ the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -46,6 +67,17 @@ BENCH_N_TORI = 1000
 SIZE = 1024
 SRC = "fraytracer_tpu_torch/csrc"
 TPU = "fraytracer_tpu/ops/pallas"
+
+# NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
+# tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = 67e12
+# operations of one distance evaluation in csrc/ft_sdf.cuh by primitive
+# kind: each add, multiply, divide, square root, min/max and compare
+# counted as one
+PRIM_FLOPS = {"sphere": 11, "capsule": 34, "torus": 28, "triangle": 171,
+              "box": 24, "cone": 64, "plane": 6}
+DUAL_FACTOR = 4     # a dual-number evaluation carries three derivatives
 
 
 def log(msg: str) -> None:
@@ -75,6 +107,171 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def dense_flops(scene, tables=None) -> float:
+    """Operations of one scene evaluation outside the culled pairs: every
+    primitive that no pair's table holds."""
+    in_pairs = {}
+    for q in (tables.tables if tables is not None else ()):
+        in_pairs[q.kind] = in_pairs.get(q.kind, 0) + q.row_hi - q.row_lo
+    return float(sum((cnt - in_pairs.get(kind, 0)) * PRIM_FLOPS[kind]
+                     for kind, cnt in scene.kind_counts))
+
+
+def list_flops(tables, evals) -> float:
+    """Operations of K3's scans of the culled pairs: each of the
+    ``evals [n]`` evaluations per lane reads every candidate of the lane's
+    tile (``min(count, m)`` rows per pair)."""
+    from fraytracer_tpu_torch.ops.cuda.cull import TILE
+    tile = torch.arange(evals.numel(), device=evals.device) // TILE
+    per_tile = torch.zeros(int(tile[-1]) + 1, dtype=torch.float64,
+                           device=evals.device)
+    per_tile.index_add_(0, tile, evals.to(torch.float64))
+    return sum(float((per_tile * q.count.clamp(max=q.m)).sum())
+               * PRIM_FLOPS[q.kind] for q in tables.tables)
+
+
+@contextlib.contextmanager
+def window_rows(tables):
+    """While a plain culled march runs: per pair, the candidate rows inside
+    the windows, summed over every evaluation of every active lane.  K1/K2
+    scan only the chunks ``[w_lo, w_hi)`` of the lane's warp at each step,
+    not the tile's list, so this is what their bound counts.  Read by
+    wrapping the plain version's window function from outside (a sum on
+    the device per step and pair, no host sync); yields ``{id(pair):
+    rows}`` as device scalars."""
+    from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
+    from fraytracer_tpu_torch.ops.cuda.cull import CAND_UNROLL
+    real = mk._warp_window
+    rows = {id(q): torch.zeros((), dtype=torch.float64,
+                               device=q.count.device) for q in tables.tables}
+
+    def spy(q, lane, p_ax):
+        out = real(q, lane, p_ax)
+        inv, _tile, _phi, w_lo, w_hi = out[2]
+        rows[id(q)] += (w_hi - w_lo).clamp(min=0)[inv].sum() * CAND_UNROLL
+        return out
+
+    mk._warp_window = spy
+    try:
+        yield rows
+    finally:
+        mk._warp_window = real
+
+
+def log_window_rows(label, tables, win, steps_kernel, steps_plain):
+    """The window rows per evaluation beside the tile's whole list, and
+    the evaluations of the plain march (which the rows were counted on)
+    beside the kernel's."""
+    ev_k, ev_p = int(steps_kernel.sum()), int(steps_plain.sum())
+    for q in tables.tables:
+        rows = float(win[id(q)])
+        log(f"  {label}: windows hold {rows / max(ev_p, 1):.2f} {q.kind} "
+            f"rows per evaluation (tile lists: mean "
+            f"{q.count.clamp(max=q.m).float().mean().item():.2f}); "
+            f"{ev_p} evaluations in the plain march, {ev_k} in the kernel")
+    check(abs(ev_k - ev_p) <= 1e-3 * ev_p,
+          f"{label}: plain and kernel evaluation counts {ev_p}, {ev_k}")
+
+
+def dual_flops(scene, hit, code) -> float:
+    """Operations of the surface pass's gradients beyond the distance
+    values the scan already counts: three derivatives beside a value, each
+    at its own primitive's kind.  Slot mode: the winning leaf of each hit
+    lane (from ``code``).  AD mode: on each hit lane every member of a
+    sumexp group and one winner per min/max group, at the group's kind
+    (its cheapest, were a group mixed)."""
+    from fraytracer_tpu_torch.ops.cuda.cull import _build_groups
+    from fraytracer_tpu_torch.ops.cuda.march_kernel import slot_surface_mode
+    cost = [float(PRIM_FLOPS[kind]) for kind, cnt in scene.kind_counts
+            for _ in range(cnt)]
+    extra = DUAL_FACTOR - 1
+    if slot_surface_mode(scene.plan):
+        won = hit & (code != 0)
+        slot = code[won].abs().long() - 1
+        return extra * float(torch.tensor(
+            cost, dtype=torch.float64, device=slot.device)[slot].sum())
+    groups, _tree = _build_groups(scene.plan)
+    per_lane = 0.0
+    for g in groups:
+        c = [cost[s] for s in g.slots]
+        if c:
+            per_lane += sum(c) if g.op == "sumexp" else min(c)
+    return extra * int(hit.sum()) * per_lane
+
+
+def scene_bytes(scene, tables=None, march=True) -> int:
+    """Bytes of the scene a launch reads once: the primitive parameters
+    and, for the culled form, the valid candidate rows and per-tile
+    counts; K1/K2 (``march``) also read the chunk keys and each lane's
+    axial coordinates, which the surface pass never touches."""
+    total = nbytes(*scene.prim_params.values())
+    if tables is not None:
+        for q in tables.tables:
+            total += int(q.count.clamp(max=q.m).sum()) * q.table.shape[-1] * 4
+            total += nbytes(q.misc)
+            if march:
+                total += nbytes(q.keys, q.hsuf)
+        if march:
+            total += nbytes(tables.oa, tables.ca)
+    return total
+
+
+def bound(n_bytes: float, flops: float):
+    """The least time (ms) the card could take: the larger of bytes over
+    the memory rate and operations over the float32 rate, and which."""
+    tb, tf = n_bytes / PEAK_BYTES_S, flops / PEAK_FLOPS
+    return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
+
+
+def march_bound(scene, lanes, out, tables=None, win_rows=None):
+    """Bound of one K1/K2 launch from its measured per-lane evaluations
+    (``out[-1]``, the steps): inputs and outputs once; each evaluation's
+    primitives outside the pairs and, for the culled form, the window rows
+    (``win_rows``, from :func:`window_rows` around the plain march of the
+    same lanes)."""
+    io = nbytes(*lanes.values(), *out) + scene_bytes(scene, tables)
+    flops = float(out[-1].sum()) * dense_flops(scene, tables)
+    if tables is not None:
+        flops += sum(float(win_rows[id(q)]) * PRIM_FLOPS[q.kind]
+                     for q in tables.tables)
+    return bound(io, flops)
+
+
+def surface_bound(scene, args, out, tables=None):
+    """Bound of one K3 launch: 44 bytes in and 20 out a lane; on each hit
+    lane one scene evaluation (the culled pairs' whole lists) and the
+    gradients."""
+    hit = args[4]
+    io = nbytes(*args[:4], *out) + 4 * hit.numel() \
+        + scene_bytes(scene, tables, march=False)
+    flops = int(hit.sum()) * dense_flops(scene, tables) \
+        + dual_flops(scene, hit, out[2])
+    if tables is not None:
+        flops += list_flops(tables, hit.to(torch.int32))
+    return bound(io, flops)
+
+
+def timing(ms, plain_ms, err, differing, compared, bound_, library_ms=None):
+    """One kernel's row of measurements for the JSON line."""
+    return dict(ms=ms, plain_ms=plain_ms, err=err, differing=differing,
+                compared=compared, bound_ms=bound_[0], bound_by=bound_[1],
+                library_ms=library_ms)
+
+
+def log_times(out):
+    for name, r in out.items():
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        log(f"  time {name}: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), library {lib} (err {r['err']:.3e}, "
+            f"{r['differing']} of {r['compared']} outputs differ)")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -182,6 +379,191 @@ def compare_surface(k, p, hit, label):
     return nerr
 
 
+def compare_surface_ad(k, p, hit, label):
+    """Kernel vs plain K3 in AD mode on the same (t, hit): normals within
+    1e-4 on >= 99.9% of hit lanes (both sum the same exp weights, in
+    another order and with FMA; a lane on a CSG crease may pick the other
+    operand), materials equal on >= 99.9%, code 0 on every lane.  Returns
+    the largest error among the lanes within the bound and the number of
+    hit lanes outside it."""
+    nk, mk_, ck = k
+    np_, mp, cp = p
+    n_hit = max(int(hit.sum()), 1)
+    err = (nk - np_).abs().amax(-1)
+    close = hit & (err <= 1e-4)
+    frac = int(close.sum()) / n_hit
+    nerr = err[close].max().item() if close.any() else 0.0
+    mfrac = int((hit & (mk_ == mp)).sum()) / n_hit
+    log(f"  {label}: normals within 1e-4 on {frac:.6f} of {n_hit} hit "
+        f"lanes (max there {nerr:.3e}, max anywhere "
+        f"{err[hit].max().item() if hit.any() else 0.0:.3e}), material "
+        f"agreement {mfrac:.6f}")
+    check(frac >= 0.999, f"{label}: normal agreement {frac}")
+    check(mfrac >= 0.999, f"{label}: material agreement {mfrac}")
+    check(not bool(ck.any()) and not bool(cp.any()), f"{label}: code != 0")
+    check(torch.equal(nk[~hit], np_[~hit])
+          and bool((mk_[~hit] == -1).all()), f"{label}: miss lanes")
+    check(bool(((~hit) | (nk.norm(dim=-1) - 1).abs().lt(1e-3)).all()),
+          f"{label}: kernel normals not unit")
+    return nerr, n_hit - int(close.sum())
+
+
+def blend_scene(n_tori, dev):
+    """The torus scene smooth-united (k = 0.25) with a sphere at the
+    origin: every hit lies on the blended root, the torus union stays a
+    culled min group, the root is a sumexp group of one sphere plus a
+    sub-plan."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.scene import generators as G
+    base = G.torus_csg_scene(19, n_tori)
+    return ft.flatten(ft.Scene(
+        root=ft.smooth_union(0.25, base.root, ft.sphere(
+            (0, 0, 0), 1.5, material=ft.solid(0.8, 0.7, 0.3))),
+        background=base.background, lights=base.lights), dev)
+
+
+def smooth_scenes(dev):
+    """Plans with a smooth union: name -> (scene, camera z, cull threshold
+    or None).  A sumexp group under intersect and subtract; a smooth union
+    of sub-plans alone; a 64-torus sumexp group; 256 spheres intersected
+    (a culled max group) beside a smooth union; the 96-torus blend (a
+    culled min group under the smooth union)."""
+    import fraytracer_tpu_torch as ft
+    g = torch.Generator().manual_seed(5)
+    smooth = ft.subtract(
+        ft.intersect(ft.smooth_union(
+            0.3, ft.sphere((0, 0, 0), 1.0, material=ft.solid(1, 0, 0)),
+            ft.sphere((0.8, 0.3, 0), 0.7, material=ft.solid(0, 1, 0))),
+            ft.sphere((0, 0, 0), 1.5)),
+        ft.box((0.3, 0.5, -0.7), (0.4, 0.4, 0.4), 0.05))
+    subplans = ft.smooth_union(
+        0.3, ft.union(ft.sphere((0, 0, 0), 1.0, material=ft.solid(1, 0, 0)),
+                      ft.sphere((0, 1.2, 0), 0.5,
+                                material=ft.solid(0, 0, 1))),
+        ft.intersect(ft.sphere((1, 0, 0), 1.0, material=ft.solid(0, 1, 0)),
+                     ft.box((1, 0, 0), (0.7, 0.7, 0.7), 0.05)))
+    c = ((torch.rand(64, 3, generator=g) - 0.5) * 5.0).tolist()
+    a = (torch.rand(64, 3, generator=g) - 0.5).tolist()
+    sumexp64 = ft.smooth_union(0.2, *[
+        ft.torus(tuple(x), tuple(y), 0.5, 0.15,
+                 material=ft.solid(0.1 + 0.01 * i, 0.5, 0.5))
+        for i, (x, y) in enumerate(zip(c, a))])
+    c = ((torch.rand(256, 3, generator=g) - 0.5) * 0.8).tolist()
+    inter = ft.union(
+        ft.intersect(*[ft.sphere(tuple(x), 2.0,
+                                 material=ft.solid(0.2, 0.6, 0.9))
+                       for x in c]),
+        ft.smooth_union(0.3, ft.sphere((2.4, 0.0, 0.0), 0.7,
+                                       material=ft.solid(0.9, 0.5, 0.1)),
+                        ft.sphere((2.9, 0.5, 0.0), 0.5)))
+    flat = lambda root: ft.flatten(ft.Scene(root=root), dev)
+    return {"smooth_subtract": (flat(smooth), -5, None),
+            "subplans": (flat(subplans), -5, None),
+            "sumexp64": (flat(sumexp64), -8, None),
+            "intersect_blend": (flat(inter), -6, 192),
+            "blend96": (blend_scene(96, dev), -10, 48)}
+
+
+def phase_ad_kernels(dev):
+    """K3 in AD mode against its plain version on (t, hit) from K1, dense
+    and (where a group is large enough) on candidate tables; and against
+    the dense autograd normal and the dense material argmin at the same
+    points: normals within 1e-3 and materials equal on >= 99.9% of hit
+    lanes."""
+    from fraytracer_tpu_torch.ops import sdf
+    from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
+    for name, (scene, z, threshold) in smooth_scenes(dev).items():
+        check(not mk.slot_surface_mode(scene.plan), f"{name}: slot mode")
+        lanes, kw = primary_lanes(scene, 128, 30.0, dev, pos=(0, 0, z))
+        forms = [("dense", None)]
+        if threshold is not None:
+            forms.append(("culled", culled_tables(scene, lanes, threshold,
+                                                  512)))
+        for form, tables in forms:
+            k = mk.march_kernel(scene, **lanes, **kw, cull=tables)
+            p = mk.march_plain(scene, **lanes, **kw, cull=tables)
+            compare_march(k, p, f"K1 {form} {name} 128^2")
+            hit = k[1]
+            check(int(hit.sum()) > 100, f"{name}: {int(hit.sum())} hits")
+            args = (lanes["origin"], lanes["direction"], k[0],
+                    lanes["epsilon"], hit)
+            nk, mk_, ck = mk.surface_kernel(scene, *args, cull=tables)
+            compare_surface_ad(
+                (nk, mk_, ck), mk.surface_plain(scene, *args, cull=tables),
+                hit, f"K3 AD {form} {name}")
+            pos = (args[0] + (args[2] - args[3])[:, None] * args[1])[hit]
+            close = (nk[hit] - sdf.scene_normal(scene, pos)).abs() \
+                .amax(-1) <= 1e-3
+            mfrac = (mk_[hit] == sdf.material_index_at(scene, pos)) \
+                .float().mean().item()
+            log(f"  K3 AD {form} {name} vs dense autograd: normals within "
+                f"1e-3 on {close.float().mean().item():.6f}, material "
+                f"agreement {mfrac:.6f}")
+            check(close.float().mean().item() >= 0.999,
+                  f"K3 AD {form} {name}: dense normal")
+            if len(scene.visible_material_slots()):
+                check(mfrac >= 0.999, f"K3 AD {form} {name}: dense material")
+    torch.cuda.synchronize()
+
+
+def phase_sign_kernels(dev):
+    """K1/K2 with a per-lane sign against the plain version: three rays
+    starting inside a sphere (hit masks equal, t within 1e-4, the exit
+    distances known), and a mixed-sign batch on the 96-torus scene, dense
+    and culled (the K1 bounds; sign +1 lanes equal to the unsigned march,
+    bit for bit in the dense form)."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
+    from fraytracer_tpu_torch.scene import generators as G
+    scene = ft.flatten(ft.Scene(root=ft.union(
+        ft.sphere((0, 0, 0), 1.0, material=ft.solid(1, 1, 1)),
+        ft.sphere((3, 0, 0), 0.5))), dev)
+    lanes = dict(
+        origin=torch.tensor([[0.0, 0, 0], [0.2, 0.1, -0.5], [0.0, 0, 0.9]],
+                            device=dev),
+        direction=torch.tensor([[0.0, 0, 1]] * 3, device=dev),
+        length=torch.full((3,), 100.0, device=dev),
+        epsilon=torch.full((3,), 1e-3, device=dev),
+        t0=torch.zeros(3, device=dev))
+    kw = dict(max_steps=128, omega=1.0, sign=-torch.ones(3, device=dev))
+    k = mk.march_kernel(scene, **lanes, **kw)
+    p = mk.march_plain(scene, **lanes, **kw)
+    want = torch.tensor([1.0, 0.95 ** 0.5 + 0.5, 0.1], device=dev)
+    err = (k[0] - p[0]).abs().max().item()
+    log(f"  K1 sign=-1 inside rays: hits {k[1].tolist()}, t "
+        f"{[round(x, 5) for x in k[0].tolist()]}, max |dt| vs plain "
+        f"{err:.3e}")
+    check(bool(k[1].all()) and torch.equal(k[1], p[1]), "sign: hit masks")
+    check(err <= 1e-4, f"sign: t error {err}")
+    check((k[0] - want).abs().max().item() <= 2e-3, "sign: exit distance")
+    occ = mk.march_kernel(scene, **lanes, **kw, occlusion=True)
+    check(torch.equal(occ[0], k[1]), "sign: K2 != K1")
+
+    torus = ft.flatten(G.torus_csg_scene(19, 96), dev)
+    lanes, kw = primary_lanes(torus, 256, 30.0, dev)
+    g = torch.Generator().manual_seed(3)
+    sign = torch.where(torch.rand(lanes["origin"].shape[0], generator=g)
+                       < 0.5, -1.0, 1.0).to(dev)
+    for form, tables in (("dense", None),
+                         ("culled", culled_tables(torus, lanes, 48, 256))):
+        skw = dict(kw, cull=tables, sign=sign)
+        k = mk.march_kernel(torus, **lanes, **skw)
+        compare_march(k, mk.march_plain(torus, **lanes, **skw),
+                      f"K1 mixed sign {form} torus96 256^2")
+        occ = mk.march_kernel(torus, **lanes, **skw, occlusion=True)
+        check(torch.equal(occ[0], k[1]), f"sign {form}: K2 != K1")
+        u = mk.march_kernel(torus, **lanes, **kw, cull=tables)
+        # dense: bit for bit; culled: a warp's window follows its active
+        # lanes, so the +1 lanes step otherwise and land within 3 eps
+        out = (sign > 0) & u[1]
+        check(torch.equal(k[1][sign > 0], u[1][sign > 0]),
+              f"sign {form}: +1 lanes' hits differ from the unsigned march")
+        dt = (k[0] - u[0]).abs()[out].max().item()
+        check(dt <= (3 * EPS if tables is not None else 0.0),
+              f"sign {form}: +1 lanes' t differ by {dt}")
+    torch.cuda.synchronize()
+
+
 def culled_tables(scene, lanes, threshold, m, apex=None):
     """The candidate tables cuda_march_raw builds for these lanes."""
     from fraytracer_tpu_torch.ops.cuda import cull
@@ -284,12 +666,12 @@ def phase_kernels(dev):
             f"{bool(torch.equal(ok_[0], k[1]))}")
         check(agree >= 0.999, f"K2 {name}: {agree}")
         check(torch.equal(ok_[0], k[1]), f"K2 {name}: occlusion != march")
-        if name != "smooth_subtract":
-            args = (lanes["origin"], lanes["direction"], k[0],
-                    lanes["epsilon"], k[1])
-            compare_surface(mk.surface_kernel(scene, *args),
-                            mk.surface_plain(scene, *args), k[1],
-                            f"K3 {name}")
+        args = (lanes["origin"], lanes["direction"], k[0],
+                lanes["epsilon"], k[1])
+        compare = compare_surface if mk.slot_surface_mode(scene.plan) \
+            else compare_surface_ad
+        compare(mk.surface_kernel(scene, *args),
+                mk.surface_plain(scene, *args), k[1], f"K3 {name}")
     torch.cuda.synchronize()
 
 
@@ -317,8 +699,8 @@ def phase_kernel_times(dev, bench_scene):
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     err = compare_march(k, p, f"K1 bench {SIZE}^2")
-    out["march"] = (ms, plain_ms, err, int((k[1] != p[1]).sum()),
-                    k[1].numel())
+    out["march"] = timing(ms, plain_ms, err, int((k[1] != p[1]).sum()),
+                          k[1].numel(), march_bound(bench_scene, lanes, k))
     evals = int(k[3].sum())
     log(f"  K1 bench: {evals} ray evaluations ({evals / k[3].numel():.2f} "
         f"per ray), {evals * bench_scene.num_prims / (ms * 1e-3):.4g} "
@@ -361,8 +743,9 @@ def phase_kernel_times(dev, bench_scene):
         f"{flips} flips ({agree:.6f} agreement)")
     check(agree >= 0.999, f"K2 bench agreement {agree}")
     # max |hit_kernel - hit_plain| over the boolean output
-    out["occlusion"] = (ms, plain_ms, float(flips > 0), flips,
-                        ok_[0].numel())
+    out["occlusion"] = timing(ms, plain_ms, float(flips > 0), flips,
+                              ok_[0].numel(),
+                              march_bound(bench_scene, slanes, ok_))
 
     # K3 on the frame's primary hits (same inputs to both)
     args = (lanes["origin"], lanes["direction"], k[0], lanes["epsilon"], hitk)
@@ -373,8 +756,10 @@ def phase_kernel_times(dev, bench_scene):
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     err = compare_surface(kk, pp, hitk, f"K3 bench {SIZE}^2")
-    out["surface"] = (ms, plain_ms, err, int((hitk & (kk[2] != pp[2])).sum()),
-                      int(hitk.sum()))
+    out["surface"] = timing(ms, plain_ms, err,
+                            int((hitk & (kk[2] != pp[2])).sum()),
+                            int(hitk.sum()),
+                            surface_bound(bench_scene, args, kk))
 
     # K4 at the block tier's shape: 16 blocks of the frame's [N, 3] points
     xb = pos.contiguous().reshape(-1, BLOCK * 3)
@@ -385,11 +770,15 @@ def phase_kernel_times(dev, bench_scene):
     gp = block_gather_plain(xb, bidx)
     err = (gk - gp).abs().max().item()
     check(err == 0.0, "K4 bench mismatch")
-    out["block_gather"] = (ms, plain_ms, err, int((gk != gp).sum()),
-                           gk.numel())
-    for name, (a, b, e, nd, n) in out.items():
-        log(f"  time {name}: kernel {a:.3f} ms, plain {b:.3f} ms "
-            f"(err {e:.3e}, {nd} of {n} outputs differ)")
+    # the one PyTorch call that computes the same function: an
+    # advanced-index gather of the same blocks (timed here, used nowhere)
+    lidx = bidx.long()
+    check(torch.equal(xb[lidx], gk), "K4 library gather mismatch")
+    library_ms = cuda_ms(lambda: xb[lidx], reps=20)
+    out["block_gather"] = timing(
+        ms, plain_ms, err, int((gk != gp).sum()), gk.numel(),
+        bound(2 * nbytes(gk) + nbytes(bidx), 0.0), library_ms)
+    log_times(out)
     return out
 
 
@@ -441,11 +830,14 @@ def phase_culled_times(dev, bench_scene):
     kw = dict(kw, cull=tabs)
     k = mk.march_kernel(bench_scene, **lanes, **kw)
     ms = cuda_ms(lambda: mk.march_kernel(bench_scene, **lanes, **kw))
-    p, plain_ms = host_ms(lambda: mk.march_plain(bench_scene, **lanes,
-                                                 **kw))
+    with window_rows(tabs) as win:
+        p, plain_ms = host_ms(lambda: mk.march_plain(bench_scene, **lanes,
+                                                     **kw))
     err = compare_march(k, p, f"K1 culled bench {SIZE}^2")
-    out["march_culled"] = (ms, plain_ms, err, int((k[1] != p[1]).sum()),
-                           k[1].numel())
+    out["march_culled"] = timing(
+        ms, plain_ms, err, int((k[1] != p[1]).sum()), k[1].numel(),
+        march_bound(bench_scene, lanes, k, tabs, win))
+    log_window_rows("K1 culled bench", tabs, win, k[3], p[3])
     dense_ms = cuda_ms(lambda: mk.march_kernel(bench_scene, **lanes,
                                                max_steps=192, omega=1.4))
     evals = int(k[3].sum())
@@ -460,8 +852,9 @@ def phase_culled_times(dev, bench_scene):
         skw = dict(max_steps=192, omega=1.4, cull=st, occlusion=True)
         ok_ = mk.march_kernel(bench_scene, **sl, **skw)
         ms = cuda_ms(lambda: mk.march_kernel(bench_scene, **sl, **skw))
-        op_, plain_ms = host_ms(lambda: mk.march_plain(bench_scene, **sl,
-                                                       **skw))
+        with window_rows(st) as win:
+            op_, plain_ms = host_ms(lambda: mk.march_plain(bench_scene, **sl,
+                                                           **skw))
         flips = int((ok_[0] != op_[0]).sum())
         agree = 1.0 - flips / ok_[0].numel()
         log(f"  K2 culled bench light {light} "
@@ -473,8 +866,11 @@ def phase_culled_times(dev, bench_scene):
             f"({agree:.6f} agreement), {int(ok_[1].sum())} ray evaluations")
         check(agree >= 0.999, f"K2 culled bench agreement {agree}")
         if light == 0:
-            out["occlusion_culled"] = (ms, plain_ms, float(flips > 0),
-                                       flips, ok_[0].numel())
+            out["occlusion_culled"] = timing(
+                ms, plain_ms, float(flips > 0), flips, ok_[0].numel(),
+                march_bound(bench_scene, sl, ok_, st, win))
+            log_window_rows("K2 culled bench light 0", st, win, ok_[1],
+                            op_[1])
     args = (lanes["origin"], lanes["direction"], k[0], lanes["epsilon"],
             k[1])
     kk = mk.surface_kernel(bench_scene, *args, cull=tabs)
@@ -482,17 +878,45 @@ def phase_culled_times(dev, bench_scene):
     pp, plain_ms = host_ms(lambda: mk.surface_plain(bench_scene, *args,
                                                     cull=tabs))
     err = compare_surface(kk, pp, k[1], f"K3 culled bench {SIZE}^2")
-    out["surface_culled"] = (ms, plain_ms, err,
-                             int((k[1] & (kk[2] != pp[2])).sum()),
-                             int(k[1].sum()))
-    for name, (a, b, e, nd, n) in out.items():
-        log(f"  time {name}: kernel {a:.3f} ms, plain {b:.3f} ms "
-            f"(err {e:.3e}, {nd} of {n} outputs differ)")
+    out["surface_culled"] = timing(
+        ms, plain_ms, err, int((k[1] & (kk[2] != pp[2])).sum()),
+        int(k[1].sum()), surface_bound(bench_scene, args, kk, tabs))
+    log_times(out)
+    return out
+
+
+def phase_blend_times(dev, scene):
+    """K3 in AD mode beside its plain version at the blended frame's shape
+    (1024² primary rays, tables at cull_m 256): the culled form on the
+    culled K1's hits and the dense form on the dense K1's."""
+    from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
+    out = {}
+    lanes, kw = primary_lanes(scene, SIZE, 30.0, dev)
+    tabs = culled_tables(scene, lanes, 48, 256)
+    for name, tables in (("surface_ad_culled", tabs), ("surface_ad", None)):
+        k = mk.march_kernel(scene, **lanes, **kw, cull=tables)
+        k1_ms = cuda_ms(lambda: mk.march_kernel(scene, **lanes, **kw,
+                                                cull=tables), reps=3)
+        args = (lanes["origin"], lanes["direction"], k[0],
+                lanes["epsilon"], k[1])
+        kk = mk.surface_kernel(scene, *args, cull=tables)
+        ms = cuda_ms(lambda: mk.surface_kernel(scene, *args, cull=tables))
+        pp, plain_ms = host_ms(lambda: mk.surface_plain(scene, *args,
+                                                        cull=tables))
+        err, differing = compare_surface_ad(kk, pp, k[1],
+                                            f"K3 AD {name} blend {SIZE}^2")
+        out[name] = timing(ms, plain_ms, err, differing, int(k[1].sum()),
+                           surface_bound(scene, args, kk, tables))
+        log(f"  K1 before {name}: {k1_ms:.3f} ms, "
+            f"{int(k[3].sum())} ray evaluations, "
+            f"{int(k[1].sum())} hits, SIMT lane efficiency "
+            f"{lane_efficiency(k[3]):.4f}")
+    log_times(out)
     return out
 
 
 # ---------------------------------------------------------------------------
-# phase 4/5: the forward frame
+# phase 4/5/7: the forward frame
 # ---------------------------------------------------------------------------
 
 def bench_config(size, cull=True, backend="cuda"):
@@ -525,7 +949,7 @@ def frame_spies():
                               for q in out.tables])
         return out
 
-    def repair(scene, pos, hit, midx, backend="torch"):
+    def repair(scene, pos, hit, midx, backend="cuda"):
         bad = (hit & (midx < 0)).reshape(-1)
         nb = bad.numel() // BLOCK
         blocks = int(bad[:nb * BLOCK].reshape(nb, BLOCK).any(1).sum())
@@ -551,15 +975,17 @@ def repair_tier(nbad, blocks, n):
     return "lane" if nbad <= min(shade.CAP_MAX, n) else "dense"
 
 
-def phase_frame(dev, scene, build_dir, cull):
+def phase_frame(dev, scene, build_dir, cull, tag=None, ad=False, reps=5):
     """One configuration of the 1024² frame: launch counts around the
-    frame alone, the median of 5 frames, a profiled frame, peak memory.
-    The culled frame also reports candidates per tile and the repair tier
-    (from a spied frame after the counted one)."""
+    frame alone, the median of ``reps`` frames, a profiled frame, peak
+    memory.  The culled frame also reports candidates per tile and the
+    repair tier (from a spied frame after the counted one).  ``ad`` names
+    the surface pass the scene must take: AD mode (a plan with a smooth
+    union) or slot mode."""
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.image.io import save_image
     from fraytracer_tpu_torch.ops import cuda as ops_cuda
-    tag = "culled" if cull else "dense"
+    tag = tag or ("culled" if cull else "dense")
     cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
     cfg = bench_config(SIZE, cull)
 
@@ -573,14 +999,18 @@ def phase_frame(dev, scene, build_dir, cull):
     log(f"  launches in the {tag} frame: {counts}")
     sfx = "_culled" if cull else ""
     other = "" if cull else "_culled"
+    surf, other_surf = ("surface_ad", "surface") if ad \
+        else ("surface", "surface_ad")
     check(counts["march" + sfx] >= 1, f"K1 ({tag}) not launched")
-    check(counts["surface" + sfx] >= 1, f"K3 ({tag}) not launched")
+    check(counts[surf + sfx] >= 1, f"K3 ({tag}) not launched")
     check(counts["occlusion" + sfx] >= scene.num_lights,
           f"K2 ({tag}) launched {counts['occlusion' + sfx]} times, want "
           f">= {scene.num_lights}")
-    check(counts["march" + other] == counts["surface" + other]
+    check(counts["march" + other] == counts[surf + other]
           == counts["occlusion" + other] == 0,
           f"the {tag} frame launched the other form")
+    check(counts[other_surf] == counts[other_surf + "_culled"] == 0,
+          f"the {tag} frame launched the other surface mode")
     check(bool(torch.isfinite(img).all()), "non-finite pixels")
     check(img.shape == (SIZE, SIZE, 3), f"image shape {tuple(img.shape)}")
     bg = scene.background
@@ -608,14 +1038,14 @@ def phase_frame(dev, scene, build_dir, cull):
             f"lanes in {blocks} blocks of 1024")
 
     times = []
-    for _ in range(5):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img, n_rays = ft.render_with_stats(scene, cam, cfg)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
-    log(f"  {tag} frame {SIZE}^2: median of 5 {med * 1e3:.2f} ms "
+    log(f"  {tag} frame {SIZE}^2: median of {reps} {med * 1e3:.2f} ms "
         f"({[round(t * 1e3, 2) for t in times]}), "
         f"{int(n_rays) / med:.4g} rays/s")
     torch.cuda.reset_peak_memory_stats()
@@ -713,6 +1143,7 @@ def profile_frame(scene, cam, cfg, trace_path):
         log(f"    {us / 1e3:9.3f} ms  {name[:70]}")
     ours = [e for e in sorted(evs, key=lambda e: e.time_range.start)
             if e.name.startswith(("march_kernel", "surface_kernel",
+                                  "surface_ad_kernel",
                                   "block_gather_kernel"))]
     log("  profile, port kernels in launch order: " + ", ".join(
         f"{e.name.split('(')[0]} {e.time_range.elapsed_us() / 1e3:.3f} ms"
@@ -789,7 +1220,10 @@ def compare_frames(a, b, label, shell_t=False):
     return int(flipped.sum()), mx, med
 
 
-def phase_parity(dev, scene, culled_cfg):
+def phase_parity(dev, scene, culled_cfg, tag="frame"):
+    """256² frames (dense and culled) kernels against plain, then the
+    1024² culled frame against the dense one (t within 3ε on >= 99.5% of
+    the lanes both hit)."""
     import fraytracer_tpu_torch as ft
     cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
     for cull in (False, True):
@@ -797,12 +1231,80 @@ def phase_parity(dev, scene, culled_cfg):
         k = frame_and_masks(scene, cam, cfg)
         with plain_route():
             p = frame_and_masks(scene, cam, cfg)
-        compare_frames(k, p, f"frame 256^2 {'culled' if cull else 'dense'}"
+        compare_frames(k, p, f"{tag} 256^2 {'culled' if cull else 'dense'}"
                        " kernels vs plain")
     culled = frame_and_masks(scene, cam, culled_cfg)
     dense = frame_and_masks(scene, cam, bench_config(SIZE, cull=False))
-    return compare_frames(culled, dense, f"frame {SIZE}^2 culled vs dense",
+    both = culled[1][0] & dense[1][0]
+    dt = (culled[2] - dense[2]).abs()[both]
+    near = (dt <= 3 * EPS).float().mean().item()
+    log(f"  {tag} {SIZE}^2 culled vs dense: t within 3 eps on {near:.6f} of "
+        f"{int(both.sum())} lanes both hit (max |dt| {dt.max().item():.3e}: "
+        "a grazing lane may hit one surface in one frame and pass to the "
+        "next in the other)")
+    check(near >= 0.995, f"{tag}: culled t within 3 eps on {near}")
+    return compare_frames(culled, dense, f"{tag} {SIZE}^2 culled vs dense",
                           shell_t=True)
+
+
+def frame_only(tree, reps) -> int:
+    """The culled torus frame ([main]'s configuration) alone: 3 untimed
+    frames, then ``reps`` timed ones, as one JSON line.  ``tree`` names a
+    directory inside the checkout that holds another commit of the repo
+    (unpacked there with ``git archive``, e.g. under ``_checkout/``); its
+    package is imported instead of this checkout's."""
+    if tree:
+        sys.path.insert(0, str(Path(tree).resolve()))
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.scene.generators import torus_csg_scene
+    dev = torch.device("cuda", 0)
+    scene = ft.flatten(torus_csg_scene(19, BENCH_N_TORI), device=dev)
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    cfg = bench_config(SIZE)
+    times = []
+    for i in range(3 + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ft.render_with_stats(scene, cam, cfg)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(1e3 * (time.perf_counter() - t0))
+    print(json.dumps({"tree": tree or ".",
+                      "package": str(Path(ft.__file__).parent),
+                      "median_ms": statistics.median(times),
+                      "times_ms": times}))
+    return 0
+
+
+def compare(tree, pairs, reps) -> int:
+    """This checkout against the commit unpacked in ``tree`` on the culled
+    torus frame: ``pairs`` pairs of fresh ``--frame-only`` processes, one
+    per tree, the order swapped from pair to pair; prints each median, the
+    paired differences (this - other) and the card."""
+    runs = []
+    for i in range(pairs):
+        pair = {}
+        for t in ((tree, None) if i % 2 == 0 else (None, tree)):
+            cmd = [sys.executable, str(Path(__file__).resolve()),
+                   "--frame-only", "--reps", str(reps)]
+            out = subprocess.run(cmd + (["--tree", t] if t else []),
+                                 capture_output=True, text=True, check=True,
+                                 timeout=600)
+            rec = json.loads(out.stdout.strip().splitlines()[-1])
+            log(f"  pair {i} {rec['package']}: median {rec['median_ms']:.2f}"
+                f" ms of {[round(x, 2) for x in rec['times_ms']]}")
+            pair["other" if t else "this"] = rec["median_ms"]
+        runs.append(pair)
+    diffs = [r["this"] - r["other"] for r in runs]
+    print(json.dumps({
+        "pairs": runs, "paired_diff_ms": diffs,
+        "median_diff_ms": statistics.median(diffs),
+        "min_diff_ms": min(diffs), "max_diff_ms": max(diffs),
+        "this_slower_in": sum(d > 0 for d in diffs),
+        "median_this_ms": statistics.median(r["this"] for r in runs),
+        "median_other_ms": statistics.median(r["other"] for r in runs)}))
+    print(nvidia_smi())
+    return 0
 
 
 def main() -> int:
@@ -810,6 +1312,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--frame-only", action="store_true",
+                    help="time the culled torus frame alone")
+    ap.add_argument("--tree", help="with --frame-only: import the package "
+                    "of the commit unpacked in this directory")
+    ap.add_argument("--compare", metavar="TREE", help="paired frame times "
+                    "of this checkout and the commit unpacked in TREE")
+    ap.add_argument("--pairs", type=int, default=8)
+    ap.add_argument("--reps", type=int, default=9)
+    args = ap.parse_args()
+    if args.compare:
+        return compare(args.compare, args.pairs, args.reps)
+    if args.frame_only:
+        return frame_only(args.tree, args.reps)
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.ops.cuda import build
     from fraytracer_tpu_torch.scene.generators import torus_csg_scene
@@ -831,9 +1347,13 @@ def main() -> int:
     log("[kernels] kernel vs plain on the card")
     phase_kernels(dev)
     phase_culled_kernels(dev)
+    phase_ad_kernels(dev)
+    phase_sign_kernels(dev)
     scene = ft.flatten(torus_csg_scene(19, BENCH_N_TORI), device=dev)
+    blend = blend_scene(BENCH_N_TORI, dev)
     times = phase_kernel_times(dev, scene)
     times.update(phase_culled_times(dev, scene))
+    times.update(phase_blend_times(dev, blend))
 
     log(f"[main] culled forward frame {SIZE}^2, {BENCH_N_TORI} tori")
     culled = phase_frame(dev, scene, build.BUILD_DIR, cull=True)
@@ -844,6 +1364,18 @@ def main() -> int:
     log("[parity] frames, kernels vs plain and culled vs dense on the card")
     phase_parity(dev, scene, culled["cfg"])
 
+    log(f"[blend] blended forward frame {SIZE}^2, {BENCH_N_TORI} tori "
+        "smooth-united with a sphere (K3 in AD mode)")
+    blend_culled = phase_frame(dev, blend, build.BUILD_DIR, cull=True,
+                               tag="blend", ad=True)
+    check((blend_culled["counts"]["march_culled"],
+           blend_culled["counts"]["surface_ad_culled"],
+           blend_culled["counts"]["occlusion_culled"]) == (1, 1, 2),
+          f"blend frame launches {blend_culled['counts']}")
+    blend_dense = phase_frame(dev, blend, build.BUILD_DIR, cull=False,
+                              tag="blend_dense", ad=True, reps=1)
+    phase_parity(dev, blend, blend_culled["cfg"], tag="blend")
+
     mk = f"{TPU}/march_kernel.py"
     rows = [("march", f"{SRC}/march.cu", f"{mk}:1637", dense),
             ("occlusion", f"{SRC}/march.cu", f"{mk}:1637", dense),
@@ -852,29 +1384,43 @@ def main() -> int:
              dense),
             ("march_culled", f"{SRC}/march.cu", f"{mk}:877", culled),
             ("occlusion_culled", f"{SRC}/march.cu", f"{mk}:877", culled),
-            ("surface_culled", f"{SRC}/march.cu", f"{mk}:1051", culled)]
+            ("surface_culled", f"{SRC}/march.cu", f"{mk}:1051", culled),
+            ("surface_ad", f"{SRC}/march.cu", f"{mk}:1304", blend_dense),
+            ("surface_ad_culled", f"{SRC}/march.cu", f"{mk}:1359",
+             blend_culled)]
     # "launches": the run of the kernel's own path, counts reset just
     # before it (the dense frame for the dense K1-K4, the culled frame —
     # the main path — for the culled K1-K3); "culled_frame_launches" and
     # "forced_repair_launches" read the block gather in the culled frame
-    # and in the forced block-tier repair.  "differing": discrete outputs
-    # (hit bit, leaf code, gathered element) where kernel and plain
-    # version disagree, out of "compared"
+    # and in the forced block-tier repair; the AD-mode K3 rows read the
+    # blended frame (culled, the slice's main path) and its dense form.
+    # "differing": discrete outputs (hit bit, leaf code, gathered element;
+    # for AD mode hit lanes whose normal is beyond 1e-4) where kernel and
+    # plain version disagree, out of "compared".  "bound_ms" is computed
+    # from this run's inputs against the H100 SXM peaks (PEAK_BYTES_S,
+    # PEAK_FLOPS); "library_ms" is null where no single PyTorch call
+    # computes the kernel's function
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": path["counts"][name],
-                "max_abs_err": times[name][2], "ms": times[name][0],
-                "plain_ms": times[name][1], "differing": times[name][3],
-                "compared": times[name][4]}
+                "max_abs_err": times[name]["err"], "ms": times[name]["ms"],
+                "plain_ms": times[name]["plain_ms"],
+                "bound_ms": times[name]["bound_ms"],
+                "bound_by": times[name]["bound_by"],
+                "library_ms": times[name]["library_ms"],
+                "differing": times[name]["differing"],
+                "compared": times[name]["compared"]}
                for name, src, rep, path in rows]
     kernels[3]["forced_repair_launches"] = repair["block_gather"]
     kernels[3]["culled_frame_launches"] = culled["counts"]["block_gather"]
-    for tag, st in (("culled", culled), ("dense", dense)):
+    for tag, st in (("culled", culled), ("dense", dense),
+                    ("blend", blend_culled), ("blend_dense", blend_dense)):
         log(f"[summary] {tag} frame first {st['first_s'] * 1e3:.1f} ms, "
             f"median {st['med'] * 1e3:.2f} ms, n_rays {st['n_rays']}, "
             f"peak {st['peak'] / 2**20:.1f} MiB, idle share "
             f"{st['idle'] if st['idle'] is None else round(st['idle'], 4)}")
-    log(f"[summary] culled frame: repair tier {culled['repair'][0]}, "
-        f"candidates per tile (max, mean) {culled['candidates']}")
+    for tag, st in (("culled", culled), ("blend", blend_culled)):
+        log(f"[summary] {tag} frame: repair tier {st['repair'][0]}, "
+            f"candidates per tile (max, mean) {st['candidates']}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

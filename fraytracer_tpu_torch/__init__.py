@@ -4,18 +4,18 @@ The SDF/CSG sphere tracer of the JAX package, forward frame first: scenes
 flatten to parameter tensors, rays march through hand-written CUDA kernels
 (``csrc/``) on an NVIDIA GPU — culled per-tile candidate tables by
 default, every primitive each step with ``cull=False`` — or through the
-kernels' plain PyTorch versions on the CPU.  Importing the package builds
-nothing and needs no GPU.
+kernels' plain PyTorch versions on the CPU.  The entry points default to
+the GPU and the kernels; name ``device="cpu"`` to run the plain versions.
+Importing the package builds nothing and needs no GPU.
 
 Quick start::
 
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.scene.generators import torus_csg_scene
 
-    scene = ft.flatten(torus_csg_scene(19, 1000), device="cuda")
-    camera = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60, device="cuda")
-    cfg = ft.RenderConfig(march=ft.MarchConfig(backend="cuda",
-                                               relax_omega=1.4))
+    scene = ft.flatten(torus_csg_scene(19, 1000))
+    camera = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60)
+    cfg = ft.RenderConfig(march=ft.MarchConfig(relax_omega=1.4))
     img = ft.render(scene, camera, cfg)
 """
 

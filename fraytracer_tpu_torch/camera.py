@@ -28,9 +28,9 @@ class Camera:
 
 
 def look_at(position, target, up=(0.0, 1.0, 0.0), fov_degrees: float = 60.0,
-            ortho_scale: float = 0.0, device="cpu") -> Camera:
-    """Build a camera frame (reference ``Camera.lookAt``).  Left-handed like
-    the reference: right = up × forward."""
+            ortho_scale: float = 0.0, device="cuda") -> Camera:
+    """Build a camera frame on ``device`` (reference ``Camera.lookAt``).
+    Left-handed like the reference: right = up × forward."""
     f32 = dict(dtype=torch.float32, device=device)
     position = torch.as_tensor(position, **f32)
     target = torch.as_tensor(target, **f32)
@@ -46,7 +46,7 @@ def look_at(position, target, up=(0.0, 1.0, 0.0), fov_degrees: float = 60.0,
                   ortho_scale=float(ortho_scale))
 
 
-def pixel_grid_uv(width: int, height: int, device="cpu"):
+def pixel_grid_uv(width: int, height: int, device="cuda"):
     """Uniform pixel-centre coordinates, row 0 = top; (u, v) each [H, W]
     with v increasing upward (reference ``ImageSize.getUniformPixelPos``)."""
     m = float(max(width, height))

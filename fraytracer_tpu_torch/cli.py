@@ -22,7 +22,10 @@ def _scene_by_name(name: str, seed: int, n: int):
         return G.torus_csg_scene(seed=seed, n_tori=n)
     if name == "csg-demo":
         return G.csg_demo_scene(seed=seed)
-    raise SystemExit(f"unknown scene {name!r} (torus-csg, csg-demo)")
+    if name == "glass":
+        from .models import glass_demo_scene
+        return glass_demo_scene()
+    raise SystemExit(f"unknown scene {name!r} (torus-csg, csg-demo, glass)")
 
 
 def cmd_render(args) -> int:
@@ -44,7 +47,6 @@ def cmd_render(args) -> int:
                           epsilon=args.epsilon, length=args.length,
                           gamma=args.gamma,
                           march=MarchConfig(max_steps=args.max_steps,
-                                            backend="cuda",
                                             relax_omega=1.4))
     print("Rendering...", flush=True)
     t0 = time.perf_counter()

@@ -1,7 +1,7 @@
 // Shared device code of the march and surface kernels: the flattened
 // scene program, the seven primitive distance functions (written once,
 // templated over the scalar type: float for marching, a 3-component
-// forward-mode dual number for exact leaf gradients), the scene program
+// forward-mode dual number for exact gradients), the scene program
 // interpreter, and the culled groups' candidate-table passes.
 //
 // The formulas are those of fraytracer_tpu_torch/ops/sdf.py (the plain
@@ -316,16 +316,23 @@ __device__ __forceinline__ float warp_max(float x) {
 // scene program interpreter
 // ---------------------------------------------------------------------------
 //
-// One interpreter, two stack value types:
+// One interpreter, three stack value types:
 // - Dist, the distance alone (K1/K2);
 // - DistCode, the distance and the signed code +-(slot + 1) of the
 //   CSG-winning leaf (K3, slot mode): min/max keep the first extremum,
 //   subtract flips the sign of its b side.  A smooth reduction names no
-//   single leaf (code 0); the host keeps smooth plans out of K3.
+//   single leaf (code 0); the host keeps smooth plans out of slot mode;
+// - DistGrad, the distance and its gradient at the query point (K3, AD
+//   mode, the plans with a smooth union): min/max keep the first
+//   extremum's gradient, subtract negates its b side's, a smooth reduction
+//   blends the gradients with the weights e = exp(-d / k).  A value that
+//   no leaf owns (an empty group, a floored max group) has gradient
+//   (0, 0, 1).
 // The per-type rules are the overloads below; on_prim(d, mat, slot) sees
 // every primitive distance (K3's material argmin).  A group with culled
 // pairs folds each pair first (culled_pair: the windowed march pass for
-// Dist, the whole-table surface scan for DistCode), then its dense entries.
+// Dist, the whole-table surface scan for DistCode and DistGrad), then its
+// dense entries.
 
 struct Dist {
   float v;
@@ -333,28 +340,70 @@ struct Dist {
 struct DistCode {
   float v, code;
 };
+struct DistGrad {
+  float v, x, y, z;
+};
 
+// a value that no leaf owns
 __device__ __forceinline__ void smooth_value(Dist& a, float v) { a.v = v; }
 __device__ __forceinline__ void smooth_value(DistCode& a, float v) {
   a = {v, 0.f};
 }
-// group member e with distance d; members run in ascending slot
-__device__ __forceinline__ void take_member(Dist& acc, bool mn, float d,
+__device__ __forceinline__ void smooth_value(DistGrad& a, float v) {
+  a = {v, 0.f, 0.f, 1.f};
+}
+
+// exact gradient of one primitive's distance (forward-mode dual numbers)
+__device__ __forceinline__ Dual prim_dual(int kind, const float* g, float px,
+                                          float py, float pz) {
+  return prim_dist(kind, g, Dual{px, 1.f, 0.f, 0.f}, Dual{py, 0.f, 1.f, 0.f},
+                   Dual{pz, 0.f, 0.f, 1.f});
+}
+
+// group member e with distance d; members run in ascending slot.  DistGrad
+// only notes the winning entry (won): its gradient is evaluated once, after
+// the group's last member (finish_members)
+__device__ __forceinline__ void take_member(Dist& acc, int&, bool mn, float d,
                                             const FtProgram&, int) {
   acc.v = mn ? fminf(acc.v, d) : fmaxf(acc.v, d);
 }
-__device__ __forceinline__ void take_member(DistCode& acc, bool mn, float d,
-                                            const FtProgram& P, int e) {
+__device__ __forceinline__ void take_member(DistCode& acc, int&, bool mn,
+                                            float d, const FtProgram& P,
+                                            int e) {
   // strict compares keep the first extremum
   if (mn ? d < acc.v : d > acc.v) {
     acc = {d, (float)(__ldg(P.ent_slot + e) + 1)};
   }
+}
+__device__ __forceinline__ void take_member(DistGrad& acc, int& won, bool mn,
+                                            float d, const FtProgram&, int e) {
+  if (mn ? d < acc.v : d > acc.v) {
+    acc.v = d;
+    won = e;
+  }
+}
+__device__ __forceinline__ void finish_members(Dist&, int, const FtProgram&,
+                                               float, float, float) {}
+__device__ __forceinline__ void finish_members(DistCode&, int,
+                                               const FtProgram&, float, float,
+                                               float) {}
+__device__ __forceinline__ void finish_members(DistGrad& acc, int won,
+                                               const FtProgram& P, float px,
+                                               float py, float pz) {
+  if (won < 0) return;
+  const Dual g = prim_dual(__ldg(P.ent_kind + won),
+                           P.ent_params + (size_t)won * FT_PSTRIDE, px, py,
+                           pz);
+  acc = {acc.v, g.x, g.y, g.z};
 }
 __device__ __forceinline__ Dist csg_subtract(Dist a, Dist b) {
   return {fmaxf(a.v, -b.v)};
 }
 __device__ __forceinline__ DistCode csg_subtract(DistCode a, DistCode b) {
   return a.v > -b.v ? a : DistCode{-b.v, -b.code};
+}
+__device__ __forceinline__ DistGrad csg_subtract(DistGrad a, DistGrad b) {
+  return a.v > -b.v ? a : DistGrad{-b.v, -b.x, -b.y, -b.z};
 }
 // n-ary union / intersect: the earlier operand wins ties
 __device__ __forceinline__ Dist csg_pick(Dist out, Dist v, bool uni) {
@@ -363,6 +412,34 @@ __device__ __forceinline__ Dist csg_pick(Dist out, Dist v, bool uni) {
 __device__ __forceinline__ DistCode csg_pick(DistCode out, DistCode v,
                                              bool uni) {
   return (uni ? out.v <= v.v : out.v >= v.v) ? out : v;
+}
+__device__ __forceinline__ DistGrad csg_pick(DistGrad out, DistGrad v,
+                                             bool uni) {
+  return (uni ? out.v <= v.v : out.v >= v.v) ? out : v;
+}
+
+// smooth union of n stack values: -k log(max(sum e, 1e-30)), e = exp(-v/k);
+// the gradient is the e-weighted mean of the operands' gradients
+template <typename V>
+__device__ __forceinline__ V smooth_fold(const V* st, int n, float k) {
+  float s = 0.f;
+  for (int j = 0; j < n; ++j) s += expf(-st[j].v / k);
+  V out;
+  smooth_value(out, -k * logf(fmaxf(s, 1e-30f)));
+  return out;
+}
+__device__ __forceinline__ DistGrad smooth_fold(const DistGrad* st, int n,
+                                                float k) {
+  float s = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const float e = expf(-st[j].v / k);
+    s += e;
+    sx += e * st[j].x;
+    sy += e * st[j].y;
+    sz += e * st[j].z;
+  }
+  s = fmaxf(s, 1e-30f);
+  return {-k * logf(s), sx / s, sy / s, sz / s};
 }
 
 struct NoPrimHook {
@@ -450,40 +527,117 @@ __device__ __forceinline__ void culled_pair(Dist& acc, const FtPair& q,
   }
 }
 
-// K3: one culled pair over the tile's whole candidate list (culled_sp
-// :1051-1144): the first ceil8(min(count, m)) rows, leaf arg-extremum with
-// ties to the lower slot, every row seen by the material hook; a max
-// group's partial is floored at 2 eps with code 0 when the cone excluded
-// members (:1122-1138).  Folded into the group strictly, before its dense
-// entries.
+// K3: the scan of one culled pair over the tile's whole candidate list
+// (culled_sp :1051-1144): the first ceil8(min(count, m)) rows, leaf
+// arg-extremum with ties to the lower slot, every row seen by the material
+// hook.  Returns the extremum, its slot and its table row (none: bslot
+// stays 0x7fffffff); floored is set when a max group's cone excluded
+// members and the extremum lies below 2 eps (:1122-1138, :1416-1432): the
+// pair's value is then 2 eps and no leaf owns it.
+struct PairScan {
+  float bd;
+  int bslot, brow;
+  bool floored;
+};
+
 template <typename OnPrim>
-__device__ __forceinline__ void culled_pair(DistCode& acc, const FtPair& q,
-                                            const Lane& L, bool mn, int,
-                                            float px, float py, float pz,
-                                            OnPrim& on_prim) {
+__device__ __forceinline__ PairScan scan_pair(const FtPair& q, const Lane& L,
+                                              bool mn, float px, float py,
+                                              float pz, OnPrim& on_prim) {
   const float* misc = q.misc + (size_t)L.tile * 4;
   const float count = __ldg(misc);
   const int n_c = (int)fminf(count, (float)q.m);
   const int rows = (n_c + FT_CAND_UNROLL - 1) / FT_CAND_UNROLL * FT_CAND_UNROLL;
   const float* tab = q.table + (size_t)L.tile * q.m * FT_TABLE_W;
-  float bd = mn ? FT_BIG : -FT_BIG;
-  int bslot = 0x7fffffff;
-  for (int r = 0; r < rows; ++r) {
-    const float* row = tab + (size_t)r * FT_TABLE_W;
+  PairScan r = {mn ? FT_BIG : -FT_BIG, 0x7fffffff, 0, false};
+  for (int i = 0; i < rows; ++i) {
+    const float* row = tab + (size_t)i * FT_TABLE_W;
     const float d = prim_dist(q.kind, row, px, py, pz);
     const int slot = (int)__ldg(row + FT_PSTRIDE + 1);
     on_prim(d, (int)__ldg(row + FT_PSTRIDE), slot);
-    if ((mn ? d < bd : d > bd) || (d == bd && slot < bslot)) {
-      bd = d;
-      bslot = slot;
+    if ((mn ? d < r.bd : d > r.bd) || (d == r.bd && slot < r.bslot)) {
+      r.bd = d;
+      r.bslot = slot;
+      r.brow = i;
     }
   }
-  float code = bslot == 0x7fffffff ? 0.f : (float)(bslot + 1);
-  if (!mn && count < (float)q.group_size && bd < 2.f * L.eps) {
-    bd = 2.f * L.eps;
-    code = 0.f;
+  if (!mn && count < (float)q.group_size && r.bd < 2.f * L.eps) {
+    r.bd = 2.f * L.eps;
+    r.floored = true;
   }
-  if (mn ? bd < acc.v : bd > acc.v) acc = {bd, code};
+  return r;
+}
+
+// folded into the group strictly, before its dense entries
+template <typename OnPrim>
+__device__ __forceinline__ void culled_pair(DistCode& acc, const FtPair& q,
+                                            const Lane& L, bool mn, int,
+                                            float px, float py, float pz,
+                                            OnPrim& on_prim) {
+  const PairScan r = scan_pair(q, L, mn, px, py, pz, on_prim);
+  const float code =
+      r.floored || r.bslot == 0x7fffffff ? 0.f : (float)(r.bslot + 1);
+  if (mn ? r.bd < acc.v : r.bd > acc.v) acc = {r.bd, code};
+}
+
+// AD mode scans the whole list as slot mode does (the TPU body windows the
+// scan by the hit shell and caps the value by the skipped chunks' bounds,
+// :1372-1432; the winner lies inside that window by construction, so both
+// name the same leaf) and evaluates the winner's gradient once
+template <typename OnPrim>
+__device__ __forceinline__ void culled_pair(DistGrad& acc, const FtPair& q,
+                                            const Lane& L, bool mn, int,
+                                            float px, float py, float pz,
+                                            OnPrim& on_prim) {
+  const PairScan r = scan_pair(q, L, mn, px, py, pz, on_prim);
+  if (!(mn ? r.bd < acc.v : r.bd > acc.v)) return;
+  if (r.floored || r.bslot == 0x7fffffff) {
+    smooth_value(acc, r.bd);
+    return;
+  }
+  const float* row =
+      q.table + ((size_t)L.tile * q.m + r.brow) * FT_TABLE_W;
+  const Dual g = prim_dual(q.kind, row, px, py, pz);
+  acc = {r.bd, g.x, g.y, g.z};
+}
+
+// a sumexp group's members: sum e, and for DistGrad sum e * gradient
+template <typename V, typename OnPrim>
+__device__ __forceinline__ V sumexp_members(const FtProgram& P, int e0, int e1,
+                                            float k, float px, float py,
+                                            float pz, OnPrim& on_prim, V*) {
+  float s = 0.f;
+  for (int e = e0; e < e1; ++e) {
+    const float d = prim_dist(__ldg(P.ent_kind + e),
+                              P.ent_params + (size_t)e * FT_PSTRIDE, px, py,
+                              pz);
+    on_prim(d, __ldg(P.ent_mat + e), __ldg(P.ent_slot + e));
+    s += expf(-d / k);
+  }
+  V acc;
+  smooth_value(acc, -k * logf(fmaxf(s, 1e-30f)));
+  return acc;
+}
+template <typename OnPrim>
+__device__ __forceinline__ DistGrad sumexp_members(const FtProgram& P, int e0,
+                                                   int e1, float k, float px,
+                                                   float py, float pz,
+                                                   OnPrim& on_prim,
+                                                   DistGrad*) {
+  float s = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
+  for (int e = e0; e < e1; ++e) {
+    const Dual g = prim_dual(__ldg(P.ent_kind + e),
+                             P.ent_params + (size_t)e * FT_PSTRIDE, px, py,
+                             pz);
+    on_prim(g.v, __ldg(P.ent_mat + e), __ldg(P.ent_slot + e));
+    const float w = expf(-g.v / k);
+    s += w;
+    sx += w * g.x;
+    sy += w * g.y;
+    sz += w * g.z;
+  }
+  s = fmaxf(s, 1e-30f);
+  return {-k * logf(s), sx / s, sy / s, sz / s};
 }
 
 template <typename V, typename OnPrim>
@@ -492,20 +646,11 @@ __device__ __forceinline__ V eval_group(const FtProgram& P, const FtCull& C,
                                         float py, float pz, OnPrim& on_prim) {
   const int e0 = __ldg(P.groups + 3 * gid), e1 = __ldg(P.groups + 3 * gid + 1);
   const int op = __ldg(P.groups + 3 * gid + 2);
-  V acc;
   if (op == G_SUMEXP) {
-    const float k = __ldg(P.group_k + gid);
-    float s = 0.f;
-    for (int e = e0; e < e1; ++e) {
-      const float d = prim_dist(__ldg(P.ent_kind + e),
-                                P.ent_params + (size_t)e * FT_PSTRIDE, px, py,
-                                pz);
-      on_prim(d, __ldg(P.ent_mat + e), __ldg(P.ent_slot + e));
-      s += expf(-d / k);
-    }
-    smooth_value(acc, -k * logf(fmaxf(s, 1e-30f)));
-    return acc;
+    return sumexp_members(P, e0, e1, __ldg(P.group_k + gid), px, py, pz,
+                          on_prim, (V*)nullptr);
   }
+  V acc;
   const bool mn = op == G_MIN;
   smooth_value(acc, mn ? FT_BIG : -FT_BIG);
   if (C.n_pairs > 0) {
@@ -514,13 +659,15 @@ __device__ __forceinline__ V eval_group(const FtProgram& P, const FtCull& C,
       culled_pair(acc, C.pairs[q], L, mn, C.early_out, px, py, pz, on_prim);
     }
   }
+  int won = -1;
   for (int e = e0; e < e1; ++e) {
     const float d = prim_dist(__ldg(P.ent_kind + e),
                               P.ent_params + (size_t)e * FT_PSTRIDE, px, py,
                               pz);
     on_prim(d, __ldg(P.ent_mat + e), __ldg(P.ent_slot + e));
-    take_member(acc, mn, d, P, e);
+    take_member(acc, won, mn, d, P, e);
   }
+  finish_members(acc, won, P, px, py, pz);
   return acc;
 }
 
@@ -544,10 +691,7 @@ __device__ __forceinline__ V eval_scene(const FtProgram& P, const FtCull& C,
     const int base = sp - arg;
     V out = st[base];
     if (op == OP_SMOOTH) {
-      const float k = __ldg(P.op_k + i);
-      float s = 0.f;
-      for (int j = 0; j < arg; ++j) s += expf(-st[base + j].v / k);
-      smooth_value(out, -k * logf(fmaxf(s, 1e-30f)));
+      out = smooth_fold(st + base, arg, __ldg(P.op_k + i));
     } else {
       for (int j = 1; j < arg; ++j) {
         out = csg_pick(out, st[base + j], op == OP_UNION);

@@ -1,13 +1,15 @@
-// K1 (march), K2 (occlusion) and K3 (surface pass, slot mode): the
-// sphere-trace kernels of the forward frame, dense and culled.
+// K1 (march), K2 (occlusion) and K3 (surface pass, slot mode and AD mode):
+// the sphere-trace kernels of the forward frame, dense and culled.
 //
 // Replaces: fraytracer_tpu/ops/pallas/march_kernel.py::_build_kernel, the
 // three programs launched by pallas_march_raw — mode="march" (kernel,
 // :1637), mode="occlusion" (same body, hit output only) and mode="surface"
-// (surf_kernel :1606 with surface_eval_slot :1022) — in their dense form
-// (cull=False: every primitive each step) and their culled form (per-tile
-// candidate tables: culled_pass :877-980 with _pair_window :641 in K1/K2,
-// culled_sp :1051-1144 and the normal sweep :1231-1269 in K3).
+// (surf_kernel :1606 with surface_eval_slot :1022 for plans of min/max
+// alone, surface_eval :1304 for plans with a smooth union) — in their dense
+// form (cull=False: every primitive each step) and their culled form
+// (per-tile candidate tables: culled_pass :877-980 with _pair_window :641
+// in K1/K2, culled_sp :1051-1144 and the normal sweep :1231-1269 in K3
+// slot mode, culled_sp :1359-1456 in K3 AD mode).
 //
 // What bounds it on an H100: arithmetic and its instruction overhead.  A
 // dense step of one ray evaluates every primitive (about 30 flops and 2
@@ -48,14 +50,15 @@
 __global__ void __launch_bounds__(128)
 march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
              const float* __restrict__ length, const float* __restrict__ eps,
-             const float* __restrict__ t0, int n, FtProgram P, FtCull C,
-             int max_steps, float omega, int occlusion,
+             const float* __restrict__ t0, const float* __restrict__ sign,
+             int n, FtProgram P, FtCull C, int max_steps, float omega,
+             int occlusion,
              float* __restrict__ t_out, int* __restrict__ hit_out,
              float* __restrict__ d_out, int* __restrict__ steps_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = i < n;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  float L = 0.f, t = 0.f;
+  float L = 0.f, t = 0.f, sgn = 1.f;
   Lane lane;
   lane.tile = (i & ~31) / FT_TILE;   // the warp's tile (its first lane < n)
   lane.oa = lane.ca = 0.f;
@@ -66,6 +69,7 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
     L = length[i];
     t = t0[i];
     lane.eps = eps[i];
+    if (sign != nullptr) sgn = sign[i];
     if (C.n_pairs > 0) {
       lane.oa = C.oa[i];
       lane.ca = C.ca[i];
@@ -83,9 +87,14 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
     if (!__any_sync(FT_FULL_MASK, active)) break;
     lane.t = t;
     lane.active = active;
-    // every lane of the warp evaluates (the culled window is collective)
-    const float d = scene_distance(P, C, lane, ox + t * dx, oy + t * dy,
-                                   oz + t * dz);
+    // every lane of the warp evaluates (the culled window is collective).
+    // Per-lane sign: -1 marches inside the solid toward its exit surface.
+    // The windows stay sound for such a lane: the bound of a primitive
+    // that contains the point contains it too, so that primitive is never
+    // window-skipped, and the capped union min is the true (negative)
+    // distance there.
+    const float d = sgn * scene_distance(P, C, lane, ox + t * dx, oy + t * dy,
+                                         oz + t * dz);
     if (!active) continue;
     ++steps;
     if (relaxed) {
@@ -125,7 +134,7 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
 }
 
 // ---------------------------------------------------------------------------
-// K3: slot-mode surface pass
+// K3: slot-mode surface pass (plans of min/max alone)
 // ---------------------------------------------------------------------------
 
 // argmin of the raw leaf distance over CSG-visible slots; equal distances
@@ -143,6 +152,40 @@ struct MaterialArgmin {
   }
 };
 
+// One lane of a surface pass: a miss lane writes normal (0, 0, 1),
+// material -1, code 0 and returns false; a hit lane gets its backed-off
+// point (SdfObject.fs:73) and its Lane (the surface scan needs no window).
+__device__ __forceinline__ bool surface_lane(
+    const float* origin, const float* dir, const float* tt, const float* eps,
+    const int* hitm, int i, float* normal, int* midx_out, float* code_out,
+    float& px, float& py, float& pz, Lane& lane) {
+  if (!hitm[i]) {
+    normal[3 * i] = 0.f;
+    normal[3 * i + 1] = 0.f;
+    normal[3 * i + 2] = 1.f;
+    midx_out[i] = -1;
+    code_out[i] = 0.f;
+    return false;
+  }
+  const float ts = tt[i] - eps[i];
+  px = origin[3 * i] + ts * dir[3 * i];
+  py = origin[3 * i + 1] + ts * dir[3 * i + 1];
+  pz = origin[3 * i + 2] + ts * dir[3 * i + 2];
+  lane.tile = i / FT_TILE;
+  lane.oa = lane.ca = lane.t = 0.f;
+  lane.eps = eps[i];
+  lane.active = true;
+  return true;
+}
+
+__device__ __forceinline__ void write_normal(float* normal, int i, float gx,
+                                             float gy, float gz) {
+  const float inv = rsqrtf(gx * gx + gy * gy + gz * gz + 1e-20f);
+  normal[3 * i] = gx * inv;
+  normal[3 * i + 1] = gy * inv;
+  normal[3 * i + 2] = gz * inv;
+}
+
 __global__ void __launch_bounds__(128)
 surface_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
                const float* __restrict__ tt, const float* __restrict__ eps,
@@ -151,25 +194,12 @@ surface_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
                float* __restrict__ code_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  if (!hitm[i]) {
-    normal[3 * i] = 0.f;
-    normal[3 * i + 1] = 0.f;
-    normal[3 * i + 2] = 1.f;
-    midx_out[i] = -1;
-    code_out[i] = 0.f;
+  float px, py, pz;
+  Lane lane;
+  if (!surface_lane(origin, dir, tt, eps, hitm, i, normal, midx_out, code_out,
+                    px, py, pz, lane)) {
     return;
   }
-  // backed-off point (SdfObject.fs:73)
-  const float ts = tt[i] - eps[i];
-  const float px = origin[3 * i] + ts * dir[3 * i];
-  const float py = origin[3 * i + 1] + ts * dir[3 * i + 1];
-  const float pz = origin[3 * i + 2] + ts * dir[3 * i + 2];
-
-  Lane lane;
-  lane.tile = i / FT_TILE;
-  lane.oa = lane.ca = lane.t = 0.f;   // the surface scan needs no window
-  lane.eps = eps[i];
-  lane.active = true;
   MaterialArgmin material;
   const float code =
       eval_scene<DistCode>(P, C, lane, px, py, pz, material).code;
@@ -179,21 +209,62 @@ surface_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
   if (code != 0.f) {
     const int slot = (int)fabsf(code) - 1;
     const int e = __ldg(P.slot_entry + slot);
-    const Dual g = prim_dist(__ldg(P.ent_kind + e),
-                             P.ent_params + (size_t)e * FT_PSTRIDE,
-                             Dual{px, 1.f, 0.f, 0.f}, Dual{py, 0.f, 1.f, 0.f},
-                             Dual{pz, 0.f, 0.f, 1.f});
+    const Dual g = prim_dual(__ldg(P.ent_kind + e),
+                             P.ent_params + (size_t)e * FT_PSTRIDE, px, py,
+                             pz);
     const float sgn = code < 0.f ? -1.f : 1.f;  // subtract flips the b side
     gx = sgn * g.x;
     gy = sgn * g.y;
     gz = sgn * g.z;
   }
-  const float inv = rsqrtf(gx * gx + gy * gy + gz * gz + 1e-20f);
-  normal[3 * i] = gx * inv;
-  normal[3 * i + 1] = gy * inv;
-  normal[3 * i + 2] = gz * inv;
+  write_normal(normal, i, gx, gy, gz);
   midx_out[i] = material.mat;
   code_out[i] = code;
+}
+
+// ---------------------------------------------------------------------------
+// K3: AD-mode surface pass (plans with a smooth union)
+// ---------------------------------------------------------------------------
+//
+// Replaces surface_eval (march_kernel.py:1304; its culled scan :1359-1456,
+// the sumexp resolve :1520-1528, the tree fold ev_g :1530-1565) behind the
+// surface pallas_call (:2076).  A smooth union blends its operands, so no
+// single leaf owns the hit point: the scene is evaluated once with the
+// stack value DistGrad = (distance, gradient).  A min/max group scans its
+// members' float distances and evaluates the gradient of the first
+// extremum alone (one dual-number evaluation per group and culled pair); a
+// sumexp group needs every member's gradient and sums e and e * gradient,
+// e = exp(-d / k), one loop whatever the group's size; the tree selects
+// (union, intersect), negates the b side (subtract) or blends again
+// (smooth union).  Culled pairs scan the tile's whole candidate list, as
+// slot mode does (ft_sdf.cuh culled_pair).  The code output is 0 on every
+// lane: no leaf.  expf, not __expf: the weights decide the blend.
+//
+// What bounds it on an H100: bytes.  A lane reads 44 bytes (origin,
+// direction, t, epsilon, hit) and writes 20 (normal, material, code); its
+// arithmetic — the dense entries, tens of table candidates on a hit lane
+// and a few dual evaluations — is below that at the card's fp32 rate.  One
+// thread per lane, miss lanes return at once; the value stack of 16
+// DistGrad lives in local memory (see the build log for registers).
+__global__ void __launch_bounds__(128)
+surface_ad_kernel(const float* __restrict__ origin,
+                  const float* __restrict__ dir, const float* __restrict__ tt,
+                  const float* __restrict__ eps, const int* __restrict__ hitm,
+                  int n, FtProgram P, FtCull C, float* __restrict__ normal,
+                  int* __restrict__ midx_out, float* __restrict__ code_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float px, py, pz;
+  Lane lane;
+  if (!surface_lane(origin, dir, tt, eps, hitm, i, normal, midx_out, code_out,
+                    px, py, pz, lane)) {
+    return;
+  }
+  MaterialArgmin material;
+  const DistGrad g = eval_scene<DistGrad>(P, C, lane, px, py, pz, material);
+  write_normal(normal, i, g.x, g.y, g.z);
+  midx_out[i] = material.mat;
+  code_out[i] = 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -206,13 +277,14 @@ static inline int blocks_for(int n, int threads) {
 
 extern "C" int ft_march(const float* origin, const float* dir,
                         const float* length, const float* eps, const float* t0,
-                        int n, const FtProgram* prog, const FtCull* cull,
+                        const float* sign, int n, const FtProgram* prog,
+                        const FtCull* cull,
                         int max_steps, float omega, int occlusion,
                         float* t_out, int* hit_out, float* d_out,
                         int* steps_out, void* stream) {
   if (n > 0) {
     march_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-        origin, dir, length, eps, t0, n, *prog, *cull, max_steps, omega,
+        origin, dir, length, eps, t0, sign, n, *prog, *cull, max_steps, omega,
         occlusion, t_out, hit_out, d_out, steps_out);
   }
   return (int)cudaGetLastError();
@@ -225,6 +297,18 @@ extern "C" int ft_surface(const float* origin, const float* dir,
                           void* stream) {
   if (n > 0) {
     surface_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
+        origin, dir, t, eps, hit, n, *prog, *cull, normal, midx, code);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ft_surface_ad(const float* origin, const float* dir,
+                             const float* t, const float* eps, const int* hit,
+                             int n, const FtProgram* prog, const FtCull* cull,
+                             float* normal, int* midx, float* code,
+                             void* stream) {
+  if (n > 0) {
+    surface_ad_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
         origin, dir, t, eps, hit, n, *prog, *cull, normal, midx, code);
   }
   return (int)cudaGetLastError();

@@ -33,13 +33,15 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
-    # rays: origin, direction, length, epsilon, t0, n; program*, cull*;
-    # max_steps, omega, occlusion; outputs t, hit, d, steps; stream
-    "ft_march": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P, _P,
-                 _P],
+    # rays: origin, direction, length, epsilon, t0, sign (or null), n;
+    # program*, cull*; max_steps, omega, occlusion; outputs t, hit, d,
+    # steps; stream
+    "ft_march": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P,
+                 _P, _P],
     # origin, direction, t, epsilon, hit, n; program*, cull*;
-    # outputs normal [n,3], midx, code; stream
+    # outputs normal [n,3], midx, code; stream (slot mode / AD mode)
     "ft_surface": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "ft_surface_ad": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     # x, idx, n_in_blocks, n_out_blocks, block_words (16-byte words), out,
     # stream
     "ft_block_gather": [_P, _P, _I, _I, _I, _P, _P],

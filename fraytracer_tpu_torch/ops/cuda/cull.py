@@ -95,6 +95,31 @@ def _build_groups(plan: Plan):
     return groups, tree
 
 
+def _blend_reach(tree) -> dict:
+    """Per group id, the largest ``k`` of the smooth unions between the
+    group and the root (0 when none blends it)."""
+    reach = {}
+
+    def visit(node, k_above):
+        if node[0] == "g":
+            reach[node[1]] = k_above
+            return
+        op, k, kids = node
+        for kid in kids:
+            visit(kid, max(k_above, k) if op == "smooth_union" else k_above)
+
+    visit(tree, 0.0)
+    return reach
+
+
+@functools.lru_cache(maxsize=32)
+def _grouped(plan: Plan):
+    """``_build_groups(plan)`` with the groups' blend reach, kept per plan:
+    every march call of a frame asks for the same three."""
+    groups, tree = _build_groups(plan)
+    return groups, tree, _blend_reach(tree)
+
+
 # ---------------------------------------------------------------------------
 # Static cull-pair selection (:343-382)
 # ---------------------------------------------------------------------------
@@ -385,7 +410,16 @@ def build_pair_tables(scene: FlatScene, origin: Tensor, direction: Tensor,
     (``length`` 0 on lanes that never march).  Cones use
     ``[t0, length]``, sub-tile candidacy masks are OR-ed per tile
     (SUBF = 4, :1872-1883, :1906-1910), and the window clamp is
-    ``max(window_clamp, 8·eps_max)`` (:1898)."""
+    ``max(window_clamp, 8·eps_max)`` (:1898).
+
+    A pair whose group lies under a smooth union of strength ``k`` gets
+    the clamp ``k·log(8k / eps_max)`` where that is larger.  A window
+    replaces the skipped members by a bound at least the clamp away; a
+    hard min/max never lets such a value decide a hit, but a blend lowers
+    the scene value by up to ``k·exp(-clamp / k)`` for it, which this
+    clamp holds to an eighth of the hit shell.  (The JAX package clamps
+    blended groups like any other; its windows span a tile of 1024 lanes
+    and are rarely that narrow, a warp's are.)"""
     if len(pairs) > MAX_PAIRS:
         raise NotImplementedError(
             f"{len(pairs)} culled pairs > {MAX_PAIRS} (csrc/ft_sdf.cuh "
@@ -410,10 +444,15 @@ def build_pair_tables(scene: FlatScene, origin: Tensor, direction: Tensor,
         .sum(-1).reshape(-1)[:n].contiguous()
     clamp_eff = torch.clamp_min(8.0 * cones.eps_max, float(window_clamp))
     converging = cone_apex is not None
-    groups, _tree = _build_groups(scene.plan)
+    groups, _tree, reach = _grouped(scene.plan)
     tables, overflow = [], None
     for (gid, kind, _ki, row_lo, row_hi) in pairs:
         g = row_hi - row_lo
+        clamp = clamp_eff
+        if reach[gid] > 0.0:
+            k = reach[gid]
+            clamp = torch.maximum(clamp_eff, k * torch.log(torch.clamp_min(
+                8.0 * k / torch.clamp_min(cones.eps_max, 1e-6), 1.0)))
         m = _pair_m(cull_m, g)
         kparams = scene.prim_params[kind][row_lo:row_hi].detach() \
             .to(torch.float32)
@@ -442,9 +481,10 @@ def build_pair_tables(scene: FlatScene, origin: Tensor, direction: Tensor,
         suf = torch.flip(torch.cummin(torch.flip(hi_key, [1]), 1).values,
                          [1])
         misc = torch.stack([sel.count.to(torch.float32), cones.cos_lo,
-                            clamp_eff, 8.0 * cones.eps_max + 1e-3], 1)
+                            clamp, 8.0 * cones.eps_max + 1e-3], 1)
         tables.append(PairTable(
-            gid=gid, op=groups[gid].op, kind=kind, row_lo=row_lo, row_hi=row_hi, m=m, idx=idx,
+            gid=gid, op=groups[gid].op, kind=kind, row_lo=row_lo,
+            row_hi=row_hi, m=m, idx=idx,
             count=sel.count, table=rows[idx].contiguous(),
             keys=torch.stack([lo_c, hi_c], 1).contiguous(),
             misc=misc.contiguous(),

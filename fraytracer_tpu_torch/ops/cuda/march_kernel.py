@@ -14,15 +14,17 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
 
 * :func:`march_kernel` / :func:`march_plain` — K1 (march) and K2
   (occlusion, hit mask only), dense or culled;
-* :func:`surface_kernel` / :func:`surface_plain` — K3, the slot-mode
-  surface pass (winning leaf code, its gradient as the normal, material
-  argmin), dense or culled.
+* :func:`surface_kernel` / :func:`surface_plain` — K3, the surface pass,
+  dense or culled: slot mode for plans of min/max alone (winning leaf
+  code, its gradient as the normal, material argmin), AD mode
+  (:func:`surface_ad_plain`) for plans with a smooth union (value and
+  gradient folded through the tree, material argmin, code 0).
 
 A wrapper launches the kernel for CUDA tensors and counts the launch in
-``LAUNCHES`` (``march``/``occlusion``/``surface`` for the dense form,
-``*_culled`` for the culled one); for CPU tensors it runs the plain
-version (the CPU tests go through the same host glue); any other device
-raises.
+``LAUNCHES`` (``march``/``occlusion``/``surface``/``surface_ad`` for the
+dense form, ``*_culled`` for the culled one); for CPU tensors it runs the
+plain version (the CPU tests go through the same host glue); any other
+device raises.
 """
 from __future__ import annotations
 
@@ -45,8 +47,9 @@ from .cull import (CAND_UNROLL, MAX_PAIRS, PSTRIDE, TILE, WINDOW_LANES,
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"march": 0, "occlusion": 0, "surface": 0,
-            "march_culled": 0, "occlusion_culled": 0, "surface_culled": 0}
+LAUNCHES = {"march": 0, "occlusion": 0, "surface": 0, "surface_ad": 0,
+            "march_culled": 0, "occlusion_culled": 0, "surface_culled": 0,
+            "surface_ad_culled": 0}
 
 MAX_STACK = 16    # CSG value-stack depth (FT_MAX_STACK)
 _BIG = 3.0e38
@@ -54,15 +57,14 @@ _BIG = 3.0e38
 _OPCODE = {"union": 1, "intersect": 2, "subtract": 3, "smooth_union": 4}
 _GROUP_OP = {"min": 0, "max": 1, "sumexp": 2}
 
-_AD_ITEM = ("the surface kernel's AD mode (smooth unions) is not ported "
-            "yet: ROADMAP Queue 2, 'K3 AD mode'; use fuse_surface=False")
 
-
+@functools.lru_cache(maxsize=32)
 def slot_surface_mode(plan: Plan) -> bool:
     """True when the surface kernel's slot mode applies: no smooth union
-    anywhere in the plan, so CSG min/max names one winning leaf.  (The JAX
-    predicate looks only for sumexp groups and so misses a smooth union
-    whose operands are all sub-plans — ROADMAP, Queue 3.)"""
+    anywhere in the plan, so CSG min/max names one winning leaf; False
+    selects AD mode.  (The JAX predicate looks only for sumexp groups and
+    so misses a smooth union whose operands are all sub-plans — ROADMAP,
+    Queue 3.)"""
     return plan.op != "smooth_union" and all(
         slot_surface_mode(c) for c in plan.children)
 
@@ -488,19 +490,21 @@ def _walk_codes(scene: FlatScene, d: Tensor, pair_vals, culled) -> Tensor:
     return walk(tree)[1]
 
 
-def _culled_surface(scene: FlatScene, cull: CullTables, lane: Tensor,
-                    p: Tensor, eps: Tensor):
-    """Plain version of culled K3 at hit points ``p`` of lanes ``lane``:
-    each pair scans its tile's first ``ceil8(min(count, m))`` table rows
-    (``culled_sp`` :1051-1144; ties to the lowest slot), a max group's
-    partial is floored at 2·eps with code 0 when the cone excluded
-    members (:1122-1138), and the material argmin runs over the dense
-    entries plus the scanned rows.  Returns ``(code, material)``."""
-    d = sdf.prim_distances(scene, p)
+def _scan_pairs(scene: FlatScene, cull: CullTables, lane: Tensor,
+                d: Tensor, eps: Tensor):
+    """K3's scan of every culled pair on the distances ``d [n, K]`` of
+    lanes ``lane``: each pair reads its tile's first
+    ``ceil8(min(count, m))`` table rows (``culled_sp`` :1051-1144; ties to
+    the lowest slot); a max group's extremum is floored at 2·eps, owned by
+    no leaf, when the cone excluded members (:1122-1138).  Returns
+    ``(scans, evaluated)``: ``scans[gid]`` lists ``(value, slot, owned)``
+    per pair of the group (``slot`` the winning global slot, ``owned``
+    False where the value is the floor or no row was scanned), and
+    ``evaluated [n, K]`` marks the primitives the lane's pass saw."""
     n, dev = d.shape[0], d.device
     tile = lane // TILE
     evaluated = torch.ones_like(d, dtype=torch.bool)
-    pair_vals, culled = {}, _culled_slots(scene.kind_counts, cull.pairs)
+    scans = {}
     for q in cull.tables:
         mn = q.op == "min"
         off = kind_offset(scene, q.kind) + q.row_lo
@@ -515,62 +519,153 @@ def _culled_surface(scene: FlatScene, cull: CullTables, lane: Tensor,
         bd = bd.amin(1) if mn else bd.amax(1)
         wins = scanned & (rows == bd[:, None])
         slot = torch.where(wins, cols, 2 ** 62).amin(1)
-        code = torch.where(wins.any(1), slot + 1, 0).float()
+        owned = wins.any(1)
         if not mn:
             low = (count < g) & (bd < 2.0 * eps)
             bd = torch.where(low, 2.0 * eps, bd)
-            code = torch.where(low, 0.0, code)
-        pair_vals.setdefault(q.gid, []).append((bd, code))
+            owned = owned & ~low
+        scans.setdefault(q.gid, []).append(
+            (bd, torch.where(owned, slot, 0), owned))
         seen = torch.zeros((n, g), device=dev).scatter_add_(
             1, q.idx[tile], scanned.float())
         evaluated[:, off:off + g] = seen > 0
-    code = _walk_codes(scene, d, pair_vals, culled)
+    return scans, evaluated
+
+
+def _material_argmin(scene: FlatScene, d: Tensor, evaluated: Tensor):
+    """K3's material: argmin of the leaf distance over the CSG-visible
+    primitives the pass evaluated (first minimum wins; -1 when none)."""
+    n, dev = d.shape[0], d.device
     vis = torch.as_tensor(scene.visible_material_slots(), device=dev)
-    midx = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    if vis.numel():
-        ok = evaluated[:, vis]
-        win = torch.where(ok, d[:, vis], _BIG).argmin(1)
-        mat = torch.as_tensor(np.asarray(scene.visible_material(),
-                                         np.int32), device=dev)[vis]
-        midx = torch.where(ok.any(1), mat[win], -1)
-    return code, midx
+    if not vis.numel():
+        return torch.full((n,), -1, dtype=torch.int32, device=dev)
+    ok = evaluated[:, vis]
+    win = torch.where(ok, d[:, vis], _BIG).argmin(1)
+    mat = torch.as_tensor(np.asarray(scene.visible_material(), np.int32),
+                          device=dev)[vis]
+    return torch.where(ok.any(1), mat[win], -1)
+
+
+def _culled_surface(scene: FlatScene, cull: CullTables, lane: Tensor,
+                    p: Tensor, eps: Tensor):
+    """Plain version of culled K3, slot mode, at hit points ``p`` of lanes
+    ``lane``: the pairs' scans (:func:`_scan_pairs`), the winning-leaf code
+    folded as the kernel folds it, and the material argmin over the dense
+    entries plus the scanned rows.  Returns ``(code, material)``."""
+    d = sdf.prim_distances(scene, p)
+    scans, evaluated = _scan_pairs(scene, cull, lane, d, eps)
+    pair_vals = {gid: [(bd, torch.where(owned, slot + 1, 0).float())
+                       for bd, slot, owned in rows]
+                 for gid, rows in scans.items()}
+    culled = _culled_slots(scene.kind_counts, cull.pairs)
+    code = _walk_codes(scene, d, pair_vals, culled)
+    return code, _material_argmin(scene, d, evaluated)
+
+
+def _surface_ad(scene: FlatScene, cull: CullTables | None, lane: Tensor,
+                p: Tensor, eps: Tensor):
+    """Plain version of K3's AD mode at hit points ``p`` of lanes ``lane``:
+    the scene value folded as the kernel folds it — per group the first
+    extremum (culled pairs first, each by its scan, then the dense members
+    in ascending slot, strict compares) or ``-k·log(max(Σe, 1e-30))``,
+    through the tree with subtract's ``max(a, -b)`` and the smooth union —
+    and its gradient by autograd.  Every selection is a ``where``, so the
+    gradient is the selected operand's; a value no leaf owns (an empty
+    group, a floored max group) carries the gradient (0, 0, 1) as in
+    ``surface_eval`` (:1317-1321, :1430-1432).  Returns ``(gradient
+    [n, 3], material)``."""
+    groups, tree = _build_groups(scene.plan)
+    with torch.enable_grad():
+        q = p.detach().requires_grad_(True)
+        d = sdf.prim_distances(scene, q)
+        dv = d.detach()
+        if cull is None:
+            scans, evaluated = {}, torch.ones_like(dv, dtype=torch.bool)
+            culled = set()
+        else:
+            scans, evaluated = _scan_pairs(scene, cull, lane, dv, eps)
+            culled = _culled_slots(scene.kind_counts, cull.pairs)
+        unowned = q[:, 2] - q[:, 2].detach()    # value 0, gradient (0, 0, 1)
+        vals = []
+        for g in groups:
+            if g.op == "sumexp":
+                e = torch.exp(-d[:, sorted(g.slots)] / g.k).sum(1)
+                vals.append(-g.k * torch.log(torch.clamp_min(e, 1e-30)))
+                continue
+            mn = g.op == "min"
+            v = unowned + (_BIG if mn else -_BIG)
+            for bd, slot, owned in scans.get(g.gid, ()):
+                pv = torch.where(owned, d.gather(1, slot[:, None])[:, 0],
+                                 unowned + bd)
+                v = torch.where(bd < v if mn else bd > v, pv, v)
+            dense = sorted(s for s in g.slots if s not in culled)
+            if dense:
+                sub = dv[:, dense]
+                win = sub.argmin(1) if mn else sub.argmax(1)
+                red = d[:, dense].gather(1, win[:, None])[:, 0]
+                v = torch.where(red < v if mn else red > v, red, v)
+            vals.append(v)
+
+        def walk(node):
+            if node[0] == "g":
+                return vals[node[1]]
+            op, k, kids = node
+            parts = [walk(x) for x in kids]
+            if op == "subtract":
+                a, b = parts
+                return torch.where(a > -b, a, -b)
+            if op == "smooth_union":
+                e = sum(torch.exp(-v / k) for v in parts)
+                return -k * torch.log(torch.clamp_min(e, 1e-30))
+            out = parts[0]
+            for v in parts[1:]:
+                out = torch.where(out <= v if op == "union" else out >= v,
+                                  out, v)
+            return out
+
+        (grad,) = torch.autograd.grad(walk(tree).sum(), q)
+    return grad, _material_argmin(scene, dv, evaluated)
 
 
 def march_plain(scene: FlatScene, origin: Tensor, direction: Tensor,
                 length: Tensor, epsilon: Tensor, t0: Tensor, *,
                 max_steps: int, omega: float, occlusion: bool = False,
-                cull: CullTables | None = None):
+                cull: CullTables | None = None, sign: Tensor | None = None):
     """Plain version of K1/K2: the kernel's stepping (per-lane
     ``max_steps`` cap, ω-relaxation with the overstep revert) on tensors,
     over ``sdf.scene_distance`` — or, with ``cull``, over the windowed
-    culled distance at the kernel's WINDOW_LANES granularity.  Returns
-    ``(t, hit, d, steps)``, or ``(hit, steps)`` for occlusion."""
+    culled distance at the kernel's WINDOW_LANES granularity — times the
+    per-lane ``sign [N]`` when given.  Returns ``(t, hit, d, steps)``, or
+    ``(hit, steps)`` for occlusion."""
     dist = None if cull is None else \
         _culled_march_dist(scene, cull, epsilon)
     t, hit, d, steps, _it = sphere_trace(scene, origin, direction, length,
                                          epsilon, t0, max_steps, omega,
-                                         dist=dist)
+                                         sign=sign, dist=dist)
     return (hit, steps) if occlusion else (t, hit, d, steps)
 
 
 def march_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
                  length: Tensor, epsilon: Tensor, t0: Tensor, *,
                  max_steps: int, omega: float, occlusion: bool = False,
-                 cull: CullTables | None = None):
+                 cull: CullTables | None = None, sign: Tensor | None = None):
     """K1 (``occlusion=False``) / K2 (``occlusion=True``) over flat lanes:
     ``origin``/``direction [N, 3]``, ``length``/``epsilon``/``t0 [N]``
     (lanes with ``length <= 0`` or ``t0 >= length`` never step); ``cull``
-    selects the culled form.  Returns ``(t, hit, d, steps)``, or
-    ``(hit, steps)`` for occlusion."""
+    selects the culled form; ``sign [N]`` (±1) multiplies the scene
+    distance per lane, -1 marching inside the solid.  Returns
+    ``(t, hit, d, steps)``, or ``(hit, steps)`` for occlusion."""
     if not _route(origin):
         return march_plain(scene, origin, direction, length, epsilon, t0,
                            max_steps=max_steps, omega=omega,
-                           occlusion=occlusion, cull=cull)
+                           occlusion=occlusion, cull=cull, sign=sign)
     n = origin.shape[0]
     _check_lanes(n, origin=_f32("origin", origin),
                  direction=_f32("direction", direction),
                  length=_f32("length", length),
                  epsilon=_f32("epsilon", epsilon), t0=_f32("t0", t0))
+    if sign is not None:
+        _check_lanes(n, sign=_f32("sign", sign))
     if cull is not None:
         _check_lanes(n, oa=_f32("oa", cull.oa), ca=_f32("ca", cull.ca))
     from .build import check, library
@@ -586,7 +681,8 @@ def march_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
     with torch.cuda.device(dev):
         err = lib.ft_march(
             origin.data_ptr(), direction.data_ptr(), length.data_ptr(),
-            epsilon.data_ptr(), t0.data_ptr(), n, ctypes.byref(s),
+            epsilon.data_ptr(), t0.data_ptr(),
+            None if sign is None else sign.data_ptr(), n, ctypes.byref(s),
             ctypes.byref(c), int(max_steps), float(omega), int(occlusion),
             None if occlusion else t.data_ptr(), hit.data_ptr(),
             None if occlusion else d.data_ptr(), steps.data_ptr(),
@@ -621,12 +717,16 @@ def leaf_gradient(scene: FlatScene, p: Tensor, code: Tensor) -> Tensor:
 def surface_plain(scene: FlatScene, origin: Tensor, direction: Tensor,
                   t: Tensor, epsilon: Tensor, hit: Tensor,
                   cull: CullTables | None = None):
-    """Plain version of K3 at ``p = o + (t - ε)·d`` on hit lanes:
-    ``winning_leaf_code`` + the leaf gradient by autograd (unit normal via
-    ``g·rsqrt(g·g + 1e-20)``) + the material argmin; with ``cull``, culled
-    groups see only their tile's scanned candidates (:func:`_culled_surface`).
-    Miss lanes: normal (0, 0, 1), material -1, code 0.  Returns
-    ``(normal, midx, code)``."""
+    """Plain version of K3 at ``p = o + (t - ε)·d`` on hit lanes.  Slot
+    mode: ``winning_leaf_code`` + the leaf gradient by autograd (unit
+    normal via ``g·rsqrt(g·g + 1e-20)``) + the material argmin; with
+    ``cull``, culled groups see only their tile's scanned candidates
+    (:func:`_culled_surface`).  A plan with a smooth union takes
+    :func:`surface_ad_plain`.  Miss lanes: normal (0, 0, 1), material -1,
+    code 0.  Returns ``(normal, midx, code)``."""
+    if not slot_surface_mode(scene.plan):
+        return surface_ad_plain(scene, origin, direction, t, epsilon, hit,
+                                cull=cull)
     n = origin.shape[0]
     dev = origin.device
     normal = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -652,13 +752,41 @@ def surface_plain(scene: FlatScene, origin: Tensor, direction: Tensor,
     return normal, midx, code
 
 
+def surface_ad_plain(scene: FlatScene, origin: Tensor, direction: Tensor,
+                     t: Tensor, epsilon: Tensor, hit: Tensor,
+                     cull: CullTables | None = None):
+    """Plain version of K3's AD mode at ``p = o + (t - ε)·d`` on hit lanes:
+    the gradient of the scene value as the kernel folds it
+    (:func:`_surface_ad`; with ``cull`` the culled groups see their tile's
+    scanned candidates) as the unit normal ``g·rsqrt(g·g + 1e-20)``, and
+    the material argmin.  Miss lanes: normal (0, 0, 1), material -1; code
+    0 on every lane (a blend has no winning leaf).  Returns
+    ``(normal, midx, code)``."""
+    n = origin.shape[0]
+    dev = origin.device
+    normal = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    normal[:, 2] = 1.0
+    midx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    idx = torch.nonzero(hit).squeeze(1)
+    p = origin[idx] + (t[idx] - epsilon[idx])[:, None] * direction[idx]
+    # autograd keeps the [rows, K] intermediates of every distance function
+    rows = max(1, _chunk_elems(dev) // (4 * max(scene.num_prims, 1)))
+    for s in range(0, idx.numel(), rows):
+        part = idx[s:s + rows]
+        g, m = _surface_ad(scene, cull, part, p[s:s + rows], epsilon[part])
+        normal[part] = g * torch.rsqrt(torch.sum(g * g, -1) + 1e-20)[:, None]
+        midx[part] = m.to(torch.int32)
+    return normal, midx, torch.zeros(n, dtype=torch.float32, device=dev)
+
+
 def surface_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
                    t: Tensor, epsilon: Tensor, hit: Tensor,
                    cull: CullTables | None = None):
-    """K3, slot mode: ``(normal [N, 3], material [N] int32, code [N])`` at
-    the epsilon backed-off hit points (see :func:`surface_plain`)."""
-    if not slot_surface_mode(scene.plan):
-        raise NotImplementedError(_AD_ITEM)
+    """K3: ``(normal [N, 3], material [N] int32, code [N])`` at the epsilon
+    backed-off hit points — slot mode for plans of min/max alone, AD mode
+    for plans with a smooth union (see :func:`surface_plain`,
+    :func:`surface_ad_plain`)."""
+    ad = not slot_surface_mode(scene.plan)
     if not _route(origin):
         return surface_plain(scene, origin, direction, t, epsilon, hit,
                              cull=cull)
@@ -675,14 +803,16 @@ def surface_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
     midx = torch.empty(n, dtype=torch.int32, device=dev)
     code = torch.empty(n, dtype=torch.float32, device=dev)
     s, c = prog.struct(), _cull_struct(cull)
+    entry = "ft_surface_ad" if ad else "ft_surface"
     with torch.cuda.device(dev):
-        err = lib.ft_surface(
+        err = getattr(lib, entry)(
             origin.data_ptr(), direction.data_ptr(), t.data_ptr(),
             epsilon.data_ptr(), hit_i.data_ptr(), n, ctypes.byref(s),
             ctypes.byref(c), normal.data_ptr(), midx.data_ptr(),
             code.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "ft_surface")
-    LAUNCHES["surface" if cull is None else "surface_culled"] += 1
+    check(err, entry)
+    name = "surface_ad" if ad else "surface"
+    LAUNCHES[name if cull is None else name + "_culled"] += 1
     return normal, midx, code
 
 
@@ -719,20 +849,22 @@ def _overflow_on_host(cull: CullTables | None):
 @torch.no_grad()
 def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
                    want_surface: bool = False, occlusion: bool = False,
-                   cone_apex: Tensor | None = None):
+                   cone_apex: Tensor | None = None,
+                   sign: Tensor | None = None):
     """March a flat ray batch ``[N]`` through K1 (or K2), then K3.
 
     Applies the root-bound skip and clamps the budget to the bound's exit
     (march_kernel.py:1809-1818); lanes that miss the bound get a zero
     budget.  With ``cfg.cull`` and culled pairs the launches read per-tile
     candidate tables (``cull.build_pair_tables``; ``cone_apex`` selects the
-    converging cone of point-light shadow rays).  ``occlusion=True``
-    returns the hit mask ``[N] bool`` only; ``want_surface=True`` returns
-    ``(MarchResult, normal [N, 3], material [N], code [N])`` with
-    ``material = -1`` off hit lanes."""
+    converging cone of point-light shadow rays).  ``sign [N]`` (±1)
+    multiplies the marched distance per lane: -1 lanes march inside the
+    solid and skip the bound skip; the surface pass never takes it, its
+    normal stays the outward gradient (march_kernel.py:2059-2062).
+    ``occlusion=True`` returns the hit mask ``[N] bool`` only;
+    ``want_surface=True`` returns ``(MarchResult, normal [N, 3],
+    material [N], code [N])`` with ``material = -1`` off hit lanes."""
     check_config(cfg)
-    if want_surface and not slot_surface_mode(scene.plan):
-        raise NotImplementedError(_AD_ITEM)
     origin = rays.origin.contiguous()
     direction = rays.direction.contiguous()
     epsilon = rays.epsilon.contiguous()
@@ -741,7 +873,7 @@ def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
     miss0 = torch.zeros(n, dtype=torch.bool, device=origin.device)
     length = rays.length
     if cfg.bound_skip:
-        t0, miss0, t_exit = bound_skip_start(scene, rays)
+        t0, miss0, t_exit = bound_skip_start(scene, rays, sign)
         length = torch.minimum(length, t_exit)
     length = torch.where(miss0, 0.0, length).contiguous()
     t0 = t0.contiguous()
@@ -753,7 +885,8 @@ def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
                                  cfg.cull_window_clamp, cone_apex,
                                  cfg.cull_early_out)
     overflowed = _overflow_on_host(cull)
-    kw = dict(max_steps=cfg.max_steps, omega=cfg.relax_omega, cull=cull)
+    kw = dict(max_steps=cfg.max_steps, omega=cfg.relax_omega, cull=cull,
+              sign=sign)
     if occlusion:
         hit, _steps = march_kernel(scene, origin, direction, length, epsilon,
                                    t0, occlusion=True, **kw)
@@ -776,5 +909,5 @@ def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
         return cuda_march_raw(
             scene, rays, dataclasses.replace(cfg, cull_m=big,
                                              cull_m_shadow=big),
-            want_surface, occlusion, cone_apex)
+            want_surface, occlusion, cone_apex, sign)
     return out

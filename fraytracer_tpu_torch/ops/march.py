@@ -7,14 +7,14 @@ below ``epsilon``, otherwise step forward by the distance.
 
 Backends (``MarchConfig.backend``):
 
-* ``"torch"`` — the plain dense march over every primitive, the
-  counterpart of JAX ``"jnp"``; it ignores ``relax_omega`` and ``cull``
-  like ``_march_raw`` does.
-* ``"cuda"`` — the hand-written CUDA kernels (``ops/cuda``), the
-  counterpart of JAX ``"pallas"``: culled per-tile candidate tables by
+* ``"cuda"`` (the default) — the hand-written CUDA kernels (``ops/cuda``),
+  the counterpart of JAX ``"pallas"``: culled per-tile candidate tables by
   default (``cull=True``), every primitive each step with ``cull=False``.
   For CPU tensors the kernel wrappers run their plain versions, so CPU
   tests exercise the same host glue.
+* ``"torch"`` — the plain dense march over every primitive, the
+  counterpart of JAX ``"jnp"``; it ignores ``relax_omega`` and ``cull``
+  like ``_march_raw`` does.
 
 Gradients (the implicit-differentiation custom VJPs) are not ported yet:
 everything here runs without autograd.
@@ -36,15 +36,16 @@ BACKENDS = ("torch", "cuda")
 
 @dataclasses.dataclass(frozen=True, eq=True)
 class MarchConfig:
-    """Static march configuration; every field and default of the JAX
-    ``MarchConfig``.  The ``cull_*`` fields steer the "cuda" backend's
-    culled kernels; ``bwd_*`` steer the backward pass, which is not ported
-    yet (ROADMAP)."""
+    """Static march configuration; every field of the JAX ``MarchConfig``
+    with its default, except ``backend``: the kernels ("cuda") unless the
+    caller asks for the plain dense march ("torch").  The ``cull_*``
+    fields steer the "cuda" backend's culled kernels; ``bwd_*`` steer the
+    backward pass, which is not ported yet (ROADMAP)."""
 
     max_steps: int = 192
     bound_skip: bool = True
     min_denom: float = 0.05
-    backend: str = "torch"
+    backend: str = "cuda"
     # per-tile cone culling of the kernel path (ops/cuda/cull.py)
     cull: bool = True
     cull_m: int = 256
@@ -215,14 +216,21 @@ def sphere_trace(scene: FlatScene, origin: Tensor, direction: Tensor,
     return t, hit, d_out, steps, it
 
 
+def _flat_sign(sign: Tensor | None, batch) -> Tensor | None:
+    """Per-lane ``sign`` broadcast over the ray batch, flat float32."""
+    if sign is None:
+        return None
+    return torch.broadcast_to(sign, batch).reshape(-1).to(
+        torch.float32).contiguous()
+
+
 def _march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
                sign: Tensor | None = None) -> MarchResult:
     """The "torch" backend: plain dense march (JAX ``_march_raw``);
     ``steps`` is the iteration count broadcast over the batch."""
     batch = rays.batch_shape
     flat = flat_rays(rays)
-    sign_flat = None if sign is None else \
-        torch.broadcast_to(sign, batch).reshape(-1)
+    sign_flat = _flat_sign(sign, batch)
     n = flat.origin.shape[0]
     t0 = torch.zeros(n, dtype=torch.float32, device=flat.origin.device)
     length = flat.length
@@ -239,23 +247,17 @@ def _march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
 
 def march(scene: FlatScene, rays: Rays, cfg: MarchConfig = MarchConfig(),
           sign: Tensor | None = None) -> MarchResult:
-    """Sphere-trace ``rays`` against ``scene`` (forward only).  ``sign=-1``
-    lanes march inside the solid ("torch" backend only)."""
+    """Sphere-trace ``rays`` against ``scene`` (forward only).  ``sign``
+    (per-lane ±1) multiplies the scene distance: -1 lanes march inside the
+    solid toward its exit surface."""
     check_config(cfg)
     if cfg.backend == "cuda":
         from .cuda.march_kernel import cuda_march_raw
-        _no_sign(sign)
         batch = rays.batch_shape
-        res = cuda_march_raw(scene, flat_rays(rays), cfg)
+        res = cuda_march_raw(scene, flat_rays(rays), cfg,
+                             sign=_flat_sign(sign, batch))
         return res.map(lambda x: x.reshape(batch))
     return _march_raw(scene, rays, cfg, sign)
-
-
-def _no_sign(sign):
-    if sign is not None:
-        raise NotImplementedError(
-            "per-lane sign on the cuda path is not ported yet (ROADMAP "
-            "Queue 2, K1)")
 
 
 def march_occlusion(scene: FlatScene, rays: Rays,
@@ -273,13 +275,13 @@ def march_occlusion(scene: FlatScene, rays: Rays,
     check_config(cfg)
     if cfg.backend == "cuda":
         from .cuda.march_kernel import cuda_march_raw
-        _no_sign(sign)
         batch = rays.batch_shape
         # the shadow-sized candidate table (march.py:636-638)
         cfg = dataclasses.replace(
             cfg, cull_m=max(cfg.cull_m, cfg.cull_m_shadow))
         hit = cuda_march_raw(scene, flat_rays(rays), cfg, occlusion=True,
-                             cone_apex=cone_apex)
+                             cone_apex=cone_apex,
+                             sign=_flat_sign(sign, batch))
         return hit.reshape(batch)
     return _march_raw(scene, rays, cfg, sign).hit
 
@@ -291,16 +293,17 @@ def march_surface(scene: FlatScene, rays: Rays,
 
     Returns ``(MarchResult, normal [..., 3], material_index [...])``: the
     unit normal at the epsilon backed-off hit point (the outward SDF
-    gradient) and the CSG-aware winning material (-1 on miss).  On the
-    "cuda" backend with ``fuse_surface`` this is the march kernel followed
-    by the surface kernel; otherwise march + dense evaluation."""
+    gradient, on ``sign=-1`` lanes too) and the CSG-aware winning material
+    (-1 on miss).  On the "cuda" backend with ``fuse_surface`` this is the
+    march kernel followed by the surface kernel (slot mode, or AD mode for
+    a plan with a smooth union); otherwise march + dense evaluation."""
     check_config(cfg)
     if cfg.backend == "cuda" and cfg.fuse_surface:
         from .cuda.march_kernel import cuda_march_raw
-        _no_sign(sign)
         batch = rays.batch_shape
         res, normal, midx, _code = cuda_march_raw(
-            scene, flat_rays(rays), cfg, want_surface=True)
+            scene, flat_rays(rays), cfg, want_surface=True,
+            sign=_flat_sign(sign, batch))
         return (res.map(lambda x: x.reshape(batch)),
                 normal.reshape(batch + (3,)), midx.reshape(batch))
     res = march(scene, rays, cfg, sign=sign)

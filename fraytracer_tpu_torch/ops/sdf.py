@@ -202,15 +202,24 @@ def scene_normal(scene: FlatScene, p: Tensor) -> Tensor:
 
 
 def albedo_of(scene: FlatScene, midx: Tensor, p: Tensor) -> Tensor:
-    """Albedo of material ``midx [...]`` at ``p [..., 3]`` (solid materials).
+    """Albedo of material ``midx [...]`` evaluated at ``p [..., 3]``.
 
-    Procedural (fbm) albedo needs ``utils/noise.py``, which is not ported
-    yet (ROADMAP, Queue 1 item 2)."""
+    Procedural materials (MAT_PROCEDURAL) evaluate their fbm color blend at
+    ``p`` — the position-dependent material closure of the reference design
+    (``SdfMaterial`` takes Position → Color, Types.fs:46-49)."""
+    midx = midx.long()
+    albedo = scene.mat_albedo[midx]
     if MAT_PROCEDURAL in scene.mat_kind:
-        raise NotImplementedError(
-            "procedural albedo is not ported yet (utils/noise.py; ROADMAP "
-            "Queue 1 item 2)")
-    return scene.mat_albedo[midx.long()]
+        from ..utils.noise import fbm
+        kinds = torch.as_tensor(np.asarray(scene.mat_kind, np.int64),
+                                device=midx.device)
+        is_proc = kinds[midx] == MAT_PROCEDURAL
+        scale = scene.mat_reflectivity[midx]
+        blend = 0.5 * (fbm(p * scale[..., None], octaves=3) + 1.0)
+        proc_albedo = (albedo * (1.0 - blend[..., None])
+                       + scene.mat_tint[midx] * blend[..., None])
+        albedo = torch.where(is_proc[..., None], proc_albedo, albedo)
+    return albedo
 
 
 def winning_leaf_code(scene: FlatScene, p: Tensor) -> Tensor:

@@ -34,7 +34,7 @@ CAP_MAX = 4096    # bad lanes repaired by the lane tier
 
 @torch.no_grad()
 def resolve_material(scene: FlatScene, pos: Tensor, hit: Tensor,
-                     midx: Tensor, backend: str = "torch") -> Tensor:
+                     midx: Tensor, backend: str = "cuda") -> Tensor:
     """Repair ``midx == -1`` on *hit* lanes of the fused surface pass with
     the global argmin over visible material primitives (reference
     ``SdfObject.fs:26-46``).

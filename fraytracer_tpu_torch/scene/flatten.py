@@ -135,9 +135,10 @@ def _f32(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
-def flatten(scene: N.Scene, device="cpu") -> FlatScene:
+def flatten(scene: N.Scene, device="cuda") -> FlatScene:
     """Lower a builder :class:`~fraytracer_tpu_torch.scene.nodes.Scene` to a
-    :class:`FlatScene` on ``device``.  Deduplicates materials by value; slot
+    :class:`FlatScene` on ``device`` (the GPU unless the caller names the
+    CPU).  Deduplicates materials by value; slot
     order is kind-major (``KINDS``), encounter order within a kind."""
     prims_by_kind: Dict[str, list] = {k: [] for k in KINDS}
     prim_entries: list = []  # (kind, index_within_kind, material_id)
@@ -251,7 +252,7 @@ def _plan_from(p) -> Plan:
 
 def from_jax_arrays(prim_params: Mapping[str, np.ndarray], *, plan,
                     kind_counts, prim_material, mat_kind, light_kind,
-                    device="cpu", **arrays) -> FlatScene:
+                    device="cuda", **arrays) -> FlatScene:
     """Port ``FlatScene`` from a JAX ``FlatScene``'s leaves and static fields.
 
     ``prim_params`` maps kind → ``[K_t, P_t]`` array; ``arrays`` holds the

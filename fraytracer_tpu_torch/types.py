@@ -51,14 +51,20 @@ def _f32(x, device) -> Tensor:
 
 
 def make_rays(origin, direction, length, epsilon, device=None) -> Rays:
+    """Broadcast the four fields into one ray batch on ``device``; without
+    one, on the device of the first field that is a tensor, or on the GPU
+    when none is."""
+    if device is None:
+        device = next((x.device for x in (origin, direction, length, epsilon)
+                       if isinstance(x, Tensor)), "cuda")
     origin = _f32(origin, device)
-    direction = _f32(direction, origin.device)
+    direction = _f32(direction, device)
     batch = torch.broadcast_shapes(origin.shape[:-1], direction.shape[:-1])
     return Rays(
         origin=origin.expand(batch + (3,)).contiguous(),
         direction=direction.expand(batch + (3,)).contiguous(),
-        length=_f32(length, origin.device).expand(batch).contiguous(),
-        epsilon=_f32(epsilon, origin.device).expand(batch).contiguous(),
+        length=_f32(length, device).expand(batch).contiguous(),
+        epsilon=_f32(epsilon, device).expand(batch).contiguous(),
     )
 
 

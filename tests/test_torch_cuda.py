@@ -10,7 +10,11 @@ that both hit in the same number of steps (nvcc contracts a*b+c into FMA,
 the plain version rounds twice); surface outputs on identical inputs:
 codes equal on ≥ 99.9% of hit lanes, normals within 1e-4 there; the block
 gather is exact.  The culled forms are held to the same bounds on the
-same candidate tables."""
+same candidate tables.  The AD-mode surface pass (plans with a smooth
+union): normals within 1e-4 of the plain version on ≥ 99.9% of hit lanes
+(both sum the same exp weights, in another order and with FMA), materials
+equal, and within 1e-3 of the dense autograd normal.  ``sign`` lanes: hit
+masks equal and t within 1e-4 of the plain version."""
 import pytest
 import torch
 
@@ -66,8 +70,9 @@ def test_march_and_surface_kernels_match_plain(dev, name, omega):
     assert (nk - np_).abs()[agree].max().item() <= 1e-4
     assert torch.equal(mk_[agree], mp[agree])
     assert ops_cuda.launch_counts() == {
-        "march": 1, "occlusion": 1, "surface": 1, "block_gather": 0,
-        "march_culled": 0, "occlusion_culled": 0, "surface_culled": 0}
+        "march": 1, "occlusion": 1, "surface": 1, "surface_ad": 0,
+        "block_gather": 0, "march_culled": 0, "occlusion_culled": 0,
+        "surface_culled": 0, "surface_ad_culled": 0}
 
 
 def culled_inputs(name, dev):
@@ -137,6 +142,144 @@ def test_culled_kernels_match_plain(dev, name, early_out):
     counts = ops_cuda.launch_counts()
     assert (counts["march_culled"], counts["occlusion_culled"],
             counts["surface_culled"], counts["march"]) == (1, 1, 1, 0)
+
+
+def smooth_scene(name):
+    """Plans with a smooth union: a sumexp group under intersect and
+    subtract; a smooth union of sub-plans alone; a 64-torus sumexp group;
+    256 spheres intersected (a culled max group) beside a smooth union of
+    two spheres; 96 tori (a culled min group) smooth-united with a sphere."""
+    g = torch.Generator().manual_seed(5)
+    if name == "smooth_subtract":
+        root = ft.subtract(
+            ft.intersect(ft.smooth_union(
+                0.3, ft.sphere((0, 0, 0), 1.0, material=ft.solid(1, 0, 0)),
+                ft.sphere((0.8, 0.3, 0), 0.7, material=ft.solid(0, 1, 0))),
+                ft.sphere((0, 0, 0), 1.5)),
+            ft.box((0.3, 0.5, -0.7), (0.4, 0.4, 0.4), 0.05))
+    elif name == "subplans":
+        root = ft.smooth_union(
+            0.3, ft.union(ft.sphere((0, 0, 0), 1.0,
+                                    material=ft.solid(1, 0, 0)),
+                          ft.sphere((0, 1.2, 0), 0.5,
+                                    material=ft.solid(0, 0, 1))),
+            ft.intersect(ft.sphere((1, 0, 0), 1.0,
+                                   material=ft.solid(0, 1, 0)),
+                         ft.box((1, 0, 0), (0.7, 0.7, 0.7), 0.05)))
+    elif name == "sumexp64":
+        c = ((torch.rand(64, 3, generator=g) - 0.5) * 5.0).tolist()
+        a = (torch.rand(64, 3, generator=g) - 0.5).tolist()
+        root = ft.smooth_union(0.2, *[
+            ft.torus(tuple(x), tuple(y), 0.5, 0.15,
+                     material=ft.solid(0.1 + 0.01 * i, 0.5, 0.5))
+            for i, (x, y) in enumerate(zip(c, a))])
+    elif name == "intersect_blend":
+        c = ((torch.rand(256, 3, generator=g) - 0.5) * 0.8).tolist()
+        root = ft.union(
+            ft.intersect(*[ft.sphere(tuple(x), 2.0,
+                                     material=ft.solid(0.2, 0.6, 0.9))
+                           for x in c]),
+            ft.smooth_union(0.3, ft.sphere((2.4, 0.0, 0.0), 0.7,
+                                           material=ft.solid(0.9, 0.5, 0.1)),
+                            ft.sphere((2.9, 0.5, 0.0), 0.5)))
+    else:
+        root = ft.smooth_union(
+            0.25, torus_csg_scene(19, 96).root,
+            ft.sphere((0, 0, 0), 1.5, material=ft.solid(0.8, 0.7, 0.3)))
+    return ft.Scene(root=root)
+
+
+@pytest.mark.parametrize("cull", [False, True])
+@pytest.mark.parametrize("name", ["smooth_subtract", "subplans", "sumexp64",
+                                  "intersect_blend", "blend96"])
+def test_surface_ad_kernel_matches_plain_and_dense(dev, name, cull):
+    """K3 AD mode on (t, hit) from K1, dense and on candidate tables."""
+    from fraytracer_tpu_torch.ops import sdf
+    from fraytracer_tpu_torch.ops.cuda import cull as C
+    from fraytracer_tpu_torch.render import _to_blocks
+    scene = ft.flatten(smooth_scene(name), device=dev)
+    assert not mk.slot_surface_mode(scene.plan)
+    size = 128
+    cam = ft.look_at((0, 0, -7), (0, 0, 0), device=dev)
+    rays = ft.camera_rays(cam, size, size, 0.01, 30.0).map(
+        lambda x: _to_blocks(x, size, size, 32).contiguous())
+    t0, miss0, t_exit = bound_skip_start(scene, rays)
+    length = torch.where(miss0, 0.0,
+                         torch.minimum(rays.length, t_exit)).contiguous()
+    args = (rays.origin, rays.direction, length, rays.epsilon,
+            t0.contiguous())
+    tables = None
+    if cull:
+        pairs = C._cull_pairs(scene.kind_counts, scene.plan, 48)
+        if not pairs:
+            pytest.skip("no group large enough to cull")
+        tables = C.build_pair_tables(scene, *args[:2], args[4], args[2],
+                                     args[3], pairs, 512, 0.125)
+    kw = dict(max_steps=192, omega=1.4, cull=tables)
+    tk, hk, _d, _s = mk.march_kernel(scene, *args, **kw)
+    assert int(hk.sum()) > 100
+    o, d, _l, e, _t0 = args
+    ops_cuda.reset_launch_counts()
+    nk, mk_, ck = mk.surface_kernel(scene, o, d, tk, e, hk, cull=tables)
+    counts = ops_cuda.launch_counts()
+    key = "surface_ad_culled" if cull else "surface_ad"
+    assert counts[key] == 1 and counts["surface"] == 0 \
+        and counts["surface_culled"] == 0
+    np_, mp, cp = mk.surface_plain(scene, o, d, tk, e, hk, cull=tables)
+    assert not ck.any() and not cp.any()
+    close = (nk - np_).abs().amax(-1) <= 1e-4
+    assert int((close & hk).sum()) >= 0.999 * int(hk.sum())
+    assert torch.equal(mk_[hk], mp[hk])
+    assert torch.equal(nk[~hk], np_[~hk]) and bool((mk_[~hk] == -1).all())
+    pos = (o + (tk - e)[:, None] * d)[hk]
+    dense = sdf.scene_normal(scene, pos)
+    close = (nk[hk] - dense).abs().amax(-1) <= 1e-3
+    assert int(close.sum()) >= 0.999 * int(hk.sum())
+
+
+def test_sign_lanes_match_plain(dev):
+    """K1/K2 with per-lane sign: rays starting inside a solid march to its
+    exit surface; a mixed-sign batch on the culled 96-torus scene."""
+    scene = ft.flatten(ft.Scene(root=ft.union(
+        ft.sphere((0, 0, 0), 1.0), ft.box((2.5, 0, 0), (0.5, 0.5, 0.5)))),
+        device=dev)
+    o = torch.tensor([[0.0, 0, 0], [0.2, 0.1, 0], [2.5, 0, 0]], device=dev)
+    d = torch.tensor([[0.0, 0, 1], [1.0, 0, 0], [0.0, 1, 0]], device=dev)
+    ln = torch.full((3,), 10.0, device=dev)
+    e = torch.full((3,), 1e-3, device=dev)
+    t0 = torch.zeros(3, device=dev)
+    sg = -torch.ones(3, device=dev)
+    kw = dict(max_steps=128, omega=1.0, sign=sg)
+    tk, hk, _dk, _sk = mk.march_kernel(scene, o, d, ln, e, t0, **kw)
+    tp, hp, _dp, _sp = mk.march_plain(scene, o, d, ln, e, t0, **kw)
+    assert bool(hk.all()) and torch.equal(hk, hp)
+    assert (tk - tp).abs().max().item() <= 1e-4
+    want = torch.tensor([1.0, (1 - 0.01) ** 0.5 - 0.2, 0.5], device=dev)
+    assert (tk - want).abs().max().item() <= 2e-3
+
+    scene, args, tables = culled_inputs("torus96", dev)
+    g = torch.Generator().manual_seed(3)
+    sg = torch.where(torch.rand(args[0].shape[0], generator=g) < 0.5,
+                     -1.0, 1.0).to(dev)
+    for cull in (None, tables):
+        kw = dict(max_steps=192, omega=1.4, cull=cull, sign=sg)
+        tk, hk, _dk, sk = mk.march_kernel(scene, *args, **kw)
+        tp, hp, _dp, sp = mk.march_plain(scene, *args, **kw)
+        assert (hk == hp).float().mean().item() >= 0.999
+        same = hk & hp & (sk == sp)
+        assert int(same.sum()) >= 0.999 * int((hk & hp).sum())
+        assert (tk - tp).abs()[same].max().item() <= 1e-4
+        ho, _so = mk.march_kernel(scene, *args, **kw, occlusion=True)
+        assert torch.equal(ho, hk)
+        # the outward lanes are the unsigned march's
+        t1, h1, _d1, _s1 = mk.march_kernel(scene, *args, max_steps=192,
+                                           omega=1.4, cull=cull)
+        out = sg > 0
+        assert torch.equal(hk[out], h1[out])
+        # dense: bit for bit; culled: a warp's window follows its active
+        # lanes, so these lanes step otherwise and land within 3ε
+        dt = (tk - t1).abs()[out & h1].max().item()
+        assert dt <= (0.0 if cull is None else 0.03)
 
 
 def test_block_gather_kernel_exact(dev):

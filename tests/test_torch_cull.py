@@ -152,7 +152,7 @@ def test_cull_pairs_match_jax(name, threshold):
         from fraytracer_tpu.scene import generators as JG, nodes as JN
         from fraytracer_tpu_torch.scene import generators as TG, nodes as TN
         js = jft.flatten(intersect_scene(JN, JG, extra=8))
-        ts = tft.flatten(intersect_scene(TN, TG, extra=8))
+        ts = tft.flatten(intersect_scene(TN, TG, extra=8), device="cpu")
     else:
         js, ts = scene_pair(name)
     want = JK._cull_pairs(js.kind_counts, js.plan, threshold)
@@ -258,13 +258,14 @@ def test_pair_tables_match_jax(torus96, kind, cull_m):
 def port_scene(seed, n_tori):
     import fraytracer_tpu_torch as tft
     from fraytracer_tpu_torch.scene.generators import torus_csg_scene
-    return tft.flatten(torus_csg_scene(seed=seed, n_tori=n_tori))
+    return tft.flatten(torus_csg_scene(seed=seed, n_tori=n_tori),
+                       device="cpu")
 
 
 def port_camera(w=32, h=32):
     import fraytracer_tpu_torch as tft
-    r = tft.camera_rays(tft.look_at((0, 0, -10), (0, 0, 0)), w, h, 0.01,
-                        30.0)
+    r = tft.camera_rays(tft.look_at((0, 0, -10), (0, 0, 0), device="cpu"),
+                        w, h, 0.01, 30.0)
     return r.map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])))
 
 

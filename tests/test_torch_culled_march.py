@@ -148,7 +148,7 @@ def test_occlusion_converging_cone_mixed_side_exact():
                rng.normal(scale=0.5, size=(95, 3)) + np.array([8.0] * 3)]
     spheres.append(tft.sphere((1.0, 0.0, 1.5), 0.45))
     spheres.append(tft.sphere((-1.2, 0.0, -2.5), 0.3))
-    scene = tft.flatten(tft.Scene(root=tft.union(*spheres)))
+    scene = tft.flatten(tft.Scene(root=tft.union(*spheres)), device="cpu")
     cfg = dataclasses.replace(CULL, cull_threshold=64, cull_m=128,
                               cull_m_shadow=128)
     plain = tocclusion(scene, rays, cfg).numpy()
@@ -169,12 +169,12 @@ def intersect_scene(extra):
                     rng.normal(scale=0.5, size=(extra, 3)) + 40.0]
         target = tft.sphere((0, 0, 0), 1.0, material=tft.solid(0.9, 0.2, 0.1))
         return tft.flatten(tft.Scene(root=tft.union(
-            tft.intersect(*members), target)))
+            tft.intersect(*members), target)), device="cpu")
     members = [tft.sphere(tuple(rng.uniform(-0.5, 0.5, 3)), 2.0,
                           material=tft.solid(*rng.uniform(0.2, 1.0, 3)))
                for _ in range(256)]
     return tft.flatten(tft.Scene(root=tft.intersect(*members),
-                                 background=(0.1, 0.1, 0.1)))
+                                 background=(0.1, 0.1, 0.1)), device="cpu")
 
 
 def surface_vs_dense(scene, rays, cfg):
@@ -286,7 +286,7 @@ def test_all_kinds_culled():
     from fraytracer_tpu.scene import generators as JG, nodes as JN
     from fraytracer_tpu_torch.scene import generators as TG, nodes as TN
     js = jft.flatten(kinds_scene(JN))
-    ts = tft.flatten(kinds_scene(TN))
+    ts = tft.flatten(kinds_scene(TN), device="cpu")
     pairs = tcull._cull_pairs(ts.kind_counts, ts.plan, 8)
     assert sorted(p[1] for p in pairs) == sorted(
         ["sphere", "capsule", "torus", "triangle", "box", "cone"])

@@ -82,7 +82,7 @@ def test_budget_and_miss(backend):
     dirs = np.array([[0, 0, 1.0], [0, 1, 0], [0, 0, 1.0], [0, 0, -1.0]],
                     np.float32)
     lengths = np.array([100.0, 100.0, 3.0, 100.0], np.float32)
-    rays = tft.make_rays(origins, dirs, lengths, 1e-3)
+    rays = tft.make_rays(origins, dirs, lengths, 1e-3, device="cpu")
     r = tmarch(ts, rays, dataclasses.replace(CUDA, backend=backend))
     assert r.hit.tolist() == [True, False, False, False]
     assert abs(float(r.t[0]) - 4.0) < 2e-3
@@ -102,7 +102,7 @@ def test_occlusion_equals_march_hits(omega):
 
 def test_march_batch_shape_kept():
     _js, ts = scene_pair("torus16")
-    cam = tft.look_at((0, 0, -10), (0, 0, 0))
+    cam = tft.look_at((0, 0, -10), (0, 0, 0), device="cpu")
     rays = tft.camera_rays(cam, 12, 8, 0.01, 30.0)
     r = tmarch(ts, rays, CUDA)
     assert r.hit.shape == (8, 12) and r.t.shape == (8, 12)
@@ -110,9 +110,10 @@ def test_march_batch_shape_kept():
 
 
 def test_cuda_backend_rejects_unported_options():
-    """The culled march (cull=True, the default) runs; what is still not
-    ported raises, naming its ROADMAP item: K3's AD mode (a smooth union
-    in the fused surface pass), per-lane sign, the TPU layout knobs."""
+    """The culled march (cull=True, the default) runs, with a per-lane
+    sign and with a smooth union in the fused surface pass (K3's AD mode)
+    too; the TPU layout knobs, which are not to be ported, raise naming
+    their ROADMAP item."""
     _js, ts = scene_pair("torus48")
     _jr, tr = flat_camera_rays(8, 8)
     r = tmarch(ts, tr, TMC(backend="cuda"))                # cull=True
@@ -123,11 +124,14 @@ def test_cuda_backend_rejects_unported_options():
             tmarch(ts, tr, dataclasses.replace(CUDA, **{knob: True}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmarch(ts, tr, dataclasses.replace(CUDA, step_unroll=2))
-    with pytest.raises(NotImplementedError, match="sign.*ROADMAP"):
-        tmarch(ts, tr, TMC(backend="cuda"), sign=torch.ones(64))
+    s = tmarch(ts, tr, TMC(backend="cuda"), sign=torch.ones(64))
+    assert torch.equal(s.hit, r.hit) and torch.equal(s.t, r.t)
     _js, smooth = scene_pair("smooth_subtract")
-    with pytest.raises(NotImplementedError, match="AD mode.*ROADMAP"):
-        tmarch_surface(smooth, tr, TMC(backend="cuda"))
+    _jr, near = flat_camera_rays(8, 8, pos=(0, 0, -4))
+    res, normal, midx = tmarch_surface(smooth, near, TMC(backend="cuda"))
+    assert bool(res.hit.any()) and normal.shape == (64, 3)
+    torch.testing.assert_close(normal.norm(dim=-1), torch.ones(64))
+    assert bool((midx[~res.hit] == -1).all())
     with pytest.raises(ValueError):
         tmarch(ts, tr, TMC(backend="pallas"))
 
@@ -139,4 +143,5 @@ def test_march_config_mirrors_jax_defaults():
     for name, default in jf.items():
         if name != "backend":
             assert tf[name] == default, name
-    assert (jf["backend"], tf["backend"]) == ("jnp", "torch")
+    # the port's default is the kernels, JAX's the plain dense march
+    assert (jf["backend"], tf["backend"]) == ("jnp", "cuda")

@@ -61,9 +61,13 @@ def jax_masks(js, cfg, w, h, with_t=False):
         else out
 
 
+def port_camera(fov=60.0):
+    return tft.look_at(CAM, (0, 0, 0), fov_degrees=fov, device="cpu")
+
+
 def port_masks(ts, cfg, w, h, with_t=False):
     from fraytracer_tpu_torch.render import _from_blocks, _to_blocks
-    cam = tft.look_at(CAM, (0, 0, 0), fov_degrees=60.0)
+    cam = port_camera()
     rays = tft.camera_rays(cam, w, h, EPS, 30.0).map(
         lambda x: _to_blocks(x, h, w, 32))
     sh = tshade.surface_hit(ts, rays, cfg)
@@ -88,7 +92,7 @@ def test_render_matches_jax_pallas(size):
     jcfg = JMC(backend="pallas_interpret", cull=False, relax_omega=1.4)
     tcfg = TMC(backend="cuda", cull=False, relax_omega=1.4)
     jcam = jft.look_at(CAM, (0, 0, 0), fov_degrees=60.0)
-    tcam = tft.look_at(CAM, (0, 0, 0), fov_degrees=60.0)
+    tcam = port_camera()
     jimg, jn = jft.render_with_stats(js, jcam, jft.RenderConfig(
         width=size, height=size, march=jcfg))
     timg, tn = tft.render_with_stats(ts, tcam, tft.RenderConfig(
@@ -127,7 +131,7 @@ def test_culled_render_matches_jax_pallas():
                                                  fov_degrees=60.0),
                                  jft.RenderConfig(width=size, height=size,
                                                   march=jcfg)))
-    timg = tft.render(ts, tft.look_at(CAM, (0, 0, 0), fov_degrees=60.0),
+    timg = tft.render(ts, port_camera(),
                       tft.RenderConfig(width=size, height=size,
                                        march=tcfg)).numpy()
     assert np.isfinite(timg).all()
@@ -152,9 +156,9 @@ def test_torch_backend_render_matches_jnp():
     jimg = np.asarray(jft.render(js, jft.look_at(CAM, (0, 0, 0)),
                                  jft.RenderConfig(width=32, height=32,
                                                   tile_rays=512)))
-    timg = tft.render(ts, tft.look_at(CAM, (0, 0, 0)),
-                      tft.RenderConfig(width=32, height=32,
-                                       tile_rays=400)).numpy()
+    timg = tft.render(ts, port_camera(),
+                      tft.RenderConfig(width=32, height=32, tile_rays=400,
+                                       march=TMC(backend="torch"))).numpy()
     diff = np.abs(timg - jimg).max(-1)
     assert (diff < 2e-3).mean() >= 0.995
     assert float(np.median(diff)) < 1e-5
@@ -204,10 +208,10 @@ def oracle_gate(mcfg):
     """The f64-oracle gate of tests/test_benchmark_oracle.py at 64²."""
     W = H = 64
     scene = TG.torus_csg_scene(seed=19, n_tori=1000)
-    fscene = tft.flatten(scene)
+    fscene = tft.flatten(scene, device="cpu")
     cfg = tft.RenderConfig(width=W, height=H, epsilon=EPS, length=30.0,
                            march=mcfg)
-    cam = tft.look_at(CAM, (0, 0, 0), fov_degrees=60.0)
+    cam = port_camera()
     img = tft.render(fscene, cam, cfg).numpy()
     want, aux = Oracle(SCENES["torus1000"](*_jax_modules())).render(
         CAM, (0, 0, 0), fov_degrees=60.0, width=W, height=H,
@@ -278,22 +282,24 @@ def _jax_modules():
 
 
 def test_cuda_backend_refuses_cull_and_missing_gpu(tmp_path):
-    """The default (culled) "cuda" configuration renders; a smooth union
-    in the fused surface pass (K3 AD mode, not ported) raises naming its
-    ROADMAP item; without a GPU the CUDA device is refused."""
+    """The default (culled) "cuda" configuration renders, a smooth union
+    in the fused surface pass (K3 AD mode) too; without a GPU the default
+    device (the card) is refused with torch's own error."""
     _js, ts = scene_pair("torus16")
-    cam = tft.look_at(CAM, (0, 0, 0))
+    cam = port_camera()
     img = tft.render(ts, cam, tft.RenderConfig(
         width=8, height=8, march=TMC(backend="cuda", cull_threshold=8)))
     assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
-    _js, smooth = scene_pair("smooth_subtract")
-    with pytest.raises(NotImplementedError, match="AD mode.*ROADMAP"):
-        tft.render(smooth, cam, tft.RenderConfig(
-            width=8, height=8, march=TMC(backend="cuda")))
+    _js, smooth = scene_pair("smooth_materials")
+    near = tft.look_at((0, 0, -4), (0, 0, 0), device="cpu")
+    img = tft.render(smooth, near, tft.RenderConfig(
+        width=8, height=8, march=TMC(backend="cuda")))
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+    assert bool(((img - smooth.background).abs().amax(-1) > 1e-6).any())
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
     with pytest.raises((RuntimeError, AssertionError)):
-        tft.flatten(TG.torus_csg_scene(19, 4), device="cuda")
+        tft.flatten(TG.torus_csg_scene(19, 4))
     from fraytracer_tpu_torch import cli
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.main(["render", "--size", "8", "--out",

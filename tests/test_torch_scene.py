@@ -46,6 +46,23 @@ def smooth_subtract(N, G):
     ))
 
 
+def smooth_materials(N, G):
+    """The smooth_subtract shape with a material on every blended sphere —
+    one of them procedural — and a light, so the surface pass names
+    materials and a frame is lit."""
+    return N.Scene(root=N.subtract(
+        N.intersect(
+            N.smooth_union(
+                0.3, N.sphere((0, 0, 0), 1.0, material=N.solid(1, 0, 0)),
+                N.sphere((0.8, 0.3, 0), 0.7,
+                         material=N.procedural((0, 1, 0), (0, 0, 1)))),
+            N.sphere((0, 0, 0), 1.5),
+        ),
+        N.box((0.3, 0.5, -0.7), (0.4, 0.4, 0.4), 0.05),
+    ), background=(0.1, 0.1, 0.1),
+        lights=(N.directional_light((-0.4, -1.0, 0.6), (0.7, 0.7, 0.65)),))
+
+
 def single_sphere(N, G):
     return N.Scene(root=N.sphere((0, 0, 0), 1.0))
 
@@ -58,6 +75,7 @@ SCENES = {
     "csg_demo": lambda N, G: G.csg_demo_scene(),
     "all_kinds": all_kinds,
     "smooth_subtract": smooth_subtract,
+    "smooth_materials": smooth_materials,
     "sphere": single_sphere,
 }
 
@@ -65,7 +83,8 @@ SCENES = {
 def scene_pair(name):
     """(JAX FlatScene, port FlatScene) of one named scene."""
     build = SCENES[name]
-    return jft.flatten(build(JN, JG)), tft.flatten(build(TN, TG))
+    return (jft.flatten(build(JN, JG)),
+            tft.flatten(build(TN, TG), device="cpu"))
 
 
 def flat_camera_rays(w, h, eps=0.01, length=30.0, pos=(0, 0, -10)):
@@ -115,20 +134,41 @@ def test_flatten_parity(name):
     assert_scene_equal(js, ts)
 
 
-@pytest.mark.parametrize("name", ["torus1000", "all_kinds"])
+@pytest.mark.parametrize("name", ["single_sphere_scene", "glass_demo_scene",
+                                  "mirror_demo_scene"])
+def test_model_zoo_parity(name):
+    """The preset scenes flatten to the JAX package's; the CLI takes the
+    scene names the JAX CLI takes."""
+    import fraytracer_tpu.models as jmodels
+    import fraytracer_tpu_torch.models as tmodels
+    from fraytracer_tpu import cli as jcli
+    from fraytracer_tpu_torch import cli as tcli
+    assert tmodels.__all__ == jmodels.__all__
+    assert_scene_equal(jft.flatten(getattr(jmodels, name)()),
+                       tft.flatten(getattr(tmodels, name)(), device="cpu"))
+    for scene in ("torus-csg", "csg-demo", "glass"):
+        assert_scene_equal(
+            jft.flatten(jcli._scene_by_name(scene, 19, 8)),
+            tft.flatten(tcli._scene_by_name(scene, 19, 8), device="cpu"))
+    with pytest.raises(SystemExit):
+        tcli._scene_by_name("no-such-scene", 19, 8)
+
+
+@pytest.mark.parametrize("name", ["torus1000", "all_kinds",
+                                  "smooth_materials"])
 def test_from_jax_arrays_equals_flatten(name):
     js, ts = scene_pair(name)
     rebuilt = from_jax_arrays(
         {k: np.asarray(v) for k, v in js.prim_params.items()},
         plan=js.plan, kind_counts=js.kind_counts,
         prim_material=js.prim_material, mat_kind=js.mat_kind,
-        light_kind=js.light_kind,
+        light_kind=js.light_kind, device="cpu",
         **{f: np.asarray(getattr(js, f)) for f in ARRAYS})
     assert rebuilt.plan == ts.plan
     assert_scene_equal(js, rebuilt)
     with pytest.raises(ValueError):
         from_jax_arrays({}, plan=js.plan, kind_counts=(), prim_material=(),
-                        mat_kind=(), light_kind=())
+                        mat_kind=(), light_kind=(), device="cpu")
 
 
 @pytest.mark.parametrize("w,h,ortho", [(32, 32, 0.0), (40, 24, 0.0),
@@ -137,7 +177,7 @@ def test_camera_rays_parity(w, h, ortho):
     jc = jft.look_at((1.0, 2.0, -7.0), (0.2, 0.1, 0.0), fov_degrees=55.0,
                      ortho_scale=ortho)
     tc = tft.look_at((1.0, 2.0, -7.0), (0.2, 0.1, 0.0), fov_degrees=55.0,
-                     ortho_scale=ortho)
+                     ortho_scale=ortho, device="cpu")
     jr = jft.camera_rays(jc, w, h, 0.01, 30.0)
     tr = tft.camera_rays(tc, w, h, 0.01, 30.0)
     for f in ("origin", "direction", "length", "epsilon"):
@@ -147,7 +187,27 @@ def test_camera_rays_parity(w, h, ortho):
 
 def test_flatten_rejects_foreign_nodes():
     with pytest.raises(TypeError):
-        tft.flatten(JG.csg_demo_scene())
+        tft.flatten(JG.csg_demo_scene(), device="cpu")
+
+
+def test_defaults_are_the_card_and_the_kernels():
+    """The entry points run on the GPU through the kernels unless the
+    caller names the CPU or the plain march (signatures only: no device
+    is touched)."""
+    import inspect
+    from fraytracer_tpu_torch import camera
+    from fraytracer_tpu_torch.ops import shade
+    for fn in (tft.flatten, from_jax_arrays, tft.look_at,
+               camera.pixel_grid_uv):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert inspect.signature(tft.make_rays).parameters["device"].default \
+        is None                     # follows its inputs, else the GPU
+    assert tft.MarchConfig().backend == "cuda"
+    assert tft.RenderConfig().march.backend == "cuda"
+    assert inspect.signature(shade.resolve_material) \
+        .parameters["backend"].default == "cuda"
+    on_cpu = tft.make_rays(torch.zeros(3), (0, 0, 1.0), 1.0, 1e-3)
+    assert on_cpu.origin.device.type == "cpu"
 
 
 def test_import_leaves_jax_out():
@@ -156,6 +216,8 @@ def test_import_leaves_jax_out():
             "import fraytracer_tpu_torch.ops.cuda.build\n"
             "import fraytracer_tpu_torch.ops.cuda.march_kernel\n"
             "import fraytracer_tpu_torch.ops.cuda.gather\n"
+            "import fraytracer_tpu_torch.models\n"
+            "import fraytracer_tpu_torch.utils.noise\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'fraytracer_tpu')]\n"
             "assert not bad, bad\n")

@@ -34,7 +34,7 @@ KIND_NAMES = ["sphere", "capsule", "torus", "triangle", "box", "cone",
 def pair(build):
     """(JAX FlatScene, port FlatScene) of a root node built per package."""
     return (jft.flatten(jft.Scene(root=build(JN))),
-            tft.flatten(tft.Scene(root=build(TN))))
+            tft.flatten(tft.Scene(root=build(TN)), device="cpu"))
 
 
 def pts(rng, n=256, lo=-3.0, hi=3.0):
@@ -88,7 +88,8 @@ def test_csg_identities(rng):
     p = torch.from_numpy(pts(rng, 128))
 
     def dist(node):
-        return tsdf.scene_distance(tft.flatten(tft.Scene(root=node)), p)
+        return tsdf.scene_distance(
+            tft.flatten(tft.Scene(root=node), device="cpu"), p)
     A = tft.sphere((0, 0, 0), 1.0)
     B = tft.sphere((1.2, 0, 0), 0.8)
     C = tft.box((0, 1, 0), (0.5, 0.5, 0.5), 0.1)
@@ -124,8 +125,16 @@ def test_bound_min_distance_is_lower_bound(rng):
     assert bool((lb <= tsdf.scene_distance(ts, p) + 1e-5).all())
 
 
-def test_procedural_albedo_not_ported():
-    s = tft.flatten(tft.Scene(root=tft.sphere(
-        (0, 0, 0), 1.0, material=tft.procedural((1, 0, 0), (0, 0, 1)))))
-    with pytest.raises(NotImplementedError, match="noise"):
-        tsdf.material_at(s, torch.zeros(4, 3))
+def test_procedural_albedo_not_ported(rng):
+    """Procedural albedo is ported (the name is kept from when it raised):
+    ``material_at`` blends the two colors by fbm noise of the position and
+    agrees with JAX within ATOL."""
+    build = lambda N: N.sphere(
+        (0, 0, 0), 1.0, material=N.procedural((1, 0, 0), (0, 0, 1)))
+    js, ts = pair(build)
+    p = pts(rng, 256)
+    m_t, a_t = tsdf.material_at(ts, torch.from_numpy(p))
+    m_j, a_j = jsdf.material_at(js, jnp.asarray(p))
+    np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), atol=ATOL)
+    assert a_t[:, 0].std() > 0.01 and bool((a_t[:, 1] == 0).all())

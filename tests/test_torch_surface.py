@@ -72,14 +72,22 @@ def test_march_surface_cuda_backend_end_to_end():
 
 
 def test_smooth_union_surface_raises_on_cuda_backend():
-    _js, ts = scene_pair("smooth_subtract")
-    _jr, tr = flat_camera_rays(8, 8)
-    with pytest.raises(NotImplementedError, match="AD mode"):
-        march_surface(ts, tr, TMC(backend="cuda", cull=False))
-    # the unfused path still runs: march + dense normal/material
+    """A smooth union no longer raises on the "cuda" backend (the name is
+    kept from when it did): the fused pass takes the surface kernel's AD
+    mode and agrees with the unfused path (march + dense normal and
+    material) — normals within 1e-4 (one gradient, two evaluation orders),
+    materials equal on hit lanes."""
+    _js, ts = scene_pair("smooth_materials")
+    _jr, tr = flat_camera_rays(24, 24, pos=(0, 0, -5))
+    assert not tmk.slot_surface_mode(ts.plan)
+    fres, fn, fm = march_surface(ts, tr, TMC(backend="cuda", cull=False))
     res, n, m = march_surface(ts, tr, TMC(backend="cuda", cull=False,
                                           fuse_surface=False))
-    assert n.shape == (64, 3) and m.shape == (64,)
+    assert n.shape == (576, 3) and m.shape == (576,)
+    hit = res.hit
+    assert int(hit.sum()) > 50 and torch.equal(fres.hit, hit)
+    assert (fn - n)[hit].abs().max().item() <= 1e-4
+    assert torch.equal(fm[hit], m[hit]) and bool((fm[~hit] == -1).all())
 
 
 def _repair_inputs(n_blocks, bad_lanes, seed):
@@ -185,10 +193,12 @@ def test_deep_plan_stack_limit():
     node = tft.sphere((0, 0, 0), 1.0)
     for i in range(20):
         node = tft.subtract(node, tft.sphere((0, 0, 0.1 * i), 0.2))
-    prog = tmk.lower_program(tft.flatten(tft.Scene(root=node)), "cpu")
+    prog = tmk.lower_program(tft.flatten(tft.Scene(root=node),
+                                         device="cpu"), "cpu")
     assert prog.ops.shape[0] == 41
     node = tft.sphere((0, 0, 0), 1.0)
     for i in range(20):
         node = tft.subtract(tft.sphere((0, 0, 0.1 * i), 2.0), node)
     with pytest.raises(NotImplementedError, match="stack"):
-        tmk.lower_program(tft.flatten(tft.Scene(root=node)), "cpu")
+        tmk.lower_program(tft.flatten(tft.Scene(root=node), device="cpu"),
+                          "cpu")
