@@ -34,6 +34,27 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    profile and peak memory; the same frame with cull=False once; culled
    against dense; the 256² blended frame kernels against plain.
 
+8. probe   — W (the bench warm-up kernel) and P1-P4 (the feature probes,
+   csrc/probe.cu): the probe program itself with the launch counts read
+   around it, then each kernel against its plain version on the TPU
+   probe's own inputs, its time by CUDA events (P3/P4 with the table in
+   shared memory and through __ldg), W's first launch apart from its
+   steady time, and the empty kernel's launch time as the practical floor.
+9. grad    — the gradient path: (a) 256² / 96 tori, culled kernels against
+   the plain route, per-leaf relative L2 error of d sum(render²) with the
+   lanes whose discrete outcome or t differ masked out (the unmasked
+   figure printed); (b) central differences of the loss along 4 random
+   parameter directions against <grad, dir> at 128² on the pixels whose
+   outcomes are stable under the step; (c) forward + backward of the 1024²
+   / 1000-torus culled frame: launch counts around one step, finite
+   non-zero gradients, median of 5, peak memory, a profiled step, the
+   share of hit lanes under the min_denom clamp, the transpose of the
+   material lookup read three ways; (d) one step of the
+   blended frame (the point_eval route: certificate, branch, time, peak
+   memory); (e) 10 ``fit`` steps at 256² / 100 tori: the loss decreases.
+10. bench  — ``python -m fraytracer_tpu_torch.bench --quick`` in a process
+   of its own; its last JSON line parsed and echoed, W launched once.
+
 Two more modes time the culled torus frame alone (neither is the smoke
 test; both need the card):
 
@@ -268,8 +289,8 @@ def log_times(out):
     for name, r in out.items():
         lib = "none" if r["library_ms"] is None \
             else f"{r['library_ms']:.4f} ms"
-        log(f"  time {name}: kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+        log(f"  time {name}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.3g} ms "
             f"({r['bound_by']}), library {lib} (err {r['err']:.3e}, "
             f"{r['differing']} of {r['compared']} outputs differ)")
 
@@ -1102,18 +1123,20 @@ def forced_repair(scene, cam, cfg):
     return counts
 
 
-def profile_frame(scene, cam, cfg, trace_path):
-    """One frame under torch.profiler: device time by kernel and the
-    device's idle share between the frame's first and last kernel; the
-    Chrome trace goes to ``trace_path``."""
+def profile_frame(scene, cam, cfg, trace_path, fn=None):
+    """One frame (or one call of ``fn``) under torch.profiler: device time
+    by kernel and the device's idle share between the first and last
+    kernel; the Chrome trace goes to ``trace_path``."""
     import fraytracer_tpu_torch as ft
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    if fn is None:
+        fn = lambda: ft.render_with_stats(scene, cam, cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ft.render_with_stats(scene, cam, cfg)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     prof.export_chrome_trace(str(trace_path))
@@ -1247,6 +1270,634 @@ def phase_parity(dev, scene, culled_cfg, tag="frame"):
                           shell_t=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: W and P1-P4
+# ---------------------------------------------------------------------------
+
+PROBE_SRC = f"{SRC}/probe.cu"
+PROBE_TOOL = "tools/probe_pallas_features.py"
+
+
+def phase_probe(dev, warm_first_ms):
+    """The probe program (the path of P1-P4) with the launch counts around
+    it, then W and P1-P4 against their plain versions with their times.
+    ``ms``, ``plain_ms`` and ``library_ms`` are device times
+    (``probe.device_ms``: an event pair around each call while the device
+    still works off a plug, median of 50 calls; the empty kernel's reading
+    by the same method is the events' own cost); ``back_to_back_ms`` is
+    the mean of 200 launches in a row.  All five
+    are launch-bound: the bound is bytes over the memory rate, and the
+    practical floor of a call is the empty kernel's back-to-back launch
+    time of this run."""
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    from fraytracer_tpu_torch.ops.cuda import probe
+    ops_cuda.reset_launch_counts()
+    rc = probe.main()
+    counts = ops_cuda.launch_counts()
+    check(rc == 0, f"the probe program returned {rc}")
+    log(f"  launches in the probe program: "
+        f"{ {k: counts[k] for k in probe.LAUNCHES} }")
+    for k in ("smem_block", "smem_block_2d", "dyn_loop", "while_loop"):
+        check(counts[k] >= 1, f"the probe program never launched {k}")
+
+    inp = probe.probe_inputs(dev)
+    empty = lambda: probe.empty_launch(dev)
+    empty_ms = probe.back_to_back_ms(empty)
+    empty_dev_ms = probe.device_ms(empty)
+    log(f"  empty kernel: {empty_ms:.5f} ms a launch back to back (the "
+        f"host's launch rate, the floor of every call below), "
+        f"{empty_dev_ms:.5f} ms on the device (the floor of every device "
+        "time below)")
+    x = torch.ones((8, 128), dtype=torch.float32, device=dev)
+    tile_b = 8 * 128 * 4
+    table_b = probe.G * probe.M * probe.P * 4
+    tiles_b = 2 * probe.G * tile_b            # x read, out written
+    keys_b = probe.G * probe.M * 4
+
+    def exact(a, b):
+        return float((a - b).abs().max()), int((a != b).sum())
+
+    def row(kernel, plain, library, n_bytes, cmp):
+        out_k, out_p = kernel(), plain()
+        torch.cuda.synchronize()
+        err, differing, compared = cmp(out_k, out_p)
+        lib_ms = None if library is None else probe.device_ms(library)
+        r = timing(probe.device_ms(kernel), probe.device_ms(plain), err,
+                   differing, compared, bound(n_bytes, 0.0), lib_ms)
+        r["back_to_back_ms"] = probe.back_to_back_ms(kernel)
+        return r
+
+    def cmp_exact(a, b):
+        err, differing = exact(a, b)
+        check(differing == 0, f"kernel and plain differ on {differing}")
+        return err, differing, a.numel()
+
+    def cmp_p3(a, b):
+        check(bool(torch.allclose(a, b, rtol=1e-6, atol=0.0)),
+              "P3 kernel vs plain beyond rtol 1e-6")
+        return float((a - b).abs().max()), int((a != b).sum()), a.numel()
+
+    def cmp_p4(a, b):
+        (t, trips), (tp, trips_p) = a, b
+        check(torch.equal(trips, trips_p), f"P4 trips {trips.tolist()} vs "
+              f"plain {trips_p.tolist()}")
+        check(float(t.min()) > 9.9, f"P4 t {float(t.min())} <= 9.9")
+        err = float((t - tp).abs().max())
+        check(err <= 1e-5, f"P4 kernel vs plain {err}")
+        return err, int((trips != trips_p).sum()), t.numel()
+
+    out = {}
+    out["warm"] = row(lambda: probe.warm(x), lambda: probe.warm_plain(x),
+                      lambda: x * 2.0, 2 * tile_b, cmp_exact)
+    s1 = inp["ramp3"][:, 0, 3].repeat_interleave(8)[:, None].contiguous()
+    s2 = inp["ramp3"][:, 3, 1].repeat_interleave(8)[:, None].contiguous()
+    out["smem_block"] = row(
+        lambda: probe.smem_block(inp["ones"], inp["ramp3"]),
+        lambda: probe.smem_scalar_plain(inp["ones"], inp["ramp3"], probe.M,
+                                        probe.P, 0, 3),
+        lambda: inp["ones"] * s1, tiles_b + table_b, cmp_exact)
+    out["smem_block_2d"] = row(
+        lambda: probe.smem_block_2d(inp["ones"], inp["ramp2"]),
+        lambda: probe.smem_scalar_plain(inp["ones"], inp["ramp2"], probe.M,
+                                        probe.P, 3, 1),
+        lambda: inp["ones"] * s2, tiles_b + table_b, cmp_exact)
+    for table in ("smem", "ldg"):
+        sfx = "" if table == "smem" else "_ldg"
+        out["dyn_loop" + sfx] = row(
+            lambda: probe.dyn_loop(inp["x3"], inp["cand3"], inp["keys3"],
+                                   table=table),
+            lambda: probe.dyn_loop_plain(inp["x3"], inp["cand3"],
+                                         inp["keys3"]),
+            None, tiles_b + table_b + keys_b, cmp_p3)
+        out["while_loop" + sfx] = row(
+            lambda: probe.while_loop(inp["zeros"], inp["cand4"],
+                                     table=table),
+            lambda: probe.while_loop_plain(inp["zeros"], inp["cand4"]),
+            None, tiles_b + table_b + 4 * probe.G, cmp_p4)
+    log_times(out)
+    log("  back to back, ms a launch: " + ", ".join(
+        f"{k} {v['back_to_back_ms']:.5f}" for k, v in out.items()))
+    log(f"  W first launch of the process (CUDA context, library build or "
+        f"load, launch) {warm_first_ms:.1f} ms; steady "
+        f"{out['warm']['ms']:.5f} ms on the device")
+    log(f"  table in shared memory vs __ldg, device ms: P3 "
+        f"{out['dyn_loop']['ms']:.5f} / {out['dyn_loop_ldg']['ms']:.5f}, P4 "
+        f"{out['while_loop']['ms']:.5f} / {out['while_loop_ldg']['ms']:.5f}")
+    return out, counts, (empty_ms, empty_dev_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the gradient path
+# ---------------------------------------------------------------------------
+
+def outcome_masks(scene, cam, cfg):
+    """Per pixel of a frame, without a graph: the discrete outcomes (hit,
+    material, per-light facing and occlusion), the hit t, and whether the
+    hit lies under the backward's min_denom clamp (|n·d| < min_denom: the
+    scene distance has unit gradient, so n·d is the implicit
+    denominator)."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import shade
+    from fraytracer_tpu_torch.ops.march import march_occlusion
+    from fraytracer_tpu_torch.render import (_auto_block, _from_blocks,
+                                             _to_blocks)
+    from fraytracer_tpu_torch.scene.nodes import LIGHT_POINT
+    hh, ww = cfg.height, cfg.width
+    b = _auto_block(hh, ww)
+    with torch.no_grad():
+        rays = ft.camera_rays(cam, ww, hh, cfg.epsilon, cfg.length).map(
+            lambda x: _to_blocks(x, hh, ww, b))
+        h = shade.surface_hit(scene, rays, cfg.march)
+        masks = [h.hit, h.material]
+        for i in range(scene.num_lights):
+            ldir, budget, _s = shade.light_dir_and_dist(scene, i, h.position)
+            facing = h.hit & ((h.normal * ldir).sum(-1) > 0)
+            sr = ft.Rays(origin=h.position, direction=ldir,
+                         length=torch.where(facing, budget, 0.0),
+                         epsilon=rays.epsilon)
+            apex = scene.light_vec[i] \
+                if scene.light_kind[i] == LIGHT_POINT else None
+            masks += [facing, march_occlusion(scene, sr, cfg.march,
+                                              cone_apex=apex)]
+        den = (h.normal * rays.direction).sum(-1).abs()
+        clamped = h.hit & (den < cfg.march.min_denom)
+    back = lambda x: _from_blocks(x, hh, ww, b)
+    return [back(m) for m in masks], back(h.t), back(clamped), \
+        back(h.normal)
+
+
+def masked_loss_grads(scene, cam, cfg, mask=None):
+    """Gradients of ``sum((render·mask)²)`` w.r.t. every floating leaf, as
+    a dict of float64 tensors (zeros where autograd reached no leaf)."""
+    import fraytracer_tpu_torch as ft
+    s = scene.with_tensors({k: v.detach().clone().requires_grad_(True)
+                            for k, v in scene.tensors().items()})
+    img = ft.render(s, cam, cfg)
+    if mask is not None:
+        img = img * mask[..., None]
+    loss = img.double().pow(2).sum()
+    loss.backward()
+    return {k: (torch.zeros_like(v) if v.grad is None else v.grad).double()
+            for k, v in s.tensors().items()}, float(loss.detach())
+
+
+def same_outcomes(a, b):
+    """Pixels on which two frames' discrete outcomes all agree."""
+    same = torch.ones_like(a[0], dtype=torch.bool)
+    for x, y in zip(a, b):
+        same &= x == y
+    return same
+
+
+def grad_kernel_vs_plain(dev):
+    """(a) 256² / 96 tori: the culled kernels against the plain route."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.scene.generators import torus_csg_scene
+    scene = ft.flatten(torus_csg_scene(19, 96), device=dev)
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    cfg = bench_config(256)
+    mk_, tk, _ck, _nk = outcome_masks(scene, cam, cfg)
+    with plain_route():
+        mp_, tp, _cp, _np = outcome_masks(scene, cam, cfg)
+    same = same_outcomes(mk_, mp_) & ((tk - tp).abs() <= 1e-4)
+    flipped = 1.0 - same.float().mean().item()
+    worst = {}
+    for label, mask in (("masked", same), ("unmasked", None)):
+        gk, _ = masked_loss_grads(scene, cam, cfg, mask)
+        with plain_route():
+            gp, _ = masked_loss_grads(scene, cam, cfg, mask)
+        worst[label] = worst_leaf_error(
+            gk, gp, f"(a) 256^2 / 96 tori, kernels vs plain route, {label}")
+    log(f"  (a) lanes whose outcome or t (> 1e-4) differ between the two "
+        f"routes: {flipped:.6f} of the frame; worst leaf masked "
+        f"{worst['masked']:.2e}, unmasked {worst['unmasked']:.2e}")
+    check(flipped <= 0.005, f"(a) {flipped} of the lanes differ")
+    # a lane both routes land within 1e-4 moves its gradient by
+    # ~|dt|·curvature: 1e-3 of a leaf's norm leaves room for that
+    check(worst["masked"] <= 1e-3, f"(a) masked error {worst['masked']}")
+    return flipped, worst
+
+
+def lattice_scene(dev, side=10, blend=False, spacing=1.1):
+    """``side²`` small tori on a square lattice in the plane z = 0, far
+    enough apart that a tile of nearby hit points certifies a short
+    candidate list (the benchmark's overlapping tori never do: their
+    bounding spheres all contain the hit points); ``blend`` smooth-unites
+    them with a shallow sphere cap just behind, so that hits off the tori
+    stay close to one."""
+    import numpy as np
+
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.scene import nodes as N
+    from fraytracer_tpu_torch.scene.generators import torus_csg_scene
+    rng = np.random.default_rng(3)
+    base = torus_csg_scene(19, 2)
+    tori = []
+    for i in range(side):
+        for j in range(side):
+            c = ((i - (side - 1) / 2) * spacing,
+                 (j - (side - 1) / 2) * spacing, 0.0)
+            nrm = rng.normal(size=3) + np.array([0.0, 0.0, -2.0])
+            tori.append(N.torus(c, nrm, 0.3, 0.1,
+                                material=N.solid(*rng.uniform(0.2, 0.9, 3))))
+    root = N.union(*tori)
+    if blend:
+        root = N.smooth_union(0.1, root, N.sphere(
+            (0, 0, 10.15), 10.0, material=N.solid(0.8, 0.7, 0.3)))
+    return ft.flatten(N.Scene(root=root, background=base.background,
+                              lights=base.lights), device=dev)
+
+
+def grads_and_route(scene, cam, cfg):
+    """``masked_loss_grads`` with the ``point_eval`` branches it took."""
+    from fraytracer_tpu_torch.ops import point_eval
+    stats0 = dict(point_eval.STATS)
+    g, loss = masked_loss_grads(scene, cam, cfg)
+    return g, loss, {k: point_eval.STATS[k] - stats0[k] for k in stats0}
+
+
+def worst_leaf_error(got, want, label):
+    errs = {k: float((got[k] - want[k]).norm()
+                     / want[k].norm().clamp_min(1e-30))
+            for k in want if float(want[k].norm()) > 0}
+    log(f"  {label}: relative L2 error per leaf " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()))
+    check(all(bool(torch.isfinite(v).all()) for v in got.values()),
+          f"{label}: non-finite gradient")
+    return max(errs.values())
+
+
+def grad_culled_point_eval(dev, size=256):
+    """(d') ``point_eval``'s culled branch on the card, on a scene whose
+    tiles certify (100 lattice tori): (i) a smooth-union step whose
+    backward reads candidate lists of 16 of 100 against the same step sent
+    down the dense branch (``bwd_cull_m=1`` can certify nothing; the
+    forward is the same); (ii) ``culled_surface_eval`` with lists of 16
+    against the dense normals and materials at the kernel's hit points;
+    (iii) a step through ``surface_hit``'s non-fused branch against the
+    fused one."""
+    import dataclasses
+
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import point_eval, sdf
+    from fraytracer_tpu_torch.ops.march import march
+    from fraytracer_tpu_torch.render import _auto_block, _to_blocks
+    # a narrow view of the lattice's middle: the hits stay near the tori
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=20.0, device=dev)
+    cfg = bench_config(size)
+
+    def with_march(**kw):
+        return dataclasses.replace(
+            cfg, march=dataclasses.replace(cfg.march, **kw))
+
+    blend = lattice_scene(dev, blend=True)
+    g_c, loss_c, route_c = grads_and_route(blend, cam,
+                                           with_march(bwd_cull_m=16))
+    g_d, loss_d, route_d = grads_and_route(blend, cam,
+                                           with_march(bwd_cull_m=1))
+    log(f"  (d') blended lattice {size}^2, lists of 16 of 100: point_eval "
+        f"{route_c}; lists of 1: {route_d}; losses {loss_c:.6g} / "
+        f"{loss_d:.6g}")
+    check(route_c == {"certificate_reads": 1, "culled": 1, "dense": 0},
+          f"(d') the culled branch did not run: {route_c}")
+    check(route_d == {"certificate_reads": 1, "culled": 0, "dense": 1},
+          f"(d') the dense branch did not run: {route_d}")
+    check(loss_c == loss_d, "(d') the two steps' forwards differ")
+    check(float(g_d["prim_params/torus"].abs().sum()) > 0,
+          "(d') zero torus gradient")
+    # the same residuals through 16 candidates or all 101 primitives: the
+    # smooth union's far terms (exp(-d/k), d > 1, k = 0.1) are below
+    # float32 resolution, what is left is summation order
+    err_bwd = worst_leaf_error(g_c, g_d, "(d') culled vs dense backward")
+    check(err_bwd <= 1e-4, f"(d') culled vs dense backward {err_bwd}")
+
+    union = lattice_scene(dev)
+    b = _auto_block(size, size)
+    with torch.no_grad():
+        rays = ft.camera_rays(cam, size, size, cfg.epsilon, cfg.length).map(
+            lambda x: _to_blocks(x, size, size, b))
+        res = march(union, rays, cfg.march)
+        pos = rays.at(res.t - rays.epsilon)
+        stats0 = dict(point_eval.STATS)
+        n_c, m_c, _a = point_eval.culled_surface_eval(
+            union, pos, res.hit, m=16, threshold=cfg.march.cull_threshold)
+        route = {k: point_eval.STATS[k] - stats0[k] for k in stats0}
+        n_d = torch.cat([sdf.scene_normal(union, pos[s:s + 16384])
+                         for s in range(0, pos.shape[0], 16384)])
+        m_d = torch.cat([sdf.material_index_at(union, pos[s:s + 16384])
+                         for s in range(0, pos.shape[0], 16384)])
+    hit = res.hit
+    dn = float((n_c - n_d)[hit].abs().max())
+    dm = int((m_c != m_d)[hit].sum())
+    log(f"  (d') culled_surface_eval, lists of 16 of 100, {int(hit.sum())} "
+        f"hit points: point_eval {route}, max |dn| vs dense {dn:.3e}, "
+        f"{dm} materials differ")
+    check(route == {"certificate_reads": 1, "culled": 1, "dense": 0},
+          f"(d') culled_surface_eval took {route}")
+    check(dn <= 1e-5 and dm == 0, f"(d') culled_surface_eval: dn {dn}, "
+          f"{dm} materials")
+
+    g_f, _l, route_f = grads_and_route(union, cam, cfg)
+    g_n, _l, route_n = grads_and_route(union, cam,
+                                       with_march(fuse_surface=False))
+    log(f"  (d') union lattice, fused step point_eval {route_f}, non-fused "
+        f"{route_n}")
+    check(route_f == {"certificate_reads": 0, "culled": 0, "dense": 0},
+          f"(d') the fused slot-mode step read a certificate: {route_f}")
+    # one read in the forward (``culled_surface_eval``), one in the
+    # backward of the plain ``march`` (its hit distance's candidate lists)
+    check(route_n == {"certificate_reads": 2, "culled": 2, "dense": 0},
+          f"(d') the non-fused step took {route_n}")
+    # two forwards (the kernel's normal against autograd's) and two
+    # backwards (one leaf a lane against a fold over the candidates)
+    err_nf = worst_leaf_error(g_n, g_f, "(d') non-fused vs fused step")
+    check(err_nf <= 1e-3, f"(d') non-fused vs fused step {err_nf}")
+    return dict(bwd=err_bwd, dn=dn, nonfused=err_nf)
+
+
+def grad_finite_differences(dev, n_tori=96, size=128, h=1e-2):
+    """(b) central differences of the loss along 4 random parameter
+    directions against <grad, dir>, 128² / 96 tori, on the pixels whose
+    discrete outcomes are the same at both ends of the step and which lie
+    outside the min_denom clamp, leaving out hits that jump to another
+    surface (the analytic gradient holds the outcomes fixed and saturates
+    under the clamp; the share left out is printed)."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.scene.generators import torus_csg_scene
+    scene = ft.flatten(torus_csg_scene(19, n_tori), device=dev)
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    # a thin hit shell: the march stops anywhere inside it, and where it
+    # stops is no smooth function of the parameters — at the frame's ε of
+    # 0.01 that jitter would drown a central difference
+    cfg = ft.RenderConfig(width=size, height=size, epsilon=1e-4, length=30.0,
+                          march=ft.MarchConfig(max_steps=512,
+                                               relax_omega=1.4))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    base = scene.tensors()
+    groups = [("geometry", [k for k in base if k.startswith("prim_params")]),
+              ("geometry", [k for k in base if k.startswith("prim_params")]),
+              ("materials + lights", ["mat_albedo", "light_color",
+                                      "light_vec", "background"]),
+              ("all leaves", ["prim_params/torus", "prim_params/sphere",
+                              "mat_albedo", "light_color", "light_vec",
+                              "background"])]
+    m0, _t0, clamp0, _n0 = outcome_masks(scene, cam, cfg)
+    # h: along a unit direction over ~10³ parameters each moves by ~3e-4,
+    # the loss by ~1e-2·|<grad, dir>|
+    worst = 0.0
+    for i, (label, keys) in enumerate(groups):
+        u = {k: torch.zeros_like(v) for k, v in base.items()}
+        for k in keys:
+            u[k] = torch.randn(base[k].shape, generator=gen, device=dev)
+        norm = sum(float(v.pow(2).sum()) for v in u.values()) ** 0.5
+        u = {k: v / norm for k, v in u.items()}
+        ends = []
+        for sgn in (+1.0, -1.0):
+            s = scene.with_tensors({k: v + sgn * h * u[k]
+                                    for k, v in base.items()})
+            m, t, clamp, nrm = outcome_masks(s, cam, cfg)
+            with torch.no_grad():
+                ends.append((ft.render(s, cam, cfg), m, clamp, t, nrm))
+        # a pixel may also pass from one primitive to another of the same
+        # material behind it: the hit jumps in t or turns its normal, far
+        # beyond what a step of ~3e-4 per parameter moves a surface
+        jump = ends[0][1][0] & (
+            ((ends[0][3] - ends[1][3]).abs() > 0.02)
+            | ((ends[0][4] - ends[1][4]).abs().amax(-1) > 0.05))
+        stable = (same_outcomes(ends[0][1], ends[1][1])
+                  & same_outcomes(ends[0][1], m0) & ~jump
+                  & ~clamp0 & ~ends[0][2] & ~ends[1][2])
+        lp, lm = (float((e[0] * stable[..., None]).double().pow(2).sum())
+                  for e in ends)
+        fd = (lp - lm) / (2 * h)
+        g, _ = masked_loss_grads(scene, cam, cfg, stable)
+        an = sum(float((g[k] * u[k].double()).sum()) for k in g)
+        rel = abs(fd - an) / max(abs(an), 1e-30)
+        worst = max(worst, rel)
+        log(f"  (b) direction {i} ({label}): central difference {fd:.6g}, "
+            f"<grad, dir> {an:.6g}, relative error {rel:.3e}; pixels left "
+            f"out (outcome flips or hit jumps under the step, the clamp) "
+            f"{1 - stable.float().mean().item():.6f}")
+        check(rel <= 0.05, f"(b) direction {i}: FD {fd} vs {an}")
+    return worst
+
+
+def grad_full_width(dev, scene, build_dir, fwd_med, tag="grad",
+                    expect=None, reps=5):
+    """(c)/(d) forward + backward of the 1024² culled frame: launch counts
+    around one step, the gradients, the median of ``reps`` steps, peak
+    memory and a profiled step."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda, point_eval
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    cfg = bench_config(SIZE)
+    s = scene.with_tensors({k: v.detach().clone().requires_grad_(True)
+                            for k, v in scene.tensors().items()})
+
+    def step():
+        s.zero_grad()
+        loss = torch.sum(ft.render(s, cam, cfg) ** 2)
+        loss.backward()
+        return loss
+
+    stats0 = dict(point_eval.STATS)
+    ops_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(step().detach())
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops_cuda.launch_counts()
+    route = {k: point_eval.STATS[k] - stats0[k] for k in stats0}
+    log(f"  {tag}: launches in one fwd+bwd step {counts}")
+    log(f"  {tag}: point_eval in that step {route}; loss {loss:.6g}; first "
+        f"step {first_s * 1e3:.1f} ms; peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    if expect is not None:
+        got = {k: counts[k] for k in expect}
+        check(got == expect, f"{tag}: launches {got}, want {expect} (the "
+              "backward launches no march kernel)")
+    check(counts["block_gather"] == 0, f"{tag}: K4 on the gradient path")
+    grads = {k: v.grad for k, v in s.tensors().items()}
+    for k in ("prim_params/torus", "mat_albedo", "light_color",
+              "background"):
+        g = grads[k]
+        check(g is not None and bool(torch.isfinite(g).all()),
+              f"{tag}: gradient of {k} missing or not finite")
+        check(float(g.abs().sum()) > 0, f"{tag}: gradient of {k} is zero")
+    check(all(g is None or bool(torch.isfinite(g).all())
+              for g in grads.values()), f"{tag}: a non-finite gradient")
+    log(f"  {tag}: |grad| sums " + ", ".join(
+        f"{k} {float(g.abs().sum()):.5g}" for k, g in grads.items()
+        if g is not None and float(g.abs().sum()) > 0))
+    out = dict(counts=counts, first_s=first_s, peak=peak, route=route)
+    if reps:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = statistics.median(times)
+        log(f"  {tag}: fwd+bwd median of {reps} {med * 1e3:.2f} ms "
+            f"({[round(t * 1e3, 2) for t in times]}); forward alone in "
+            f"this process {fwd_med * 1e3:.2f} ms: fwd+bwd over fwd "
+            f"{med / fwd_med:.2f}, the backward's share of the step "
+            f"{1 - fwd_med / med:.3f}")
+        out["idle"] = profile_frame(
+            s, cam, cfg, build_dir / f"chip_smoke_{tag}_step_trace.json",
+            fn=step)
+        out["med"] = med
+    return out
+
+
+def gather_transpose_times(table, idx):
+    """Device ms of the transpose (the backward) of two ways to read
+    ``table[idx]``: advanced indexing (a sort of all the lanes) and the
+    port's ``sdf.take_rows`` (``index_select``: atomic adds; every miss
+    lane names row 0)."""
+    from fraytracer_tpu_torch.ops import sdf
+    ct = torch.randn(tuple(idx.shape) + tuple(table.shape[1:]),
+                     device=table.device)
+    out = {}
+    for name, read in (("advanced indexing", lambda t: t[idx]),
+                       ("take_rows (index_select)",
+                        lambda t: sdf.take_rows(t, idx))):
+        t = table.detach().clone().requires_grad_(True)
+        y = read(t)
+        out[name] = cuda_ms(lambda: torch.autograd.grad(
+            y, t, ct, retain_graph=True))
+    return out
+
+
+def phase_grad(dev, scene, blend, build_dir, fwd_med, blend_fwd_med):
+    import json as _json
+
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch import cli
+    flipped, worst = grad_kernel_vs_plain(dev)
+    fd_worst = grad_finite_differences(dev)
+    log(f"  (c) forward + backward, culled frame {SIZE}^2, "
+        f"{BENCH_N_TORI} tori")
+    full = grad_full_width(
+        dev, scene, build_dir, fwd_med, tag="grad",
+        expect={"march_culled": 1, "surface_culled": 1,
+                "occlusion_culled": 2, "march": 0, "surface": 0,
+                "occlusion": 0})
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    masks, _t, clamped, _n = outcome_masks(scene, cam, bench_config(SIZE))
+    share = float(clamped.sum()) / float(masks[0].sum())
+    log(f"  (c) hit lanes under the min_denom clamp: {int(clamped.sum())} "
+        f"of {int(masks[0].sum())} ({share:.6f})")
+    check(share < 0.02, f"(c) clamped share {share}")
+    midx = masks[1].reshape(-1).clamp_min(0).long()
+    tt = gather_transpose_times(scene.mat_albedo, midx)
+    log(f"  (c) transpose of the material lookup mat_albedo"
+        f"{list(scene.mat_albedo.shape)}[{midx.numel()} lanes] (two such "
+        "lookups a step): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in tt.items()))
+    # the forward-only frame after a backward: no graph, the same launches
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    ops_cuda.reset_launch_counts()
+    img = ft.render(scene, cam, bench_config(SIZE))
+    counts = ops_cuda.launch_counts()
+    check(img.grad_fn is None and not img.requires_grad,
+          "a forward-only frame built a graph")
+    check((counts["march_culled"], counts["surface_culled"],
+           counts["occlusion_culled"], counts["block_gather"])
+          == (1, 1, 2, 0), f"forward-only launches {counts}")
+    log("  (d) one fwd+bwd step of the blended frame (the point_eval route)")
+    bl = grad_full_width(
+        dev, blend, build_dir, blend_fwd_med, tag="grad_blend",
+        expect={"march_culled": 1, "surface_ad_culled": 1,
+                "occlusion_culled": 2}, reps=0)
+    check(bl["route"]["certificate_reads"] == 1,
+          f"(d) certificate read {bl['route']['certificate_reads']} times")
+    branch = "ok: the culled" if bl["route"]["culled"] \
+        else "failed: the dense"
+    log(f"  (d) certificate {branch} branch ran; step "
+        f"{bl['first_s']:.3f} s, peak "
+        f"{bl['peak'] / 2**20:.1f} MiB")
+    culled_pe = grad_culled_point_eval(dev)
+    report = build_dir / "chip_smoke_fit.json"
+    rc = cli.main(["fit", "--size", "256", "--tori", "100", "--steps", "10",
+                   "--checkpoint", str(build_dir / "chip_smoke_fit.npz"),
+                   "--out-report", str(report)])
+    check(rc == 0, f"(e) fit returned {rc}")
+    rep = _json.loads(report.read_text())
+    log(f"  (e) fit, 10 steps at 256^2 / 100 tori: loss "
+        f"{rep['loss_first']:.6g} -> {rep['loss_last']:.6g} in "
+        f"{rep['wall_s']} s, losses {[round(x, 6) for x in rep['losses']]}")
+    check(all(x == x and abs(x) != float("inf") for x in rep["losses"]),
+          "(e) a non-finite loss")
+    check(rep["loss_last"] < rep["loss_first"], "(e) the loss did not fall")
+    # the same entry point at the full width, a few steps
+    rc = cli.main(["fit", "--size", str(SIZE), "--tori", str(BENCH_N_TORI),
+                   "--steps", "4", "--out-report", str(report)])
+    check(rc == 0, f"(e) fit at the full width returned {rc}")
+    wide = _json.loads(report.read_text())
+    log(f"  (e) fit, 4 steps at {SIZE}^2 / {BENCH_N_TORI} tori: losses "
+        f"{wide['losses']} in {wide['wall_s']} s")
+    check(all(x == x and abs(x) != float("inf") for x in wide["losses"]),
+          "(e) a non-finite loss at the full width")
+    check(wide["loss_last"] < wide["loss_first"],
+          "(e) the loss did not fall at the full width")
+    return dict(flipped=flipped, worst=worst, fd=fd_worst, full=full,
+                blend=bl, clamp_share=share, fit=rep, fit_wide=wide,
+                culled_point_eval=culled_pe)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the bench entry point
+# ---------------------------------------------------------------------------
+
+def phase_bench():
+    """``python -m fraytracer_tpu_torch.bench`` at its defaults (the full
+    width: 1024², 1000 tori, forward and forward + backward) in a process
+    of its own (its warm-up is a process's first launch); every JSON line
+    parsed, the last one echoed."""
+    cmd = [sys.executable, "-m", "fraytracer_tpu_torch.bench"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=str(Path(__file__).resolve().parent))
+    check(proc.returncode == 0, f"bench exited {proc.returncode}:\n"
+          f"{proc.stderr[-2000:]}")
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+    check(len(lines) == 2, f"bench printed {len(lines)} JSON lines, want 2")
+    first, last = (json.loads(l) for l in lines)
+    check(set(first) < set(last), "bench stages are not supersets")
+    check("fwd_bwd_time_s" not in first and first["value"] == last["value"],
+          "bench: the forward stage's line")
+    log(f"  bench: {lines[-1]}")
+    for k in ("value", "n_rays", "fwd_time_s", "backend_warmup_s",
+              "fwd_bwd_time_s", "fwd_bwd_over_fwd", "device",
+              "kernel_launches"):
+        check(k in last, f"bench line lacks {k}")
+    check((last["image_size"], last["n_tori"]) == (SIZE, BENCH_N_TORI),
+          f"bench ran {last['image_size']}^2 / {last['n_tori']} tori")
+    check(last["n_rays_primary"] == SIZE * SIZE <= last["n_rays"],
+          "bench ray counts")
+    # the forward stage's counts: W once, then the 1 + 15 culled frames
+    kl = first["kernel_launches"]
+    frames = 16
+    check(kl["warm"] == 1, f"bench launched W {kl['warm']} times")
+    check((kl["march_culled"], kl["surface_culled"], kl["occlusion_culled"],
+           kl["block_gather"]) == (frames, frames, 2 * frames, 0),
+          f"bench forward launches {kl}")
+    check(last["fwd_bwd_time_s"] > 0 and last["grad_abs_sum_prim_params"] > 0,
+          "bench fwd+bwd")
+    # 1 + 9 fwd+bwd steps more, each one frame's launches (the backward
+    # launches no kernel of the port)
+    kl, frames = last["kernel_launches"], frames + 1 + last["fwd_bwd_steps"]
+    check((kl["warm"], kl["march_culled"], kl["surface_culled"],
+           kl["occlusion_culled"], kl["block_gather"])
+          == (1, frames, frames, 2 * frames, 0),
+          f"bench launches after fwd+bwd {kl}")
+    return last
+
+
 def frame_only(tree, reps) -> int:
     """The culled torus frame ([main]'s configuration) alone: 3 untimed
     frames, then ``reps`` timed ones, as one JSON line.  ``tree`` names a
@@ -1340,6 +1991,12 @@ def main() -> int:
     build.library()
     log(f"[build] {build.BuildInfo.path.name} built={build.BuildInfo.built} "
         f"in {time.perf_counter() - t0:.2f} s")
+    # W as a bench process meets it: the first launch of this process
+    from fraytracer_tpu_torch.ops.cuda import probe
+    t0 = time.perf_counter()
+    w = probe.warm(torch.ones((8, 128), dtype=torch.float32, device=dev))
+    check(float(w.sum()) == 2048.0, "W returned the wrong sum")
+    warm_first_ms = 1e3 * (time.perf_counter() - t0)
     for line in build.BuildInfo.log.splitlines():
         if "entry function" in line or "registers" in line:
             log(f"  ptxas: {line.strip()}")
@@ -1375,6 +2032,15 @@ def main() -> int:
     blend_dense = phase_frame(dev, blend, build.BUILD_DIR, cull=False,
                               tag="blend_dense", ad=True, reps=1)
     phase_parity(dev, blend, blend_culled["cfg"], tag="blend")
+
+    log("[probe] W and P1-P4: the probe program, kernel vs plain, times")
+    probe_times, probe_counts, empty_ms = phase_probe(dev, warm_first_ms)
+    times.update(probe_times)
+    log("[grad] the gradient path")
+    grad = phase_grad(dev, scene, blend, build.BUILD_DIR, culled["med"],
+                      blend_culled["med"])
+    log("[bench] the bench entry point in a process of its own")
+    bench = phase_bench()
 
     mk = f"{TPU}/march_kernel.py"
     rows = [("march", f"{SRC}/march.cu", f"{mk}:1637", dense),
@@ -1412,6 +2078,39 @@ def main() -> int:
                for name, src, rep, path in rows]
     kernels[3]["forced_repair_launches"] = repair["block_gather"]
     kernels[3]["culled_frame_launches"] = culled["counts"]["block_gather"]
+    # W's path is a bench process (its launch count comes from that
+    # process's own counter, in its JSON line), P1-P4's the probe program;
+    # "ms", "plain_ms" and "library_ms" are device times between a pair
+    # of events ("device_floor_ms": the empty kernel's reading by the same
+    # method); all five are launch-bound: "back_to_back_ms" is
+    # the kernel's and "launch_floor_ms" the empty kernel's time a launch
+    # when launched in a row, and "ms_ldg" is P3/P4 with the table read
+    # from device memory instead of shared memory
+    probe_rows = [("warm", "bench.py:100", bench["kernel_launches"]["warm"]),
+                  ("smem_block", f"{PROBE_TOOL}:34",
+                   probe_counts["smem_block"]),
+                  ("smem_block_2d", f"{PROBE_TOOL}:57",
+                   probe_counts["smem_block_2d"]),
+                  ("dyn_loop", f"{PROBE_TOOL}:81", probe_counts["dyn_loop"]),
+                  ("while_loop", f"{PROBE_TOOL}:138",
+                   probe_counts["while_loop"])]
+    for name, rep, launches in probe_rows:
+        check(launches >= 1, f"{name} was launched no time on its path")
+        r = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": PROBE_SRC,
+            "replaces": rep, "launches": launches, "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "differing": r["differing"],
+            "compared": r["compared"],
+            "back_to_back_ms": r["back_to_back_ms"],
+            "launch_floor_ms": empty_ms[0],
+            "device_floor_ms": empty_ms[1],
+            "launches_per_main_path_frame": 0})
+        if name + "_ldg" in times:
+            kernels[-1]["ms_ldg"] = times[name + "_ldg"]["ms"]
+    kernels[-5]["first_launch_ms"] = warm_first_ms
     for tag, st in (("culled", culled), ("dense", dense),
                     ("blend", blend_culled), ("blend_dense", blend_dense)):
         log(f"[summary] {tag} frame first {st['first_s'] * 1e3:.1f} ms, "
@@ -1421,6 +2120,19 @@ def main() -> int:
     for tag, st in (("culled", culled), ("blend", blend_culled)):
         log(f"[summary] {tag} frame: repair tier {st['repair'][0]}, "
             f"candidates per tile (max, mean) {st['candidates']}")
+    full = grad["full"]
+    log(f"[summary] fwd+bwd culled frame: median {full['med'] * 1e3:.2f} ms "
+        f"({full['med'] / culled['med']:.2f} x the forward), peak "
+        f"{full['peak'] / 2**20:.1f} MiB, idle share "
+        f"{full['idle'] if full['idle'] is None else round(full['idle'], 4)}"
+        f", clamped hit lanes {grad['clamp_share']:.6f}; blended step "
+        f"{grad['blend']['first_s']:.3f} s, peak "
+        f"{grad['blend']['peak'] / 2**20:.1f} MiB, point_eval "
+        f"{grad['blend']['route']}; bench (its own process, {SIZE}^2 / "
+        f"{BENCH_N_TORI} tori) fwd "
+        f"{bench['fwd_time_s'] * 1e3:.2f} ms, fwd+bwd "
+        f"{bench['fwd_bwd_time_s'] * 1e3:.2f} ms, warm-up "
+        f"{bench['backend_warmup_s']} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
 """fraytracer_tpu_torch — the PyTorch + CUDA port of ``fraytracer_tpu``.
 
-The SDF/CSG sphere tracer of the JAX package, forward frame first: scenes
-flatten to parameter tensors, rays march through hand-written CUDA kernels
-(``csrc/``) on an NVIDIA GPU — culled per-tile candidate tables by
-default, every primitive each step with ``cull=False`` — or through the
-kernels' plain PyTorch versions on the CPU.  The entry points default to
-the GPU and the kernels; name ``device="cpu"`` to run the plain versions.
-Importing the package builds nothing and needs no GPU.
+The SDF/CSG sphere tracer of the JAX package: scenes flatten to parameter
+tensors, rays march through hand-written CUDA kernels (``csrc/``) on an
+NVIDIA GPU — culled per-tile candidate tables by default, every primitive
+each step with ``cull=False`` — or through the kernels' plain PyTorch
+versions on the CPU.  A frame is differentiable w.r.t. every scene tensor
+that requires grad (implicit differentiation at the hit points,
+``ops/march.py``).  The entry points default to the GPU and the kernels;
+name ``device="cpu"`` to run the plain versions.  Importing the package
+builds nothing and needs no GPU.
 
 Quick start::
 
@@ -17,6 +19,9 @@ Quick start::
     camera = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60)
     cfg = ft.RenderConfig(march=ft.MarchConfig(relax_omega=1.4))
     img = ft.render(scene, camera, cfg)
+
+    scene.requires_grad_(True)              # inverse rendering
+    (ft.render(scene, camera, cfg) ** 2).sum().backward()
 """
 
 from .camera import Camera, camera_rays, look_at

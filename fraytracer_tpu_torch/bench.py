@@ -1,0 +1,193 @@
+"""Benchmark of the port: forward and forward + backward frame times on
+the CSG scene (counterpart of the JAX package's ``bench.py``, its warm-up,
+forward and fwd+bwd sections).
+
+Workload = the reference's de-facto benchmark: the 1000-random-tori CSG
+scene at 1024x1024 with 2 lights, epsilon 0.01, ray budget 30, through the
+culled CUDA kernels.
+
+    python -m fraytracer_tpu_torch.bench [--size 1024] [--tori 1000]
+        [--quick] [--repeats 3] [--no-bwd] [--device cuda|cpu]
+
+Prints ONE JSON line per finished stage, each a superset of the last (a
+reader takes the LAST line): the headline ``rays_per_sec_per_chip_fwd``
+as soon as the forward timing and the ray count are known, then the
+fwd+bwd fields.  Times are medians of frames bracketed by a device
+synchronize; ``device`` names the card and its power limit.  Progress goes
+to stderr.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+
+def log(msg: str) -> None:
+    print(f"[bench] {msg}", file=sys.stderr, flush=True)
+
+
+def emit(result: dict) -> None:
+    """Print the full (current) result as one JSON line."""
+    print(json.dumps(result), flush=True)
+
+
+def device_label(device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them (the
+    device type for the CPU)."""
+    if device.type != "cuda":
+        return device.type
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", "-i", str(device.index or 0)],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    import torch
+    return out or torch.cuda.get_device_name(device)
+
+
+def timed(fn, sync, frames: int):
+    """Seconds of each of ``frames`` calls of ``fn``, each bracketed by
+    ``sync`` (a device synchronize)."""
+    out = []
+    for _ in range(frames):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--size", type=int, default=1024)
+    ap.add_argument("--tori", type=int, default=1000)
+    ap.add_argument("--quick", action="store_true",
+                    help="256x256, 100 tori (smoke)")
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="rounds of 5 forward frames / 3 fwd+bwd steps")
+    ap.add_argument("--no-bwd", action="store_true",
+                    help="skip the fwd+bwd timing")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda (kernels, default) or cpu (plain versions)")
+    args = ap.parse_args(argv)
+    if args.quick:
+        args.size, args.tori = 256, 100
+
+    import torch
+
+    import fraytracer_tpu_torch as ft
+    from .ops.cuda import launch_counts, probe
+    from .ops.march import MarchConfig
+    from .scene.generators import torus_csg_scene
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the port's kernels need a GPU "
+                         "(pass --device cpu to run their plain versions)")
+    device = torch.device(args.device)
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    # One-time backend warm-up, measured apart: the first launch of a
+    # process pays for the CUDA context, the kernel library (built with
+    # nvcc when the sources changed, else loaded) and the launch itself.
+    # A trivial kernel isolates that from the first frame's time.
+    t0 = time.perf_counter()
+    w = probe.warm(torch.ones((8, 128), dtype=torch.float32, device=device))
+    warm_sum = float(w.sum())
+    warmup_s = time.perf_counter() - t0
+    if warm_sum != 2048.0:
+        raise SystemExit(f"warm-up kernel returned {warm_sum}, want 2048")
+    log(f"backend warmup {warmup_s:.2f}s")
+
+    scene = ft.flatten(torus_csg_scene(seed=19, n_tori=args.tori),
+                       device=device)
+    camera = ft.look_at((0.0, 0.0, -10.0), (0.0, 0.0, 0.0),
+                        fov_degrees=60.0, device=device)
+    cfg = ft.RenderConfig(width=args.size, height=args.size, epsilon=0.01,
+                          length=30.0,
+                          march=MarchConfig(max_steps=192, bound_skip=True,
+                                            relax_omega=1.4))
+
+    log(f"fwd render {args.size}x{args.size}, {args.tori} tori on "
+        f"{args.device}...")
+    t0 = time.perf_counter()
+    img, n_rays_dev = ft.render_with_stats(scene, camera, cfg)
+    checksum = float(img.sum())
+    first_s = time.perf_counter() - t0
+    if img.grad_fn is not None:
+        raise SystemExit("a forward-only frame built an autograd graph")
+
+    frames = 5 * args.repeats
+    times = timed(lambda: ft.render_with_stats(scene, camera, cfg), sync,
+                  frames)
+    fwd_s = statistics.median(times)
+    n_rays = float(n_rays_dev)
+    n_primary = float(args.size * args.size)
+    log(f"n_rays={n_rays:.0f}, fwd={fwd_s * 1e3:.2f}ms (median of {frames})")
+    result = {
+        "metric": "rays_per_sec_per_chip_fwd",
+        "value": n_rays / fwd_s,
+        "unit": "rays/s",
+        "image_size": args.size,
+        "n_tori": args.tori,
+        # total = primary + shadow rays actually marched (<= 3 per pixel)
+        "n_rays": n_rays,
+        "n_rays_primary": n_primary,
+        "rays_per_sec_primary_only": n_primary / fwd_s,
+        "fwd_time_s": fwd_s,
+        "fwd_time_min_s": min(times),
+        "timing_method": f"median of {frames} frames, each bracketed by a "
+                         "device synchronize",
+        "first_frame_s": round(first_s, 4),
+        "backend_warmup_s": round(warmup_s, 4),
+        "image_checksum": checksum,
+        "backend": "cuda" if on_card else "cpu",
+        "device": device_label(device),
+        # kernel launches of this process so far (the warm-up kernel once)
+        "kernel_launches": launch_counts(),
+    }
+    emit(result)  # the headline is safe whatever happens below
+
+    if not args.no_bwd:
+        # fwd+bwd wall time: the gradient of the L2-vs-zero image loss
+        # w.r.t. every floating scene parameter
+        scene.requires_grad_(True)
+
+        def fwd_bwd():
+            scene.zero_grad()
+            loss = torch.sum(ft.render(scene, camera, cfg) ** 2)
+            loss.backward()
+
+        t0 = time.perf_counter()
+        fwd_bwd()
+        gsum = float(sum(p.grad.abs().sum()
+                         for p in scene.prim_params.values()))
+        result["fwd_bwd_first_s"] = round(time.perf_counter() - t0, 4)
+        steps = 3 * args.repeats
+        times = timed(fwd_bwd, sync, steps)
+        result["fwd_bwd_time_s"] = statistics.median(times)
+        result["fwd_bwd_time_min_s"] = min(times)
+        result["fwd_bwd_over_fwd"] = result["fwd_bwd_time_s"] / fwd_s
+        result["fwd_bwd_steps"] = steps
+        result["grad_abs_sum_prim_params"] = gsum
+        # the backward launches no kernel of the port: one frame's worth a
+        # step on top of the forward stage's counts
+        result["kernel_launches"] = launch_counts()
+        log(f"fwd+bwd {result['fwd_bwd_time_s'] * 1e3:.2f}ms "
+            f"({result['fwd_bwd_over_fwd']:.2f}x fwd, median of {steps})")
+        emit(result)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

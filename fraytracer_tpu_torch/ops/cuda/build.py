@@ -25,7 +25,9 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              # one compile job per source file, all at once
+              "--threads", "0")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +47,16 @@ SIGNATURES = {
     # x, idx, n_in_blocks, n_out_blocks, block_words (16-byte words), out,
     # stream
     "ft_block_gather": [_P, _P, _I, _I, _I, _P, _P],
+    # the warm-up kernel and the feature probes (csrc/probe.cu)
+    # x, out, n, stream
+    "ft_warm": [_P, _P, _I, _P],
+    "ft_probe_empty": [_P],
+    # table, x, out, g, m, p, row, col, stream
+    "ft_probe_smem_scalar": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # table, keys, x, out, g, m, p, use_smem, stream
+    "ft_probe_dyn_loop": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # table, x, out, trips, g, m, p, use_smem, stream
+    "ft_probe_while": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 # cudaGetErrorString for a code returned above
 ERROR_STRING = "ft_error_string"

@@ -1,6 +1,6 @@
 """Sphere tracing (the hot loop) as a batched, masked march.
 
-Counterpart of ``fraytracer_tpu.ops.march``, forward only.  Termination
+Counterpart of ``fraytracer_tpu.ops.march``.  Termination
 semantics match the reference (``SdfForm.tryTrace``, SdfForm.fs:93-104):
 miss when the travel budget is exhausted, hit when the scene distance drops
 below ``epsilon``, otherwise step forward by the distance.
@@ -16,8 +16,26 @@ Backends (``MarchConfig.backend``):
   counterpart of JAX ``"jnp"``; it ignores ``relax_omega`` and ``cull``
   like ``_march_raw`` does.
 
-Gradients (the implicit-differentiation custom VJPs) are not ported yet:
-everything here runs without autograd.
+Differentiability: the march loop itself is never differentiated.  At a
+converged hit ``x* = o + t*·d`` the surface condition ``f(x*, θ) = 0``
+defines ``t*`` implicitly, so
+
+    dt*/dθ = - (∂f/∂θ) / (∇ₓf · d)
+
+and :func:`march` / :func:`march_surface` are ``torch.autograd.Function``s
+whose forward runs the raw march without a graph and whose backward
+evaluates that formula at the hit point (O(1) memory, no backprop through
+iterations).  The backward is plain PyTorch on top of the forward
+kernels, per lane: the winning leaf's distance for min/max plans (the leaf
+code the surface kernel exports), per-tile candidate lists
+(``ops/point_eval.py``) for plans with a smooth union, the dense scene
+distance for ``sign`` lanes.  When no input requires grad the Functions
+are bypassed and a call costs what the raw march costs.
+
+Grazing-hit guard: the denominator ``∇ₓf·d`` → 0 at silhouettes, where
+the exact sensitivity diverges.  It is clamped to ``sign(den)·max(|den|,
+min_denom)`` (``den == 0`` → ``min_denom``), so the gradient saturates at
+``1/min_denom`` there instead of overflowing.
 """
 from __future__ import annotations
 
@@ -26,7 +44,7 @@ import dataclasses
 import torch
 
 from ..scene.flatten import FlatScene
-from ..types import MarchResult, Rays, dot
+from ..types import MarchResult, Rays, dot, normalize
 from . import sdf
 
 Tensor = torch.Tensor
@@ -39,8 +57,11 @@ class MarchConfig:
     """Static march configuration; every field of the JAX ``MarchConfig``
     with its default, except ``backend``: the kernels ("cuda") unless the
     caller asks for the plain dense march ("torch").  The ``cull_*``
-    fields steer the "cuda" backend's culled kernels; ``bwd_*`` steer the
-    backward pass, which is not ported yet (ROADMAP)."""
+    fields steer the "cuda" backend's culled kernels; ``min_denom`` guards
+    the backward's denominator at grazing hits; ``bwd_cull_m`` /
+    ``bwd_point_tile`` size the backward's per-tile candidate lists
+    (``ops/point_eval.py``; exactness is certified per tile with a dense
+    fallback, so they are pure performance knobs)."""
 
     max_steps: int = 192
     bound_skip: bool = True
@@ -245,19 +266,265 @@ def _march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
         lambda x: x.reshape(batch))
 
 
-def march(scene: FlatScene, rays: Rays, cfg: MarchConfig = MarchConfig(),
-          sign: Tensor | None = None) -> MarchResult:
-    """Sphere-trace ``rays`` against ``scene`` (forward only).  ``sign``
-    (per-lane ±1) multiplies the scene distance: -1 lanes march inside the
-    solid toward its exit surface."""
-    check_config(cfg)
+# ---------------------------------------------------------------------------
+# Backward pass: implicit differentiation at the converged hit point
+# ---------------------------------------------------------------------------
+#
+# A "scene distance" here is a pair ``(rows, at)``: ``at(lo, hi)`` gives the
+# closure ``scene_d(params, x)`` for lanes ``[lo, hi)`` (``params``: kind →
+# ``[K_t, P_t]``, ``x [hi-lo, 3]`` → ``[hi-lo]``, differentiable in both),
+# and ``rows`` is how many lanes one chunk of the backward takes, so that
+# the chunk's (second-order) graph bounds the peak memory.
+
+def _lane_rows(device: torch.device) -> int:
+    return 1 << (20 if device.type == "cuda" else 16)
+
+
+def _dense_scene_d(scene: FlatScene, device: torch.device):
+    """Every primitive at every lane (``sdf.scene_distance``)."""
+    def scene_d(params, x):
+        return sdf.scene_distance(
+            dataclasses.replace(scene, prim_params=params), x)
+    rows = max(1, _chunk_elems(device) // (8 * max(scene.num_prims, 1)))
+    return rows, lambda lo, hi: scene_d
+
+
+def _leaf_scene_d(scene: FlatScene, code: Tensor):
+    """One primitive per lane: the winning leaf of the surface kernel's
+    signed code (``sdf.leaf_distance``)."""
+    return _lane_rows(code.device), lambda lo, hi: sdf.leaf_distance(
+        scene.kind_counts, code[lo:hi])
+
+
+def _culled_scene_d(scene: FlatScene, x0: Tensor, hit: Tensor,
+                    cfg: MarchConfig):
+    """Per-tile candidate lists around the hit points when culling is on
+    (``ops/point_eval.py``), dense otherwise.  The exactness certificate is
+    read on the host once: a batch with a tile that could rank the true
+    argmin out of its candidates takes the dense evaluation — the
+    gradient's fast path is never silently approximate."""
+    if cfg.cull and cfg.backend == "cuda":
+        from .point_eval import build_culled_eval, read_certificate
+        built = build_culled_eval(scene, x0, hit, m=cfg.bwd_cull_m,
+                                  threshold=cfg.cull_threshold,
+                                  tile=cfg.bwd_point_tile,
+                                  for_materials=False)
+        if built is not None and read_certificate(built[4]):
+            dist_fn = built[0]
+            tile = cfg.bwd_point_tile
+
+            def at(lo, hi):
+                pad = (-(hi - lo)) % tile
+
+                def scene_d(params, x):
+                    if pad:
+                        x = torch.cat([x, x[-1:].expand(pad, 3)])
+                    d = dist_fn(params, x.reshape(-1, tile, 3), lo // tile)
+                    return d.reshape(-1)[:hi - lo]
+                return scene_d
+            return dist_fn.g_chunk * tile, at
+    return _dense_scene_d(scene, x0.device)
+
+
+def hit_points(rays: Rays, t: Tensor, hit: Tensor) -> Tensor:
+    """``rays.at(t)`` on hit lanes, the ray's origin on the others.  A lane
+    that never enters the scene's bound carries ``t = 3e38``: a distance
+    function overflows at such a point, and its non-finite derivative
+    turns the zero cotangent of a masked-out lane into NaN."""
+    return rays.at(torch.where(hit, t, 0.0))
+
+
+def _implicit_t_denom(scene_d, params, x0: Tensor, direction: Tensor,
+                      signv: Tensor | None, min_denom: float) -> Tensor:
+    """``∇ₓf·d`` at the hit points with the grazing-hit guard (module
+    docstring); carries no graph."""
+    with torch.enable_grad():
+        q = x0.detach().requires_grad_(True)
+        f = scene_d({k: v.detach() for k, v in params.items()}, q)
+        (gradx,) = torch.autograd.grad(f.sum(), q)
+    if signv is not None:
+        gradx = signv[:, None] * gradx
+    den = dot(gradx, direction.detach())
+    den = torch.sign(den) * torch.clamp_min(den.abs(), min_denom)
+    return torch.where(den == 0.0, min_denom, den)
+
+
+def implicit_vjp(scene: FlatScene, rays: Rays, t: Tensor, hit: Tensor,
+                 scene_d, cfg: MarchConfig, ct_t: Tensor,
+                 ct_n: Tensor | None = None, sign: Tensor | None = None,
+                 need_rays: bool = True):
+    """The backward of a march as a function of its residuals: cotangents
+    of the hit distance ``ct_t [N]`` and (for the fused surface pass) of
+    the unit normal ``ct_n [N, 3]`` → ``(params bar: kind → [K_t, P_t],
+    origin bar [N, 3], direction bar [N, 3])`` (the ray bars ``None``
+    without ``need_rays``).  ``rays`` is flat; ``t``/``hit`` are the raw
+    march's outputs; ``scene_d`` a ``(rows, at)`` pair (see above).
+
+    Per chunk of lanes this is one reverse sweep of
+
+        L = Σ_hit f(θ, o + t·d)·(-ct_t / den)
+            + Σ_hit ct_n · normalize(∇ₓf)(θ, o + (t(θ) - ε)·d)
+
+    where ``den`` is the guarded ``∇ₓf·d`` and ``t(θ) = t - (f - sg f)/den``
+    reattaches the hit distance by the implicit-function theorem, so the
+    normal's gradient equals the unfused (march → normal) chain's without
+    re-running a kernel.  ``f`` is the march-signed distance (``sign·f``);
+    the normal is the outward gradient on ``sign = -1`` lanes too."""
+    n = t.shape[0]
+    rows, at = scene_d
+    hit = hit.detach()
+    # miss lanes are evaluated at their origin (see ``hit_points``)
+    t = torch.where(hit, t.detach(), 0.0)
+    bar_p = {k: torch.zeros_like(v) for k, v in scene.prim_params.items()}
+    bar_o = torch.zeros_like(rays.origin) if need_rays else None
+    bar_d = torch.zeros_like(rays.direction) if need_rays else None
+    for lo in range(0, n, rows):
+        hi = min(lo + rows, n)
+        fn = at(lo, hi)
+        tc, hc, eps = t[lo:hi], hit[lo:hi], rays.epsilon[lo:hi].detach()
+        sg = None if sign is None else sign[lo:hi].detach()
+        with torch.enable_grad():
+            params = {k: v.detach().requires_grad_(True)
+                      for k, v in scene.prim_params.items()}
+            o = rays.origin[lo:hi].detach().requires_grad_(need_rays)
+            d = rays.direction[lo:hi].detach().requires_grad_(need_rays)
+            x = o + tc[:, None] * d
+            den = _implicit_t_denom(fn, params, x, d, sg, cfg.min_denom)
+            f0 = fn(params, x)
+            if sg is not None:
+                f0 = sg * f0
+            # dt = -(df)/den on hit lanes
+            loss = torch.sum(f0 * torch.where(hc, -ct_t[lo:hi] / den, 0.0))
+            if ct_n is not None:
+                t_diff = tc - (f0 - f0.detach()) / den
+                p = o + (t_diff - eps)[:, None] * d
+                (g,) = torch.autograd.grad(fn(params, p).sum(), p,
+                                           create_graph=True)
+                loss = loss + torch.sum(normalize(g) * torch.where(
+                    hc[:, None], ct_n[lo:hi], 0.0))
+            leaves = list(params.values()) + ([o, d] if need_rays else [])
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        for k, gk in zip(params, grads):
+            if gk is not None:
+                bar_p[k] += gk
+        if need_rays:
+            for bar, gk in zip((bar_o, bar_d), grads[len(params):]):
+                if gk is not None:
+                    bar[lo:hi] = gk
+    return bar_p, bar_o, bar_d
+
+
+def _surface_scene_d(scene: FlatScene, rays: Rays, t: Tensor, hit: Tensor,
+                     code: Tensor, cfg: MarchConfig, sign: Tensor | None):
+    """The scene distance the fused-surface backward differentiates: the
+    winning leaf for plans of min/max alone (slot mode), per-tile candidate
+    lists for plans with a smooth union (code 0), the dense scene distance
+    for ``sign`` lanes of such plans."""
+    from .cuda.march_kernel import slot_surface_mode
+    if slot_surface_mode(scene.plan):
+        return _leaf_scene_d(scene, code)
+    if sign is None:
+        return _culled_scene_d(scene, rays.at(t).detach(), hit, cfg)
+    return _dense_scene_d(scene, t.device)
+
+
+class _MarchFn(torch.autograd.Function):
+    """The raw march (and, with ``surface``, the fused surface pass) with
+    the implicit-differentiation backward.  Tensor inputs: ``sign`` (or
+    None), the flat rays' four fields, then one parameter matrix per kind.
+    Outputs ``(t, hit, distance, steps)`` plus ``(normal, material, code)``
+    with ``surface``; only ``t`` and ``normal`` carry gradient."""
+
+    @staticmethod
+    def forward(ctx, scene, cfg, surface, sign, origin, direction, length,
+                epsilon, *params):
+        rays = Rays(origin, direction, length, epsilon)
+        ctx.scene, ctx.cfg, ctx.surface = scene, cfg, surface
+        ctx.has_sign = sign is not None
+        if surface:
+            from .cuda.march_kernel import cuda_march_raw
+            res, normal, midx, code = cuda_march_raw(
+                scene, rays, cfg, want_surface=True, sign=sign)
+            out = (res.t, res.hit, res.distance, res.steps, normal, midx,
+                   code)
+            ctx.mark_non_differentiable(res.hit, res.distance, res.steps,
+                                        midx, code)
+            extra = (code,)
+        else:
+            res = _raw_flat(scene, rays, cfg, sign)
+            out = (res.t, res.hit, res.distance, res.steps)
+            ctx.mark_non_differentiable(res.hit, res.distance, res.steps)
+            extra = ()
+        ctx.save_for_backward(origin, direction, epsilon, res.t, res.hit,
+                              *extra, *((sign,) if ctx.has_sign else ()),
+                              *params)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct_t, _hit, _dist, _steps, ct_n=None, _m=None,
+                 _code=None):
+        saved = list(ctx.saved_tensors)
+        origin, direction, epsilon, t, hit = saved[:5]
+        rest = saved[5:]
+        code = rest.pop(0) if ctx.surface else None
+        sign = rest.pop(0) if ctx.has_sign else None
+        scene = dataclasses.replace(
+            ctx.scene, prim_params=dict(zip(ctx.scene.prim_params, rest)))
+        rays = Rays(origin, direction, torch.zeros_like(t), epsilon)
+        cfg = ctx.cfg
+        t = torch.where(hit, t, 0.0)      # see ``hit_points``
+        if ctx.surface:
+            scene_d = _surface_scene_d(scene, rays, t, hit, code, cfg, sign)
+        elif sign is None:
+            scene_d = _culled_scene_d(scene, rays.at(t), hit, cfg)
+        else:
+            scene_d = _dense_scene_d(scene, t.device)
+        need_rays = ctx.needs_input_grad[4] or ctx.needs_input_grad[5]
+        bar_p, bar_o, bar_d = implicit_vjp(
+            scene, rays, t, hit, scene_d, cfg, ct_t,
+            ct_n if ctx.surface else None, sign, need_rays)
+        # scene, cfg, surface, sign; origin, direction, length, epsilon
+        return (None, None, None, None, bar_o, bar_d, None, None,
+                *bar_p.values())
+
+
+def _raw_flat(scene: FlatScene, rays: Rays, cfg: MarchConfig,
+              sign: Tensor | None) -> MarchResult:
+    """The raw march of a flat ray batch on ``cfg.backend``."""
     if cfg.backend == "cuda":
         from .cuda.march_kernel import cuda_march_raw
-        batch = rays.batch_shape
-        res = cuda_march_raw(scene, flat_rays(rays), cfg,
-                             sign=_flat_sign(sign, batch))
-        return res.map(lambda x: x.reshape(batch))
-    return _march_raw(scene, rays, cfg, sign)
+        return cuda_march_raw(scene, rays, cfg, sign=sign)
+    with torch.no_grad():
+        return _march_raw(scene, rays, cfg, sign)
+
+
+def _wants_grad(scene: FlatScene, rays: Rays) -> bool:
+    """True when autograd must see the march: grad mode is on and a
+    parameter matrix or a ray field the backward reaches requires grad."""
+    return torch.is_grad_enabled() and (
+        rays.origin.requires_grad or rays.direction.requires_grad
+        or any(p.requires_grad for p in scene.prim_params.values()))
+
+
+def march(scene: FlatScene, rays: Rays, cfg: MarchConfig = MarchConfig(),
+          sign: Tensor | None = None) -> MarchResult:
+    """Sphere-trace ``rays`` against ``scene``; ``t`` is differentiable at
+    hits w.r.t. the scene's parameters and the rays' origin and direction
+    (implicit differentiation, module docstring; nothing extra runs when
+    no input requires grad).  ``sign`` (per-lane ±1) multiplies the scene
+    distance: -1 lanes march inside the solid toward its exit surface."""
+    check_config(cfg)
+    batch = rays.batch_shape
+    flat = flat_rays(rays)
+    sign_flat = _flat_sign(sign, batch)
+    if _wants_grad(scene, flat):
+        t, hit, d, steps = _MarchFn.apply(
+            scene, cfg, False, sign_flat, flat.origin, flat.direction,
+            flat.length, flat.epsilon, *scene.prim_params.values())
+        res = MarchResult(hit=hit, t=t, distance=d, steps=steps)
+    else:
+        res = _raw_flat(scene, flat, cfg, sign_flat)
+    return res.map(lambda x: x.reshape(batch))
 
 
 def march_occlusion(scene: FlatScene, rays: Rays,
@@ -270,9 +537,12 @@ def march_occlusion(scene: FlatScene, rays: Rays,
     [3]``: every ray ends at this point (point-light shadow rays); the
     culled kernel then selects candidates with the converging cone, which
     may flip grazing lanes.  ``axial_key`` only steers the TPU layout knob
-    ``shadow_axial_sort``, which the port does not run."""
+    ``shadow_axial_sort``, which the port does not run.  The mask is
+    boolean: the inputs are detached and autograd never sees this march
+    (hard shadows are binary in the reference too)."""
     del axial_key
     check_config(cfg)
+    rays = rays.map(torch.Tensor.detach)
     if cfg.backend == "cuda":
         from .cuda.march_kernel import cuda_march_raw
         batch = rays.batch_shape
@@ -283,7 +553,8 @@ def march_occlusion(scene: FlatScene, rays: Rays,
                              cone_apex=cone_apex,
                              sign=_flat_sign(sign, batch))
         return hit.reshape(batch)
-    return _march_raw(scene, rays, cfg, sign).hit
+    with torch.no_grad():
+        return _march_raw(scene, rays, cfg, sign).hit
 
 
 def march_surface(scene: FlatScene, rays: Rays,
@@ -296,20 +567,29 @@ def march_surface(scene: FlatScene, rays: Rays,
     gradient, on ``sign=-1`` lanes too) and the CSG-aware winning material
     (-1 on miss).  On the "cuda" backend with ``fuse_surface`` this is the
     march kernel followed by the surface kernel (slot mode, or AD mode for
-    a plan with a smooth union); otherwise march + dense evaluation."""
+    a plan with a smooth union); ``t`` and ``normal`` stay differentiable
+    through the implicit-differentiation backward.  Otherwise march + dense
+    evaluation."""
     check_config(cfg)
+    batch = rays.batch_shape
     if cfg.backend == "cuda" and cfg.fuse_surface:
-        from .cuda.march_kernel import cuda_march_raw
-        batch = rays.batch_shape
-        res, normal, midx, _code = cuda_march_raw(
-            scene, flat_rays(rays), cfg, want_surface=True,
-            sign=_flat_sign(sign, batch))
+        flat = flat_rays(rays)
+        sign_flat = _flat_sign(sign, batch)
+        if _wants_grad(scene, flat):
+            t, hit, d, steps, normal, midx, _code = _MarchFn.apply(
+                scene, cfg, True, sign_flat, flat.origin, flat.direction,
+                flat.length, flat.epsilon, *scene.prim_params.values())
+            res = MarchResult(hit=hit, t=t, distance=d, steps=steps)
+        else:
+            from .cuda.march_kernel import cuda_march_raw
+            res, normal, midx, _code = cuda_march_raw(
+                scene, flat, cfg, want_surface=True, sign=sign_flat)
         return (res.map(lambda x: x.reshape(batch)),
                 normal.reshape(batch + (3,)), midx.reshape(batch))
     res = march(scene, rays, cfg, sign=sign)
-    pos = rays.at(res.t - rays.epsilon).reshape(-1, 3)
+    pos = hit_points(rays, res.t - rays.epsilon, res.hit).reshape(-1, 3)
     normal = chunked(sdf.scene_normal, scene, pos)
-    midx = chunked(sdf.material_index_at, scene, pos)
-    batch = rays.batch_shape
+    with torch.no_grad():
+        midx = chunked(sdf.material_index_at, scene, pos)
     return (res, normal.reshape(batch + (3,)),
             torch.where(res.hit, midx.reshape(batch), -1))

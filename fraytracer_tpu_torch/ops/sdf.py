@@ -11,8 +11,9 @@ The per-kind distance functions read their parameters as
 
 Key entry points: :func:`prim_distances`, :func:`scene_distance`,
 :func:`scene_normal` (autograd), :func:`material_at`,
-:func:`winning_leaf_code`, and the bounding spheres :func:`prim_bounds` /
-:func:`root_bound`.
+:func:`winning_leaf_code`, :func:`leaf_distance` / :func:`leaf_normal` (one
+primitive per lane, for the backward pass), and the bounding spheres
+:func:`prim_bounds` / :func:`root_bound`.
 """
 from __future__ import annotations
 
@@ -140,6 +141,180 @@ DIST_FNS = {
 
 
 # ---------------------------------------------------------------------------
+# The same distances over an accessor ``g(j)`` that yields the j-th
+# parameter, broadcastable against the coordinates ``px, py, pz`` (no
+# ``[..., 3]``-minor intermediates).  The backward pass and ``point_eval``
+# use these: per lane (``g(j) [n]`` against ``px [n]``) or per tile
+# candidate (``g(j) [G, 1, m]`` against ``px [G, T, 1]``).  The formulas are
+# those of the JAX package's ``_GEN_FNS`` term by term, so gradients agree
+# to float32 rounding.
+# ---------------------------------------------------------------------------
+
+def _g_sphere(g, px, py, pz):
+    dx, dy, dz = px - g(0), py - g(1), pz - g(2)
+    return torch.sqrt(dx * dx + dy * dy + dz * dz + 1e-20) - g(3)
+
+
+def _g_capsule(g, px, py, pz):
+    ax, ay, az = g(0), g(1), g(2)
+    bax, bay, baz = g(3) - ax, g(4) - ay, g(5) - az
+    pax, pay, paz = px - ax, py - ay, pz - az
+    denom = torch.clamp_min(bax * bax + bay * bay + baz * baz, 1e-20)
+    h = torch.clamp((pax * bax + pay * bay + paz * baz) / denom, 0.0, 1.0)
+    ex, ey, ez = pax - h * bax, pay - h * bay, paz - h * baz
+    return torch.sqrt(ex * ex + ey * ey + ez * ez + 1e-20) - g(6)
+
+
+def _g_torus(g, px, py, pz):
+    nx, ny, nz = g(3), g(4), g(5)
+    ninv = torch.rsqrt(nx * nx + ny * ny + nz * nz + 1e-20)
+    nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
+    qx, qy, qz = px - g(0), py - g(1), pz - g(2)
+    h = qx * nx + qy * ny + qz * nz
+    q2 = qx * qx + qy * qy + qz * qz
+    radial = torch.sqrt(torch.clamp_min(q2 - h * h, 1e-20)) - g(6)
+    return torch.sqrt(h * h + radial * radial + 1e-20) - g(7)
+
+
+def _g_box(g, px, py, pz):
+    qx = torch.abs(px - g(0)) - g(3)
+    qy = torch.abs(py - g(1)) - g(4)
+    qz = torch.abs(pz - g(2)) - g(5)
+    ox, oy, oz = (torch.clamp_min(qx, 0.0), torch.clamp_min(qy, 0.0),
+                  torch.clamp_min(qz, 0.0))
+    outside = torch.sqrt(ox * ox + oy * oy + oz * oz + 1e-20)
+    inside = torch.clamp_max(torch.maximum(qx, torch.maximum(qy, qz)), 0.0)
+    return outside + inside - g(6)
+
+
+def _g_plane(g, px, py, pz):
+    return px * g(0) + py * g(1) + pz * g(2) - g(3)
+
+
+def _g_cone(g, px, py, pz):
+    ax, ay, az = g(0), g(1), g(2)
+    ra, rb = g(6), g(7)
+    rba = rb - ra
+    bax, bay, baz = g(3) - ax, g(4) - ay, g(5) - az
+    baba = torch.clamp_min(bax * bax + bay * bay + baz * baz, 1e-20)
+    pax, pay, paz = px - ax, py - ay, pz - az
+    papa = pax * pax + pay * pay + paz * paz
+    paba = (pax * bax + pay * bay + paz * baz) / baba
+    x = torch.sqrt(torch.clamp_min(papa - paba * paba * baba, 1e-20))
+    cax = torch.clamp_min(x - torch.where(paba < 0.5, ra, rb), 0.0)
+    cay = torch.abs(paba - 0.5) - 0.5
+    k = rba * rba + baba
+    f = torch.clamp((rba * (x - ra) + paba * baba) / k, 0.0, 1.0)
+    cbx = x - ra - f * rba
+    cby = paba - f
+    s = torch.where((cbx < 0.0) & (cay < 0.0), -1.0, 1.0)
+    return s * torch.sqrt(torch.minimum(cax * cax + cay * cay * baba,
+                                        cbx * cbx + cby * cby * baba) + 1e-20)
+
+
+def _g_triangle(g, px, py, pz):
+    v1x, v1y, v1z = g(0), g(1), g(2)
+    v2x, v2y, v2z = g(3), g(4), g(5)
+    v3x, v3y, v3z = g(6), g(7), g(8)
+    e1x, e1y, e1z = v2x - v1x, v2y - v1y, v2z - v1z   # v21
+    e2x, e2y, e2z = v3x - v2x, v3y - v2y, v3z - v2z   # v32
+    e3x, e3y, e3z = v1x - v3x, v1y - v3y, v1z - v3z   # v13
+    # nor = cross(v21, v13)
+    nx = e1y * e3z - e1z * e3y
+    ny = e1z * e3x - e1x * e3z
+    nz = e1x * e3y - e1y * e3x
+    p1x, p1y, p1z = px - v1x, py - v1y, pz - v1z
+    p2x, p2y, p2z = px - v2x, py - v2y, pz - v2z
+    p3x, p3y, p3z = px - v3x, py - v3y, pz - v3z
+
+    def seg_d2(ex, ey, ez, qx, qy, qz):
+        denom = torch.clamp_min(ex * ex + ey * ey + ez * ez, 1e-20)
+        h = torch.clamp((qx * ex + qy * ey + qz * ez) / denom, 0.0, 1.0)
+        ux, uy, uz = qx - h * ex, qy - h * ey, qz - h * ez
+        return ux * ux + uy * uy + uz * uz
+
+    d2e = torch.minimum(
+        seg_d2(e1x, e1y, e1z, p1x, p1y, p1z),
+        torch.minimum(seg_d2(e2x, e2y, e2z, p2x, p2y, p2z),
+                      seg_d2(e3x, e3y, e3z, p3x, p3y, p3z)))
+
+    def half_sign(ex, ey, ez, qx, qy, qz):
+        cx = ey * nz - ez * ny
+        cy = ez * nx - ex * nz
+        cz = ex * ny - ey * nx
+        return torch.sign(cx * qx + cy * qy + cz * qz)
+
+    s = (half_sign(e1x, e1y, e1z, p1x, p1y, p1z)
+         + half_sign(e2x, e2y, e2z, p2x, p2y, p2z)
+         + half_sign(e3x, e3y, e3z, p3x, p3y, p3z))
+    n2 = torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-20)
+    h = nx * p1x + ny * p1y + nz * p1z
+    return torch.sqrt(torch.where(s >= 2.0, h * h / n2, d2e) + 1e-20) - g(9)
+
+
+GEN_FNS = {
+    "sphere": _g_sphere, "capsule": _g_capsule, "torus": _g_torus,
+    "triangle": _g_triangle, "box": _g_box, "cone": _g_cone,
+    "plane": _g_plane,
+}
+
+
+def leaf_distance(kind_counts, code: Tensor):
+    """Leaf-local scene distance from the surface pass's signed winning-leaf
+    code: ``f(x) = sign(code)·d_{|code|-1}(x)``.
+
+    At a hit point of a min/max CSG scene the scene distance locally equals
+    the winning leaf's (possibly negated) distance, so the backward pass
+    differentiates that one primitive per lane.  Returns a closure
+    ``scene_d(params, x)`` over ``params`` (kind → ``[K_t, P_t]``) and
+    ``x [n, 3]``, differentiable in both; lanes with code 0 (a miss, or a
+    blend's AD mode) give 0.  Each lane's row is read with
+    ``index_select``, whose transpose is one ``index_add_``."""
+    code = code.detach()
+    slot = code.abs().long() - 1
+    sgn = torch.sign(code)
+    lane_id = torch.arange(code.shape[0], device=code.device)
+
+    def scene_d(params, x: Tensor) -> Tensor:
+        px, py, pz = x.unbind(-1)
+        out = torch.zeros_like(px)
+        off = 0
+        for kind, cnt in kind_counts:
+            in_kind = (slot >= off) & (slot < off + cnt)
+            # lanes of another kind read any row (the ``where`` below drops
+            # it), spread over the table so that the transpose's atomic
+            # adds do not all land on one row
+            row = torch.where(in_kind, slot - off, lane_id % cnt)
+            # [P, n]: each parameter one contiguous row over the lanes
+            lane = params[kind].t().index_select(1, row)
+            d = GEN_FNS[kind](lambda j, lane=lane: lane[j], px, py, pz)
+            out = torch.where(in_kind, d, out)
+            off += cnt
+        return sgn * out
+
+    return scene_d
+
+
+def leaf_normal(scene: FlatScene, code: Tensor, p: Tensor) -> Tensor:
+    """Unit surface normal at ``p [n, 3]`` from a winning-leaf code
+    (``sign·(global_slot + 1)``): the named primitive's (possibly negated)
+    gradient.  Differentiable w.r.t. the scene's parameters and ``p`` when
+    either requires grad (the leaf choice is held fixed); ``code == 0``
+    lanes return (0, 0, 1)."""
+    diff = torch.is_grad_enabled() and (
+        p.requires_grad
+        or any(v.requires_grad for v in scene.prim_params.values()))
+    with torch.enable_grad():
+        q = p if p.requires_grad else p.detach().requires_grad_(True)
+        # the unsigned leaf distance: normalize first, orient after
+        f = leaf_distance(scene.kind_counts, code.abs())(scene.prim_params, q)
+        (g,) = torch.autograd.grad(f.sum(), q, create_graph=diff)
+    n = normalize(g) * torch.where(code < 0, -1.0, 1.0)[..., None]
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=p.dtype, device=p.device)
+    return torch.where((code != 0)[..., None], n, up)
+
+
+# ---------------------------------------------------------------------------
 # Scene evaluation
 # ---------------------------------------------------------------------------
 
@@ -194,11 +369,26 @@ def scene_distance(scene: FlatScene, p: Tensor) -> Tensor:
 
 def scene_normal(scene: FlatScene, p: Tensor) -> Tensor:
     """Unit surface normal = normalized ∇_p scene_distance (autograd; the
-    reference's 4-tap differences replaced by the exact gradient)."""
+    reference's 4-tap differences replaced by the exact gradient).  When
+    ``p`` or a scene parameter requires grad the normal stays
+    differentiable in both (a second-order graph); otherwise no graph is
+    kept."""
+    diff = torch.is_grad_enabled() and (
+        p.requires_grad
+        or any(v.requires_grad for v in scene.prim_params.values()))
     with torch.enable_grad():
-        q = p.detach().requires_grad_(True)
-        (g,) = torch.autograd.grad(torch.sum(scene_distance(scene, q)), q)
+        q = p if p.requires_grad else p.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(torch.sum(scene_distance(scene, q)), q,
+                                   create_graph=diff)
     return normalize(g)
+
+
+def take_rows(table: Tensor, idx: Tensor) -> Tensor:
+    """``table[idx]`` over the leading axis through ``index_select``: its
+    transpose is one ``index_add_`` (atomic adds), where advanced
+    indexing's is a sort of all the lanes."""
+    return table.index_select(0, idx.reshape(-1)).reshape(
+        tuple(idx.shape) + tuple(table.shape[1:]))
 
 
 def albedo_of(scene: FlatScene, midx: Tensor, p: Tensor) -> Tensor:
@@ -208,16 +398,16 @@ def albedo_of(scene: FlatScene, midx: Tensor, p: Tensor) -> Tensor:
     ``p`` — the position-dependent material closure of the reference design
     (``SdfMaterial`` takes Position → Color, Types.fs:46-49)."""
     midx = midx.long()
-    albedo = scene.mat_albedo[midx]
+    albedo = take_rows(scene.mat_albedo, midx)
     if MAT_PROCEDURAL in scene.mat_kind:
         from ..utils.noise import fbm
         kinds = torch.as_tensor(np.asarray(scene.mat_kind, np.int64),
                                 device=midx.device)
         is_proc = kinds[midx] == MAT_PROCEDURAL
-        scale = scene.mat_reflectivity[midx]
+        scale = take_rows(scene.mat_reflectivity, midx)
         blend = 0.5 * (fbm(p * scale[..., None], octaves=3) + 1.0)
         proc_albedo = (albedo * (1.0 - blend[..., None])
-                       + scene.mat_tint[midx] * blend[..., None])
+                       + take_rows(scene.mat_tint, midx) * blend[..., None])
         albedo = torch.where(is_proc[..., None], proc_albedo, albedo)
     return albedo
 

@@ -12,6 +12,12 @@ SdfScene.fs:7-28, and ``SdfLight.fs``):
 Each light costs one occlusion march over the whole batch.  The JAX
 ``lax.cond`` tiers of :func:`resolve_material` are Python branches on a
 count read from the device; each such read is a host sync.
+
+Autograd sees the hit distance and normal (``march_surface``'s backward),
+the hit position, the albedo, the lights and the background.  It never
+sees a shadow march (inputs detached, boolean output), the point light's
+cone apex, or :func:`resolve_material` (an integer index; the block gather
+has no backward and must stay off the graph).
 """
 from __future__ import annotations
 
@@ -23,8 +29,8 @@ from ..scene.flatten import FlatScene
 from ..scene.nodes import LIGHT_DIRECTIONAL, LIGHT_POINT
 from ..types import Rays, SurfaceHit, dot
 from . import sdf
-from .march import (MarchConfig, check_config, chunked, march_occlusion,
-                    march_surface)
+from .march import (MarchConfig, check_config, chunked, hit_points, march,
+                    march_occlusion, march_surface)
 
 Tensor = torch.Tensor
 
@@ -96,12 +102,38 @@ def surface_hit(scene: FlatScene, rays: Rays,
     position backed off by epsilon, unit normal there, and the winning
     material's albedo."""
     check_config(cfg)
-    res, normal, midx = march_surface(scene, rays, cfg)
-    pos = rays.at(res.t - rays.epsilon)
     if cfg.backend == "cuda" and cfg.fuse_surface:
+        # normals + material argmin from the surface kernel
+        res, normal, midx = march_surface(scene, rays, cfg)
+        pos = hit_points(rays, res.t - rays.epsilon, res.hit)
         midx = resolve_material(scene, pos, res.hit, midx,
                                 backend=cfg.backend)
-    albedo = sdf.albedo_of(scene, torch.clamp_min(midx, 0), pos)
+        albedo = sdf.albedo_of(scene, torch.clamp_min(midx, 0), pos)
+        return SurfaceHit(hit=res.hit, position=pos, normal=normal,
+                          color=albedo, material=midx, t=res.t)
+    res = march(scene, rays, cfg)
+    pos = hit_points(rays, res.t - rays.epsilon, res.hit)
+    batch = tuple(res.hit.shape)
+    out = None
+    if cfg.cull and cfg.backend == "cuda":
+        # big scenes: normals/materials over per-tile candidate lists
+        # instead of every primitive (ops/point_eval.py)
+        from .point_eval import culled_surface_eval
+        out = culled_surface_eval(scene, pos.reshape(-1, 3),
+                                  res.hit.reshape(-1), m=cfg.cull_m,
+                                  threshold=cfg.cull_threshold)
+    if out is not None:
+        normal = out[0].reshape(batch + (3,))
+        midx = out[1].reshape(batch)
+        albedo = out[2].reshape(batch + (3,))
+    else:
+        flat = pos.reshape(-1, 3)
+        normal = chunked(sdf.scene_normal, scene, flat).reshape(batch + (3,))
+        with torch.no_grad():
+            midx = chunked(sdf.material_index_at, scene,
+                           flat).reshape(batch)
+        albedo = sdf.albedo_of(scene, midx, pos)
+    midx = torch.where(res.hit, midx, -1)
     return SurfaceHit(hit=res.hit, position=pos, normal=normal,
                       color=albedo, material=midx, t=res.t)
 
@@ -157,8 +189,8 @@ def shade_with_stats(scene: FlatScene, rays: Rays, hit: SurfaceHit,
     lit = hit.color * light_acc * (1.0 / math.pi)
     # emission (zero for plain solids)
     emission = torch.where(hit.material[..., None] >= 0,
-                           scene.mat_emission[torch.clamp_min(
-                               hit.material, 0).long()], 0.0)
+                           sdf.take_rows(scene.mat_emission, torch.clamp_min(
+                               hit.material, 0).long()), 0.0)
     shaded = lit + emission
     return torch.where(hit.hit[..., None], shaded, scene.background), n_shadow
 
@@ -169,7 +201,6 @@ def shade(scene: FlatScene, rays: Rays, hit: SurfaceHit,
     return shade_with_stats(scene, rays, hit, cfg)[0]
 
 
-@torch.no_grad()
 def trace(scene: FlatScene, rays: Rays,
           cfg: MarchConfig = MarchConfig()) -> Tensor:
     """Full primary trace: march → surface info → shade (reference
@@ -178,7 +209,6 @@ def trace(scene: FlatScene, rays: Rays,
     return shade(scene, rays, hit, cfg)
 
 
-@torch.no_grad()
 def trace_with_stats(scene: FlatScene, rays: Rays,
                      cfg: MarchConfig = MarchConfig()):
     """``trace`` + the total rays marched (primary + shadow) as an int64

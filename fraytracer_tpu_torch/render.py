@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import camera as cam
 from .ops import shade, tonemap
@@ -76,28 +77,40 @@ def _pad_rays(rays: Rays, pad: int) -> Rays:
 def _trace(scene: FlatScene, rays: Rays, march_cfg: MarchConfig,
            tile_rays: int):
     """Trace a flat ray batch, in tiles of ``tile_rays`` when > 0 (bounds
-    the "torch" backend's memory).  Returns (colors [N, 3], n_rays)."""
+    the "torch" backend's memory; with a graph each tile is rematerialized
+    in the backward, so one tile's intermediates bound the peak).  Returns
+    (colors [N, 3], n_rays)."""
     n = rays.origin.shape[0]
     if tile_rays <= 0 or n <= tile_rays:
         return shade.trace_with_stats(scene, rays, march_cfg)
     pad = (-n) % tile_rays
     if pad:
         rays = _pad_rays(rays, pad)
+    keep = torch.is_grad_enabled() and any(
+        x.requires_grad for x in scene.tensors().values())
+
+    def tile(i):
+        part = rays.map(lambda x: x[i:i + tile_rays])
+        if keep:
+            return checkpoint(shade.trace_with_stats, scene, part, march_cfg,
+                              use_reentrant=False)
+        return shade.trace_with_stats(scene, part, march_cfg)
+
     colors, n_rays = [], 0
     for i in range(0, n + pad, tile_rays):
-        c, k = shade.trace_with_stats(
-            scene, rays.map(lambda x: x[i:i + tile_rays]), march_cfg)
+        c, k = tile(i)
         colors.append(c)
         n_rays = n_rays + k
     # padded lanes each contribute exactly 1 to the primary count
     return torch.cat(colors)[:n], n_rays - pad
 
 
-@torch.no_grad()
 def render_with_stats(scene: FlatScene, camera: cam.Camera,
                       cfg: RenderConfig = RenderConfig()):
     """``render`` + the number of rays marched (primary + shadow per facing
-    hit, an int64 scalar tensor).  Returns ``(image [H, W, 3], n_rays)``."""
+    hit, an int64 scalar tensor).  Returns ``(image [H, W, 3], n_rays)``.
+    The image is differentiable w.r.t. every scene tensor that requires
+    grad; when none does, no graph is built."""
     check_config(cfg.march)
     rays = cam.camera_rays(camera, cfg.width, cfg.height,
                            cfg.epsilon, cfg.length)

@@ -10,7 +10,8 @@ becomes
 
 :func:`from_jax_arrays` rebuilds a port ``FlatScene`` from a JAX
 ``FlatScene``'s leaves (as numpy arrays) and static fields, so the same
-scene state can be handed to both implementations.
+scene state can be handed to both implementations; :func:`grads_to_numpy`
+is its inverse for gradients.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 from . import nodes as N
 
 __all__ = ["Plan", "FlatScene", "flatten", "from_jax_arrays",
-           "visible_materials", "KINDS", "PARAM_WIDTH"]
+           "grads_to_numpy", "visible_materials", "KINDS", "PARAM_WIDTH"]
 
 # Canonical primitive kind order == global slot order.
 KINDS: Tuple[str, ...] = (
@@ -88,6 +89,34 @@ class FlatScene:
         kw["prim_params"] = {k: v.to(device)
                              for k, v in self.prim_params.items()}
         return dataclasses.replace(self, **kw)
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """Every floating leaf by name: ``prim_params/<kind>`` and the
+        material, light and background fields (the keys of a gradient
+        dict, in the JAX gradient pytree's naming)."""
+        out = {f"prim_params/{k}": v for k, v in self.prim_params.items()}
+        out.update({f: getattr(self, f) for f in _ARRAY_FIELDS})
+        return out
+
+    def with_tensors(self, leaves: Mapping[str, torch.Tensor]) -> "FlatScene":
+        """A scene with the floating leaves replaced by ``leaves`` (keyed
+        as :meth:`tensors` keys them); the static fields are shared."""
+        return dataclasses.replace(
+            self, prim_params={k: leaves[f"prim_params/{k}"]
+                               for k in self.prim_params},
+            **{f: leaves[f] for f in _ARRAY_FIELDS})
+
+    def requires_grad_(self, flag: bool = True) -> "FlatScene":
+        """Make every floating leaf a leaf of autograd (or stop it being
+        one), in place; returns the scene."""
+        for x in self.tensors().values():
+            x.requires_grad_(flag)
+        return self
+
+    def zero_grad(self) -> None:
+        """Drop every leaf's ``.grad``."""
+        for x in self.tensors().values():
+            x.grad = None
 
     @property
     def num_prims(self) -> int:
@@ -252,24 +281,38 @@ def _plan_from(p) -> Plan:
 
 def from_jax_arrays(prim_params: Mapping[str, np.ndarray], *, plan,
                     kind_counts, prim_material, mat_kind, light_kind,
-                    device="cuda", **arrays) -> FlatScene:
+                    device="cuda", requires_grad: bool = False,
+                    **arrays) -> FlatScene:
     """Port ``FlatScene`` from a JAX ``FlatScene``'s leaves and static fields.
 
     ``prim_params`` maps kind → ``[K_t, P_t]`` array; ``arrays`` holds the
     remaining leaves by field name (``mat_albedo`` … ``background``), each
     as a numpy array.  ``plan`` may be the JAX package's ``Plan``; it is
-    rebuilt as this package's ``Plan``."""
+    rebuilt as this package's ``Plan``.  With ``requires_grad`` every
+    floating leaf is a leaf of autograd (``.grad`` after a backward)."""
     missing = set(_ARRAY_FIELDS) - set(arrays)
     extra = set(arrays) - set(_ARRAY_FIELDS)
     if missing or extra:
         raise ValueError(f"from_jax_arrays: missing {sorted(missing)}, "
                          f"unexpected {sorted(extra)}")
+    def leaf(x):
+        return _f32(x, device).requires_grad_(requires_grad)
+
     return FlatScene(
-        prim_params={str(k): _f32(v, device) for k, v in prim_params.items()},
-        **{f: _f32(arrays[f], device) for f in _ARRAY_FIELDS},
+        prim_params={str(k): leaf(v) for k, v in prim_params.items()},
+        **{f: leaf(arrays[f]) for f in _ARRAY_FIELDS},
         plan=_plan_from(plan),
         kind_counts=tuple((str(k), int(c)) for k, c in kind_counts),
         prim_material=tuple(int(m) for m in prim_material),
         mat_kind=tuple(int(m) for m in mat_kind),
         light_kind=tuple(int(m) for m in light_kind),
     )
+
+
+def grads_to_numpy(scene: FlatScene) -> Dict[str, np.ndarray]:
+    """The scene's ``.grad``s as numpy arrays keyed like the JAX gradient
+    pytree (``prim_params/<kind>``, ``mat_albedo`` … ``background``); a
+    leaf autograd never reached gives zeros."""
+    return {name: (torch.zeros_like(x) if x.grad is None
+                   else x.grad).detach().cpu().numpy()
+            for name, x in scene.tensors().items()}

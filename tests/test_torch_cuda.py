@@ -14,7 +14,13 @@ same candidate tables.  The AD-mode surface pass (plans with a smooth
 union): normals within 1e-4 of the plain version on ≥ 99.9% of hit lanes
 (both sum the same exp weights, in another order and with FMA), materials
 equal, and within 1e-3 of the dense autograd normal.  ``sign`` lanes: hit
-masks equal and t within 1e-4 of the plain version."""
+masks equal and t within 1e-4 of the plain version.  The gradient path:
+the backward fed the kernels' residuals on the card against the same
+backward on the CPU (1e-5 of each leaf's max |g|: the same plain PyTorch
+on two devices); a frame's gradient through the kernels against the plain
+route with the lanes whose outcome or t differ masked out (1e-3 of each
+leaf's norm).  W, P1 and P2 exact, P3 within rtol 1e-6, P4 equal trips and
+1e-5."""
 import pytest
 import torch
 
@@ -69,10 +75,9 @@ def test_march_and_surface_kernels_match_plain(dev, name, omega):
     assert int(agree.sum()) >= 0.999 * int(hk.sum())
     assert (nk - np_).abs()[agree].max().item() <= 1e-4
     assert torch.equal(mk_[agree], mp[agree])
-    assert ops_cuda.launch_counts() == {
-        "march": 1, "occlusion": 1, "surface": 1, "surface_ad": 0,
-        "block_gather": 0, "march_culled": 0, "occlusion_culled": 0,
-        "surface_culled": 0, "surface_ad_culled": 0}
+    counts = ops_cuda.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "march": 1, "occlusion": 1, "surface": 1}
 
 
 def culled_inputs(name, dev):
@@ -326,3 +331,95 @@ def test_culled_overflow_rerun_on_the_card(dev):
     full = march(scene, rays, dataclasses.replace(cfg, cull_m=96))
     for f in ("hit", "t", "distance", "steps"):
         assert torch.equal(getattr(small, f), getattr(full, f)), f
+
+
+# ---------------------------------------------------------------------------
+# the gradient path and the probes
+# ---------------------------------------------------------------------------
+
+def test_backward_on_card_matches_cpu(dev):
+    """``implicit_vjp`` fed the kernels' own t, hit and leaf code, on the
+    card and on the CPU."""
+    from fraytracer_tpu_torch.ops import march as M
+    from fraytracer_tpu_torch.render import _to_blocks
+    scene = ft.flatten(torus_csg_scene(19, 96), device=dev)
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), device=dev)
+    rays = ft.camera_rays(cam, 128, 128, 0.01, 30.0).map(
+        lambda x: _to_blocks(x, 128, 128, 32).contiguous())
+    cfg = ft.MarchConfig(max_steps=192, relax_omega=1.4)
+    raw, _n, _m, code = mk.cuda_march_raw(scene, rays, cfg,
+                                          want_surface=True)
+    g = torch.Generator().manual_seed(3)
+    ct_t = torch.randn(128 * 128, generator=g)
+    ct_n = torch.randn(128 * 128, 3, generator=g)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        sc, ry = scene.to(d), rays.map(lambda x: x.to(d))
+        out[d.type] = M.implicit_vjp(
+            sc, ry, raw.t.to(d), raw.hit.to(d),
+            M._leaf_scene_d(sc, code.to(d)), cfg, ct_t.to(d), ct_n.to(d))
+    for a, b in zip(out["cuda"][0].values(), out["cpu"][0].values()):
+        assert float(b.abs().max()) > 0
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for a, b in zip(out["cuda"][1:], out["cpu"][1:]):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_frame_gradient_kernels_match_plain_route(dev):
+    """``grad`` of ``sum(render²)`` at 128² / 96 tori through the culled
+    kernels and through their plain versions on the same CUDA tensors."""
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    cfg = ft.RenderConfig(width=128, height=128, march=ft.MarchConfig(
+        max_steps=192, relax_omega=1.4))
+
+    def run(plain, mask=None):
+        scene = ft.flatten(torus_csg_scene(19, 96),
+                           device=dev).requires_grad_(True)
+        saved = (mk.march_kernel, mk.surface_kernel)
+        if plain:
+            mk.march_kernel, mk.surface_kernel = mk.march_plain, \
+                mk.surface_plain
+        try:
+            ops_cuda.reset_launch_counts()
+            img = ft.render(scene, cam, cfg)
+            if mask is not None:
+                (img * mask[..., None]).pow(2).sum().backward()
+            counts = ops_cuda.launch_counts()
+        finally:
+            mk.march_kernel, mk.surface_kernel = saved
+        return img.detach(), scene, counts
+
+    ik, _s, counts = run(False)
+    ip, _s, _c = run(True)
+    same = (ik - ip).abs().amax(-1) < 1e-4
+    assert same.float().mean().item() >= 0.995
+    _i, sk, counts = run(False, same)
+    _i, sp, _c = run(True, same)
+    assert {k: v for k, v in counts.items() if v} == {
+        "march_culled": 1, "surface_culled": 1, "occlusion_culled": 2}
+    for (name, a), b in zip(sk.tensors().items(), sp.tensors().values()):
+        if b.grad is None or float(b.grad.norm()) == 0:
+            continue
+        assert torch.isfinite(a.grad).all(), name
+        err = float((a.grad - b.grad).norm() / b.grad.norm())
+        assert err <= 1e-3, (name, err)
+
+
+def test_probe_kernels_match_plain(dev):
+    from fraytracer_tpu_torch.ops.cuda import probe
+    inp = probe.probe_inputs(dev)
+    ops_cuda.reset_launch_counts()
+    for name, (kernel, plain, ok) in probe.features(inp).items():
+        assert ok(kernel(), plain()), name
+    x = torch.randn(8, 128, device=dev)
+    assert torch.equal(probe.warm(x), probe.warm_plain(x))
+    probe.empty_launch(dev)
+    torch.cuda.synchronize()
+    counts = ops_cuda.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "warm": 1, "smem_block": 1, "smem_block_2d": 1, "dyn_loop": 2,
+        "while_loop": 2, "empty": 1}
+    with pytest.raises(ValueError):
+        probe.warm(x.double())
+    with pytest.raises(ValueError):
+        probe.dyn_loop(inp["x3"], inp["cand3"].cpu(), inp["keys3"])
