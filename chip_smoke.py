@@ -11,9 +11,17 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    culled K1/K2/K3 on the 96-torus scene, a 256-sphere intersect and
    point-light rays with the converging cone; K3 in AD mode (plans with a
    smooth union) dense and culled, also against the dense autograd normal;
-   K1/K2 with per-lane sign; then each kernel's time beside its plain
-   version's, its bound and, where one PyTorch call computes the same
-   function, that call's time, at the main path's shapes.
+   K1/K2 with per-lane sign; culled K1/K2 on a plan whose pairs exceed a
+   block's shared memory (staged and unstaged pairs in one launch); then
+   each kernel's time beside its plain version's, its bound and, where one
+   PyTorch call computes the same function, that call's time, at the main
+   path's shapes.  K4 and the culled K1/K2/K3 are read on the device
+   (``ms``: an event pair while the device works off queued fills) with
+   the reading around one host call beside it (``host_call_ms``).
+   ``[sections]`` lines: the instrumented twin of K1/K2 (clock64 deltas
+   per warp) gives each section's share of the culled marches' time —
+   ray load, window statistics, candidate rows, early-out checks, dense
+   entries + tree, stepping, store — with its own launch counter.
 4. main    — the culled forward frame (the default configuration):
    render_with_stats at 1024² on the seed-19 1000-torus scene (max_steps
    192, bound_skip, relax_omega 1.4, the default cull_*) with launch
@@ -55,16 +63,22 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
 10. bench  — ``python -m fraytracer_tpu_torch.bench --quick`` in a process
    of its own; its last JSON line parsed and echoed, W launched once.
 
-Two more modes time the culled torus frame alone (neither is the smoke
-test; both need the card):
+Three more modes time parts alone (none is the smoke test; all need the
+card):
 
     python3 chip_smoke.py --frame-only [--tree DIR] [--reps 9]
+    python3 chip_smoke.py --kernels-only [--tree DIR]
     python3 chip_smoke.py --compare DIR [--pairs 8] [--reps 9]
 
-``DIR`` is a directory inside the checkout (``_checkout/`` is ignored by
-git) that holds another commit, e.g. ``git archive HEAD | tar -x -C
+``--frame-only`` times the culled torus frame; ``--kernels-only`` prints
+one JSON line with the device times of K4 (kernel, plain, library), culled
+K1, culled K2 of both lights and dense K1, the culled marches' lane
+efficiency and ray evaluations and the twin's section shares.  ``DIR`` is
+a directory inside the checkout (``_checkout/`` is ignored by git) that
+holds another commit, e.g. ``git archive HEAD | tar -x -C
 _checkout/parent``; ``--compare`` runs the two trees in turns, a fresh
-process each, and prints the paired differences of their medians.
+process each: first ``--kernels-only`` (other, this, this, other), then
+the frame pairs with the paired differences of their medians.
 
 The second-to-last line of output is the card's name and power limit, the
 line before it a JSON object with each kernel's launches, error and times;
@@ -128,6 +142,18 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_timer():
+    """``device_ms`` of the imported package (``ops/cuda/timing.py``): an
+    event pair around a call issued while the device works off queued
+    fills, so that it brackets the kernels and not the host's launch path.
+    A tree from before that module keeps the function in its probe."""
+    try:
+        from fraytracer_tpu_torch.ops.cuda.timing import device_ms
+    except ImportError:
+        from fraytracer_tpu_torch.ops.cuda.probe import device_ms
+    return device_ms
 
 
 def nbytes(*tensors) -> int:
@@ -278,18 +304,22 @@ def surface_bound(scene, args, out, tables=None):
     return bound(io, flops)
 
 
-def timing(ms, plain_ms, err, differing, compared, bound_, library_ms=None):
-    """One kernel's row of measurements for the JSON line."""
+def timing(ms, plain_ms, err, differing, compared, bound_, library_ms=None,
+           **more):
+    """One kernel's row of measurements for the JSON line (``more``: the
+    same call read another way, e.g. ``host_call_ms``)."""
     return dict(ms=ms, plain_ms=plain_ms, err=err, differing=differing,
                 compared=compared, bound_ms=bound_[0], bound_by=bound_[1],
-                library_ms=library_ms)
+                library_ms=library_ms, **more)
 
 
 def log_times(out):
     for name, r in out.items():
         lib = "none" if r["library_ms"] is None \
             else f"{r['library_ms']:.4f} ms"
-        log(f"  time {name}: kernel {r['ms']:.4f} ms, plain "
+        host = "" if "host_call_ms" not in r else \
+            f" on the device ({r['host_call_ms']:.4f} ms around a host call)"
+        log(f"  time {name}: kernel {r['ms']:.4f} ms{host}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.3g} ms "
             f"({r['bound_by']}), library {lib} (err {r['err']:.3e}, "
             f"{r['differing']} of {r['compared']} outputs differ)")
@@ -607,6 +637,44 @@ def intersect_scene(dev):
         device=dev)
 
 
+def phase_overbudget_pairs(dev, groups=5, per_group=1024):
+    """Culled K1/K2 on a plan whose pairs exceed a block's shared memory
+    (``groups`` intersections of ``per_group`` spheres, united: as many
+    pairs of 50,688 bytes at 1024 rows): the wrapper stages the pairs that
+    fit, in program order, the kernel reads the rest from device memory,
+    in one launch; held against the plain version."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops.cuda import cull, march_kernel as mk
+    g = torch.Generator().manual_seed(23)
+    parts = []
+    for i in range(groups):
+        cx = (i - (groups - 1) / 2) * 2.0
+        c = (torch.rand(per_group, 3, generator=g) - 0.5) * 0.4
+        parts.append(ft.intersect(*[
+            ft.sphere((cx + float(x), float(y), float(z)), 0.9,
+                      material=ft.solid(0.2 + 0.1 * i, 0.5, 0.5))
+            for x, y, z in c.tolist()]))
+    scene = ft.flatten(ft.Scene(root=ft.union(*parts)), device=dev)
+    lanes, kw = primary_lanes(scene, 64, 30.0, dev)
+    tables = culled_tables(scene, lanes, per_group // 2, per_group)
+    prog = mk.lower_program(scene, dev, tables.pairs)
+    plan = mk.march_stage_plan(prog, tables)
+    log(f"  [stage] {len(tables.tables)} pairs of m "
+        f"{[q.m for q in tables.tables]}: {cull.pair_stage_bytes(per_group)}"
+        f" bytes a pair, limit {cull.SMEM_LIMIT}: staged {plan.staged}, "
+        f"{plan.bytes} bytes of shared memory a block (above 48 KB: the "
+        "opt-in), the rest read from device memory")
+    check(any(plan.staged) and not all(plan.staged),
+          f"the plan does not split: {plan.staged}")
+    k = mk.march_kernel(scene, **lanes, **kw, cull=tables)
+    check(int(k[1].sum()) > 100, f"overbudget: {int(k[1].sum())} hits")
+    compare_march(k, mk.march_plain(scene, **lanes, **kw, cull=tables),
+                  f"K1 culled, staged + unstaged pairs {plan.staged}")
+    occ = mk.march_kernel(scene, **lanes, **kw, cull=tables, occlusion=True)
+    check(torch.equal(occ[0], k[1]), "overbudget: K2 != K1")
+    torch.cuda.synchronize()
+
+
 def phase_culled_kernels(dev):
     """Culled K1/K2/K3 against their plain versions on the same tables."""
     import fraytracer_tpu_torch as ft
@@ -673,7 +741,17 @@ def phase_kernels(dev):
     check(torch.equal(flat_block_gather(pay, it, 3),
                       pay.reshape(4, -1)[it.long()].reshape(-1, 3)),
           "K4 [N, 3] mismatch")
-    log("  K4 block gather: exact on float32/int32, repeats, Bo != B, [N,3]")
+    # blocks that are not whole 256-word thread blocks (25 and 275
+    # 16-byte words), out-of-range indices (zeros), and 4096 blocks
+    from fraytracer_tpu_torch.ops.cuda.gather import _gather_blocks
+    for floats, nb in ((100, 7), (1100, 7), (1024, 4096)):
+        x = torch.randn(nb, floats, generator=g).to(dev)
+        it = torch.randint(-2, nb + 2, (nb + 3,), generator=g,
+                           dtype=torch.int32).to(dev)
+        check(torch.equal(_gather_blocks(x, it), block_gather_plain(x, it)),
+              f"K4 mismatch at blocks of {floats} floats x {nb}")
+    log("  K4 block gather: exact on float32/int32, repeats, Bo != B, "
+        "[N,3], ragged words, out-of-range indices, 4096 blocks")
 
     for name, (scene, size, length) in scenes(dev).items():
         lanes, kw = primary_lanes(scene, size, length, dev)
@@ -704,13 +782,23 @@ def lane_efficiency(steps):
     return int(per_warp.sum()) / max(issued, 1)
 
 
+def gather_bench_inputs(pos, dev):
+    """K4 at the block tier's shape: 16 blocks of the frame's ``[N, 3]``
+    points ``pos`` (12 KB each); returns the block view, the int32 block
+    indices and their int64 form for the library's ``x[idx]``."""
+    from fraytracer_tpu_torch.ops.cuda.gather import BLOCK
+    xb = pos.contiguous().reshape(-1, BLOCK * 3)
+    bidx = torch.arange(0, 16 * 37, 37, dtype=torch.int32, device=dev)
+    return xb, bidx, bidx.long()
+
+
 def phase_kernel_times(dev, bench_scene):
     """Each kernel beside its plain version at the main path's shapes
     (1024² primary rays on the 1000-torus scene)."""
     from fraytracer_tpu_torch.ops import shade
     from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
     from fraytracer_tpu_torch.ops.cuda.gather import (
-        _gather_blocks, block_gather_plain, BLOCK)
+        _gather_blocks, block_gather_plain)
     out = {}
     lanes, kw = primary_lanes(bench_scene, SIZE, 30.0, dev)
     k = mk.march_kernel(bench_scene, **lanes, **kw)
@@ -782,23 +870,33 @@ def phase_kernel_times(dev, bench_scene):
                             int(hitk.sum()),
                             surface_bound(bench_scene, args, kk))
 
-    # K4 at the block tier's shape: 16 blocks of the frame's [N, 3] points
-    xb = pos.contiguous().reshape(-1, BLOCK * 3)
-    bidx = torch.arange(0, 16 * 37, 37, dtype=torch.int32, device=dev)
+    # K4 at the block tier's shape: 16 blocks of the frame's [N, 3] points.
+    # "ms", "plain_ms", "library_ms": device times (device_ms); the
+    # *host_call_ms beside them: an event pair around one host call, which
+    # at 192 KB reads the host's launch path
+    device_ms = device_timer()
+    xb, bidx, lidx = gather_bench_inputs(pos, dev)
     gk = _gather_blocks(xb, bidx)
-    ms = cuda_ms(lambda: _gather_blocks(xb, bidx), reps=20)
-    plain_ms = cuda_ms(lambda: block_gather_plain(xb, bidx), reps=20)
     gp = block_gather_plain(xb, bidx)
     err = (gk - gp).abs().max().item()
     check(err == 0.0, "K4 bench mismatch")
     # the one PyTorch call that computes the same function: an
     # advanced-index gather of the same blocks (timed here, used nowhere)
-    lidx = bidx.long()
     check(torch.equal(xb[lidx], gk), "K4 library gather mismatch")
-    library_ms = cuda_ms(lambda: xb[lidx], reps=20)
+    calls = {"": lambda: _gather_blocks(xb, bidx),
+             "plain_": lambda: block_gather_plain(xb, bidx),
+             "library_": lambda: xb[lidx]}
+    dev_ms = {k: device_ms(fn) for k, fn in calls.items()}
     out["block_gather"] = timing(
-        ms, plain_ms, err, int((gk != gp).sum()), gk.numel(),
-        bound(2 * nbytes(gk) + nbytes(bidx), 0.0), library_ms)
+        dev_ms[""], dev_ms["plain_"], err, int((gk != gp).sum()), gk.numel(),
+        bound(2 * nbytes(gk) + nbytes(bidx), 0.0), dev_ms["library_"],
+        **{k + "host_call_ms": cuda_ms(fn, reps=20)
+           for k, fn in calls.items()})
+    r = out["block_gather"]
+    log(f"  K4 device ms / ms around a host call: kernel {r['ms']:.5f} / "
+        f"{r['host_call_ms']:.5f}, plain {r['plain_ms']:.5f} / "
+        f"{r['plain_host_call_ms']:.5f}, library x[idx] "
+        f"{r['library_ms']:.5f} / {r['library_host_call_ms']:.5f}")
     log_times(out)
     return out
 
@@ -839,6 +937,32 @@ def shadow_lanes(scene, lanes, k, light):
                 epsilon=srays.epsilon, t0=st0.contiguous()), apex, facing
 
 
+def log_sections(label, scene, lanes, kw, want):
+    """Run the instrumented twin of K1/K2 on ``lanes`` (its own launch
+    counter, no kernel row's), hold its outputs against the kernel's
+    ``want`` (hit masks and step counts equal: the same code around clock
+    reads) and print each section's share of the warps' summed clock
+    cycles.  Returns ``{"shares": ..., "counts": ...}``."""
+    from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
+    n0 = dict(mk.LAUNCHES)
+    got, clocks, counts = mk.march_sections(scene, **lanes, **kw)
+    check(dict(mk.LAUNCHES) == n0, "the twin moved a kernel row's counter")
+    check(mk.SECTION_LAUNCHES["march_sections"] >= 1, "twin not counted")
+    # hit mask and steps: the last two outputs of K1, the two of K2
+    hit_at = 1 if len(got) == 4 else 0
+    same = (got[-1] == want[-1]) & (got[hit_at] == want[hit_at])
+    check(same.float().mean().item() >= 0.9999,
+          f"[sections] {label}: the twin's outputs differ from the kernel's")
+    total = max(sum(clocks.values()), 1)
+    shares = {k: v / total for k, v in clocks.items()}
+    log(f"[sections] {label}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in shares.items())
+        + f"; {total / max(counts['warp_steps'], 1):.0f} clocks a warp step"
+        f", counts {counts}")
+    return {"shares": shares, "counts": counts,
+            "clocks_per_warp_step": total / max(counts["warp_steps"], 1)}
+
+
 def phase_culled_times(dev, bench_scene):
     """Culled K1/K2/K3 beside their plain versions at the main path's
     shapes: 1024² primary rays (tables at cull_m 256), each light's shadow
@@ -846,19 +970,32 @@ def phase_culled_times(dev, bench_scene):
     primary hits."""
     from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
     out = {}
+    device_ms = device_timer()
     lanes, kw = primary_lanes(bench_scene, SIZE, 30.0, dev)
     tabs = culled_tables(bench_scene, lanes, 48, 256)
     kw = dict(kw, cull=tabs)
+    plan = mk.march_stage_plan(
+        mk.lower_program(bench_scene, dev, tabs.pairs), tabs)
+    log(f"  [stage] K1 culled bench, m {[q.m for q in tabs.tables]}: "
+        f"{plan.bytes} bytes of shared memory a block ({plan.bulk_bytes} by "
+        f"bulk copies), pairs staged {plan.staged}, dense entries staged "
+        f"{plan.ents}")
     k = mk.march_kernel(bench_scene, **lanes, **kw)
-    ms = cuda_ms(lambda: mk.march_kernel(bench_scene, **lanes, **kw))
+    ms = device_ms(lambda: mk.march_kernel(bench_scene, **lanes, **kw))
+    host_call = cuda_ms(lambda: mk.march_kernel(bench_scene, **lanes, **kw))
     with window_rows(tabs) as win:
         p, plain_ms = host_ms(lambda: mk.march_plain(bench_scene, **lanes,
                                                      **kw))
     err = compare_march(k, p, f"K1 culled bench {SIZE}^2")
     out["march_culled"] = timing(
         ms, plain_ms, err, int((k[1] != p[1]).sum()), k[1].numel(),
-        march_bound(bench_scene, lanes, k, tabs, win))
+        march_bound(bench_scene, lanes, k, tabs, win),
+        host_call_ms=host_call,
+        lane_efficiency=lane_efficiency(k[3]),
+        ray_evaluations=int(k[3].sum()))
     log_window_rows("K1 culled bench", tabs, win, k[3], p[3])
+    sections = {"K1 culled": log_sections(
+        "K1 culled", bench_scene, lanes, kw, k)}
     dense_ms = cuda_ms(lambda: mk.march_kernel(bench_scene, **lanes,
                                                max_steps=192, omega=1.4))
     evals = int(k[3].sum())
@@ -871,8 +1008,14 @@ def phase_culled_times(dev, bench_scene):
         sl, apex, facing = shadow_lanes(bench_scene, lanes, k, light)
         st = culled_tables(bench_scene, sl, 48, 512, apex)
         skw = dict(max_steps=192, omega=1.4, cull=st, occlusion=True)
+        plan = mk.march_stage_plan(
+            mk.lower_program(bench_scene, dev, st.pairs), st)
+        log(f"  [stage] K2 culled bench light {light}, m "
+            f"{[q.m for q in st.tables]}: {plan.bytes} bytes of shared "
+            f"memory a block, pairs staged {plan.staged}")
         ok_ = mk.march_kernel(bench_scene, **sl, **skw)
-        ms = cuda_ms(lambda: mk.march_kernel(bench_scene, **sl, **skw))
+        ms = device_ms(lambda: mk.march_kernel(bench_scene, **sl, **skw))
+        host_call = cuda_ms(lambda: mk.march_kernel(bench_scene, **sl, **skw))
         with window_rows(st) as win:
             op_, plain_ms = host_ms(lambda: mk.march_plain(bench_scene, **sl,
                                                            **skw))
@@ -883,25 +1026,41 @@ def phase_culled_times(dev, bench_scene):
             f"): {int(facing.sum())} facing, candidates per tile max "
             f"{int(st.tables[0].count.max())} mean "
             f"{st.tables[0].count.float().mean().item():.2f}, kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {flips} flips "
-            f"({agree:.6f} agreement), {int(ok_[1].sum())} ray evaluations")
+            f"{ms:.3f} ms on the device ({host_call:.3f} ms around a host "
+            f"call), plain {plain_ms:.3f} ms, {flips} flips "
+            f"({agree:.6f} agreement), {int(ok_[1].sum())} ray evaluations, "
+            f"SIMT lane efficiency {lane_efficiency(ok_[1]):.4f}")
         check(agree >= 0.999, f"K2 culled bench agreement {agree}")
+        sections[f"K2 culled light {light}"] = log_sections(
+            f"K2 culled light {light}", bench_scene, sl, skw, ok_)
         if light == 0:
             out["occlusion_culled"] = timing(
                 ms, plain_ms, float(flips > 0), flips, ok_[0].numel(),
-                march_bound(bench_scene, sl, ok_, st, win))
+                march_bound(bench_scene, sl, ok_, st, win),
+                host_call_ms=host_call,
+                lane_efficiency=lane_efficiency(ok_[1]),
+                ray_evaluations=int(ok_[1].sum()))
             log_window_rows("K2 culled bench light 0", st, win, ok_[1],
                             op_[1])
+        else:
+            out["occlusion_culled"].update(
+                {f"ms_light{light}": ms,
+                 f"host_call_ms_light{light}": host_call})
     args = (lanes["origin"], lanes["direction"], k[0], lanes["epsilon"],
             k[1])
     kk = mk.surface_kernel(bench_scene, *args, cull=tabs)
-    ms = cuda_ms(lambda: mk.surface_kernel(bench_scene, *args, cull=tabs))
+    ms = device_ms(lambda: mk.surface_kernel(bench_scene, *args, cull=tabs))
+    host_call = cuda_ms(lambda: mk.surface_kernel(bench_scene, *args,
+                                                  cull=tabs))
     pp, plain_ms = host_ms(lambda: mk.surface_plain(bench_scene, *args,
                                                     cull=tabs))
     err = compare_surface(kk, pp, k[1], f"K3 culled bench {SIZE}^2")
     out["surface_culled"] = timing(
         ms, plain_ms, err, int((k[1] & (kk[2] != pp[2])).sum()),
-        int(k[1].sum()), surface_bound(bench_scene, args, kk, tabs))
+        int(k[1].sum()), surface_bound(bench_scene, args, kk, tabs),
+        host_call_ms=host_call)
+    out["march_culled"]["sections"] = sections["K1 culled"]
+    out["occlusion_culled"]["sections"] = sections["K2 culled light 0"]
     log_times(out)
     return out
 
@@ -1164,13 +1323,14 @@ def profile_frame(scene, cam, cfg, trace_path, fn=None):
         "under the profiler")
     for name, us in top:
         log(f"    {us / 1e3:9.3f} ms  {name[:70]}")
+    # a template instantiation is named "void march_kernel<...>(...)"
+    port = ("march_kernel", "surface_kernel", "surface_ad_kernel",
+            "block_gather_kernel")
     ours = [e for e in sorted(evs, key=lambda e: e.time_range.start)
-            if e.name.startswith(("march_kernel", "surface_kernel",
-                                  "surface_ad_kernel",
-                                  "block_gather_kernel"))]
+            if any(k in e.name.split("(")[0] for k in port)]
     log("  profile, port kernels in launch order: " + ", ".join(
-        f"{e.name.split('(')[0]} {e.time_range.elapsed_us() / 1e3:.3f} ms"
-        for e in ours))
+        f"{e.name.split('(')[0].replace('void ', '')} "
+        f"{e.time_range.elapsed_us() / 1e3:.3f} ms" for e in ours))
     return 1 - busy / span
 
 
@@ -1927,11 +2087,105 @@ def frame_only(tree, reps) -> int:
     return 0
 
 
+def kernels_only(tree) -> int:
+    """Device times (``device_ms``: no host launch path in them) of the
+    redesign's yardsticks at the main path's shapes, as one JSON line: K4
+    with its plain and library forms, culled K1, culled K2 of both lights,
+    dense K1, the culled K1/K2 lane efficiency and ray evaluations and,
+    where the tree has the instrumented twin, its section shares.
+    ``tree`` as in :func:`frame_only`."""
+    if tree:
+        sys.path.insert(0, str(Path(tree).resolve()))
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
+    from fraytracer_tpu_torch.ops.cuda.gather import (
+        _gather_blocks, block_gather_plain)
+    from fraytracer_tpu_torch.scene.generators import torus_csg_scene
+    device_ms = device_timer()
+    dev = torch.device("cuda", 0)
+    scene = ft.flatten(torus_csg_scene(19, BENCH_N_TORI), device=dev)
+    lanes, kw = primary_lanes(scene, SIZE, 30.0, dev)
+    tabs = culled_tables(scene, lanes, 48, 256)
+    ckw = dict(kw, cull=tabs)
+    k = mk.march_kernel(scene, **lanes, **ckw)
+    out = {"tree": tree or ".", "package": str(Path(ft.__file__).parent),
+           "march_culled_ms": device_ms(
+               lambda: mk.march_kernel(scene, **lanes, **ckw)),
+           "march_culled_lane_efficiency": lane_efficiency(k[3]),
+           "march_culled_max_steps": int(k[3].max()),
+           "march_culled_warps_over_96_steps": int(
+               (k[3].view(-1, 32).amax(1) >= 96).sum()),
+           "march_culled_ray_evaluations": int(k[3].sum()),
+           "march_culled_hits": int(k[1].sum())}
+    twin = getattr(mk, "march_sections", None)
+    if twin is not None:
+        out["march_culled_sections"] = log_sections(
+            "K1 culled", scene, lanes, ckw, k)
+    for light in range(scene.num_lights):
+        sl, apex, _f = shadow_lanes(scene, lanes, k, light)
+        st = culled_tables(scene, sl, 48, 512, apex)
+        skw = dict(kw, cull=st, occlusion=True)
+        o = mk.march_kernel(scene, **sl, **skw)
+        name = f"occlusion_culled_light{light}"
+        out[name + "_ms"] = device_ms(
+            lambda: mk.march_kernel(scene, **sl, **skw))
+        out[name + "_lane_efficiency"] = lane_efficiency(o[1])
+        out[name + "_ray_evaluations"] = int(o[1].sum())
+        out[name + "_occluded"] = int(o[0].sum())
+        if twin is not None:
+            out[name + "_sections"] = log_sections(
+                f"K2 culled light {light}", scene, sl, skw, o)
+    out["march_dense_ms"] = device_ms(
+        lambda: mk.march_kernel(scene, **lanes, **kw), reps=10)
+    pos = lanes["origin"] + (k[0] - lanes["epsilon"])[:, None] \
+        * lanes["direction"]
+    xb, bidx, lidx = gather_bench_inputs(pos, dev)
+    check(torch.equal(_gather_blocks(xb, bidx), xb[lidx]), "K4 mismatch")
+    out["block_gather_ms"] = device_ms(lambda: _gather_blocks(xb, bidx))
+    out["block_gather_plain_ms"] = device_ms(
+        lambda: block_gather_plain(xb, bidx))
+    out["block_gather_library_ms"] = device_ms(lambda: xb[lidx])
+    out["block_gather_host_call_ms"] = cuda_ms(
+        lambda: _gather_blocks(xb, bidx), reps=20)
+    out["block_gather_library_host_call_ms"] = cuda_ms(lambda: xb[lidx],
+                                                       reps=20)
+    from fraytracer_tpu_torch.ops.cuda import build
+    out["ptxas"] = [l.strip() for l in build.BuildInfo.log.splitlines()
+                    if "registers" in l or "Compiling entry" in l]
+    out["card"] = nvidia_smi()
+    print(json.dumps(out))
+    return 0
+
+
+def compare_kernels(tree) -> dict:
+    """``--kernels-only`` for this checkout and the commit unpacked in
+    ``tree``, fresh processes in the order other, this, this, other; each
+    JSON line echoed.  Returns ``{"this": [...], "other": [...]}``."""
+    runs = {"this": [], "other": []}
+    for t in (tree, None, None, tree):
+        cmd = [sys.executable, str(Path(__file__).resolve()),
+               "--kernels-only"] + (["--tree", t] if t else [])
+        out = subprocess.run(cmd, capture_output=True, text=True, check=True,
+                             timeout=900)
+        line = out.stdout.strip().splitlines()[-1]
+        log(f"  kernels {'other' if t else 'this'}: {line}")
+        rec = json.loads(line)
+        rec.pop("ptxas", None)
+        runs["other" if t else "this"].append(rec)
+    keys = [k for k in runs["this"][0] if k.endswith("_ms")]
+    for k in keys:
+        log(f"  {k}: this {[round(r[k], 5) for r in runs['this']]}, other "
+            f"{[round(r.get(k, float('nan')), 5) for r in runs['other']]}")
+    return runs
+
+
 def compare(tree, pairs, reps) -> int:
     """This checkout against the commit unpacked in ``tree`` on the culled
     torus frame: ``pairs`` pairs of fresh ``--frame-only`` processes, one
     per tree, the order swapped from pair to pair; prints each median, the
-    paired differences (this - other) and the card."""
+    paired differences (this - other) and the card.  Before them, the
+    kernels' device times of both trees (:func:`compare_kernels`)."""
+    kernels = compare_kernels(tree)
     runs = []
     for i in range(pairs):
         pair = {}
@@ -1948,7 +2202,7 @@ def compare(tree, pairs, reps) -> int:
         runs.append(pair)
     diffs = [r["this"] - r["other"] for r in runs]
     print(json.dumps({
-        "pairs": runs, "paired_diff_ms": diffs,
+        "kernels": kernels, "pairs": runs, "paired_diff_ms": diffs,
         "median_diff_ms": statistics.median(diffs),
         "min_diff_ms": min(diffs), "max_diff_ms": max(diffs),
         "this_slower_in": sum(d > 0 for d in diffs),
@@ -1966,8 +2220,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frame-only", action="store_true",
                     help="time the culled torus frame alone")
-    ap.add_argument("--tree", help="with --frame-only: import the package "
-                    "of the commit unpacked in this directory")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="device times of K4, culled K1/K2 and dense K1")
+    ap.add_argument("--tree", help="with --frame-only or --kernels-only: "
+                    "import the package of the commit unpacked in this "
+                    "directory")
     ap.add_argument("--compare", metavar="TREE", help="paired frame times "
                     "of this checkout and the commit unpacked in TREE")
     ap.add_argument("--pairs", type=int, default=8)
@@ -1977,6 +2234,8 @@ def main() -> int:
         return compare(args.compare, args.pairs, args.reps)
     if args.frame_only:
         return frame_only(args.tree, args.reps)
+    if args.kernels_only:
+        return kernels_only(args.tree)
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.ops.cuda import build
     from fraytracer_tpu_torch.scene.generators import torus_csg_scene
@@ -1998,12 +2257,14 @@ def main() -> int:
     check(float(w.sum()) == 2048.0, "W returned the wrong sum")
     warm_first_ms = 1e3 * (time.perf_counter() - t0)
     for line in build.BuildInfo.log.splitlines():
-        if "entry function" in line or "registers" in line:
+        if "entry function" in line or "registers" in line \
+                or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
     log("[kernels] kernel vs plain on the card")
     phase_kernels(dev)
     phase_culled_kernels(dev)
+    phase_overbudget_pairs(dev)
     phase_ad_kernels(dev)
     phase_sign_kernels(dev)
     scene = ft.flatten(torus_csg_scene(19, BENCH_N_TORI), device=dev)
@@ -2074,7 +2335,14 @@ def main() -> int:
                 "bound_by": times[name]["bound_by"],
                 "library_ms": times[name]["library_ms"],
                 "differing": times[name]["differing"],
-                "compared": times[name]["compared"]}
+                "compared": times[name]["compared"],
+                # the same calls read another way (an event pair around a
+                # host call), K2's second light, lane efficiency, ray
+                # evaluations and section shares, where the phase took them
+                **{k: v for k, v in times[name].items()
+                   if k.endswith("host_call_ms") or k.startswith("ms_light")
+                   or k in ("lane_efficiency", "ray_evaluations",
+                            "sections")}}
                for name, src, rep, path in rows]
     kernels[3]["forced_repair_launches"] = repair["block_gather"]
     kernels[3]["culled_frame_launches"] = culled["counts"]["block_gather"]

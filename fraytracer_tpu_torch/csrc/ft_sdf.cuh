@@ -20,6 +20,8 @@
 #define FT_CAND_UNROLL 8   // table rows per window chunk
 #define FT_TABLE_W 12      // floats per table row: params, material, slot
 #define FT_MAX_PAIRS 8     // culled (group, kind) pairs per launch
+#define FT_BLOCK 128       // threads of a K1/K2 block: FT_TILE / 8, so a
+                           // block reads one tile's tables
 #define FT_FULL_MASK 0xffffffffu
 
 // primitive kinds, in the flattener's KINDS order
@@ -75,6 +77,26 @@ struct FtCull {
   int n_pairs;
   int early_out;    // running-min early-out of min-group windows
   FtPair pairs[FT_MAX_PAIRS];
+};
+
+// The shared-memory plan of one K1/K2 launch, sized on the host from the
+// program's and the tables' shapes alone (ops/cuda/cull.py stage_plan; a
+// block may use 227 KB).  Offsets are bytes from the block's dynamic shared
+// memory; it starts with the copy barrier (16 bytes) and the per-pair
+// records (FT_MAX_PAIRS x 48 bytes); the program is always staged, one
+// 32-byte record an op (SOp).  A staged pair holds the tile's table
+// slice [m, FT_TABLE_W], its keys [2, m / 8] and its hsuf [m / 8], each
+// at a multiple of 16 bytes; pairs are staged in program order while they
+// fit, the others are read from device memory.
+struct FtStage {
+  int bytes;        // dynamic shared memory of a block
+  int bulk_bytes;   // bytes the bulk copies bring in (0: no barrier)
+  int ents;         // dense entries staged as rows of FT_TABLE_W floats
+                    // (parameters, kind bits at FT_PSTRIDE); 0: none
+  int ops_off, ents_off;
+  int bulk_keys;    // bit q: pair q's keys slice goes by bulk copy
+  int bulk_hsuf;    // bit q: pair q's hsuf slice goes by bulk copy
+  int pair_off[FT_MAX_PAIRS];  // pair q's slices, -1: not staged
 };
 
 // A lane as the culled passes see it.  K1/K2 call the scene with every
@@ -168,40 +190,74 @@ __device__ __forceinline__ float sign_(T a) {
   return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
 }
 
-__device__ __forceinline__ float ld(const float* g, int j) {
-  return __ldg(g + j);
+// A primitive row as the distance functions read it.  GRow: device memory
+// through the read-only cache, exact (IEEE) square roots — K3 and the
+// dense entries of K1/K2.  RRow: a row that the march's candidate loop
+// holds in registers (loaded as 16-byte words from shared or device
+// memory); FAST takes sqrt.approx for the march distance (K1/K2 only: a
+// step length, held against the plain version at t <= 1e-4).
+struct GRow {
+  const float* p;
+  static constexpr bool fast = false;
+  __device__ __forceinline__ float operator[](int j) const {
+    return __ldg(p + j);
+  }
+};
+template <bool FAST>
+struct RRow {
+  float v[FT_TABLE_W];
+  static constexpr bool fast = FAST;
+  __device__ __forceinline__ float operator[](int j) const { return v[j]; }
+};
+template <typename G>
+__device__ __forceinline__ float ld(const G& g, int j) {
+  return g[j];
+}
+template <typename G>
+__device__ __forceinline__ float root(float a) {
+  if constexpr (G::fast) {
+    float r;
+    asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(a));
+    return r;
+  } else {
+    return sqrtf(a);
+  }
+}
+template <typename G>
+__device__ __forceinline__ Dual root(Dual a) {
+  return sqrt_(a);
 }
 
 // ---------------------------------------------------------------------------
 // the seven distance functions (ops/sdf.py formulas)
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ T d_sphere(const float* g, T px, T py, T pz) {
+template <typename T, typename G>
+__device__ __forceinline__ T d_sphere(const G& g, T px, T py, T pz) {
   T dx = px - ld(g, 0), dy = py - ld(g, 1), dz = pz - ld(g, 2);
-  return sqrt_(dx * dx + dy * dy + dz * dz + 1e-20f) - ld(g, 3);
+  return root<G>(dx * dx + dy * dy + dz * dz + 1e-20f) - ld(g, 3);
 }
 
-template <typename T>
-__device__ __forceinline__ T d_capsule(const float* g, T px, T py, T pz) {
+template <typename T, typename G>
+__device__ __forceinline__ T d_capsule(const G& g, T px, T py, T pz) {
   float ax = ld(g, 0), ay = ld(g, 1), az = ld(g, 2);
   float bax = ld(g, 3) - ax, bay = ld(g, 4) - ay, baz = ld(g, 5) - az;
   T pax = px - ax, pay = py - ay, paz = pz - az;
   float denom = fmaxf(bax * bax + bay * bay + baz * baz, 1e-20f);
   T h = clamp01((pax * bax + pay * bay + paz * baz) / denom);
   T ex = pax - h * bax, ey = pay - h * bay, ez = paz - h * baz;
-  return sqrt_(ex * ex + ey * ey + ez * ez + 1e-20f) - ld(g, 6);
+  return root<G>(ex * ex + ey * ey + ez * ez + 1e-20f) - ld(g, 6);
 }
 
-template <typename T>
-__device__ __forceinline__ T d_torus(const float* g, T px, T py, T pz) {
+template <typename T, typename G>
+__device__ __forceinline__ T d_torus(const G& g, T px, T py, T pz) {
   // axis (g[3..5]) is normalized host-side with the plain version's formula
   float nx = ld(g, 3), ny = ld(g, 4), nz = ld(g, 5);
   T qx = px - ld(g, 0), qy = py - ld(g, 1), qz = pz - ld(g, 2);
   T h = qx * nx + qy * ny + qz * nz;
   T wx = qx - h * nx, wy = qy - h * ny, wz = qz - h * nz;
-  T radial = sqrt_(wx * wx + wy * wy + wz * wz + 1e-20f) - ld(g, 6);
-  return sqrt_(h * h + radial * radial + 1e-20f) - ld(g, 7);
+  T radial = root<G>(wx * wx + wy * wy + wz * wz + 1e-20f) - ld(g, 6);
+  return root<G>(h * h + radial * radial + 1e-20f) - ld(g, 7);
 }
 
 template <typename T>
@@ -213,8 +269,8 @@ __device__ __forceinline__ T edge_d2(float ex, float ey, float ez, T qx, T qy,
   return ux * ux + uy * uy + uz * uz;
 }
 
-template <typename T>
-__device__ __forceinline__ T d_triangle(const float* g, T px, T py, T pz) {
+template <typename T, typename G>
+__device__ __forceinline__ T d_triangle(const G& g, T px, T py, T pz) {
   float v1x = ld(g, 0), v1y = ld(g, 1), v1z = ld(g, 2);
   float v2x = ld(g, 3), v2y = ld(g, 4), v2z = ld(g, 5);
   float v3x = ld(g, 6), v3y = ld(g, 7), v3z = ld(g, 8);
@@ -239,22 +295,22 @@ __device__ __forceinline__ T d_triangle(const float* g, T px, T py, T pz) {
   float nor2 = fmaxf(nx * nx + ny * ny + nz * nz, 1e-20f);
   T h = nx * p1x + ny * p1y + nz * p1z;
   T d2f = h * h / nor2;
-  return sqrt_((s >= 2.f ? d2f : d2e) + 1e-20f) - ld(g, 9);
+  return root<G>((s >= 2.f ? d2f : d2e) + 1e-20f) - ld(g, 9);
 }
 
-template <typename T>
-__device__ __forceinline__ T d_box(const float* g, T px, T py, T pz) {
+template <typename T, typename G>
+__device__ __forceinline__ T d_box(const G& g, T px, T py, T pz) {
   T qx = abs_(px - ld(g, 0)) - ld(g, 3);
   T qy = abs_(py - ld(g, 1)) - ld(g, 4);
   T qz = abs_(pz - ld(g, 2)) - ld(g, 5);
   T ox = cmax(qx, 0.f), oy = cmax(qy, 0.f), oz = cmax(qz, 0.f);
-  T outside = sqrt_(ox * ox + oy * oy + oz * oz + 1e-20f);
+  T outside = root<G>(ox * ox + oy * oy + oz * oz + 1e-20f);
   T inside = cmin(max_(max_(qx, qy), qz), 0.f);
   return outside + inside - ld(g, 6);
 }
 
-template <typename T>
-__device__ __forceinline__ T d_cone(const float* g, T px, T py, T pz) {
+template <typename T, typename G>
+__device__ __forceinline__ T d_cone(const G& g, T px, T py, T pz) {
   float ax = ld(g, 0), ay = ld(g, 1), az = ld(g, 2);
   float bax = ld(g, 3) - ax, bay = ld(g, 4) - ay, baz = ld(g, 5) - az;
   float ra = ld(g, 6), rb = ld(g, 7);
@@ -263,7 +319,7 @@ __device__ __forceinline__ T d_cone(const float* g, T px, T py, T pz) {
   T pax = px - ax, pay = py - ay, paz = pz - az;
   T papa = pax * pax + pay * pay + paz * paz;
   T paba = (pax * bax + pay * bay + paz * baz) / baba;
-  T x = sqrt_(cmax(papa - paba * paba * baba, 1e-20f));
+  T x = root<G>(cmax(papa - paba * paba * baba, 1e-20f));
   T cax = cmax(x - (val(paba) < 0.5f ? ra : rb), 0.f);
   T cay = abs_(paba - 0.5f) - 0.5f;
   float k = rba * rba + baba;
@@ -271,17 +327,17 @@ __device__ __forceinline__ T d_cone(const float* g, T px, T py, T pz) {
   T cbx = x - ra - f * rba;
   T cby = paba - f;
   float s = (val(cbx) < 0.f && val(cay) < 0.f) ? -1.f : 1.f;
-  return s * sqrt_(min_(cax * cax + cay * cay * baba,
+  return s * root<G>(min_(cax * cax + cay * cay * baba,
                         cbx * cbx + cby * cby * baba) + 1e-20f);
 }
 
-template <typename T>
-__device__ __forceinline__ T d_plane(const float* g, T px, T py, T pz) {
+template <typename T, typename G>
+__device__ __forceinline__ T d_plane(const G& g, T px, T py, T pz) {
   return px * ld(g, 0) + py * ld(g, 1) + pz * ld(g, 2) - ld(g, 3);
 }
 
-template <typename T>
-__device__ __forceinline__ T prim_dist(int kind, const float* g, T px, T py,
+template <typename T, typename G>
+__device__ __forceinline__ T prim_dist(int kind, const G& g, T px, T py,
                                        T pz) {
   switch (kind) {
     case K_SPHERE: return d_sphere(g, px, py, pz);
@@ -316,8 +372,9 @@ __device__ __forceinline__ float warp_max(float x) {
 // scene program interpreter
 // ---------------------------------------------------------------------------
 //
-// One interpreter, three stack value types:
-// - Dist, the distance alone (K1/K2);
+// Three stack value types, one set of rules:
+// - Dist, the distance alone (K1/K2: march_distance at the end of this
+//   file folds the same program from where the block staged it);
 // - DistCode, the distance and the signed code +-(slot + 1) of the
 //   CSG-winning leaf (K3, slot mode): min/max keep the first extremum,
 //   subtract flips the sign of its b side.  A smooth reduction names no
@@ -330,9 +387,9 @@ __device__ __forceinline__ float warp_max(float x) {
 //   (0, 0, 1).
 // The per-type rules are the overloads below; on_prim(d, mat, slot) sees
 // every primitive distance (K3's material argmin).  A group with culled
-// pairs folds each pair first (culled_pair: the windowed march pass for
-// Dist, the whole-table surface scan for DistCode and DistGrad), then its
-// dense entries.
+// pairs folds each pair first (K3: culled_pair, the whole-table surface
+// scan; K1/K2: culled_window, the windowed march pass), then its dense
+// entries.
 
 struct Dist {
   float v;
@@ -356,17 +413,13 @@ __device__ __forceinline__ void smooth_value(DistGrad& a, float v) {
 // exact gradient of one primitive's distance (forward-mode dual numbers)
 __device__ __forceinline__ Dual prim_dual(int kind, const float* g, float px,
                                           float py, float pz) {
-  return prim_dist(kind, g, Dual{px, 1.f, 0.f, 0.f}, Dual{py, 0.f, 1.f, 0.f},
-                   Dual{pz, 0.f, 0.f, 1.f});
+  return prim_dist(kind, GRow{g}, Dual{px, 1.f, 0.f, 0.f},
+                   Dual{py, 0.f, 1.f, 0.f}, Dual{pz, 0.f, 0.f, 1.f});
 }
 
 // group member e with distance d; members run in ascending slot.  DistGrad
 // only notes the winning entry (won): its gradient is evaluated once, after
 // the group's last member (finish_members)
-__device__ __forceinline__ void take_member(Dist& acc, int&, bool mn, float d,
-                                            const FtProgram&, int) {
-  acc.v = mn ? fminf(acc.v, d) : fmaxf(acc.v, d);
-}
 __device__ __forceinline__ void take_member(DistCode& acc, int&, bool mn,
                                             float d, const FtProgram& P,
                                             int e) {
@@ -382,8 +435,6 @@ __device__ __forceinline__ void take_member(DistGrad& acc, int& won, bool mn,
     won = e;
   }
 }
-__device__ __forceinline__ void finish_members(Dist&, int, const FtProgram&,
-                                               float, float, float) {}
 __device__ __forceinline__ void finish_members(DistCode&, int,
                                                const FtProgram&, float, float,
                                                float) {}
@@ -446,85 +497,33 @@ struct NoPrimHook {
   __device__ __forceinline__ void operator()(float, int, int) const {}
 };
 
-// K1/K2: one culled pair's windowed pass (march_kernel.py culled_pass
-// :877-980 with _pair_window :641-697), collective over the warp.  The
-// window is the hull of the chunks that are neither behind
-// (max(a+r) < min p_ax - clamp) nor ahead (min(a-r) > max p_ax + clamp) of
-// the warp's active lanes; each lane splits the chunk keys, and redux
-// instructions combine the statistics.  A min group takes
-// min(window min, cap) with the per-lane cap min(AH - p_ax, p_ax - BH)
-// over the skipped chunks; a max group max(window max, skip_lb, excl),
-// where excl = 2 eps floors a group whose cone excluded members.
-template <typename OnPrim>
-__device__ __forceinline__ void culled_pair(Dist& acc, const FtPair& q,
-                                            const Lane& L, bool mn,
-                                            int early_out, float px, float py,
-                                            float pz, OnPrim&) {
-  const int chunks = q.m / FT_CAND_UNROLL;
-  const int lane = threadIdx.x & 31;
-  const float* keys = q.keys + (size_t)L.tile * 2 * chunks;
-  const float* misc = q.misc + (size_t)L.tile * 4;
-  const float clamp = __ldg(misc + 2);
-  // the plain version rounds o + t*c twice: no FMA here, same windows
-  const float p_ax = __fadd_rn(L.oa, __fmul_rn(L.t, L.ca));
-  const float plo = warp_min(L.active ? p_ax : FT_BIG);
-  const float phi = warp_max(L.active ? p_ax : -FT_BIG);
-  const float lo_lim = plo - clamp, hi_lim = phi + clamp;
-  int w_lo = chunks, w_hi = 0;
-  float bh = -FT_BIG, ah = FT_BIG, bh_min = FT_BIG, ah_max = -FT_BIG;
-  bool any_b = false, any_a = false;
-  for (int c = lane; c < chunks; c += 32) {
-    const float lo = __ldg(keys + c), hi = __ldg(keys + chunks + c);
-    const bool behind = lo < lo_lim, ahead = hi > hi_lim;
-    if (!behind && !ahead) {
-      w_lo = min(w_lo, c);
-      w_hi = max(w_hi, c + 1);
-    }
-    if (behind) {
-      bh = fmaxf(bh, lo);
-      bh_min = fminf(bh_min, lo);
-      any_b = true;
-    }
-    if (ahead) {
-      ah = fminf(ah, hi);
-      ah_max = fmaxf(ah_max, hi);
-      any_a = true;
-    }
+// The instrumented twin of K1/K2 (march.cu, ft_march_sections) passes this
+// hook instead: clock64() deltas per section of a warp's march, and counts.
+// tick(s) charges the time since the last tick to section s, so the
+// sections add up to the warp's whole time.
+enum { SEC_LOAD = 0, SEC_WINDOW, SEC_ROWS, SEC_EARLY, SEC_DENSE, SEC_STEP,
+       SEC_STORE, SEC_N };
+enum { CNT_STEPS = 0, CNT_CHUNKS, CNT_CUT, CNT_N };
+struct SectionHook {
+  long long acc[SEC_N], cnt[CNT_N], last;
+  __device__ __forceinline__ void operator()(float, int, int) const {}
+  __device__ __forceinline__ void tick(int s) {
+    const long long now = clock64();
+    acc[s] += now - last;
+    last = now;
   }
-  w_lo = __reduce_min_sync(FT_FULL_MASK, w_lo);
-  w_hi = __reduce_max_sync(FT_FULL_MASK, w_hi);
-
-  const float* tab = q.table + (size_t)L.tile * q.m * FT_TABLE_W;
-  const float* hsuf = q.hsuf + (size_t)L.tile * chunks;
-  float win = mn ? FT_BIG : -FT_BIG;
-  for (int c = w_lo; c < w_hi; ++c) {
-    if (mn && early_out) {
-      // no later candidate can lower any active lane's running min
-      const float amax = warp_max(L.active ? win : -FT_BIG);
-      if (!(amax + phi > __ldg(hsuf + c))) break;
-    }
-    const float* row = tab + (size_t)c * FT_CAND_UNROLL * FT_TABLE_W;
-#pragma unroll 2
-    for (int k = 0; k < FT_CAND_UNROLL; ++k) {
-      const float d = prim_dist(q.kind, row + k * FT_TABLE_W, px, py, pz);
-      win = mn ? fminf(win, d) : fmaxf(win, d);
-    }
-  }
-  if (mn) {
-    bh = warp_max(bh);
-    ah = warp_min(ah);
-    acc.v = fminf(acc.v, fminf(win, fminf(ah - p_ax, p_ax - bh)));
-  } else {
-    bh_min = warp_min(bh_min);
-    ah_max = warp_max(ah_max);
-    any_b = __any_sync(FT_FULL_MASK, any_b);
-    any_a = __any_sync(FT_FULL_MASK, any_a);
-    const float skip_lb = fmaxf(any_b ? p_ax - bh_min : -FT_BIG,
-                                any_a ? ah_max - p_ax : -FT_BIG);
-    const float excl =
-        __ldg(misc) < (float)q.group_size ? 2.f * L.eps : -FT_BIG;
-    acc.v = fmaxf(acc.v, fmaxf(fmaxf(win, skip_lb), excl));
-  }
+};
+template <typename H> struct ft_timed { static constexpr bool value = false; };
+template <> struct ft_timed<SectionHook> {
+  static constexpr bool value = true;
+};
+template <typename H>
+__device__ __forceinline__ void ft_tick(H& h, int s) {
+  if constexpr (ft_timed<H>::value) h.tick(s);
+}
+template <typename H>
+__device__ __forceinline__ void ft_count(H& h, int c, int n) {
+  if constexpr (ft_timed<H>::value) h.cnt[c] += n;
 }
 
 // K3: the scan of one culled pair over the tile's whole candidate list
@@ -552,7 +551,7 @@ __device__ __forceinline__ PairScan scan_pair(const FtPair& q, const Lane& L,
   PairScan r = {mn ? FT_BIG : -FT_BIG, 0x7fffffff, 0, false};
   for (int i = 0; i < rows; ++i) {
     const float* row = tab + (size_t)i * FT_TABLE_W;
-    const float d = prim_dist(q.kind, row, px, py, pz);
+    const float d = prim_dist(q.kind, GRow{row}, px, py, pz);
     const int slot = (int)__ldg(row + FT_PSTRIDE + 1);
     on_prim(d, (int)__ldg(row + FT_PSTRIDE), slot);
     if ((mn ? d < r.bd : d > r.bd) || (d == r.bd && slot < r.bslot)) {
@@ -609,8 +608,8 @@ __device__ __forceinline__ V sumexp_members(const FtProgram& P, int e0, int e1,
   float s = 0.f;
   for (int e = e0; e < e1; ++e) {
     const float d = prim_dist(__ldg(P.ent_kind + e),
-                              P.ent_params + (size_t)e * FT_PSTRIDE, px, py,
-                              pz);
+                              GRow{P.ent_params + (size_t)e * FT_PSTRIDE}, px,
+                              py, pz);
     on_prim(d, __ldg(P.ent_mat + e), __ldg(P.ent_slot + e));
     s += expf(-d / k);
   }
@@ -662,8 +661,8 @@ __device__ __forceinline__ V eval_group(const FtProgram& P, const FtCull& C,
   int won = -1;
   for (int e = e0; e < e1; ++e) {
     const float d = prim_dist(__ldg(P.ent_kind + e),
-                              P.ent_params + (size_t)e * FT_PSTRIDE, px, py,
-                              pz);
+                              GRow{P.ent_params + (size_t)e * FT_PSTRIDE}, px,
+                              py, pz);
     on_prim(d, __ldg(P.ent_mat + e), __ldg(P.ent_slot + e));
     take_member(acc, won, mn, d, P, e);
   }
@@ -703,9 +702,327 @@ __device__ __forceinline__ V eval_scene(const FtProgram& P, const FtCull& C,
   return st[0];
 }
 
-__device__ __forceinline__ float scene_distance(const FtProgram& P,
-                                                const FtCull& C, const Lane& L,
-                                                float px, float py, float pz) {
-  NoPrimHook none;
-  return eval_scene<Dist>(P, C, L, px, py, pz, none).v;
+// ---------------------------------------------------------------------------
+// K1/K2: the march's scene evaluation (march.cu march_kernel)
+// ---------------------------------------------------------------------------
+//
+// The same program as eval_scene<Dist> would fold, read where the block
+// staged it (FtStage): the program from shared memory (one record an op),
+// the dense entries from shared memory when they are few, each culled pair
+// through a per-block record whose pointers name the tile's slices in
+// shared memory (staged) or in device memory (not staged) — one code path,
+// generic loads.
+
+#define FT_MARCH_FAST_ROOTS 1  // sqrt.approx in the march distance
+
+// One culled pair as the block's warps read it (built once per block).
+struct SPair {
+  const float* tab;   // [m, FT_TABLE_W] the tile's candidates
+  const float* keys;  // [2, m / FT_CAND_UNROLL]
+  const float* hsuf;  // [m / FT_CAND_UNROLL]
+  float clamp, count; // misc[tile]: window clamp, candidate count
+  int m, kind, group_size, pad_;
+};
+
+// One op of the program as the block staged it: a group op carries its
+// group's entry range, reduction, strength and pair range, so a step reads
+// one record where the device-memory program takes three dependent reads.
+struct SOp {
+  int op, arg;   // opcode; operand count (tree ops)
+  int e0, e1;    // group: its dense entries [e0, e1)
+  int gop;       // group: G_MIN / G_MAX / G_SUMEXP
+  int q0, q1;    // group: its culled pairs [q0, q1)
+  float k;       // smooth strength (of the group, or of the tree op)
+};
+
+struct MarchCtx {
+  const FtProgram& P;
+  const FtStage& S;
+  const unsigned char* smem;
+  int early_out;
+  __device__ __forceinline__ const SPair* pairs() const {
+    return (const SPair*)(smem + 16);
+  }
+  __device__ __forceinline__ const SOp* ops() const {
+    return (const SOp*)(smem + S.ops_off);
+  }
+};
+
+// floats of a row that a kind's distance reads (scene/flatten.py
+// PARAM_WIDTH)
+__host__ __device__ constexpr int ft_kind_width(int kind) {
+  return kind == K_SPHERE || kind == K_PLANE ? 4
+         : kind == K_CAPSULE || kind == K_BOX ? 7
+         : kind == K_TRIANGLE ? 10 : 8;
+}
+
+// distance to the row at r4 (16-byte words), kind known at compile time:
+// only the words the kind reads are loaded
+template <int KIND>
+__device__ __forceinline__ float row_dist(const float4* r4, float px, float py,
+                                          float pz) {
+  RRow<FT_MARCH_FAST_ROOTS != 0> r;
+  constexpr int words = (ft_kind_width(KIND) + 3) / 4;
+#pragma unroll
+  for (int w = 0; w < words; ++w) {
+    const float4 x = r4[w];
+    r.v[4 * w] = x.x;
+    r.v[4 * w + 1] = x.y;
+    r.v[4 * w + 2] = x.z;
+    r.v[4 * w + 3] = x.w;
+  }
+  if constexpr (KIND == K_SPHERE) return d_sphere(r, px, py, pz);
+  else if constexpr (KIND == K_CAPSULE) return d_capsule(r, px, py, pz);
+  else if constexpr (KIND == K_TORUS) return d_torus(r, px, py, pz);
+  else if constexpr (KIND == K_TRIANGLE) return d_triangle(r, px, py, pz);
+  else if constexpr (KIND == K_BOX) return d_box(r, px, py, pz);
+  else if constexpr (KIND == K_CONE) return d_cone(r, px, py, pz);
+  else return d_plane(r, px, py, pz);
+}
+
+// The window's rows, chunk by chunk: FT_CAND_UNROLL rows in flight on two
+// accumulators (min and max are exact in any order).  A warp reads one row
+// at a time: a broadcast, no bank conflict.  The running-min early-out
+// (min groups) stops before chunk c once no later candidate can lower any
+// active lane's running min; before the first chunk every min is FT_BIG
+// and the test cannot cut, so it is skipped there.
+constexpr int ft_row_pairs_unrolled = 2;  // x2: rows in flight
+template <int KIND, typename Hook>
+__device__ __forceinline__ float window_rows(const float* tab,
+                                             const float* hsuf, int w_lo,
+                                             int w_hi, bool mn, bool early_out,
+                                             bool active, float phi, float px,
+                                             float py, float pz, Hook& hook) {
+  const float4* t4 = (const float4*)tab;
+  constexpr int row_words = FT_TABLE_W / 4;
+  float win = mn ? FT_BIG : -FT_BIG;
+  for (int c = w_lo; c < w_hi; ++c) {
+    if (early_out && c > w_lo) {
+      const float amax = warp_max(active ? win : -FT_BIG);
+      const bool cut = !(amax + phi > hsuf[c]);
+      ft_tick(hook, SEC_EARLY);
+      if (cut) {
+        ft_count(hook, CNT_CUT, w_hi - c);
+        break;
+      }
+    }
+    const float4* r4 = t4 + (size_t)c * FT_CAND_UNROLL * row_words;
+    float a0 = win, a1 = win;
+#pragma unroll ft_row_pairs_unrolled
+    for (int k = 0; k < FT_CAND_UNROLL; k += 2) {
+      const float d0 = row_dist<KIND>(r4 + k * row_words, px, py, pz);
+      const float d1 = row_dist<KIND>(r4 + (k + 1) * row_words, px, py, pz);
+      a0 = mn ? fminf(a0, d0) : fmaxf(a0, d0);
+      a1 = mn ? fminf(a1, d1) : fmaxf(a1, d1);
+    }
+    win = mn ? fminf(a0, a1) : fmaxf(a0, a1);
+    ft_count(hook, CNT_CHUNKS, 1);
+    ft_tick(hook, SEC_ROWS);
+  }
+  return win;
+}
+
+// One culled pair's windowed value (march_kernel.py culled_pass :877-980
+// with _pair_window :641-697), collective over the warp.  The window is
+// the hull of the chunks that are neither behind (max(a+r) < min p_ax -
+// clamp) nor ahead (min(a-r) > max p_ax + clamp) of the warp's active
+// lanes: two redux for the lanes' axial range, each lane tests the keys of
+// its chunks, a ballot finds the hull.  A min group takes min(window min,
+// cap) with the per-lane cap min(AH - p_ax, p_ax - BH) over the skipped
+// chunks; a max group max(window max, skip_lb, excl), where excl = 2 eps
+// floors a group whose cone excluded members.  Only the statistics the
+// group's reduction needs are reduced, before the rows, so that their
+// latency hides behind the candidate loop.
+template <typename Hook>
+__device__ __forceinline__ float culled_window(const SPair* q, const Lane& L,
+                                               bool mn, int early_out,
+                                               float px, float py, float pz,
+                                               Hook& hook) {
+  const float* keys = q->keys;
+  const int chunks = q->m / FT_CAND_UNROLL;
+  const int kind = q->kind;
+  const float clamp = q->clamp;
+  const int lane = threadIdx.x & 31;
+  // the plain version rounds o + t*c twice: no FMA here, same windows
+  const float p_ax = __fadd_rn(L.oa, __fmul_rn(L.t, L.ca));
+  const float plo = warp_min(L.active ? p_ax : FT_BIG);
+  const float phi = warp_max(L.active ? p_ax : -FT_BIG);
+  const float lo_lim = plo - clamp, hi_lim = phi + clamp;
+  int w_lo = chunks, w_hi = 0;
+  float bh = -FT_BIG, ah = FT_BIG, bh_min = FT_BIG, ah_max = -FT_BIG;
+  unsigned any_b = 0u, any_a = 0u;
+#pragma unroll 1
+  for (int c0 = 0; c0 < chunks; c0 += 32) {
+    const int c = c0 + lane;
+    const bool in = c < chunks;
+    const float lo = in ? keys[c] : 0.f, hi = in ? keys[chunks + c] : 0.f;
+    const bool behind = in && lo < lo_lim, ahead = in && hi > hi_lim;
+    const unsigned rel = __ballot_sync(FT_FULL_MASK, in && !behind && !ahead);
+    if (rel) {
+      if (w_hi == 0) w_lo = c0 + __ffs(rel) - 1;
+      w_hi = c0 + 32 - __clz(rel);
+    }
+    if (behind) {
+      bh = fmaxf(bh, lo);
+      bh_min = fminf(bh_min, lo);
+    }
+    if (ahead) {
+      ah = fminf(ah, hi);
+      ah_max = fmaxf(ah_max, hi);
+    }
+    if (!mn) {
+      any_b |= __ballot_sync(FT_FULL_MASK, behind);
+      any_a |= __ballot_sync(FT_FULL_MASK, ahead);
+    }
+  }
+  if (mn) {
+    bh = warp_max(bh);
+    ah = warp_min(ah);
+  } else {
+    bh_min = warp_min(bh_min);
+    ah_max = warp_max(ah_max);
+  }
+  ft_tick(hook, SEC_WINDOW);
+
+  const float* tab = q->tab;
+  const float* hsuf = q->hsuf;
+  const bool eo = mn && early_out;
+  float win;
+#define FT_WINDOW(K)                                                       \
+  case K:                                                                  \
+    win = window_rows<K>(tab, hsuf, w_lo, w_hi, mn, eo, L.active, phi, px, \
+                         py, pz, hook);                                    \
+    break;
+  switch (kind) {
+    FT_WINDOW(K_SPHERE)
+    FT_WINDOW(K_CAPSULE)
+    FT_WINDOW(K_TORUS)
+    FT_WINDOW(K_TRIANGLE)
+    FT_WINDOW(K_BOX)
+    FT_WINDOW(K_CONE)
+    default:
+      win = window_rows<K_PLANE>(tab, hsuf, w_lo, w_hi, mn, eo, L.active, phi,
+                                 px, py, pz, hook);
+  }
+#undef FT_WINDOW
+  float out;
+  if (mn) {
+    out = fminf(win, fminf(ah - p_ax, p_ax - bh));
+  } else {
+    const float skip_lb = fmaxf(any_b ? p_ax - bh_min : -FT_BIG,
+                                any_a ? ah_max - p_ax : -FT_BIG);
+    const float excl =
+        q->count < (float)q->group_size ? 2.f * L.eps : -FT_BIG;
+    out = fmaxf(fmaxf(win, skip_lb), excl);
+  }
+  ft_tick(hook, SEC_WINDOW);
+  return out;
+}
+
+// a dense entry's distance: from its staged row (kind bits at FT_PSTRIDE)
+// or from device memory, exact roots there as the dense form always had
+__device__ __forceinline__ float staged_entry_dist(const float4* r4, float px,
+                                                   float py, float pz) {
+  RRow<FT_MARCH_FAST_ROOTS != 0> r;
+#pragma unroll
+  for (int w = 0; w < FT_TABLE_W / 4; ++w) {
+    const float4 x = r4[w];
+    r.v[4 * w] = x.x;
+    r.v[4 * w + 1] = x.y;
+    r.v[4 * w + 2] = x.z;
+    r.v[4 * w + 3] = x.w;
+  }
+  return prim_dist(__float_as_int(r.v[FT_PSTRIDE]), r, px, py, pz);
+}
+
+template <typename Hook>
+__device__ __forceinline__ float march_group(const MarchCtx& X, const Lane& L,
+                                             const SOp& o, float px, float py,
+                                             float pz, Hook& hook) {
+  const int e0 = o.e0, e1 = o.e1, op = o.gop;
+  const FtProgram& P = X.P;
+  const bool mn = op == G_MIN;
+  float acc = mn ? FT_BIG : -FT_BIG;
+#pragma unroll 1
+  for (int q = o.q0; q < o.q1; ++q) {
+    ft_tick(hook, SEC_DENSE);
+    const float v = culled_window(X.pairs() + q, L, mn, X.early_out, px, py,
+                                  pz, hook);
+    acc = mn ? fminf(acc, v) : fmaxf(acc, v);
+  }
+  if (X.S.ents > 0) {
+    // staged entries (a culled launch's few): one loop for every reduction
+    const float4* rows = (const float4*)(X.smem + X.S.ents_off);
+    const float k = o.k;
+    float s = 0.f;
+#pragma unroll 1
+    for (int e = e0; e < e1; ++e) {
+      const float d =
+          staged_entry_dist(rows + e * (FT_TABLE_W / 4), px, py, pz);
+      if (op == G_SUMEXP) {
+        s += expf(-d / k);
+      } else {
+        acc = mn ? fminf(acc, d) : fmaxf(acc, d);
+      }
+    }
+    return op == G_SUMEXP ? -k * logf(fmaxf(s, 1e-30f)) : acc;
+  }
+  // entries in device memory: the dense form's loop over the whole scene
+  if (op == G_SUMEXP) {
+    const float k = o.k;
+    float s = 0.f;
+#pragma unroll 1
+    for (int e = e0; e < e1; ++e) {
+      const float d = prim_dist(__ldg(P.ent_kind + e),
+                                GRow{P.ent_params + (size_t)e * FT_PSTRIDE},
+                                px, py, pz);
+      s += expf(-d / k);
+    }
+    return -k * logf(fmaxf(s, 1e-30f));
+  }
+  for (int e = e0; e < e1; ++e) {
+    const float d = prim_dist(__ldg(P.ent_kind + e),
+                              GRow{P.ent_params + (size_t)e * FT_PSTRIDE}, px,
+                              py, pz);
+    acc = mn ? fminf(acc, d) : fmaxf(acc, d);
+  }
+  return acc;
+}
+
+template <typename Hook>
+__device__ __forceinline__ float march_distance(const MarchCtx& X,
+                                                const Lane& L, float px,
+                                                float py, float pz,
+                                                Hook& hook) {
+  Dist st[FT_MAX_STACK];
+  int sp = 0;
+  const SOp* ops = X.ops();
+  const int n_ops = X.P.n_ops;
+#pragma unroll 1
+  for (int i = 0; i < n_ops; ++i) {
+    const SOp o = ops[i];
+    if (o.op == OP_GROUP) {
+      st[sp++] = {march_group(X, L, o, px, py, pz, hook)};
+      continue;
+    }
+    if (o.op == OP_SUBTRACT) {
+      const Dist b = st[--sp];
+      st[sp - 1] = csg_subtract(st[sp - 1], b);
+      continue;
+    }
+    const int base = sp - o.arg;
+    Dist out = st[base];
+    if (o.op == OP_SMOOTH) {
+      out = smooth_fold(st + base, o.arg, o.k);
+    } else {
+#pragma unroll 1
+      for (int j = 1; j < o.arg; ++j) {
+        out = csg_pick(out, st[base + j], o.op == OP_UNION);
+      }
+    }
+    st[base] = out;
+    sp = base + 1;
+  }
+  ft_tick(hook, SEC_DENSE);
+  return st[0].v;
 }

@@ -11,27 +11,50 @@
 // in K1/K2, culled_sp :1051-1144 and the normal sweep :1231-1269 in K3
 // slot mode, culled_sp :1359-1456 in K3 AD mode).
 //
-// What bounds it on an H100: arithmetic and its instruction overhead.  A
+// What bounds it on an H100: instruction issue and latency, not bytes.  A
 // dense step of one ray evaluates every primitive (about 30 flops and 2
 // square roots per torus, 1002 primitives on the benchmark scene); a
 // culled step evaluates the dense rest plus the window chunks of its
-// warp's tile table (tens of candidates).  Ray state (~40 bytes), the
-// program and the tables (48 bytes a row, <= 25 MB at 1024^2) are read
-// through the read-only cache; a warp reads the same row at once.
+// warp's tile table (tens of candidates) behind a chain of dependent
+// reads: program, group, pair record, chunk keys, then the rows.  Warps
+// run as long as their slowest lane (58% of the lane-steps are useful),
+// and two thirds of a frame's blocks hold no lane that marches, so the
+// fixed cost of a block counts too.
 //
-// Design, simple first:
-// - one thread per ray over a 1-D grid; rays are flat [N] (origin and
-//   direction [N, 3]); the grid masks the ragged end, and lanes past N
-//   stay in the loop as inactive lanes (the window is warp-collective);
+// Design of K1/K2:
+// - one thread per ray over a 1-D grid of FT_BLOCK = 128 threads, 6
+//   blocks an SM (80 registers): rays are flat [N] (origin and direction
+//   [N, 3]); the grid masks the ragged end, and lanes past N stay in the
+//   loop as inactive lanes (the window is warp-collective).  Blocks are
+//   tile-aligned (a tile = 1024 lanes = one 32x32 screen block = 8
+//   blocks), so a block reads one tile's tables;
+// - staged once per block (stage_begin): one thread starts 1-D bulk
+//   asynchronous copies (cp.async.bulk, completing on an mbarrier) of each
+//   culled pair's tile slices — the candidate table, the chunk keys, the
+//   suffix minima — into shared memory; meanwhile every thread loads its
+//   ray and copies the program, the dense entries (rows outside every
+//   pair, as 48-byte rows) and the slices too small for a bulk copy.  The
+//   host sizes the shared memory from shapes alone (cull.py stage_plan, no
+//   device read): 13.0 KB a block at m 256, 25.4 KB at m 512; pairs are
+//   staged in program order while they fit 227 KB, the rest is read from
+//   device memory through the same code (generic loads);
 // - the scene is not compiled into the kernel: the host lowers the CSG
 //   plan to a small program (groups of primitives with a min/max/sumexp
 //   reduction + the tree in postfix) that every thread interprets with a
-//   fixed-depth value stack (ft_sdf.cuh).  All threads of a warp read the
-//   same primitive at the same time, so __ldg reads are broadcasts;
-// - culled groups read the tile's candidate table (a tile = 1024 lanes =
-//   one 32x32 screen block) through a window computed per warp: the TPU
-//   kernel's window spans its whole tile, a warp's is narrower and keeps
-//   the scan warp-uniform (no divergence, broadcast reads);
+//   fixed-depth value stack (ft_sdf.cuh march_distance);
+// - a culled group's window is computed per warp (WINDOW_LANES = 32: the
+//   plain version reproduces the step sequence at that granularity): two
+//   redux for the lanes' axial range, each lane tests its chunks' keys, a
+//   ballot finds the hull, and only the bounds the group's reduction
+//   needs are reduced, before the rows so that they overlap them;
+// - the candidate loop is specialised by primitive kind (one dispatch per
+//   pair and step, not per row), reads a row as 16-byte words from shared
+//   memory (a warp reads one row: a broadcast), keeps 4 rows in flight on
+//   two accumulators, and takes sqrt.approx for the march distance (K3
+//   and the dense entries in device memory keep IEEE roots);
+// - the dense form (cull = None) runs through the same kernel: it stages
+//   the program alone and reads its entries through the read-only cache as
+//   before;
 // - the march loop runs while any lane of the warp is active; a lane
 //   evaluates once per iteration while active, so a cap of max_steps
 //   iterations reproduces the TPU tile loop's i < max_steps per lane;
@@ -39,31 +62,196 @@
 //   budget-crossing rule of march_kernel.py:1697-1722, exactly;
 // - the surface pass evaluates the CSG-winning leaf once more with dual
 //   numbers, so the normal is that leaf's exact gradient.
-// Later work (ROADMAP): shared-memory staging of the tables and
-// parameters, a warp-cooperative layout.
+// Measured and left out: 256-thread blocks, 8 rows in flight, blocks
+// without an active lane skipping the staging, copying only a table's
+// first ceil8(count) rows (PERF.md has the figures).  Later work
+// (ROADMAP): the dense form's entry loop in shared memory, compaction of
+// finished lanes.
 #include "ft_sdf.cuh"
 
 // ---------------------------------------------------------------------------
 // K1 / K2
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(128)
+// mbarrier + bulk-copy primitives (PTX; sm_90)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// bytes: a multiple of 16; dst and src 16-byte aligned
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ int round16(int b) { return (b + 15) & ~15; }
+
+template <typename T>
+__device__ __forceinline__ void stage_words(unsigned char* smem, int off,
+                                            const T* src, int n) {
+  T* dst = (T*)(smem + off);
+  for (int j = threadIdx.x; j < n; j += FT_BLOCK) dst[j] = __ldg(src + j);
+}
+
+// The block's prologue: thread 0 starts the bulk copies of the staged
+// pairs' tile slices (table; keys and hsuf where their size is a multiple
+// of 16 bytes — the host decides from m); every thread then copies its
+// share of the program (one record an op, its group's fields folded in),
+// the dense entries, the small slices that do not qualify, and the pair
+// records.  The caller loads its ray meanwhile and
+// calls stage_wait before its first scene evaluation.
+__device__ __forceinline__ void stage_begin(unsigned char* smem,
+                                            const FtProgram& P,
+                                            const FtCull& C, const FtStage& S,
+                                            int tile) {
+  const unsigned bar = smem_addr(smem);
+  if (S.bulk_bytes > 0 && threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_expect_tx(bar, (unsigned)S.bulk_bytes);
+    for (int q = 0; q < C.n_pairs; ++q) {
+      const int off = S.pair_off[q];
+      if (off < 0) continue;
+      const FtPair& g = C.pairs[q];
+      const int m = g.m, chunks = m / FT_CAND_UNROLL;
+      const int tab_b = m * FT_TABLE_W * 4, keys_b = 2 * chunks * 4;
+      bulk_copy(smem + off, g.table + (size_t)tile * m * FT_TABLE_W, tab_b,
+                bar);
+      if (S.bulk_keys >> q & 1) {
+        bulk_copy(smem + off + tab_b, g.keys + (size_t)tile * 2 * chunks,
+                  keys_b, bar);
+      }
+      if (S.bulk_hsuf >> q & 1) {
+        bulk_copy(smem + off + tab_b + round16(keys_b),
+                  g.hsuf + (size_t)tile * chunks, chunks * 4, bar);
+      }
+    }
+  }
+  SOp* sops = (SOp*)(smem + S.ops_off);
+  for (int i = threadIdx.x; i < P.n_ops; i += FT_BLOCK) {
+    SOp o = {__ldg(P.ops + 2 * i), __ldg(P.ops + 2 * i + 1), 0, 0, 0, 0, 0,
+             __ldg(P.op_k + i)};
+    if (o.op == OP_GROUP) {
+      const int g = o.arg;
+      o.e0 = __ldg(P.groups + 3 * g);
+      o.e1 = __ldg(P.groups + 3 * g + 1);
+      o.gop = __ldg(P.groups + 3 * g + 2);
+      o.k = __ldg(P.group_k + g);
+      if (C.n_pairs > 0 && o.gop != G_SUMEXP) {
+        o.q0 = __ldg(P.group_pairs + 2 * g);
+        o.q1 = __ldg(P.group_pairs + 2 * g + 1);
+      }
+    }
+    sops[i] = o;
+  }
+  for (int e = threadIdx.x; e < S.ents; e += FT_BLOCK) {
+    float* row = (float*)(smem + S.ents_off) + e * FT_TABLE_W;
+    for (int j = 0; j < FT_PSTRIDE; ++j) {
+      row[j] = __ldg(P.ent_params + (size_t)e * FT_PSTRIDE + j);
+    }
+    row[FT_PSTRIDE] = __int_as_float(__ldg(P.ent_kind + e));
+    row[FT_PSTRIDE + 1] = 0.f;
+  }
+  SPair* sp = (SPair*)(smem + 16);
+  for (int q = 0; q < C.n_pairs; ++q) {
+    const FtPair& g = C.pairs[q];
+    const int off = S.pair_off[q];
+    const int m = g.m, chunks = m / FT_CAND_UNROLL;
+    const int tab_b = m * FT_TABLE_W * 4, keys_b = 2 * chunks * 4;
+    const float* keys = g.keys + (size_t)tile * 2 * chunks;
+    const float* hsuf = g.hsuf + (size_t)tile * chunks;
+    if (off >= 0) {
+      if (!(S.bulk_keys >> q & 1)) {
+        stage_words(smem, off + tab_b, keys, 2 * chunks);
+      }
+      if (!(S.bulk_hsuf >> q & 1)) {
+        stage_words(smem, off + tab_b + round16(keys_b), hsuf, chunks);
+      }
+    }
+    if (threadIdx.x == q) {
+      const float4 misc = __ldg((const float4*)g.misc + tile);
+      SPair r;
+      r.tab = off >= 0 ? (const float*)(smem + off)
+                       : g.table + (size_t)tile * m * FT_TABLE_W;
+      r.keys = off >= 0 ? (const float*)(smem + off + tab_b) : keys;
+      r.hsuf = off >= 0
+                   ? (const float*)(smem + off + tab_b + round16(keys_b))
+                   : hsuf;
+      r.clamp = misc.z;
+      r.count = misc.x;
+      r.m = m;
+      r.kind = g.kind;
+      r.group_size = g.group_size;
+      r.pad_ = 0;
+      sp[q] = r;
+    }
+  }
+}
+
+__device__ __forceinline__ void stage_wait(unsigned char* smem,
+                                           const FtStage& S) {
+  __syncthreads();  // the threads' own copies, and the barrier's init
+  if (S.bulk_bytes > 0) mbar_wait(smem_addr(smem), 0);
+}
+
+template <typename Hook>
+__global__ void __launch_bounds__(FT_BLOCK, 6)
 march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
              const float* __restrict__ length, const float* __restrict__ eps,
              const float* __restrict__ t0, const float* __restrict__ sign,
-             int n, FtProgram P, FtCull C, int max_steps, float omega,
-             int occlusion,
+             int n, FtProgram P, FtCull C, FtStage S, int max_steps,
+             float omega, int occlusion,
              float* __restrict__ t_out, int* __restrict__ hit_out,
-             float* __restrict__ d_out, int* __restrict__ steps_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+             float* __restrict__ d_out, int* __restrict__ steps_out,
+             unsigned long long* __restrict__ sections) {
+  extern __shared__ __align__(16) unsigned char ft_smem[];
+  Hook hook;
+  if constexpr (ft_timed<Hook>::value) {
+    for (int s = 0; s < SEC_N; ++s) hook.acc[s] = 0;
+    for (int s = 0; s < CNT_N; ++s) hook.cnt[s] = 0;
+    hook.last = clock64();
+  }
+  const int i = blockIdx.x * FT_BLOCK + threadIdx.x;
+  // the block's tile: FT_TILE is a multiple of FT_BLOCK
+  const int tile = blockIdx.x / (FT_TILE / FT_BLOCK);
+  stage_begin(ft_smem, P, C, S, tile);
   const bool valid = i < n;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
   float L = 0.f, t = 0.f, sgn = 1.f;
   Lane lane;
-  lane.tile = (i & ~31) / FT_TILE;   // the warp's tile (its first lane < n)
+  lane.tile = tile;
   lane.oa = lane.ca = 0.f;
   lane.eps = 1.f;
   if (valid) {
+    // all loads are issued before the wait below and overlap the copies
     ox = origin[3 * i]; oy = origin[3 * i + 1]; oz = origin[3 * i + 2];
     dx = dir[3 * i]; dy = dir[3 * i + 1]; dz = dir[3 * i + 2];
     L = length[i];
@@ -75,6 +263,8 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
       lane.ca = C.ca[i];
     }
   }
+  stage_wait(ft_smem, S);
+  const MarchCtx X = {P, S, ft_smem, C.early_out};
   const float e = lane.eps;
   bool active = valid && (L > 0.f) && (t < L);
   bool hit = false;
@@ -82,9 +272,12 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
   int steps = 0;
   const bool relaxed = omega > 1.f;
   float d_start = FT_BIG, step_taken = 0.f;
+  ft_tick(hook, SEC_LOAD);
 
   for (int it = 0; it < max_steps; ++it) {
+    ft_tick(hook, SEC_STEP);
     if (!__any_sync(FT_FULL_MASK, active)) break;
+    ft_count(hook, CNT_STEPS, 1);
     lane.t = t;
     lane.active = active;
     // every lane of the warp evaluates (the culled window is collective).
@@ -93,8 +286,8 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
     // that contains the point contains it too, so that primitive is never
     // window-skipped, and the capped union min is the true (negative)
     // distance there.
-    const float d = sgn * scene_distance(P, C, lane, ox + t * dx, oy + t * dy,
-                                         oz + t * dz);
+    const float d = sgn * march_distance(X, lane, ox + t * dx, oy + t * dy,
+                                         oz + t * dz, hook);
     if (!active) continue;
     ++steps;
     if (relaxed) {
@@ -124,12 +317,25 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
       active = still;
     }
   }
-  if (!valid) return;
-  hit_out[i] = hit ? 1 : 0;
-  steps_out[i] = steps;
-  if (!occlusion) {
-    t_out[i] = t;
-    d_out[i] = d_last;
+  if (valid) {
+    hit_out[i] = hit ? 1 : 0;
+    steps_out[i] = steps;
+    if (!occlusion) {
+      t_out[i] = t;
+      d_out[i] = d_last;
+    }
+  }
+  if constexpr (ft_timed<Hook>::value) {
+    // one report per warp: its lanes run in step
+    hook.tick(SEC_STORE);
+    if ((threadIdx.x & 31) == 0) {
+      for (int s = 0; s < SEC_N; ++s) {
+        atomicAdd(sections + s, (unsigned long long)hook.acc[s]);
+      }
+      for (int s = 0; s < CNT_N; ++s) {
+        atomicAdd(sections + SEC_N + s, (unsigned long long)hook.cnt[s]);
+      }
+    }
   }
 }
 
@@ -275,19 +481,60 @@ static inline int blocks_for(int n, int threads) {
   return (n + threads - 1) / threads;
 }
 
+// Dynamic shared memory above 48 KB needs the opt-in; a refusal is the
+// launch's error.
+template <typename Hook>
+static int launch_march(const float* origin, const float* dir,
+                        const float* length, const float* eps,
+                        const float* t0, const float* sign, int n,
+                        const FtProgram* prog, const FtCull* cull,
+                        const FtStage* stage, int max_steps, float omega,
+                        int occlusion, float* t_out, int* hit_out,
+                        float* d_out, int* steps_out,
+                        unsigned long long* sections, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (stage->bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        march_kernel<Hook>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stage->bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  march_kernel<Hook><<<blocks_for(n, FT_BLOCK), FT_BLOCK, stage->bytes,
+                       (cudaStream_t)stream>>>(
+      origin, dir, length, eps, t0, sign, n, *prog, *cull, *stage, max_steps,
+      omega, occlusion, t_out, hit_out, d_out, steps_out, sections);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int ft_march(const float* origin, const float* dir,
                         const float* length, const float* eps, const float* t0,
                         const float* sign, int n, const FtProgram* prog,
-                        const FtCull* cull,
+                        const FtCull* cull, const FtStage* stage,
                         int max_steps, float omega, int occlusion,
                         float* t_out, int* hit_out, float* d_out,
                         int* steps_out, void* stream) {
-  if (n > 0) {
-    march_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-        origin, dir, length, eps, t0, sign, n, *prog, *cull, max_steps, omega,
-        occlusion, t_out, hit_out, d_out, steps_out);
-  }
-  return (int)cudaGetLastError();
+  return launch_march<NoPrimHook>(origin, dir, length, eps, t0, sign, n, prog,
+                                  cull, stage, max_steps, omega, occlusion,
+                                  t_out, hit_out, d_out, steps_out, nullptr,
+                                  stream);
+}
+
+// The instrumented twin: the same kernel with SectionHook, adding each
+// warp's clock64() deltas per section and its counts to
+// sections[SEC_N + CNT_N].  A diagnostic: slower than the kernel (the
+// clock reads and about 20 more registers), launched by no path of the
+// renderer.
+extern "C" int ft_march_sections(
+    const float* origin, const float* dir, const float* length,
+    const float* eps, const float* t0, const float* sign, int n,
+    const FtProgram* prog, const FtCull* cull, const FtStage* stage,
+    int max_steps, float omega, int occlusion, float* t_out, int* hit_out,
+    float* d_out, int* steps_out, unsigned long long* sections,
+    void* stream) {
+  return launch_march<SectionHook>(origin, dir, length, eps, t0, sign, n,
+                                   prog, cull, stage, max_steps, omega,
+                                   occlusion, t_out, hit_out, d_out,
+                                   steps_out, sections, stream);
 }
 
 extern "C" int ft_surface(const float* origin, const float* dir,

@@ -11,6 +11,7 @@ happens only when a kernel wrapper is handed a CUDA tensor.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -36,10 +37,14 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
     # rays: origin, direction, length, epsilon, t0, sign (or null), n;
-    # program*, cull*; max_steps, omega, occlusion; outputs t, hit, d,
-    # steps; stream
-    "ft_march": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P,
-                 _P, _P],
+    # program*, cull*, stage*; max_steps, omega, occlusion; outputs t,
+    # hit, d, steps; stream
+    "ft_march": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _F, _I, _P, _P,
+                 _P, _P, _P],
+    # the instrumented twin: ft_march's arguments with the sections
+    # buffer (uint64 [SEC_N + CNT_N]) before the stream
+    "ft_march_sections": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _F, _I,
+                          _P, _P, _P, _P, _P, _P],
     # origin, direction, t, epsilon, hit, n; program*, cull*;
     # outputs normal [n,3], midx, code; stream (slot mode / AD mode)
     "ft_surface": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
@@ -121,6 +126,15 @@ def library() -> ctypes.CDLL:
     es.argtypes = [_I]
     es.restype = ctypes.c_char_p
     return lib
+
+
+def on_device(dev):
+    """Context that makes the CUDA device ``dev`` current for a launch;
+    nothing to enter when it already is."""
+    import torch
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def check(err: int, name: str) -> None:

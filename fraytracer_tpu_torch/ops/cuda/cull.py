@@ -11,7 +11,10 @@ Counterpart of the jnp host prep in
   conservative candidacy test and the axially sorted selection (:539, :588);
 * :func:`_pair_m` — table rows per pair in whole chunks (:700);
 * :func:`build_pair_tables` — the per-pair tables ``pallas_march_raw``
-  builds before its ``pallas_call`` (:1857-1977).
+  builds before its ``pallas_call`` (:1857-1977);
+* :func:`stage_plan` — where a K1/K2 block keeps a tile's slices of those
+  tables in shared memory (no JAX counterpart: the TPU kernel's BlockSpecs
+  did this).
 
 A tile is :data:`TILE` consecutive lanes of the flat ray batch: one 32×32
 screen block in ``render.py``'s block order, and the JAX kernel's
@@ -43,7 +46,14 @@ WINDOW_LANES = 32   # lanes sharing one per-step window: a warp
 PSTRIDE = 10        # parameter floats per row (FT_PSTRIDE); a table row
 #                     adds material and global slot (FT_TABLE_W = 12)
 MAX_PAIRS = 8       # culled pairs one launch takes (FT_MAX_PAIRS)
+TABLE_W = PSTRIDE + 2   # floats of a table row (FT_TABLE_W)
 _BIG = 3.0e38
+
+# What a K1/K2 block stages in shared memory (csrc/ft_sdf.cuh FtStage)
+SMEM_LIMIT = 232448      # bytes a block may use on the H100 (227 KB)
+STAGE_HEADER = 16 + MAX_PAIRS * 48   # the copy barrier + the pair records
+STAGE_OP_BYTES = 32      # one staged op of the program (struct SOp)
+STAGE_ENTS_MAX = 128     # dense entries staged at most, TABLE_W floats each
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +176,103 @@ def _pair_m(cull_m: int, group: int) -> int:
     ``cull_m >= group`` gives ``m >= group`` and cannot overflow."""
     m_arm = min(cull_m, group)
     return max(CAND_UNROLL, -(-m_arm // CAND_UNROLL) * CAND_UNROLL)
+
+
+# ---------------------------------------------------------------------------
+# Shared-memory plan of a K1/K2 launch
+# ---------------------------------------------------------------------------
+
+def _round16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
+def pair_slice_bytes(m: int) -> dict:
+    """Bytes of one tile's slices of a pair with ``m`` table rows, as
+    :func:`build_pair_tables` lays them out (each contiguous per tile)."""
+    chunks = m // CAND_UNROLL
+    return {"table": m * TABLE_W * 4, "keys": 2 * chunks * 4,
+            "hsuf": chunks * 4, "misc": 16}
+
+
+def pair_stage_bytes(m: int) -> int:
+    """Shared memory a staged pair takes: table, keys and hsuf of the
+    block's tile, each starting at a multiple of 16 bytes."""
+    b = pair_slice_bytes(m)
+    return b["table"] + _round16(b["keys"]) + _round16(b["hsuf"])
+
+
+def bulk_slices(m: int) -> Tuple[str, ...]:
+    """The slices of a staged pair that one bulk asynchronous copy brings
+    in: those whose tile stride — hence every tile's start and size — is a
+    multiple of 16 bytes.  The table always is (``m`` is a multiple of 8,
+    rows are 48 bytes); keys (``m`` bytes) when 16 divides ``m``, hsuf
+    (``m / 2`` bytes) when 32 does.  The block's threads copy the others
+    with plain loads."""
+    b = pair_slice_bytes(m)
+    return tuple(k for k in ("table", "keys", "hsuf") if b[k] % 16 == 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class StagePlan:
+    """Where a K1/K2 block keeps what it stages (byte offsets into its
+    dynamic shared memory; mirrored by ``struct FtStage``)."""
+    bytes: int               # dynamic shared memory of a block
+    bulk_bytes: int          # bytes brought in by bulk copies
+    ents: int                # dense entries staged (0: read from device)
+    ops_off: int             # the program: one 32-byte record an op
+    ents_off: int
+    pair_off: Tuple[int, ...]   # per pair, -1: read from device memory
+    bulk_keys: int           # bit q: pair q's keys go by bulk copy
+    bulk_hsuf: int           # bit q: pair q's hsuf go by bulk copy
+
+    @property
+    def staged(self) -> Tuple[bool, ...]:
+        return tuple(o >= 0 for o in self.pair_off)
+
+
+@functools.lru_cache(maxsize=256)
+def stage_plan(ms: Tuple[int, ...], n_ops: int, n_dense: int) -> StagePlan:
+    """The shared-memory plan of a K1/K2 launch, from sizes alone: ``ms``
+    the table rows of its culled pairs in program order (none for the dense
+    form), the program's op count and its dense entries.
+
+    After the header come the program, one record of STAGE_OP_BYTES an op
+    (always: a plan whose program does not fit a block's shared memory is
+    refused, as one deeper than the value stack is), and the dense entries
+    as rows of TABLE_W floats (when there are at most STAGE_ENTS_MAX; the
+    dense form's whole scene is read from device memory).  Then the pairs
+    in program order: a pair is staged while the block stays within
+    SMEM_LIMIT; one that does not fit is read from device memory, and so is
+    every pair after it."""
+    if len(ms) > MAX_PAIRS:
+        raise NotImplementedError(f"{len(ms)} culled pairs > {MAX_PAIRS}")
+    ops_off = STAGE_HEADER
+    at = ops_off + STAGE_OP_BYTES * n_ops
+    ents = n_dense if 0 < n_dense <= STAGE_ENTS_MAX else 0
+    if at + ents * TABLE_W * 4 > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"a CSG program of {n_ops} ops does not fit a block's shared "
+            f"memory ({at} > {SMEM_LIMIT} bytes)")
+    offs = {"ops_off": ops_off, "ents_off": at if ents else 0}
+    at += ents * TABLE_W * 4
+    pair_off, bulk_bytes, bulk_keys, bulk_hsuf = [], 0, 0, 0
+    fits = True
+    for q, m in enumerate(ms):
+        need = pair_stage_bytes(m)
+        fits = fits and at + need <= SMEM_LIMIT
+        if not fits:
+            pair_off.append(-1)
+            continue
+        pair_off.append(at)
+        at += need
+        b = pair_slice_bytes(m)
+        bulk = bulk_slices(m)
+        bulk_bytes += sum(b[k] for k in bulk)
+        bulk_keys |= ("keys" in bulk) << q
+        bulk_hsuf |= ("hsuf" in bulk) << q
+    return StagePlan(bytes=at, bulk_bytes=bulk_bytes, ents=ents,
+                     pair_off=tuple(pair_off), bulk_keys=bulk_keys,
+                     bulk_hsuf=bulk_hsuf, **offs)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from .build import check, library, on_device
+
 BLOCK_SUB = 8            # sublanes per gathered block (the TPU block shape)
 BLOCK_LANE = 128         # lanes per gathered block
 BLOCK = BLOCK_SUB * BLOCK_LANE
@@ -51,16 +53,16 @@ def _gather_blocks(x: torch.Tensor, block_idx: torch.Tensor) -> torch.Tensor:
                          "of 16")
     if x.shape[0] >= 2 ** 31 or block_idx.shape[0] >= 2 ** 31:
         raise ValueError("block_gather: too many blocks for int32 indices")
-    from .build import check, library
-    lib = library()
+    if block_bytes // 16 > 65535 * 256:
+        raise ValueError(f"block of {block_bytes} bytes exceeds the grid")
     bo = block_idx.shape[0]
     out = torch.empty((bo,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ft_block_gather(x.data_ptr(), block_idx.data_ptr(),
-                                  x.shape[0], bo, block_bytes // 16,
-                                  out.data_ptr(), stream)
+    with on_device(x.device):
+        err = library().ft_block_gather(
+            x.data_ptr(), block_idx.data_ptr(), x.shape[0], bo,
+            block_bytes // 16, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     check(err, "ft_block_gather")
     LAUNCHES["block_gather"] += 1
     return out

@@ -20,6 +20,12 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
   (:func:`surface_ad_plain`) for plans with a smooth union (value and
   gradient folded through the tree, material argmin, code 0).
 
+A K1/K2 block stages its tile's candidate tables, the program and the few
+dense entries in shared memory; the wrapper sizes that from shapes alone
+(``cull.stage_plan``, no device read).  :func:`march_sections` launches the
+kernel's instrumented twin (per-section clock counts, a diagnostic of
+``chip_smoke.py`` with a launch counter of its own).
+
 A wrapper launches the kernel for CUDA tensors and counts the launch in
 ``LAUNCHES`` (``march``/``occlusion``/``surface``/``surface_ad`` for the
 dense form, ``*_culled`` for the culled one); for CPU tensors it runs the
@@ -41,9 +47,10 @@ from ...types import MarchResult, Rays, normalize
 from .. import sdf
 from ..march import (MarchConfig, bound_skip_start, check_config, chunked,
                      _chunk_elems, sphere_trace)
+from .build import check, library, on_device
 from .cull import (CAND_UNROLL, MAX_PAIRS, PSTRIDE, TILE, WINDOW_LANES,
-                   CullTables, PairTable, _build_groups, _cull_pairs,
-                   build_pair_tables, kind_offset)
+                   CullTables, PairTable, StagePlan, _build_groups,
+                   _cull_pairs, build_pair_tables, kind_offset, stage_plan)
 
 Tensor = torch.Tensor
 
@@ -107,17 +114,50 @@ class FtCull(ctypes.Structure):
     ]
 
 
+class FtStage(ctypes.Structure):
+    """Mirror of ``struct FtStage`` (csrc/ft_sdf.cuh): a
+    :class:`cull.StagePlan` as the kernel takes it."""
+    _fields_ = [
+        ("bytes", ctypes.c_int), ("bulk_bytes", ctypes.c_int),
+        ("ents", ctypes.c_int),
+        ("ops_off", ctypes.c_int), ("ents_off", ctypes.c_int),
+        ("bulk_keys", ctypes.c_int), ("bulk_hsuf", ctypes.c_int),
+        ("pair_off", ctypes.c_int * MAX_PAIRS),
+    ]
+
+
+@functools.lru_cache(maxsize=256)
+def _stage_struct(plan: StagePlan) -> FtStage:
+    pad = (-1,) * (MAX_PAIRS - len(plan.pair_off))
+    return FtStage(plan.bytes, plan.bulk_bytes, plan.ents,
+                   plan.ops_off, plan.ents_off, plan.bulk_keys, plan.bulk_hsuf,
+                   (ctypes.c_int * MAX_PAIRS)(*plan.pair_off, *pad))
+
+
+_NO_CULL = FtCull()
+
+
 def _cull_struct(cull: CullTables | None) -> FtCull:
-    """The launch's ``FtCull`` (no pairs for the dense form)."""
-    s = FtCull()
+    """The launch's ``FtCull`` (no pairs for the dense form), kept on the
+    tables until their ``early_out`` changes."""
     if cull is None:
-        return s
+        return _NO_CULL
+    memo = cull.__dict__.get("_struct")
+    if memo is not None and memo[0] == cull.early_out:
+        return memo[1]
+    for q in cull.tables:
+        # the kernel reads table rows and misc as 16-byte words
+        if q.table.data_ptr() % 16 or q.misc.data_ptr() % 16 \
+                or q.keys.data_ptr() % 16 or q.hsuf.data_ptr() % 16:
+            raise ValueError("candidate tables must be 16-byte aligned")
+    s = FtCull()
     s.oa, s.ca = cull.oa.data_ptr(), cull.ca.data_ptr()
     s.n_pairs, s.early_out = len(cull.tables), int(cull.early_out)
     for i, q in enumerate(cull.tables):
         s.pairs[i] = FtPair(q.table.data_ptr(), q.keys.data_ptr(),
                             q.misc.data_ptr(), q.hsuf.data_ptr(), q.m,
                             KINDS.index(q.kind), q.row_hi - q.row_lo, 0)
+    cull.__dict__["_struct"] = (cull.early_out, s)
     return s
 
 
@@ -134,8 +174,17 @@ class Program:
     ent_params: Tensor   # float32 [E, PSTRIDE]
     slot_entry: Tensor   # int32 [K]
     group_pairs: Tensor  # int32 [G, 2] the group's culled pairs [start, end)
+    n_dense: int = 0     # entries inside the groups' ranges (not culled)
 
     def struct(self) -> FtProgram:
+        """The program as the kernels take it (its tensors never change:
+        built once)."""
+        s = self.__dict__.get("_struct")
+        if s is None:
+            s = self.__dict__["_struct"] = self._make_struct()
+        return s
+
+    def _make_struct(self) -> FtProgram:
         return FtProgram(
             self.ops.data_ptr(), self.op_k.data_ptr(), self.ops.shape[0],
             self.groups.data_ptr(), self.group_k.data_ptr(),
@@ -174,6 +223,7 @@ def _lower_static(plan: Plan, kind_counts, prim_material, pairs=()):
         entries += members
         mine = [i for i, p in enumerate(pairs) if p[0] == g.gid]
         gpairs.append((mine[0], mine[-1] + 1) if mine else (0, 0))
+    n_dense = len(entries)
     entries += sorted(culled)
 
     ops, op_k = [], []
@@ -217,13 +267,15 @@ def _lower_static(plan: Plan, kind_counts, prim_material, pairs=()):
         slot_entry=slot_entry,
         entries=ent,
         group_pairs=np.asarray(gpairs, np.int32).reshape(-1, 2),
+        n_dense=n_dense,
     )
 
 
 @functools.lru_cache(maxsize=32)
 def _static_on(plan: Plan, kind_counts, prim_material, pairs, device: str):
     st = _lower_static(plan, kind_counts, prim_material, pairs)
-    return {k: torch.as_tensor(v, device=device) for k, v in st.items()}
+    return {k: torch.as_tensor(v, device=device)
+            if isinstance(v, np.ndarray) else v for k, v in st.items()}
 
 
 def slot_param_rows(scene: FlatScene) -> Tensor:
@@ -275,7 +327,7 @@ def lower_program(scene: FlatScene, device, pairs=()) -> Program:
                    ent_params=params.index_select(0, st["entries"])
                    .contiguous(),
                    slot_entry=st["slot_entry"],
-                   group_pairs=st["group_pairs"])
+                   group_pairs=st["group_pairs"], n_dense=st["n_dense"])
     cur = tuple(scene.prim_params.values())
     scene.__dict__.setdefault("_lowered", {})[key] = (
         scene.plan, cur, tuple(p._version for p in cur), prog)
@@ -645,6 +697,54 @@ def march_plain(scene: FlatScene, origin: Tensor, direction: Tensor,
     return (hit, steps) if occlusion else (t, hit, d, steps)
 
 
+def march_stage_plan(prog: Program, cull: CullTables | None) -> StagePlan:
+    """The shared-memory plan of a K1/K2 launch of ``prog`` on ``cull``."""
+    ms = () if cull is None else tuple(q.m for q in cull.tables)
+    return stage_plan(ms, prog.ops.shape[0], prog.n_dense)
+
+
+def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
+                  direction: Tensor, length: Tensor, epsilon: Tensor,
+                  t0: Tensor, max_steps: int, omega: float, occlusion: bool,
+                  cull: CullTables | None, sign: Tensor | None, extra=()):
+    """Check the lanes, allocate the outputs and call the C entry point
+    ``entry`` (``ft_march`` or its instrumented twin, which takes ``extra``
+    before the stream).  Returns ``(t, hit int32, d, steps)`` with ``t`` and
+    ``d`` None for occlusion."""
+    n = origin.shape[0]
+    _check_lanes(n, origin=_f32("origin", origin),
+                 direction=_f32("direction", direction),
+                 length=_f32("length", length),
+                 epsilon=_f32("epsilon", epsilon), t0=_f32("t0", t0))
+    if sign is not None:
+        _check_lanes(n, sign=_f32("sign", sign))
+    if cull is not None:
+        _check_lanes(n, oa=_f32("oa", cull.oa), ca=_f32("ca", cull.ca))
+    lib = library()
+    dev = origin.device
+    prog = lower_program(scene, dev, () if cull is None else cull.pairs)
+    f32 = dict(dtype=torch.float32, device=dev)
+    hit = torch.empty(n, dtype=torch.int32, device=dev)
+    steps = torch.empty(n, dtype=torch.int32, device=dev)
+    t = None if occlusion else torch.empty(n, **f32)
+    d = None if occlusion else torch.empty(n, **f32)
+    s, c = prog.struct(), _cull_struct(cull)
+    # what the blocks stage in shared memory: sized from shapes alone
+    stage = _stage_struct(march_stage_plan(prog, cull))
+    with on_device(dev):
+        err = getattr(lib, entry)(
+            origin.data_ptr(), direction.data_ptr(), length.data_ptr(),
+            epsilon.data_ptr(), t0.data_ptr(),
+            None if sign is None else sign.data_ptr(), n, ctypes.byref(s),
+            ctypes.byref(c), ctypes.byref(stage), int(max_steps),
+            float(omega), int(occlusion),
+            None if occlusion else t.data_ptr(), hit.data_ptr(),
+            None if occlusion else d.data_ptr(), steps.data_ptr(), *extra,
+            torch.cuda.current_stream(dev).cuda_stream)
+    check(err, entry)
+    return t, hit, d, steps
+
+
 def march_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
                  length: Tensor, epsilon: Tensor, t0: Tensor, *,
                  max_steps: int, omega: float, occlusion: bool = False,
@@ -659,40 +759,50 @@ def march_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
         return march_plain(scene, origin, direction, length, epsilon, t0,
                            max_steps=max_steps, omega=omega,
                            occlusion=occlusion, cull=cull, sign=sign)
-    n = origin.shape[0]
-    _check_lanes(n, origin=_f32("origin", origin),
-                 direction=_f32("direction", direction),
-                 length=_f32("length", length),
-                 epsilon=_f32("epsilon", epsilon), t0=_f32("t0", t0))
-    if sign is not None:
-        _check_lanes(n, sign=_f32("sign", sign))
-    if cull is not None:
-        _check_lanes(n, oa=_f32("oa", cull.oa), ca=_f32("ca", cull.ca))
-    from .build import check, library
-    lib = library()
-    dev = origin.device
-    prog = lower_program(scene, dev, () if cull is None else cull.pairs)
-    f32 = dict(dtype=torch.float32, device=dev)
-    hit = torch.empty(n, dtype=torch.int32, device=dev)
-    steps = torch.empty(n, dtype=torch.int32, device=dev)
-    t = None if occlusion else torch.empty(n, **f32)
-    d = None if occlusion else torch.empty(n, **f32)
-    s, c = prog.struct(), _cull_struct(cull)
-    with torch.cuda.device(dev):
-        err = lib.ft_march(
-            origin.data_ptr(), direction.data_ptr(), length.data_ptr(),
-            epsilon.data_ptr(), t0.data_ptr(),
-            None if sign is None else sign.data_ptr(), n, ctypes.byref(s),
-            ctypes.byref(c), int(max_steps), float(omega), int(occlusion),
-            None if occlusion else t.data_ptr(), hit.data_ptr(),
-            None if occlusion else d.data_ptr(), steps.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "ft_march")
+    t, hit, d, steps = _launch_march(
+        "ft_march", scene, origin, direction, length, epsilon, t0, max_steps,
+        omega, occlusion, cull, sign)
     name = "occlusion" if occlusion else "march"
     LAUNCHES[name if cull is None else name + "_culled"] += 1
     if occlusion:
         return hit.bool(), steps
     return t, hit.bool(), d, steps
+
+
+# sections and counts of the instrumented twin, in the order of the enums
+# SEC_* and CNT_* of csrc/ft_sdf.cuh
+SECTIONS = ("ray_load", "window_stats", "candidate_rows", "early_out",
+            "dense_and_tree", "stepping", "store")
+SECTION_COUNTS = ("warp_steps", "chunks_scanned", "chunks_cut")
+SECTION_LAUNCHES = {"march_sections": 0}
+
+
+def march_sections(scene: FlatScene, origin: Tensor, direction: Tensor,
+                   length: Tensor, epsilon: Tensor, t0: Tensor, *,
+                   max_steps: int, omega: float, occlusion: bool = False,
+                   cull: CullTables | None = None,
+                   sign: Tensor | None = None):
+    """The instrumented twin of K1/K2 (CUDA tensors only): the same kernel
+    built with per-warp ``clock64()`` deltas around its sections.  Returns
+    ``(outputs, clocks, counts)``: the kernel's outputs as
+    :func:`march_kernel` gives them, the clock cycles summed over warps per
+    name of :data:`SECTIONS` and the counts per name of
+    :data:`SECTION_COUNTS` (warp iterations, window chunks scanned and
+    cut by the early-out).  A diagnostic for ``chip_smoke.py``: slower than
+    the kernel, on no path of the renderer, counted apart in
+    :data:`SECTION_LAUNCHES`."""
+    if origin.device.type != "cuda":
+        raise ValueError("march_sections needs CUDA tensors")
+    buf = torch.zeros(len(SECTIONS) + len(SECTION_COUNTS),
+                      dtype=torch.int64, device=origin.device)
+    t, hit, d, steps = _launch_march(
+        "ft_march_sections", scene, origin, direction, length, epsilon, t0,
+        max_steps, omega, occlusion, cull, sign, extra=(buf.data_ptr(),))
+    SECTION_LAUNCHES["march_sections"] += 1
+    vals = buf.tolist()
+    out = (hit.bool(), steps) if occlusion else (t, hit.bool(), d, steps)
+    return out, dict(zip(SECTIONS, vals)), \
+        dict(zip(SECTION_COUNTS, vals[len(SECTIONS):]))
 
 
 def leaf_gradient(scene: FlatScene, p: Tensor, code: Tensor) -> Tensor:
@@ -795,7 +905,6 @@ def surface_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
     _check_lanes(n, origin=_f32("origin", origin),
                  direction=_f32("direction", direction), t=_f32("t", t),
                  epsilon=_f32("epsilon", epsilon), hit=hit_i)
-    from .build import check, library
     lib = library()
     dev = origin.device
     prog = lower_program(scene, dev, () if cull is None else cull.pairs)
@@ -804,7 +913,7 @@ def surface_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
     code = torch.empty(n, dtype=torch.float32, device=dev)
     s, c = prog.struct(), _cull_struct(cull)
     entry = "ft_surface_ad" if ad else "ft_surface"
-    with torch.cuda.device(dev):
+    with on_device(dev):
         err = getattr(lib, entry)(
             origin.data_ptr(), direction.data_ptr(), t.data_ptr(),
             epsilon.data_ptr(), hit_i.data_ptr(), n, ctypes.byref(s),

@@ -287,6 +287,77 @@ def test_sign_lanes_match_plain(dev):
         assert dt <= (0.0 if cull is None else 0.03)
 
 
+def overbudget_scene(dev, groups=5, per_group=1024):
+    """``groups`` intersections of ``per_group`` fat spheres, united: as
+    many culled max pairs, each with a table of ``per_group`` rows a tile
+    (50,688 bytes of shared memory at 1024) — more than a block may hold,
+    so one launch reads staged and unstaged pairs."""
+    g = torch.Generator().manual_seed(23)
+    parts = []
+    for i in range(groups):
+        cx = (i - (groups - 1) / 2) * 2.0
+        c = (torch.rand(per_group, 3, generator=g) - 0.5) * 0.4
+        parts.append(ft.intersect(*[
+            ft.sphere((cx + float(x), float(y), float(z)), 0.9,
+                      material=ft.solid(0.2 + 0.1 * i, 0.5, 0.5))
+            for x, y, z in c.tolist()]))
+    return ft.flatten(ft.Scene(root=ft.union(*parts)), device=dev)
+
+
+def test_culled_march_with_staged_and_unstaged_pairs(dev):
+    """Culled K1/K2 on a plan whose pairs exceed a block's shared memory:
+    the first pairs are staged, the rest read from device memory, in one
+    launch, against the plain version (the K1 bounds)."""
+    from fraytracer_tpu_torch.ops.cuda import cull
+    from fraytracer_tpu_torch.render import _to_blocks
+    scene = overbudget_scene(dev)
+    size = 64
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), device=dev)
+    rays = ft.camera_rays(cam, size, size, 0.01, 30.0).map(
+        lambda x: _to_blocks(x, size, size, 32).contiguous())
+    t0, miss0, t_exit = bound_skip_start(scene, rays)
+    length = torch.where(miss0, 0.0, torch.minimum(rays.length, t_exit))
+    args = (rays.origin, rays.direction, length.contiguous(), rays.epsilon,
+            t0.contiguous())
+    pairs = cull._cull_pairs(scene.kind_counts, scene.plan, 512)
+    assert len(pairs) == 5
+    tables = cull.build_pair_tables(scene, *args[:2], args[4], args[2],
+                                    args[3], pairs, 1024, 0.125)
+    prog = mk.lower_program(scene, dev, tables.pairs)
+    plan = mk.march_stage_plan(prog, tables)
+    assert plan.staged == (True, True, True, True, False)
+    assert 48 * 1024 < plan.bytes <= cull.SMEM_LIMIT
+    kw = dict(max_steps=192, omega=1.4, cull=tables)
+    tk, hk, _dk, sk = mk.march_kernel(scene, *args, **kw)
+    tp, hp, _dp, sp = mk.march_plain(scene, *args, **kw)
+    assert int(hk.sum()) > 100
+    assert (hk == hp).float().mean().item() >= 0.999
+    same = hk & hp & (sk == sp)
+    assert int(same.sum()) >= 0.999 * int((hk & hp).sum())
+    assert (tk - tp).abs()[same].max().item() <= 1e-4
+    ho, _so = mk.march_kernel(scene, *args, **kw, occlusion=True)
+    assert torch.equal(ho, hk)
+
+
+@pytest.mark.parametrize("block_floats,n_blocks", [(100, 7), (1100, 7),
+                                                   (1024, 4096)])
+def test_block_gather_ragged_words_and_many_blocks(dev, block_floats,
+                                                   n_blocks):
+    """K4 exact where a block is not a whole number of 256-word thread
+    blocks (25 and 275 sixteen-byte words) and at 4096 blocks, with
+    repeats and out-of-range indices (zeros)."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(n_blocks, block_floats, generator=g).to(dev)
+    idx = torch.randint(-2, n_blocks + 2, (n_blocks + 3,), generator=g,
+                        dtype=torch.int32).to(dev)
+    n0 = gather.LAUNCHES["block_gather"]
+    out = gather._gather_blocks(x, idx)
+    assert gather.LAUNCHES["block_gather"] == n0 + 1
+    assert torch.equal(out, gather.block_gather_plain(x, idx))
+    bad = (idx < 0) | (idx >= n_blocks)
+    assert bool(bad.any()) and not bool(out[bad].any())
+
+
 def test_block_gather_kernel_exact(dev):
     g = torch.Generator().manual_seed(1)
     x = torch.randn(9, 8, 128, generator=g).to(dev)

@@ -397,3 +397,51 @@ def test_cull_candidates_conservative_divergent(rng):
         - b[None, :, 3]
     for prim in np.where(dist.min(axis=0) < 2 * 0.01)[0]:
         assert prim in cand, int(prim)
+
+
+# ---------------------------------------------------------------------------
+# the per-tile slices as the march kernel stages them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cull_m,m", [(8, 8), (24, 24), (256, 256),
+                                      (512, 512)])
+def test_tile_slices_contiguous_and_aligned(cull_m, m):
+    """Every per-tile slice the march kernel stages (table, keys, hsuf,
+    misc) is contiguous; ``table[tile]`` and ``misc[tile]`` start at a
+    multiple of 16 bytes for every tile of an odd tile count; and the host
+    rule (``bulk_slices``) names keys / hsuf for the bulk copy exactly when
+    their slice — hence every tile's start — is a multiple of 16 bytes."""
+    scene = port_scene(5, 520)
+    flat = port_camera(32, 96)              # 3 tiles
+    n = flat.origin.shape[0] - 40           # a ragged last tile
+    pairs = TC._cull_pairs(scene.kind_counts, scene.plan, 48)
+    assert TC._pair_m(cull_m, 520) == m
+    got = TC.build_pair_tables(
+        scene, flat.origin[:n], flat.direction[:n],
+        torch.zeros(n), flat.length[:n], flat.epsilon[:n], pairs, cull_m,
+        0.125)
+    (q,) = got.tables
+    tiles = 3
+    chunks = m // TC.CAND_UNROLL
+    assert q.m == m and q.table.shape == (tiles, m, TC.TABLE_W)
+    assert q.keys.shape == (tiles, 2, chunks)
+    assert q.hsuf.shape == (tiles, chunks) and q.misc.shape == (tiles, 4)
+    want = TC.pair_slice_bytes(m)
+    for name in ("table", "keys", "hsuf", "misc"):
+        x = getattr(q, name)
+        assert x.is_contiguous() and x.dtype == torch.float32, name
+        assert x[1].is_contiguous(), name
+        # a tile's slice is one run of bytes of the stated size
+        assert x[0].numel() * 4 == want[name], name
+        assert (x[1].data_ptr() - x[0].data_ptr()) == want[name], name
+    for name in ("table", "misc"):
+        x = getattr(q, name)
+        for tile in range(tiles):
+            assert (x[tile].data_ptr() - x.data_ptr()) % 16 == 0, \
+                (name, tile)
+    bulk = TC.bulk_slices(m)
+    assert "table" in bulk
+    for name in ("keys", "hsuf"):
+        assert (name in bulk) == (want[name] % 16 == 0), (name, m)
+    assert ("keys" in bulk) == (m % 16 == 0)
+    assert ("hsuf" in bulk) == (m % 32 == 0)
