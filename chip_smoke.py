@@ -291,12 +291,11 @@ def march_bound(scene, lanes, out, tables=None, win_rows=None):
 
 
 def surface_bound(scene, args, out, tables=None):
-    """Bound of one K3 launch: 44 bytes in and 20 out a lane; on each hit
-    lane one scene evaluation (the culled pairs' whole lists) and the
-    gradients."""
+    """Bound of one K3 launch: 33 bytes in (origin, direction, t,
+    epsilon, the hit byte) and 20 out a lane; on each hit lane one scene
+    evaluation (the culled pairs' whole lists) and the gradients."""
     hit = args[4]
-    io = nbytes(*args[:4], *out) + 4 * hit.numel() \
-        + scene_bytes(scene, tables, march=False)
+    io = nbytes(*args, *out) + scene_bytes(scene, tables, march=False)
     flops = int(hit.sum()) * dense_flops(scene, tables) \
         + dual_flops(scene, hit, out[2])
     if tables is not None:
@@ -782,6 +781,54 @@ def lane_efficiency(steps):
     return int(per_warp.sum()) / max(issued, 1)
 
 
+def surface_lanes_stats(hit):
+    """How K3's lanes fall into blocks of 128 (the kernel's block, FT_BLOCK):
+    the hit count, the blocks holding a hit, and two lane efficiencies —
+    hits over the lanes of the warps that hold a hit (a grid of one thread
+    a lane, as before the compaction) and over the lanes of the ceil(hits
+    / 32) warps a block runs once it lists its hits."""
+    n = hit.numel()
+    h = torch.nn.functional.pad(hit.to(torch.int64), (0, (-n) % 128))
+    per_warp = h.view(-1, 32).sum(1)
+    per_block = h.view(-1, 128).sum(1)
+    hits = int(per_block.sum())
+    return {"hits": hits, "blocks_with_hit": int((per_block > 0).sum()),
+            "blocks": per_block.numel(),
+            "lane_efficiency_grid": hits / max(32 * int((per_warp > 0).sum()),
+                                               1),
+            "lane_efficiency_compacted": hits / max(
+                32 * int(((per_block + 31) // 32).sum()), 1)}
+
+
+def digest(*tensors) -> str:
+    """A hash of the tensors' bytes: equal outputs of two trees."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def surface_yardstick(name, scene, lanes, kw, tabs, device_ms, dump):
+    """K3 culled on the culled K1's hits of ``lanes``: its device time,
+    how its lanes fall into blocks (:func:`surface_lanes_stats`) and a
+    digest of (normal, material, code), for ``--kernels-only``; the
+    outputs go into ``dump[name]``."""
+    from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
+    k = mk.march_kernel(scene, **lanes, **kw, cull=tabs)
+    args = (lanes["origin"], lanes["direction"], k[0], lanes["epsilon"],
+            k[1])
+    out = mk.surface_kernel(scene, *args, cull=tabs)
+    dump[name] = [x.cpu() for x in out]
+    rec = {f"{name}_ms": device_ms(
+        lambda: mk.surface_kernel(scene, *args, cull=tabs))}
+    rec.update({f"{name}_{key}": v
+                for key, v in surface_lanes_stats(k[1]).items()})
+    rec[f"{name}_march_digest"] = digest(k[0], k[1])
+    rec[f"{name}_digest"] = digest(*out)
+    return rec
+
+
 def gather_bench_inputs(pos, dev):
     """K4 at the block tier's shape: 16 blocks of the frame's ``[N, 3]``
     points ``pos`` (12 KB each); returns the block view, the int32 block
@@ -1068,9 +1115,12 @@ def phase_culled_times(dev, bench_scene):
 def phase_blend_times(dev, scene):
     """K3 in AD mode beside its plain version at the blended frame's shape
     (1024² primary rays, tables at cull_m 256): the culled form on the
-    culled K1's hits and the dense form on the dense K1's."""
+    culled K1's hits and the dense form on the dense K1's.  The culled
+    form is read on the device (``ms``) with the reading around one host
+    call beside it (``host_call_ms``); the dense form around a call."""
     from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
     out = {}
+    device_ms = device_timer()
     lanes, kw = primary_lanes(scene, SIZE, 30.0, dev)
     tabs = culled_tables(scene, lanes, 48, 256)
     for name, tables in (("surface_ad_culled", tabs), ("surface_ad", None)):
@@ -1080,13 +1130,18 @@ def phase_blend_times(dev, scene):
         args = (lanes["origin"], lanes["direction"], k[0],
                 lanes["epsilon"], k[1])
         kk = mk.surface_kernel(scene, *args, cull=tables)
-        ms = cuda_ms(lambda: mk.surface_kernel(scene, *args, cull=tables))
+        call = lambda: mk.surface_kernel(scene, *args, cull=tables)
+        more = {}
+        if tables is None:
+            ms = cuda_ms(call)
+        else:
+            ms, more["host_call_ms"] = device_ms(call), cuda_ms(call)
         pp, plain_ms = host_ms(lambda: mk.surface_plain(scene, *args,
                                                         cull=tables))
         err, differing = compare_surface_ad(kk, pp, k[1],
                                             f"K3 AD {name} blend {SIZE}^2")
         out[name] = timing(ms, plain_ms, err, differing, int(k[1].sum()),
-                           surface_bound(scene, args, kk, tables))
+                           surface_bound(scene, args, kk, tables), **more)
         log(f"  K1 before {name}: {k1_ms:.3f} ms, "
             f"{int(k[3].sum())} ray evaluations, "
             f"{int(k[1].sum())} hits, SIMT lane efficiency "
@@ -2087,13 +2142,16 @@ def frame_only(tree, reps) -> int:
     return 0
 
 
-def kernels_only(tree) -> int:
+def kernels_only(tree, dump=None) -> int:
     """Device times (``device_ms``: no host launch path in them) of the
-    redesign's yardsticks at the main path's shapes, as one JSON line: K4
+    redesigns' yardsticks at the main path's shapes, as one JSON line: K4
     with its plain and library forms, culled K1, culled K2 of both lights,
-    dense K1, the culled K1/K2 lane efficiency and ray evaluations and,
-    where the tree has the instrumented twin, its section shares.
-    ``tree`` as in :func:`frame_only`."""
+    culled K3 in slot mode (the torus frame) and in AD mode (the blended
+    frame, ``blend_scene``) with their hit and block counts, lane
+    efficiencies and output digests, dense K1, the culled K1/K2 lane
+    efficiency and ray evaluations and, where the tree has the
+    instrumented twin, its section shares.  ``tree`` as in
+    :func:`frame_only`; ``dump``: a file to save the K3 outputs in."""
     if tree:
         sys.path.insert(0, str(Path(tree).resolve()))
     import fraytracer_tpu_torch as ft
@@ -2135,6 +2193,16 @@ def kernels_only(tree) -> int:
         if twin is not None:
             out[name + "_sections"] = log_sections(
                 f"K2 culled light {light}", scene, sl, skw, o)
+    outputs = {}
+    out.update(surface_yardstick("surface_culled", scene, lanes, kw, tabs,
+                                 device_ms, outputs))
+    blend = blend_scene(BENCH_N_TORI, dev)
+    blanes, bkw = primary_lanes(blend, SIZE, 30.0, dev)
+    out.update(surface_yardstick("surface_ad_culled", blend, blanes, bkw,
+                                 culled_tables(blend, blanes, 48, 256),
+                                 device_ms, outputs))
+    if dump:
+        torch.save(outputs, dump)
     out["march_dense_ms"] = device_ms(
         lambda: mk.march_kernel(scene, **lanes, **kw), reps=10)
     pos = lanes["origin"] + (k[0] - lanes["epsilon"])[:, None] \
@@ -2151,20 +2219,44 @@ def kernels_only(tree) -> int:
                                                        reps=20)
     from fraytracer_tpu_torch.ops.cuda import build
     out["ptxas"] = [l.strip() for l in build.BuildInfo.log.splitlines()
-                    if "registers" in l or "Compiling entry" in l]
+                    if "registers" in l or "Compiling entry" in l
+                    or "spill" in l]
     out["card"] = nvidia_smi()
     print(json.dumps(out))
     return 0
 
 
+def compare_outputs(a, b) -> dict:
+    """K3's outputs of two trees (:func:`kernels_only`'s dumps): per
+    output, the largest normal difference and the lanes whose material or
+    code differ."""
+    out = {}
+    for name in a:
+        (na, ma, ca), (nb, mb, cb) = a[name], b[name]
+        out[name] = {"max_abs_normal_diff": (na - nb).abs().max().item(),
+                     "lanes_normal_differs": int((na != nb).any(-1).sum()),
+                     "lanes_material_differs": int((ma != mb).sum()),
+                     "lanes_code_differs": int((ca != cb).sum())}
+        log(f"  {name} outputs, this vs other: {out[name]}")
+    return out
+
+
 def compare_kernels(tree) -> dict:
     """``--kernels-only`` for this checkout and the commit unpacked in
     ``tree``, fresh processes in the order other, this, this, other; each
-    JSON line echoed.  Returns ``{"this": [...], "other": [...]}``."""
+    JSON line echoed, K3's outputs of the first two held against each
+    other.  Returns ``{"this": [...], "other": [...], ...}``."""
+    from fraytracer_tpu_torch.ops.cuda import build
     runs = {"this": [], "other": []}
-    for t in (tree, None, None, tree):
+    dumps = {}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for i, t in enumerate((tree, None, None, tree)):
         cmd = [sys.executable, str(Path(__file__).resolve()),
                "--kernels-only"] + (["--tree", t] if t else [])
+        if i < 2:
+            dumps["other" if t else "this"] = build.BUILD_DIR / \
+                f"k3_outputs_{'other' if t else 'this'}.pt"
+            cmd += ["--dump", str(dumps["other" if t else "this"])]
         out = subprocess.run(cmd, capture_output=True, text=True, check=True,
                              timeout=900)
         line = out.stdout.strip().splitlines()[-1]
@@ -2176,6 +2268,16 @@ def compare_kernels(tree) -> dict:
     for k in keys:
         log(f"  {k}: this {[round(r[k], 5) for r in runs['this']]}, other "
             f"{[round(r.get(k, float('nan')), 5) for r in runs['other']]}")
+    runs["digests_equal"] = {}
+    for k in (k for k in runs["this"][0] if k.endswith("_digest")):
+        seen = {r.get(k) for r in runs["this"] + runs["other"]}
+        runs["digests_equal"][k] = len(seen) == 1
+        log(f"  {k}: {'equal in both trees' if len(seen) == 1 else 'DIFFER'}"
+            f" {sorted(map(str, seen))}")
+    runs["outputs"] = compare_outputs(torch.load(dumps["this"]),
+                                      torch.load(dumps["other"]))
+    for f in dumps.values():
+        f.unlink()
     return runs
 
 
@@ -2227,6 +2329,8 @@ def main() -> int:
                     "directory")
     ap.add_argument("--compare", metavar="TREE", help="paired frame times "
                     "of this checkout and the commit unpacked in TREE")
+    ap.add_argument("--dump", help="with --kernels-only: save K3's "
+                    "outputs in this file")
     ap.add_argument("--pairs", type=int, default=8)
     ap.add_argument("--reps", type=int, default=9)
     args = ap.parse_args()
@@ -2235,7 +2339,7 @@ def main() -> int:
     if args.frame_only:
         return frame_only(args.tree, args.reps)
     if args.kernels_only:
-        return kernels_only(args.tree)
+        return kernels_only(args.tree, args.dump)
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.ops.cuda import build
     from fraytracer_tpu_torch.scene.generators import torus_csg_scene

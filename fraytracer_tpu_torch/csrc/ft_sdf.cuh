@@ -1,8 +1,9 @@
 // Shared device code of the march and surface kernels: the flattened
 // scene program, the seven primitive distance functions (written once,
 // templated over the scalar type: float for marching, a 3-component
-// forward-mode dual number for exact gradients), the scene program
-// interpreter, and the culled groups' candidate-table passes.
+// forward-mode dual number for exact gradients), the stack values of the
+// scene program, and its two folds over what a block staged: the march's
+// (windowed candidate passes) and the surface pass's (whole-list scans).
 //
 // The formulas are those of fraytracer_tpu_torch/ops/sdf.py (the plain
 // PyTorch versions the kernels are held against), which are algebraically
@@ -20,8 +21,10 @@
 #define FT_CAND_UNROLL 8   // table rows per window chunk
 #define FT_TABLE_W 12      // floats per table row: params, material, slot
 #define FT_MAX_PAIRS 8     // culled (group, kind) pairs per launch
-#define FT_BLOCK 128       // threads of a K1/K2 block: FT_TILE / 8, so a
-                           // block reads one tile's tables
+#define FT_BLOCK 128       // threads of a K1/K2/K3 block: FT_TILE / 8, so
+                           // a block reads one tile's tables
+#define FT_SURF_LIST_BYTES 144  // K3's hit-lane list after the staged plan:
+                                // FT_BLOCK / 32 warp counts, FT_BLOCK lanes
 #define FT_FULL_MASK 0xffffffffu
 
 // primitive kinds, in the flattener's KINDS order
@@ -36,8 +39,7 @@ enum { G_MIN = 0, G_MAX, G_SUMEXP };
 // Entries are the primitives ordered by group, members of a group in
 // ascending global slot; each group is one contiguous entry range.  The
 // rows of culled pairs come after every group's range: their group reads
-// them from the per-tile candidate tables (FtCull), and K3 finds the
-// winning leaf's parameters through slot_entry.
+// them from the per-tile candidate tables (FtCull).
 struct FtProgram {
   const int* ops;           // [n_ops * 2] (opcode, arg): arg = group id or
                             // operand count
@@ -51,8 +53,6 @@ struct FtProgram {
   const int* ent_mat;       // [n_ent] CSG-visible material, -1 = none
   const float* ent_params;  // [n_ent * FT_PSTRIDE]; torus axes unit length
   int n_ent;
-  const int* slot_entry;    // [n_slots] entry of a global slot
-  int n_slots;
   const int* group_pairs;   // [n_groups * 2] the group's pairs [start, end)
 };
 
@@ -79,15 +79,16 @@ struct FtCull {
   FtPair pairs[FT_MAX_PAIRS];
 };
 
-// The shared-memory plan of one K1/K2 launch, sized on the host from the
-// program's and the tables' shapes alone (ops/cuda/cull.py stage_plan; a
-// block may use 227 KB).  Offsets are bytes from the block's dynamic shared
-// memory; it starts with the copy barrier (16 bytes) and the per-pair
-// records (FT_MAX_PAIRS x 48 bytes); the program is always staged, one
-// 32-byte record an op (SOp).  A staged pair holds the tile's table
-// slice [m, FT_TABLE_W], its keys [2, m / 8] and its hsuf [m / 8], each
-// at a multiple of 16 bytes; pairs are staged in program order while they
-// fit, the others are read from device memory.
+// The shared-memory plan of one K1/K2/K3 launch, sized on the host from
+// the program's and the tables' shapes alone (ops/cuda/cull.py stage_plan;
+// a block may use 227 KB; K3's plan ends with its FT_SURF_LIST_BYTES).
+// Offsets are bytes from the block's dynamic shared memory; it starts with
+// the copy barrier (16 bytes) and the per-pair records (FT_MAX_PAIRS x 48
+// bytes); the program is always staged, one 32-byte record an op (SOp).  A
+// staged pair holds the tile's table slice [m, FT_TABLE_W], its keys [2, m
+// / 8] and its hsuf [m / 8], each at a multiple of 16 bytes; pairs are
+// staged in program order while they fit, the others are read from device
+// memory.
 struct FtStage {
   int bytes;        // dynamic shared memory of a block
   int bulk_bytes;   // bytes the bulk copies bring in (0: no barrier)
@@ -102,7 +103,6 @@ struct FtStage {
 // A lane as the culled passes see it.  K1/K2 call the scene with every
 // lane of a warp (inactive ones included): the window is warp-collective.
 struct Lane {
-  int tile;       // the warp's ray tile
   float oa, ca;   // axial origin offset and direction cosine
   float t, eps;   // ray parameter of this step, hit threshold
   bool active;    // takes part in the window statistics
@@ -191,11 +191,11 @@ __device__ __forceinline__ float sign_(T a) {
 }
 
 // A primitive row as the distance functions read it.  GRow: device memory
-// through the read-only cache, exact (IEEE) square roots — K3 and the
-// dense entries of K1/K2.  RRow: a row that the march's candidate loop
-// holds in registers (loaded as 16-byte words from shared or device
-// memory); FAST takes sqrt.approx for the march distance (K1/K2 only: a
-// step length, held against the plain version at t <= 1e-4).
+// through the read-only cache, exact (IEEE) square roots — the dense form's
+// entries in K1/K2.  RRow: a row held in registers (loaded as 16-byte words
+// from shared or device memory); FAST takes sqrt.approx for the march
+// distance (K1/K2 only: a step length, held against the plain version at
+// t <= 1e-4), K3 keeps exact roots.
 struct GRow {
   const float* p;
   static constexpr bool fast = false;
@@ -209,6 +209,27 @@ struct RRow {
   static constexpr bool fast = FAST;
   __device__ __forceinline__ float operator[](int j) const { return v[j]; }
 };
+// the first WORDS 16-byte words of the row at r4 into registers
+template <int WORDS, bool FAST>
+__device__ __forceinline__ RRow<FAST> load_row(const float4* r4) {
+  RRow<FAST> r;
+#pragma unroll
+  for (int w = 0; w < WORDS; ++w) {
+    const float4 x = r4[w];
+    r.v[4 * w] = x.x;
+    r.v[4 * w + 1] = x.y;
+    r.v[4 * w + 2] = x.z;
+    r.v[4 * w + 3] = x.w;
+  }
+  return r;
+}
+// floats of a row that a kind's distance reads (scene/flatten.py
+// PARAM_WIDTH)
+__host__ __device__ constexpr int ft_kind_width(int kind) {
+  return kind == K_SPHERE || kind == K_PLANE ? 4
+         : kind == K_CAPSULE || kind == K_BOX ? 7
+         : kind == K_TRIANGLE ? 10 : 8;
+}
 template <typename G>
 __device__ __forceinline__ float ld(const G& g, int j) {
   return g[j];
@@ -350,6 +371,33 @@ __device__ __forceinline__ T prim_dist(int kind, const G& g, T px, T py,
   }
 }
 
+// the same with the kind known at compile time
+template <int KIND, typename T, typename G>
+__device__ __forceinline__ T kind_dist(const G& g, T px, T py, T pz) {
+  if constexpr (KIND == K_SPHERE) return d_sphere(g, px, py, pz);
+  else if constexpr (KIND == K_CAPSULE) return d_capsule(g, px, py, pz);
+  else if constexpr (KIND == K_TORUS) return d_torus(g, px, py, pz);
+  else if constexpr (KIND == K_TRIANGLE) return d_triangle(g, px, py, pz);
+  else if constexpr (KIND == K_BOX) return d_box(g, px, py, pz);
+  else if constexpr (KIND == K_CONE) return d_cone(g, px, py, pz);
+  else return d_plane(g, px, py, pz);
+}
+
+// exact gradient of one primitive's distance at p (forward-mode dual
+// numbers), the kind known at run time or at compile time
+template <typename G>
+__device__ __forceinline__ Dual prim_dual(int kind, const G& g, float px,
+                                          float py, float pz) {
+  return prim_dist(kind, g, Dual{px, 1.f, 0.f, 0.f}, Dual{py, 0.f, 1.f, 0.f},
+                   Dual{pz, 0.f, 0.f, 1.f});
+}
+template <int KIND, typename G>
+__device__ __forceinline__ Dual kind_dual(const G& g, float px, float py,
+                                          float pz) {
+  return kind_dist<KIND>(g, Dual{px, 1.f, 0.f, 0.f}, Dual{py, 0.f, 1.f, 0.f},
+                         Dual{pz, 0.f, 0.f, 1.f});
+}
+
 // ---------------------------------------------------------------------------
 // warp reductions of floats (order-preserving int image, sm_80+ redux)
 // ---------------------------------------------------------------------------
@@ -369,33 +417,35 @@ __device__ __forceinline__ float warp_max(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// scene program interpreter
+// the scene program's stack values
 // ---------------------------------------------------------------------------
 //
-// Three stack value types, one set of rules:
-// - Dist, the distance alone (K1/K2: march_distance at the end of this
-//   file folds the same program from where the block staged it);
-// - DistCode, the distance and the signed code +-(slot + 1) of the
-//   CSG-winning leaf (K3, slot mode): min/max keep the first extremum,
-//   subtract flips the sign of its b side.  A smooth reduction names no
-//   single leaf (code 0); the host keeps smooth plans out of slot mode;
+// The host lowers the CSG plan to a program (groups of primitives with a
+// min/max/sumexp reduction, the tree over them in postfix) that a thread
+// folds with a value stack.  Three value types, one set of rules:
+// - Dist, the distance alone (K1/K2: march_distance);
+// - DistCode, the distance, the signed code +-(slot + 1) of the CSG-winning
+//   leaf and where that leaf's row is (K3, slot mode): min/max keep the
+//   first extremum, subtract flips the sign of its b side.  A smooth
+//   reduction names no single leaf (code 0); the host keeps smooth plans
+//   out of slot mode;
 // - DistGrad, the distance and its gradient at the query point (K3, AD
 //   mode, the plans with a smooth union): min/max keep the first
 //   extremum's gradient, subtract negates its b side's, a smooth reduction
 //   blends the gradients with the weights e = exp(-d / k).  A value that
 //   no leaf owns (an empty group, a floored max group) has gradient
 //   (0, 0, 1).
-// The per-type rules are the overloads below; on_prim(d, mat, slot) sees
-// every primitive distance (K3's material argmin).  A group with culled
-// pairs folds each pair first (K3: culled_pair, the whole-table surface
-// scan; K1/K2: culled_window, the windowed march pass), then its dense
-// entries.
+// The per-type rules are the overloads below; the folds are march_distance
+// (K1/K2) and surface_scene (K3) at the end of this file.
 
 struct Dist {
   float v;
 };
+// at: the winning leaf's row, -1 none; pair q's table row r as
+// r * FT_MAX_PAIRS + q; dense entry e as -(e + 2)
 struct DistCode {
   float v, code;
+  int at;
 };
 struct DistGrad {
   float v, x, y, z;
@@ -404,54 +454,17 @@ struct DistGrad {
 // a value that no leaf owns
 __device__ __forceinline__ void smooth_value(Dist& a, float v) { a.v = v; }
 __device__ __forceinline__ void smooth_value(DistCode& a, float v) {
-  a = {v, 0.f};
+  a = {v, 0.f, -1};
 }
 __device__ __forceinline__ void smooth_value(DistGrad& a, float v) {
   a = {v, 0.f, 0.f, 1.f};
 }
 
-// exact gradient of one primitive's distance (forward-mode dual numbers)
-__device__ __forceinline__ Dual prim_dual(int kind, const float* g, float px,
-                                          float py, float pz) {
-  return prim_dist(kind, GRow{g}, Dual{px, 1.f, 0.f, 0.f},
-                   Dual{py, 0.f, 1.f, 0.f}, Dual{pz, 0.f, 0.f, 1.f});
-}
-
-// group member e with distance d; members run in ascending slot.  DistGrad
-// only notes the winning entry (won): its gradient is evaluated once, after
-// the group's last member (finish_members)
-__device__ __forceinline__ void take_member(DistCode& acc, int&, bool mn,
-                                            float d, const FtProgram& P,
-                                            int e) {
-  // strict compares keep the first extremum
-  if (mn ? d < acc.v : d > acc.v) {
-    acc = {d, (float)(__ldg(P.ent_slot + e) + 1)};
-  }
-}
-__device__ __forceinline__ void take_member(DistGrad& acc, int& won, bool mn,
-                                            float d, const FtProgram&, int e) {
-  if (mn ? d < acc.v : d > acc.v) {
-    acc.v = d;
-    won = e;
-  }
-}
-__device__ __forceinline__ void finish_members(DistCode&, int,
-                                               const FtProgram&, float, float,
-                                               float) {}
-__device__ __forceinline__ void finish_members(DistGrad& acc, int won,
-                                               const FtProgram& P, float px,
-                                               float py, float pz) {
-  if (won < 0) return;
-  const Dual g = prim_dual(__ldg(P.ent_kind + won),
-                           P.ent_params + (size_t)won * FT_PSTRIDE, px, py,
-                           pz);
-  acc = {acc.v, g.x, g.y, g.z};
-}
 __device__ __forceinline__ Dist csg_subtract(Dist a, Dist b) {
   return {fmaxf(a.v, -b.v)};
 }
 __device__ __forceinline__ DistCode csg_subtract(DistCode a, DistCode b) {
-  return a.v > -b.v ? a : DistCode{-b.v, -b.code};
+  return a.v > -b.v ? a : DistCode{-b.v, -b.code, b.at};
 }
 __device__ __forceinline__ DistGrad csg_subtract(DistGrad a, DistGrad b) {
   return a.v > -b.v ? a : DistGrad{-b.v, -b.x, -b.y, -b.z};
@@ -526,188 +539,12 @@ __device__ __forceinline__ void ft_count(H& h, int c, int n) {
   if constexpr (ft_timed<H>::value) h.cnt[c] += n;
 }
 
-// K3: the scan of one culled pair over the tile's whole candidate list
-// (culled_sp :1051-1144): the first ceil8(min(count, m)) rows, leaf
-// arg-extremum with ties to the lower slot, every row seen by the material
-// hook.  Returns the extremum, its slot and its table row (none: bslot
-// stays 0x7fffffff); floored is set when a max group's cone excluded
-// members and the extremum lies below 2 eps (:1122-1138, :1416-1432): the
-// pair's value is then 2 eps and no leaf owns it.
-struct PairScan {
-  float bd;
-  int bslot, brow;
-  bool floored;
-};
-
-template <typename OnPrim>
-__device__ __forceinline__ PairScan scan_pair(const FtPair& q, const Lane& L,
-                                              bool mn, float px, float py,
-                                              float pz, OnPrim& on_prim) {
-  const float* misc = q.misc + (size_t)L.tile * 4;
-  const float count = __ldg(misc);
-  const int n_c = (int)fminf(count, (float)q.m);
-  const int rows = (n_c + FT_CAND_UNROLL - 1) / FT_CAND_UNROLL * FT_CAND_UNROLL;
-  const float* tab = q.table + (size_t)L.tile * q.m * FT_TABLE_W;
-  PairScan r = {mn ? FT_BIG : -FT_BIG, 0x7fffffff, 0, false};
-  for (int i = 0; i < rows; ++i) {
-    const float* row = tab + (size_t)i * FT_TABLE_W;
-    const float d = prim_dist(q.kind, GRow{row}, px, py, pz);
-    const int slot = (int)__ldg(row + FT_PSTRIDE + 1);
-    on_prim(d, (int)__ldg(row + FT_PSTRIDE), slot);
-    if ((mn ? d < r.bd : d > r.bd) || (d == r.bd && slot < r.bslot)) {
-      r.bd = d;
-      r.bslot = slot;
-      r.brow = i;
-    }
-  }
-  if (!mn && count < (float)q.group_size && r.bd < 2.f * L.eps) {
-    r.bd = 2.f * L.eps;
-    r.floored = true;
-  }
-  return r;
-}
-
-// folded into the group strictly, before its dense entries
-template <typename OnPrim>
-__device__ __forceinline__ void culled_pair(DistCode& acc, const FtPair& q,
-                                            const Lane& L, bool mn, int,
-                                            float px, float py, float pz,
-                                            OnPrim& on_prim) {
-  const PairScan r = scan_pair(q, L, mn, px, py, pz, on_prim);
-  const float code =
-      r.floored || r.bslot == 0x7fffffff ? 0.f : (float)(r.bslot + 1);
-  if (mn ? r.bd < acc.v : r.bd > acc.v) acc = {r.bd, code};
-}
-
-// AD mode scans the whole list as slot mode does (the TPU body windows the
-// scan by the hit shell and caps the value by the skipped chunks' bounds,
-// :1372-1432; the winner lies inside that window by construction, so both
-// name the same leaf) and evaluates the winner's gradient once
-template <typename OnPrim>
-__device__ __forceinline__ void culled_pair(DistGrad& acc, const FtPair& q,
-                                            const Lane& L, bool mn, int,
-                                            float px, float py, float pz,
-                                            OnPrim& on_prim) {
-  const PairScan r = scan_pair(q, L, mn, px, py, pz, on_prim);
-  if (!(mn ? r.bd < acc.v : r.bd > acc.v)) return;
-  if (r.floored || r.bslot == 0x7fffffff) {
-    smooth_value(acc, r.bd);
-    return;
-  }
-  const float* row =
-      q.table + ((size_t)L.tile * q.m + r.brow) * FT_TABLE_W;
-  const Dual g = prim_dual(q.kind, row, px, py, pz);
-  acc = {r.bd, g.x, g.y, g.z};
-}
-
-// a sumexp group's members: sum e, and for DistGrad sum e * gradient
-template <typename V, typename OnPrim>
-__device__ __forceinline__ V sumexp_members(const FtProgram& P, int e0, int e1,
-                                            float k, float px, float py,
-                                            float pz, OnPrim& on_prim, V*) {
-  float s = 0.f;
-  for (int e = e0; e < e1; ++e) {
-    const float d = prim_dist(__ldg(P.ent_kind + e),
-                              GRow{P.ent_params + (size_t)e * FT_PSTRIDE}, px,
-                              py, pz);
-    on_prim(d, __ldg(P.ent_mat + e), __ldg(P.ent_slot + e));
-    s += expf(-d / k);
-  }
-  V acc;
-  smooth_value(acc, -k * logf(fmaxf(s, 1e-30f)));
-  return acc;
-}
-template <typename OnPrim>
-__device__ __forceinline__ DistGrad sumexp_members(const FtProgram& P, int e0,
-                                                   int e1, float k, float px,
-                                                   float py, float pz,
-                                                   OnPrim& on_prim,
-                                                   DistGrad*) {
-  float s = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
-  for (int e = e0; e < e1; ++e) {
-    const Dual g = prim_dual(__ldg(P.ent_kind + e),
-                             P.ent_params + (size_t)e * FT_PSTRIDE, px, py,
-                             pz);
-    on_prim(g.v, __ldg(P.ent_mat + e), __ldg(P.ent_slot + e));
-    const float w = expf(-g.v / k);
-    s += w;
-    sx += w * g.x;
-    sy += w * g.y;
-    sz += w * g.z;
-  }
-  s = fmaxf(s, 1e-30f);
-  return {-k * logf(s), sx / s, sy / s, sz / s};
-}
-
-template <typename V, typename OnPrim>
-__device__ __forceinline__ V eval_group(const FtProgram& P, const FtCull& C,
-                                        const Lane& L, int gid, float px,
-                                        float py, float pz, OnPrim& on_prim) {
-  const int e0 = __ldg(P.groups + 3 * gid), e1 = __ldg(P.groups + 3 * gid + 1);
-  const int op = __ldg(P.groups + 3 * gid + 2);
-  if (op == G_SUMEXP) {
-    return sumexp_members(P, e0, e1, __ldg(P.group_k + gid), px, py, pz,
-                          on_prim, (V*)nullptr);
-  }
-  V acc;
-  const bool mn = op == G_MIN;
-  smooth_value(acc, mn ? FT_BIG : -FT_BIG);
-  if (C.n_pairs > 0) {
-    const int q1 = __ldg(P.group_pairs + 2 * gid + 1);
-    for (int q = __ldg(P.group_pairs + 2 * gid); q < q1; ++q) {
-      culled_pair(acc, C.pairs[q], L, mn, C.early_out, px, py, pz, on_prim);
-    }
-  }
-  int won = -1;
-  for (int e = e0; e < e1; ++e) {
-    const float d = prim_dist(__ldg(P.ent_kind + e),
-                              GRow{P.ent_params + (size_t)e * FT_PSTRIDE}, px,
-                              py, pz);
-    on_prim(d, __ldg(P.ent_mat + e), __ldg(P.ent_slot + e));
-    take_member(acc, won, mn, d, P, e);
-  }
-  finish_members(acc, won, P, px, py, pz);
-  return acc;
-}
-
-template <typename V, typename OnPrim>
-__device__ __forceinline__ V eval_scene(const FtProgram& P, const FtCull& C,
-                                        const Lane& L, float px, float py,
-                                        float pz, OnPrim& on_prim) {
-  V st[FT_MAX_STACK];
-  int sp = 0;
-  for (int i = 0; i < P.n_ops; ++i) {
-    const int op = __ldg(P.ops + 2 * i), arg = __ldg(P.ops + 2 * i + 1);
-    if (op == OP_GROUP) {
-      st[sp++] = eval_group<V>(P, C, L, arg, px, py, pz, on_prim);
-      continue;
-    }
-    if (op == OP_SUBTRACT) {
-      const V b = st[--sp];
-      st[sp - 1] = csg_subtract(st[sp - 1], b);
-      continue;
-    }
-    const int base = sp - arg;
-    V out = st[base];
-    if (op == OP_SMOOTH) {
-      out = smooth_fold(st + base, arg, __ldg(P.op_k + i));
-    } else {
-      for (int j = 1; j < arg; ++j) {
-        out = csg_pick(out, st[base + j], op == OP_UNION);
-      }
-    }
-    st[base] = out;
-    sp = base + 1;
-  }
-  return st[0];
-}
-
 // ---------------------------------------------------------------------------
 // K1/K2: the march's scene evaluation (march.cu march_kernel)
 // ---------------------------------------------------------------------------
 //
-// The same program as eval_scene<Dist> would fold, read where the block
-// staged it (FtStage): the program from shared memory (one record an op),
+// The program folded with Dist values, read where the block staged it
+// (FtStage): the program from shared memory (one record an op),
 // the dense entries from shared memory when they are few, each culled pair
 // through a per-block record whose pointers name the tile's slices in
 // shared memory (staged) or in device memory (not staged) — one code path,
@@ -735,6 +572,7 @@ struct SOp {
   float k;       // smooth strength (of the group, or of the tree op)
 };
 
+// The block's staged view (K1/K2 and K3).
 struct MarchCtx {
   const FtProgram& P;
   const FtStage& S;
@@ -748,36 +586,14 @@ struct MarchCtx {
   }
 };
 
-// floats of a row that a kind's distance reads (scene/flatten.py
-// PARAM_WIDTH)
-__host__ __device__ constexpr int ft_kind_width(int kind) {
-  return kind == K_SPHERE || kind == K_PLANE ? 4
-         : kind == K_CAPSULE || kind == K_BOX ? 7
-         : kind == K_TRIANGLE ? 10 : 8;
-}
-
 // distance to the row at r4 (16-byte words), kind known at compile time:
 // only the words the kind reads are loaded
 template <int KIND>
 __device__ __forceinline__ float row_dist(const float4* r4, float px, float py,
                                           float pz) {
-  RRow<FT_MARCH_FAST_ROOTS != 0> r;
   constexpr int words = (ft_kind_width(KIND) + 3) / 4;
-#pragma unroll
-  for (int w = 0; w < words; ++w) {
-    const float4 x = r4[w];
-    r.v[4 * w] = x.x;
-    r.v[4 * w + 1] = x.y;
-    r.v[4 * w + 2] = x.z;
-    r.v[4 * w + 3] = x.w;
-  }
-  if constexpr (KIND == K_SPHERE) return d_sphere(r, px, py, pz);
-  else if constexpr (KIND == K_CAPSULE) return d_capsule(r, px, py, pz);
-  else if constexpr (KIND == K_TORUS) return d_torus(r, px, py, pz);
-  else if constexpr (KIND == K_TRIANGLE) return d_triangle(r, px, py, pz);
-  else if constexpr (KIND == K_BOX) return d_box(r, px, py, pz);
-  else if constexpr (KIND == K_CONE) return d_cone(r, px, py, pz);
-  else return d_plane(r, px, py, pz);
+  return kind_dist<KIND>(load_row<words, FT_MARCH_FAST_ROOTS != 0>(r4), px,
+                         py, pz);
 }
 
 // The window's rows, chunk by chunk: FT_CAND_UNROLL rows in flight on two
@@ -923,15 +739,8 @@ __device__ __forceinline__ float culled_window(const SPair* q, const Lane& L,
 // or from device memory, exact roots there as the dense form always had
 __device__ __forceinline__ float staged_entry_dist(const float4* r4, float px,
                                                    float py, float pz) {
-  RRow<FT_MARCH_FAST_ROOTS != 0> r;
-#pragma unroll
-  for (int w = 0; w < FT_TABLE_W / 4; ++w) {
-    const float4 x = r4[w];
-    r.v[4 * w] = x.x;
-    r.v[4 * w + 1] = x.y;
-    r.v[4 * w + 2] = x.z;
-    r.v[4 * w + 3] = x.w;
-  }
+  const RRow<FT_MARCH_FAST_ROOTS != 0> r =
+      load_row<FT_TABLE_W / 4, FT_MARCH_FAST_ROOTS != 0>(r4);
   return prim_dist(__float_as_int(r.v[FT_PSTRIDE]), r, px, py, pz);
 }
 
@@ -1025,4 +834,367 @@ __device__ __forceinline__ float march_distance(const MarchCtx& X,
   }
   ft_tick(hook, SEC_DENSE);
   return st[0].v;
+}
+
+// ---------------------------------------------------------------------------
+// K3: the surface pass's scene evaluation (march.cu surface_kernel,
+// surface_ad_kernel)
+// ---------------------------------------------------------------------------
+//
+// The program as the block staged it (MarchCtx, as for K1/K2), folded once
+// at a hit lane's point with DistCode (slot mode) or DistGrad (AD mode).  A
+// culled pair scans its tile's whole candidate list (culled_sp :1051-1144,
+// :1359-1456; no window: a surface point needs the true extremum) with the
+// kind known at compile time, one dispatch per pair; rows are read as
+// 16-byte words from shared memory (or from the device slice of a pair that
+// is not staged), roots are exact: the normals are held to 1e-4.  A group
+// folds its pairs first, strictly, then its dense entries in ascending
+// slot; on_prim sees every primitive distance (the material argmin).
+
+// argmin of the raw leaf distance over CSG-visible slots; equal distances
+// go to the lower slot.  The order is total on (distance, slot), so partial
+// argmins merge to the sequential one exactly.
+struct MaterialArgmin {
+  float md = FT_BIG;
+  int mat = -1, mslot = 0x7fffffff;
+  __device__ __forceinline__ void operator()(float d, int m, int slot) {
+    if (m < 0) return;
+    if (d < md || (d == md && slot < mslot)) {
+      md = d;
+      mat = m;
+      mslot = slot;
+    }
+  }
+};
+
+// The scan of one pair: the leaf extremum with ties to the lower slot, and
+// its table row.  Slots stay floats as the table holds them (exact
+// integers, compared as such); bslot FT_BIG: no leaf owns the value (no
+// row beat the start, or a max group's floor, below).
+struct PairScan {
+  float bd, bslot;
+  int brow;
+};
+
+__device__ __forceinline__ bool scan_better(bool mn, float d, float slot,
+                                            const PairScan& r) {
+  return (mn ? d < r.bd : d > r.bd) || (d == r.bd && slot < r.bslot);
+}
+
+// The material argmin of a scan's rows, slots and materials as floats
+struct RowArgmin {
+  float md = FT_BIG, mat = -1.f, mslot = FT_BIG;
+  __device__ __forceinline__ void operator()(float d, float m, float slot) {
+    if (m < 0.f) return;
+    if (d < md || (d == md && slot < mslot)) {
+      md = d;
+      mat = m;
+      mslot = slot;
+    }
+  }
+};
+
+// The first `rows` rows (a multiple of FT_CAND_UNROLL) of a tile's table,
+// ft_surface_rows in flight on as many accumulators: the extremum and the
+// material argmin are total orders on (distance, slot), so the accumulators
+// merge to what one sequential scan gives, bit for bit.
+constexpr int ft_surface_rows = 2;
+template <int KIND>
+__device__ __forceinline__ PairScan scan_rows(const float4* t4, int rows,
+                                              bool mn, float px, float py,
+                                              float pz,
+                                              MaterialArgmin& material) {
+  constexpr int row_words = FT_TABLE_W / 4;
+  PairScan acc[ft_surface_rows];
+  RowArgmin mat[ft_surface_rows];
+#pragma unroll
+  for (int k = 0; k < ft_surface_rows; ++k) {
+    acc[k] = {mn ? FT_BIG : -FT_BIG, FT_BIG, 0};
+  }
+#pragma unroll 1
+  for (int i = 0; i < rows; i += ft_surface_rows) {
+#pragma unroll
+    for (int k = 0; k < ft_surface_rows; ++k) {
+      const RRow<false> r =
+          load_row<row_words, false>(t4 + (i + k) * row_words);
+      const float d = kind_dist<KIND>(r, px, py, pz);
+      const float slot = r.v[FT_PSTRIDE + 1];
+      mat[k](d, r.v[FT_PSTRIDE], slot);
+      if (scan_better(mn, d, slot, acc[k])) acc[k] = {d, slot, i + k};
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < ft_surface_rows; ++k) {
+    if (k > 0 && scan_better(mn, acc[k].bd, acc[k].bslot, acc[0])) {
+      acc[0] = acc[k];
+    }
+    if (mat[k].mat >= 0.f) {
+      material(mat[k].md, (int)mat[k].mat, (int)mat[k].mslot);
+    }
+  }
+  return acc[0];
+}
+
+// One culled pair: its first ceil8(min(count, m)) rows; a max group whose
+// cone excluded members and whose extremum lies below 2 eps takes 2 eps,
+// owned by no leaf (:1122-1138, :1416-1432).
+template <int KIND>
+__device__ __forceinline__ PairScan pair_scan(const SPair* q, bool mn,
+                                              float eps, float px, float py,
+                                              float pz,
+                                              MaterialArgmin& material) {
+  const int n_c = (int)fminf(q->count, (float)q->m);
+  const int rows = (n_c + FT_CAND_UNROLL - 1) / FT_CAND_UNROLL * FT_CAND_UNROLL;
+  PairScan r = scan_rows<KIND>((const float4*)q->tab, rows, mn, px, py, pz,
+                               material);
+  if (!mn && q->count < (float)q->group_size && r.bd < 2.f * eps) {
+    r.bd = 2.f * eps;
+    r.bslot = FT_BIG;
+  }
+  return r;
+}
+
+// the gradient at p of the row at r4 (16-byte words), kind at compile time
+template <int KIND>
+__device__ __forceinline__ Dual row_dual(const float4* r4, float px, float py,
+                                         float pz) {
+  constexpr int words = (ft_kind_width(KIND) + 3) / 4;
+  return kind_dual<KIND>(load_row<words, false>(r4), px, py, pz);
+}
+
+// a pair's result folded into its group strictly (pair qi of the launch)
+template <int KIND>
+__device__ __forceinline__ void pair_fold(DistCode& acc, const SPair* q,
+                                          int qi, bool mn, float eps,
+                                          float px, float py, float pz,
+                                          MaterialArgmin& material) {
+  const PairScan r = pair_scan<KIND>(q, mn, eps, px, py, pz, material);
+  const bool owned = r.bslot != FT_BIG;
+  if (mn ? r.bd < acc.v : r.bd > acc.v) {
+    acc = {r.bd, owned ? r.bslot + 1.f : 0.f,
+           owned ? r.brow * FT_MAX_PAIRS + qi : -1};
+  }
+}
+// AD mode scans the whole list as slot mode does (the TPU body windows the
+// scan by the hit shell and caps the value by the skipped chunks' bounds,
+// :1372-1432; the winner lies inside that window by construction, so both
+// name the same leaf) and evaluates the winner's gradient once, on its row
+template <int KIND>
+__device__ __forceinline__ void pair_fold(DistGrad& acc, const SPair* q, int,
+                                          bool mn, float eps, float px,
+                                          float py, float pz,
+                                          MaterialArgmin& material) {
+  const PairScan r = pair_scan<KIND>(q, mn, eps, px, py, pz, material);
+  if (!(mn ? r.bd < acc.v : r.bd > acc.v)) return;
+  if (r.bslot == FT_BIG) {
+    smooth_value(acc, r.bd);
+    return;
+  }
+  const Dual g = row_dual<KIND>(
+      (const float4*)q->tab + r.brow * (FT_TABLE_W / 4), px, py, pz);
+  acc = {r.bd, g.x, g.y, g.z};
+}
+
+template <typename V>
+__device__ __forceinline__ void surface_pair(V& acc, const SPair* q, int qi,
+                                             bool mn, float eps, float px,
+                                             float py, float pz,
+                                             MaterialArgmin& material) {
+#define FT_PAIR(K)                                                   \
+  case K:                                                            \
+    pair_fold<K>(acc, q, qi, mn, eps, px, py, pz, material);         \
+    break;
+  switch (q->kind) {
+    FT_PAIR(K_SPHERE)
+    FT_PAIR(K_CAPSULE)
+    FT_PAIR(K_TORUS)
+    FT_PAIR(K_TRIANGLE)
+    FT_PAIR(K_BOX)
+    FT_PAIR(K_CONE)
+    default:
+      pair_fold<K_PLANE>(acc, q, qi, mn, eps, px, py, pz, material);
+  }
+#undef FT_PAIR
+}
+
+// a dense entry's row (exact roots) and kind: its staged row (kind bits at
+// FT_PSTRIDE) or, in the dense form, device memory
+__device__ __forceinline__ RRow<false> entry_row(const MarchCtx& X, int e,
+                                                 int& kind) {
+  RRow<false> r;
+  if (X.S.ents > 0) {
+    r = load_row<FT_TABLE_W / 4, false>((const float4*)(X.smem + X.S.ents_off)
+                                        + e * (FT_TABLE_W / 4));
+    kind = __float_as_int(r.v[FT_PSTRIDE]);
+  } else {
+    const float* p = X.P.ent_params + (size_t)e * FT_PSTRIDE;
+#pragma unroll
+    for (int j = 0; j < FT_PSTRIDE; ++j) r.v[j] = __ldg(p + j);
+    kind = __ldg(X.P.ent_kind + e);
+  }
+  return r;
+}
+
+// the gradient at p of the row at r4, kind at run time (one dispatch)
+__device__ __forceinline__ Dual row_dual(int kind, const float4* r4, float px,
+                                         float py, float pz) {
+#define FT_DUAL(K) \
+  case K:          \
+    return row_dual<K>(r4, px, py, pz);
+  switch (kind) {
+    FT_DUAL(K_SPHERE)
+    FT_DUAL(K_CAPSULE)
+    FT_DUAL(K_TORUS)
+    FT_DUAL(K_TRIANGLE)
+    FT_DUAL(K_BOX)
+    FT_DUAL(K_CONE)
+    default:
+      return row_dual<K_PLANE>(r4, px, py, pz);
+  }
+#undef FT_DUAL
+}
+
+// slot mode: the gradient of the leaf that won, from its row (DistCode::at)
+__device__ __forceinline__ Dual leaf_dual(const MarchCtx& X, int at,
+                                          float px, float py, float pz) {
+  if (at >= 0) {
+    const SPair* q = X.pairs() + at % FT_MAX_PAIRS;
+    return row_dual(q->kind,
+                    (const float4*)q->tab +
+                        (at / FT_MAX_PAIRS) * (FT_TABLE_W / 4),
+                    px, py, pz);
+  }
+  int kind;
+  const RRow<false> r = entry_row(X, -at - 2, kind);
+  return prim_dual(kind, r, px, py, pz);
+}
+
+// group member e (global slot `slot`) with distance d; members run in
+// ascending slot, strict compares keep the first extremum.  DistGrad only
+// notes the winning entry: its gradient is evaluated once, after the
+// group's last member (finish_members)
+__device__ __forceinline__ void take_member(DistCode& acc, int&, bool mn,
+                                            float d, int slot, int e) {
+  if (mn ? d < acc.v : d > acc.v) acc = {d, (float)(slot + 1), -e - 2};
+}
+__device__ __forceinline__ void take_member(DistGrad& acc, int& won, bool mn,
+                                            float d, int, int e) {
+  if (mn ? d < acc.v : d > acc.v) {
+    acc.v = d;
+    won = e;
+  }
+}
+__device__ __forceinline__ void finish_members(DistCode&, int, const MarchCtx&,
+                                               float, float, float) {}
+__device__ __forceinline__ void finish_members(DistGrad& acc, int won,
+                                               const MarchCtx& X, float px,
+                                               float py, float pz) {
+  if (won < 0) return;
+  int kind;
+  const RRow<false> r = entry_row(X, won, kind);
+  const Dual g = prim_dual(kind, r, px, py, pz);
+  acc = {acc.v, g.x, g.y, g.z};
+}
+
+// a sumexp group's members: sum e, and for DistGrad sum e * gradient
+template <typename V>
+__device__ __forceinline__ V sumexp_members(const MarchCtx& X, const SOp& o,
+                                            float px, float py, float pz,
+                                            MaterialArgmin& material, V*) {
+  float s = 0.f;
+  for (int e = o.e0; e < o.e1; ++e) {
+    int kind;
+    const RRow<false> r = entry_row(X, e, kind);
+    const float d = prim_dist(kind, r, px, py, pz);
+    material(d, __ldg(X.P.ent_mat + e), __ldg(X.P.ent_slot + e));
+    s += expf(-d / o.k);
+  }
+  V acc;
+  smooth_value(acc, -o.k * logf(fmaxf(s, 1e-30f)));
+  return acc;
+}
+__device__ __forceinline__ DistGrad sumexp_members(const MarchCtx& X,
+                                                   const SOp& o, float px,
+                                                   float py, float pz,
+                                                   MaterialArgmin& material,
+                                                   DistGrad*) {
+  float s = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
+  for (int e = o.e0; e < o.e1; ++e) {
+    int kind;
+    const RRow<false> r = entry_row(X, e, kind);
+    const Dual g = prim_dual(kind, r, px, py, pz);
+    material(g.v, __ldg(X.P.ent_mat + e), __ldg(X.P.ent_slot + e));
+    const float w = expf(-g.v / o.k);
+    s += w;
+    sx += w * g.x;
+    sy += w * g.y;
+    sz += w * g.z;
+  }
+  s = fmaxf(s, 1e-30f);
+  return {-o.k * logf(s), sx / s, sy / s, sz / s};
+}
+
+template <typename V>
+__device__ __forceinline__ V surface_group(const MarchCtx& X, const SOp& o,
+                                           float eps, float px, float py,
+                                           float pz,
+                                           MaterialArgmin& material) {
+  if (o.gop == G_SUMEXP) {
+    return sumexp_members(X, o, px, py, pz, material, (V*)nullptr);
+  }
+  const bool mn = o.gop == G_MIN;
+  V acc;
+  smooth_value(acc, mn ? FT_BIG : -FT_BIG);
+#pragma unroll 1
+  for (int q = o.q0; q < o.q1; ++q) {
+    surface_pair(acc, X.pairs() + q, q, mn, eps, px, py, pz, material);
+  }
+  int won = -1;
+#pragma unroll 1
+  for (int e = o.e0; e < o.e1; ++e) {
+    int kind;
+    const RRow<false> r = entry_row(X, e, kind);
+    const float d = prim_dist(kind, r, px, py, pz);
+    const int slot = __ldg(X.P.ent_slot + e);
+    material(d, __ldg(X.P.ent_mat + e), slot);
+    take_member(acc, won, mn, d, slot, e);
+  }
+  finish_members(acc, won, X, px, py, pz);
+  return acc;
+}
+
+template <typename V>
+__device__ __forceinline__ V surface_scene(const MarchCtx& X, float eps,
+                                           float px, float py, float pz,
+                                           MaterialArgmin& material) {
+  V st[FT_MAX_STACK];
+  int sp = 0;
+  const SOp* ops = X.ops();
+  const int n_ops = X.P.n_ops;
+#pragma unroll 1
+  for (int i = 0; i < n_ops; ++i) {
+    const SOp o = ops[i];
+    if (o.op == OP_GROUP) {
+      st[sp++] = surface_group<V>(X, o, eps, px, py, pz, material);
+      continue;
+    }
+    if (o.op == OP_SUBTRACT) {
+      const V b = st[--sp];
+      st[sp - 1] = csg_subtract(st[sp - 1], b);
+      continue;
+    }
+    const int base = sp - o.arg;
+    V out = st[base];
+    if (o.op == OP_SMOOTH) {
+      out = smooth_fold(st + base, o.arg, o.k);
+    } else {
+#pragma unroll 1
+      for (int j = 1; j < o.arg; ++j) {
+        out = csg_pick(out, st[base + j], o.op == OP_UNION);
+      }
+    }
+    st[base] = out;
+    sp = base + 1;
+  }
+  return st[0];
 }

@@ -11,7 +11,7 @@
 // in K1/K2, culled_sp :1051-1144 and the normal sweep :1231-1269 in K3
 // slot mode, culled_sp :1359-1456 in K3 AD mode).
 //
-// What bounds it on an H100: instruction issue and latency, not bytes.  A
+// What bounds K1/K2 on an H100: instruction issue and latency, not bytes.  A
 // dense step of one ray evaluates every primitive (about 30 flops and 2
 // square roots per torus, 1002 primitives on the benchmark scene); a
 // culled step evaluates the dense rest plus the window chunks of its
@@ -50,23 +50,25 @@
 // - the candidate loop is specialised by primitive kind (one dispatch per
 //   pair and step, not per row), reads a row as 16-byte words from shared
 //   memory (a warp reads one row: a broadcast), keeps 4 rows in flight on
-//   two accumulators, and takes sqrt.approx for the march distance (K3
-//   and the dense entries in device memory keep IEEE roots);
+//   two accumulators, and takes sqrt.approx for the march distance (the
+//   dense form's entries in device memory keep IEEE roots);
 // - the dense form (cull = None) runs through the same kernel: it stages
-//   the program alone and reads its entries through the read-only cache as
-//   before;
+//   the program alone and reads its entries through the read-only cache;
 // - the march loop runs while any lane of the warp is active; a lane
 //   evaluates once per iteration while active, so a cap of max_steps
 //   iterations reproduces the TPU tile loop's i < max_steps per lane;
 // - omega-relaxed stepping with the overstep revert and the
 //   budget-crossing rule of march_kernel.py:1697-1722, exactly;
-// - the surface pass evaluates the CSG-winning leaf once more with dual
-//   numbers, so the normal is that leaf's exact gradient.
 // Measured and left out: 256-thread blocks, 8 rows in flight, blocks
 // without an active lane skipping the staging, copying only a table's
 // first ceil8(count) rows (PERF.md has the figures).  Later work
 // (ROADMAP): the dense form's entry loop in shared memory, compaction of
 // finished lanes.
+//
+// Design of K3 (the section below has the details): the same tile-aligned
+// blocks and the same staging; the block's hit lanes compacted onto its
+// first warps; a whole-list scan of each pair specialised by kind, with
+// exact roots; the winner's gradient from its staged row.
 #include "ft_sdf.cuh"
 
 // ---------------------------------------------------------------------------
@@ -247,7 +249,6 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
   float L = 0.f, t = 0.f, sgn = 1.f;
   Lane lane;
-  lane.tile = tile;
   lane.oa = lane.ca = 0.f;
   lane.eps = 1.f;
   if (valid) {
@@ -340,50 +341,42 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
 }
 
 // ---------------------------------------------------------------------------
-// K3: slot-mode surface pass (plans of min/max alone)
+// K3: the surface pass, slot mode (plans of min/max alone) and AD mode
+// (plans with a smooth union)
 // ---------------------------------------------------------------------------
-
-// argmin of the raw leaf distance over CSG-visible slots; equal distances
-// go to the lower slot
-struct MaterialArgmin {
-  float md = FT_BIG;
-  int mat = -1, mslot = 0x7fffffff;
-  __device__ __forceinline__ void operator()(float d, int m, int slot) {
-    if (m < 0) return;
-    if (d < md || (d == md && slot < mslot)) {
-      md = d;
-      mat = m;
-      mslot = slot;
-    }
-  }
-};
-
-// One lane of a surface pass: a miss lane writes normal (0, 0, 1),
-// material -1, code 0 and returns false; a hit lane gets its backed-off
-// point (SdfObject.fs:73) and its Lane (the surface scan needs no window).
-__device__ __forceinline__ bool surface_lane(
-    const float* origin, const float* dir, const float* tt, const float* eps,
-    const int* hitm, int i, float* normal, int* midx_out, float* code_out,
-    float& px, float& py, float& pz, Lane& lane) {
-  if (!hitm[i]) {
-    normal[3 * i] = 0.f;
-    normal[3 * i + 1] = 0.f;
-    normal[3 * i + 2] = 1.f;
-    midx_out[i] = -1;
-    code_out[i] = 0.f;
-    return false;
-  }
-  const float ts = tt[i] - eps[i];
-  px = origin[3 * i] + ts * dir[3 * i];
-  py = origin[3 * i + 1] + ts * dir[3 * i + 1];
-  pz = origin[3 * i + 2] + ts * dir[3 * i + 2];
-  lane.tile = i / FT_TILE;
-  lane.oa = lane.ca = lane.t = 0.f;
-  lane.eps = eps[i];
-  lane.active = true;
-  return true;
-}
-
+//
+// Replaces surf_kernel (march_kernel.py:1606) behind the surface
+// pallas_call (:2076): surface_eval_slot (:1022; its culled scan
+// :1051-1144 and the normal sweep :1231-1269) in slot mode, surface_eval
+// (:1304; its culled scan :1359-1456, the sumexp resolve :1520-1528, the
+// tree fold ev_g :1530-1565) in AD mode.  At each hit lane's backed-off
+// point o + (t - eps) d (SdfObject.fs:73): the unit normal, the material of
+// the CSG-visible argmin (ties to the lower slot) and, in slot mode, the
+// signed code of the winning leaf (0 on every lane in AD mode).  Slot mode
+// folds the scene with DistCode and evaluates the winning leaf's gradient
+// once, with dual numbers, on that leaf's row; AD mode folds it with
+// DistGrad (a dual evaluation for each min/max group's dense winner and
+// each culled pair that wins its group so far, one for every member of a
+// sumexp group; expf, not __expf: the weights decide the blend).  Miss
+// lanes: normal (0, 0, 1), material -1, code 0.
+//
+// What bounds it on an H100: bytes, 33 in and 20 out a lane (origin,
+// direction, t, epsilon, the hit byte; normal, material, code), against
+// the scans of a third of the lanes.  What the design does about the rest:
+// - tile-aligned blocks of FT_BLOCK threads stage the program, the dense
+//   entries and the tile's candidate-table slices as K1/K2 do (stage_begin;
+//   the host's plan, cull.py stage_plan, adds the hit-lane list at its
+//   end), so the scan reads shared memory, not dependent __ldg chains;
+// - the block compacts its hit lanes: misses write their defaults at once,
+//   a block without a hit leaves before it stages anything, and the others
+//   list their hit lanes in shared memory (a ballot and a popcount prefix
+//   per warp) so that h hits run ceil(h / 32) warps of scans instead of
+//   four.  No lane's arithmetic changes: K3 has no warp-collective window,
+//   each lane scans its tile's whole list;
+// - the candidate scan is specialised by kind (one dispatch per pair),
+//   reads rows as 16-byte words and keeps ft_surface_rows rows in flight on
+//   separate accumulators, which merge exactly (ft_sdf.cuh scan_rows);
+// - the winner's gradient comes from its staged row.
 __device__ __forceinline__ void write_normal(float* normal, int i, float gx,
                                              float gy, float gz) {
   const float inv = rsqrtf(gx * gx + gy * gy + gz * gz + 1e-20f);
@@ -392,85 +385,105 @@ __device__ __forceinline__ void write_normal(float* normal, int i, float gx,
   normal[3 * i + 2] = gz * inv;
 }
 
-__global__ void __launch_bounds__(128)
-surface_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
-               const float* __restrict__ tt, const float* __restrict__ eps,
-               const int* __restrict__ hitm, int n, FtProgram P, FtCull C,
-               float* __restrict__ normal, int* __restrict__ midx_out,
-               float* __restrict__ code_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float px, py, pz;
-  Lane lane;
-  if (!surface_lane(origin, dir, tt, eps, hitm, i, normal, midx_out, code_out,
-                    px, py, pz, lane)) {
-    return;
-  }
-  MaterialArgmin material;
-  const float code =
-      eval_scene<DistCode>(P, C, lane, px, py, pz, material).code;
-
-  // the winning leaf's exact gradient (forward-mode dual numbers)
+__device__ __forceinline__ void write_surface(const DistCode& v,
+                                              const MarchCtx& X, int i,
+                                              float px, float py, float pz,
+                                              float* normal, float* code) {
   float gx = 0.f, gy = 0.f, gz = 0.f;
-  if (code != 0.f) {
-    const int slot = (int)fabsf(code) - 1;
-    const int e = __ldg(P.slot_entry + slot);
-    const Dual g = prim_dual(__ldg(P.ent_kind + e),
-                             P.ent_params + (size_t)e * FT_PSTRIDE, px, py,
-                             pz);
-    const float sgn = code < 0.f ? -1.f : 1.f;  // subtract flips the b side
+  if (v.code != 0.f) {
+    const Dual g = leaf_dual(X, v.at, px, py, pz);
+    const float sgn = v.code < 0.f ? -1.f : 1.f;  // subtract flips the b side
     gx = sgn * g.x;
     gy = sgn * g.y;
     gz = sgn * g.z;
   }
   write_normal(normal, i, gx, gy, gz);
-  midx_out[i] = material.mat;
-  code_out[i] = code;
+  code[i] = v.code;
+}
+__device__ __forceinline__ void write_surface(const DistGrad& v,
+                                              const MarchCtx&, int i, float,
+                                              float, float, float* normal,
+                                              float* code) {
+  write_normal(normal, i, v.x, v.y, v.z);
+  code[i] = 0.f;
 }
 
-// ---------------------------------------------------------------------------
-// K3: AD-mode surface pass (plans with a smooth union)
-// ---------------------------------------------------------------------------
-//
-// Replaces surface_eval (march_kernel.py:1304; its culled scan :1359-1456,
-// the sumexp resolve :1520-1528, the tree fold ev_g :1530-1565) behind the
-// surface pallas_call (:2076).  A smooth union blends its operands, so no
-// single leaf owns the hit point: the scene is evaluated once with the
-// stack value DistGrad = (distance, gradient).  A min/max group scans its
-// members' float distances and evaluates the gradient of the first
-// extremum alone (one dual-number evaluation per group and culled pair); a
-// sumexp group needs every member's gradient and sums e and e * gradient,
-// e = exp(-d / k), one loop whatever the group's size; the tree selects
-// (union, intersect), negates the b side (subtract) or blends again
-// (smooth union).  Culled pairs scan the tile's whole candidate list, as
-// slot mode does (ft_sdf.cuh culled_pair).  The code output is 0 on every
-// lane: no leaf.  expf, not __expf: the weights decide the blend.
-//
-// What bounds it on an H100: bytes.  A lane reads 44 bytes (origin,
-// direction, t, epsilon, hit) and writes 20 (normal, material, code); its
-// arithmetic — the dense entries, tens of table candidates on a hit lane
-// and a few dual evaluations — is below that at the card's fp32 rate.  One
-// thread per lane, miss lanes return at once; the value stack of 16
-// DistGrad lives in local memory (see the build log for registers).
-__global__ void __launch_bounds__(128)
+// Occupancy: 128 threads x FT_SURF_BLOCKS blocks an SM.
+#define FT_SURF_BLOCKS 7
+// the hit-lane list: an int count a warp, then one byte a lane
+static_assert(FT_SURF_LIST_BYTES == 4 * (FT_BLOCK / 32) + FT_BLOCK &&
+                  FT_SURF_LIST_BYTES % 16 == 0 && FT_BLOCK <= 256,
+              "FT_SURF_LIST_BYTES");
+
+template <typename V>
+__device__ __forceinline__ void surface_block(
+    const float* __restrict__ origin, const float* __restrict__ dir,
+    const float* __restrict__ tt, const float* __restrict__ eps,
+    const unsigned char* __restrict__ hitm, int n, const FtProgram& P,
+    const FtCull& C, const FtStage& S, float* __restrict__ normal,
+    int* __restrict__ midx_out, float* __restrict__ code_out) {
+  extern __shared__ __align__(16) unsigned char ft_smem[];
+  const int i = blockIdx.x * FT_BLOCK + threadIdx.x;
+  const int tile = blockIdx.x / (FT_TILE / FT_BLOCK);
+  const bool hit = i < n && hitm[i] != 0;
+  if (i < n && !hit) {
+    normal[3 * i] = 0.f;
+    normal[3 * i + 1] = 0.f;
+    normal[3 * i + 2] = 1.f;
+    midx_out[i] = -1;
+    code_out[i] = 0.f;
+  }
+  if (!__syncthreads_or(hit)) return;
+  int* counts = (int*)(ft_smem + S.bytes - FT_SURF_LIST_BYTES);
+  unsigned char* list = (unsigned char*)(counts + FT_BLOCK / 32);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned ball = __ballot_sync(FT_FULL_MASK, hit);
+  if (lane == 0) counts[warp] = __popc(ball);
+  stage_begin(ft_smem, P, C, S, tile);
+  __syncthreads();  // the counts, the threads' copies, the barrier's init
+  int before = 0, hits = 0;
+#pragma unroll
+  for (int w = 0; w < FT_BLOCK / 32; ++w) {
+    before += w < warp ? counts[w] : 0;
+    hits += counts[w];
+  }
+  if (hit) list[before + __popc(ball & ((1u << lane) - 1u))] = threadIdx.x;
+  __syncthreads();
+  if (threadIdx.x >= hits) return;
+  // thread j scans the block's j-th hit lane; its loads overlap the copies
+  const int li = blockIdx.x * FT_BLOCK + list[threadIdx.x];
+  const float e = eps[li];
+  const float ts = tt[li] - e;
+  const float px = origin[3 * li] + ts * dir[3 * li];
+  const float py = origin[3 * li + 1] + ts * dir[3 * li + 1];
+  const float pz = origin[3 * li + 2] + ts * dir[3 * li + 2];
+  if (S.bulk_bytes > 0) mbar_wait(smem_addr(ft_smem), 0);
+  const MarchCtx X = {P, S, ft_smem, C.early_out};
+  MaterialArgmin material;
+  const V v = surface_scene<V>(X, e, px, py, pz, material);
+  write_surface(v, X, li, px, py, pz, normal, code_out);
+  midx_out[li] = material.mat;
+}
+
+__global__ void __launch_bounds__(FT_BLOCK, FT_SURF_BLOCKS)
+surface_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
+               const float* __restrict__ tt, const float* __restrict__ eps,
+               const unsigned char* __restrict__ hitm, int n, FtProgram P,
+               FtCull C, FtStage S, float* __restrict__ normal,
+               int* __restrict__ midx_out, float* __restrict__ code_out) {
+  surface_block<DistCode>(origin, dir, tt, eps, hitm, n, P, C, S, normal,
+                          midx_out, code_out);
+}
+
+__global__ void __launch_bounds__(FT_BLOCK, FT_SURF_BLOCKS)
 surface_ad_kernel(const float* __restrict__ origin,
                   const float* __restrict__ dir, const float* __restrict__ tt,
-                  const float* __restrict__ eps, const int* __restrict__ hitm,
-                  int n, FtProgram P, FtCull C, float* __restrict__ normal,
+                  const float* __restrict__ eps,
+                  const unsigned char* __restrict__ hitm, int n, FtProgram P,
+                  FtCull C, FtStage S, float* __restrict__ normal,
                   int* __restrict__ midx_out, float* __restrict__ code_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float px, py, pz;
-  Lane lane;
-  if (!surface_lane(origin, dir, tt, eps, hitm, i, normal, midx_out, code_out,
-                    px, py, pz, lane)) {
-    return;
-  }
-  MaterialArgmin material;
-  const DistGrad g = eval_scene<DistGrad>(P, C, lane, px, py, pz, material);
-  write_normal(normal, i, g.x, g.y, g.z);
-  midx_out[i] = material.mat;
-  code_out[i] = 0.f;
+  surface_block<DistGrad>(origin, dir, tt, eps, hitm, n, P, C, S, normal,
+                          midx_out, code_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -537,28 +550,47 @@ extern "C" int ft_march_sections(
                                    steps_out, sections, stream);
 }
 
-extern "C" int ft_surface(const float* origin, const float* dir,
-                          const float* t, const float* eps, const int* hit,
-                          int n, const FtProgram* prog, const FtCull* cull,
-                          float* normal, int* midx, float* code,
-                          void* stream) {
-  if (n > 0) {
-    surface_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-        origin, dir, t, eps, hit, n, *prog, *cull, normal, midx, code);
+// Dynamic shared memory above 48 KB needs the opt-in (as launch_march).
+typedef void (*SurfaceKernel)(const float*, const float*, const float*,
+                              const float*, const unsigned char*, int,
+                              FtProgram, FtCull, FtStage, float*, int*,
+                              float*);
+static int launch_surface(SurfaceKernel kernel, const float* origin,
+                          const float* dir, const float* t, const float* eps,
+                          const unsigned char* hit, int n,
+                          const FtProgram* prog, const FtCull* cull,
+                          const FtStage* stage, float* normal, int* midx,
+                          float* code, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (stage->bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, stage->bytes);
+    if (err != cudaSuccess) return (int)err;
   }
+  kernel<<<blocks_for(n, FT_BLOCK), FT_BLOCK, stage->bytes,
+           (cudaStream_t)stream>>>(origin, dir, t, eps, hit, n, *prog, *cull,
+                                   *stage, normal, midx, code);
   return (int)cudaGetLastError();
 }
 
+extern "C" int ft_surface(const float* origin, const float* dir,
+                          const float* t, const float* eps,
+                          const unsigned char* hit, int n,
+                          const FtProgram* prog, const FtCull* cull,
+                          const FtStage* stage, float* normal, int* midx,
+                          float* code, void* stream) {
+  return launch_surface(surface_kernel, origin, dir, t, eps, hit, n, prog,
+                        cull, stage, normal, midx, code, stream);
+}
+
 extern "C" int ft_surface_ad(const float* origin, const float* dir,
-                             const float* t, const float* eps, const int* hit,
-                             int n, const FtProgram* prog, const FtCull* cull,
-                             float* normal, int* midx, float* code,
-                             void* stream) {
-  if (n > 0) {
-    surface_ad_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-        origin, dir, t, eps, hit, n, *prog, *cull, normal, midx, code);
-  }
-  return (int)cudaGetLastError();
+                             const float* t, const float* eps,
+                             const unsigned char* hit, int n,
+                             const FtProgram* prog, const FtCull* cull,
+                             const FtStage* stage, float* normal, int* midx,
+                             float* code, void* stream) {
+  return launch_surface(surface_ad_kernel, origin, dir, t, eps, hit, n, prog,
+                        cull, stage, normal, midx, code, stream);
 }
 
 extern "C" const char* ft_error_string(int err) {

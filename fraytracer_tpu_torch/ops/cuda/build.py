@@ -45,10 +45,10 @@ SIGNATURES = {
     # buffer (uint64 [SEC_N + CNT_N]) before the stream
     "ft_march_sections": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _F, _I,
                           _P, _P, _P, _P, _P, _P],
-    # origin, direction, t, epsilon, hit, n; program*, cull*;
-    # outputs normal [n,3], midx, code; stream (slot mode / AD mode)
-    "ft_surface": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
-    "ft_surface_ad": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    # origin, direction, t, epsilon, hit (bool), n; program*, cull*,
+    # stage*; outputs normal [n,3], midx, code; stream (slot mode / AD mode)
+    "ft_surface": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "ft_surface_ad": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     # x, idx, n_in_blocks, n_out_blocks, block_words (16-byte words), out,
     # stream
     "ft_block_gather": [_P, _P, _I, _I, _I, _P, _P],

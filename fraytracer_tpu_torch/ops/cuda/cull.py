@@ -12,9 +12,9 @@ Counterpart of the jnp host prep in
 * :func:`_pair_m` — table rows per pair in whole chunks (:700);
 * :func:`build_pair_tables` — the per-pair tables ``pallas_march_raw``
   builds before its ``pallas_call`` (:1857-1977);
-* :func:`stage_plan` — where a K1/K2 block keeps a tile's slices of those
-  tables in shared memory (no JAX counterpart: the TPU kernel's BlockSpecs
-  did this).
+* :func:`stage_plan` — where a K1/K2/K3 block keeps a tile's slices of
+  those tables in shared memory (no JAX counterpart: the TPU kernel's
+  BlockSpecs did this).
 
 A tile is :data:`TILE` consecutive lanes of the flat ray batch: one 32×32
 screen block in ``render.py``'s block order, and the JAX kernel's
@@ -49,11 +49,13 @@ MAX_PAIRS = 8       # culled pairs one launch takes (FT_MAX_PAIRS)
 TABLE_W = PSTRIDE + 2   # floats of a table row (FT_TABLE_W)
 _BIG = 3.0e38
 
-# What a K1/K2 block stages in shared memory (csrc/ft_sdf.cuh FtStage)
+# What a K1/K2/K3 block stages in shared memory (csrc/ft_sdf.cuh FtStage)
 SMEM_LIMIT = 232448      # bytes a block may use on the H100 (227 KB)
 STAGE_HEADER = 16 + MAX_PAIRS * 48   # the copy barrier + the pair records
 STAGE_OP_BYTES = 32      # one staged op of the program (struct SOp)
 STAGE_ENTS_MAX = 128     # dense entries staged at most, TABLE_W floats each
+SURF_LIST_BYTES = 144    # K3's hit-lane list at the plan's end: a count a
+#                          warp, a byte a lane (FT_SURF_LIST_BYTES)
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +181,7 @@ def _pair_m(cull_m: int, group: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Shared-memory plan of a K1/K2 launch
+# Shared-memory plan of a K1/K2/K3 launch
 # ---------------------------------------------------------------------------
 
 def _round16(b: int) -> int:
@@ -214,7 +216,7 @@ def bulk_slices(m: int) -> Tuple[str, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class StagePlan:
-    """Where a K1/K2 block keeps what it stages (byte offsets into its
+    """Where a K1/K2/K3 block keeps what it stages (byte offsets into its
     dynamic shared memory; mirrored by ``struct FtStage``)."""
     bytes: int               # dynamic shared memory of a block
     bulk_bytes: int          # bytes brought in by bulk copies
@@ -231,10 +233,13 @@ class StagePlan:
 
 
 @functools.lru_cache(maxsize=256)
-def stage_plan(ms: Tuple[int, ...], n_ops: int, n_dense: int) -> StagePlan:
-    """The shared-memory plan of a K1/K2 launch, from sizes alone: ``ms``
-    the table rows of its culled pairs in program order (none for the dense
-    form), the program's op count and its dense entries.
+def stage_plan(ms: Tuple[int, ...], n_ops: int, n_dense: int,
+               reserve: int = 0) -> StagePlan:
+    """The shared-memory plan of a K1/K2/K3 launch, from sizes alone:
+    ``ms`` the table rows of its culled pairs in program order (none for
+    the dense form), the program's op count and its dense entries;
+    ``reserve`` bytes (a multiple of 16) at the end are the kernel's own
+    (K3: SURF_LIST_BYTES).
 
     After the header come the program, one record of STAGE_OP_BYTES an op
     (always: a plan whose program does not fit a block's shared memory is
@@ -246,20 +251,22 @@ def stage_plan(ms: Tuple[int, ...], n_ops: int, n_dense: int) -> StagePlan:
     every pair after it."""
     if len(ms) > MAX_PAIRS:
         raise NotImplementedError(f"{len(ms)} culled pairs > {MAX_PAIRS}")
+    limit = SMEM_LIMIT - reserve
     ops_off = STAGE_HEADER
     at = ops_off + STAGE_OP_BYTES * n_ops
     ents = n_dense if 0 < n_dense <= STAGE_ENTS_MAX else 0
-    if at + ents * TABLE_W * 4 > SMEM_LIMIT:
+    if at + ents * TABLE_W * 4 > limit:
         raise NotImplementedError(
             f"a CSG program of {n_ops} ops does not fit a block's shared "
-            f"memory ({at} > {SMEM_LIMIT} bytes)")
+            f"memory ({at + ents * TABLE_W * 4 + reserve} > {SMEM_LIMIT} "
+            "bytes)")
     offs = {"ops_off": ops_off, "ents_off": at if ents else 0}
     at += ents * TABLE_W * 4
     pair_off, bulk_bytes, bulk_keys, bulk_hsuf = [], 0, 0, 0
     fits = True
     for q, m in enumerate(ms):
         need = pair_stage_bytes(m)
-        fits = fits and at + need <= SMEM_LIMIT
+        fits = fits and at + need <= limit
         if not fits:
             pair_off.append(-1)
             continue
@@ -270,7 +277,7 @@ def stage_plan(ms: Tuple[int, ...], n_ops: int, n_dense: int) -> StagePlan:
         bulk_bytes += sum(b[k] for k in bulk)
         bulk_keys |= ("keys" in bulk) << q
         bulk_hsuf |= ("hsuf" in bulk) << q
-    return StagePlan(bytes=at, bulk_bytes=bulk_bytes, ents=ents,
+    return StagePlan(bytes=at + reserve, bulk_bytes=bulk_bytes, ents=ents,
                      pair_off=tuple(pair_off), bulk_keys=bulk_keys,
                      bulk_hsuf=bulk_hsuf, **offs)
 

@@ -20,11 +20,11 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
   (:func:`surface_ad_plain`) for plans with a smooth union (value and
   gradient folded through the tree, material argmin, code 0).
 
-A K1/K2 block stages its tile's candidate tables, the program and the few
-dense entries in shared memory; the wrapper sizes that from shapes alone
-(``cull.stage_plan``, no device read).  :func:`march_sections` launches the
-kernel's instrumented twin (per-section clock counts, a diagnostic of
-``chip_smoke.py`` with a launch counter of its own).
+A K1/K2/K3 block stages its tile's candidate tables, the program and the
+few dense entries in shared memory; the wrapper sizes that from shapes
+alone (``cull.stage_plan``, no device read).  :func:`march_sections`
+launches the kernel's instrumented twin (per-section clock counts, a
+diagnostic of ``chip_smoke.py`` with a launch counter of its own).
 
 A wrapper launches the kernel for CUDA tensors and counts the launch in
 ``LAUNCHES`` (``march``/``occlusion``/``surface``/``surface_ad`` for the
@@ -48,9 +48,10 @@ from .. import sdf
 from ..march import (MarchConfig, bound_skip_start, check_config, chunked,
                      _chunk_elems, sphere_trace)
 from .build import check, library, on_device
-from .cull import (CAND_UNROLL, MAX_PAIRS, PSTRIDE, TILE, WINDOW_LANES,
-                   CullTables, PairTable, StagePlan, _build_groups,
-                   _cull_pairs, build_pair_tables, kind_offset, stage_plan)
+from .cull import (CAND_UNROLL, MAX_PAIRS, PSTRIDE, SURF_LIST_BYTES, TILE,
+                   WINDOW_LANES, CullTables, PairTable, StagePlan,
+                   _build_groups, _cull_pairs, build_pair_tables, kind_offset,
+                   stage_plan)
 
 Tensor = torch.Tensor
 
@@ -90,7 +91,6 @@ class FtProgram(ctypes.Structure):
         ("ent_kind", ctypes.c_void_p), ("ent_slot", ctypes.c_void_p),
         ("ent_mat", ctypes.c_void_p), ("ent_params", ctypes.c_void_p),
         ("n_ent", ctypes.c_int),
-        ("slot_entry", ctypes.c_void_p), ("n_slots", ctypes.c_int),
         ("group_pairs", ctypes.c_void_p),
     ]
 
@@ -172,7 +172,6 @@ class Program:
     ent_slot: Tensor     # int32 [E]
     ent_mat: Tensor      # int32 [E]
     ent_params: Tensor   # float32 [E, PSTRIDE]
-    slot_entry: Tensor   # int32 [K]
     group_pairs: Tensor  # int32 [G, 2] the group's culled pairs [start, end)
     n_dense: int = 0     # entries inside the groups' ranges (not culled)
 
@@ -192,7 +191,6 @@ class Program:
             self.ent_kind.data_ptr(), self.ent_slot.data_ptr(),
             self.ent_mat.data_ptr(), self.ent_params.data_ptr(),
             self.ent_kind.shape[0],
-            self.slot_entry.data_ptr(), self.slot_entry.shape[0],
             self.group_pairs.data_ptr())
 
 
@@ -254,8 +252,6 @@ def _lower_static(plan: Plan, kind_counts, prim_material, pairs=()):
         [np.full(c, KINDS.index(k), np.int32) for k, c in kind_counts])
     mat_vis = np.asarray(visible_materials(plan, prim_material), np.int32)
     ent = np.asarray(entries, np.int64)
-    slot_entry = np.empty(len(kind_of_slot), np.int32)
-    slot_entry[ent] = np.arange(len(ent), dtype=np.int32)
     return dict(
         ops=np.asarray(ops, np.int32).reshape(-1, 2),
         op_k=np.asarray(op_k, np.float32),
@@ -264,7 +260,6 @@ def _lower_static(plan: Plan, kind_counts, prim_material, pairs=()):
         ent_kind=kind_of_slot[ent],
         ent_slot=ent.astype(np.int32),
         ent_mat=mat_vis[ent],
-        slot_entry=slot_entry,
         entries=ent,
         group_pairs=np.asarray(gpairs, np.int32).reshape(-1, 2),
         n_dense=n_dense,
@@ -326,7 +321,6 @@ def lower_program(scene: FlatScene, device, pairs=()) -> Program:
                    ent_slot=st["ent_slot"], ent_mat=st["ent_mat"],
                    ent_params=params.index_select(0, st["entries"])
                    .contiguous(),
-                   slot_entry=st["slot_entry"],
                    group_pairs=st["group_pairs"], n_dense=st["n_dense"])
     cur = tuple(scene.prim_params.values())
     scene.__dict__.setdefault("_lowered", {})[key] = (
@@ -697,10 +691,18 @@ def march_plain(scene: FlatScene, origin: Tensor, direction: Tensor,
     return (hit, steps) if occlusion else (t, hit, d, steps)
 
 
-def march_stage_plan(prog: Program, cull: CullTables | None) -> StagePlan:
-    """The shared-memory plan of a K1/K2 launch of ``prog`` on ``cull``."""
+def march_stage_plan(prog: Program, cull: CullTables | None,
+                     reserve: int = 0) -> StagePlan:
+    """The shared-memory plan of a K1/K2 launch of ``prog`` on ``cull``
+    (``reserve``: bytes of the kernel's own at the end)."""
     ms = () if cull is None else tuple(q.m for q in cull.tables)
-    return stage_plan(ms, prog.ops.shape[0], prog.n_dense)
+    return stage_plan(ms, prog.ops.shape[0], prog.n_dense, reserve)
+
+
+def surface_stage_plan(prog: Program, cull: CullTables | None) -> StagePlan:
+    """The shared-memory plan of a K3 launch: K1/K2's, then the block's
+    hit-lane list."""
+    return march_stage_plan(prog, cull, SURF_LIST_BYTES)
 
 
 def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
@@ -893,18 +895,19 @@ def surface_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
                    t: Tensor, epsilon: Tensor, hit: Tensor,
                    cull: CullTables | None = None):
     """K3: ``(normal [N, 3], material [N] int32, code [N])`` at the epsilon
-    backed-off hit points — slot mode for plans of min/max alone, AD mode
-    for plans with a smooth union (see :func:`surface_plain`,
-    :func:`surface_ad_plain`)."""
+    backed-off hit points of the lanes where ``hit [N]`` (bool) is set —
+    slot mode for plans of min/max alone, AD mode for plans with a smooth
+    union (see :func:`surface_plain`, :func:`surface_ad_plain`)."""
     ad = not slot_surface_mode(scene.plan)
     if not _route(origin):
         return surface_plain(scene, origin, direction, t, epsilon, hit,
                              cull=cull)
     n = origin.shape[0]
-    hit_i = hit.to(torch.int32).contiguous()
+    if hit.dtype != torch.bool:
+        raise TypeError(f"hit must be bool, got {hit.dtype}")
     _check_lanes(n, origin=_f32("origin", origin),
                  direction=_f32("direction", direction), t=_f32("t", t),
-                 epsilon=_f32("epsilon", epsilon), hit=hit_i)
+                 epsilon=_f32("epsilon", epsilon), hit=hit)
     lib = library()
     dev = origin.device
     prog = lower_program(scene, dev, () if cull is None else cull.pairs)
@@ -912,13 +915,16 @@ def surface_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
     midx = torch.empty(n, dtype=torch.int32, device=dev)
     code = torch.empty(n, dtype=torch.float32, device=dev)
     s, c = prog.struct(), _cull_struct(cull)
+    # the staged program and tables, then the hit-lane list: from shapes
+    stage = _stage_struct(surface_stage_plan(prog, cull))
     entry = "ft_surface_ad" if ad else "ft_surface"
     with on_device(dev):
         err = getattr(lib, entry)(
             origin.data_ptr(), direction.data_ptr(), t.data_ptr(),
-            epsilon.data_ptr(), hit_i.data_ptr(), n, ctypes.byref(s),
-            ctypes.byref(c), normal.data_ptr(), midx.data_ptr(),
-            code.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            epsilon.data_ptr(), hit.data_ptr(), n, ctypes.byref(s),
+            ctypes.byref(c), ctypes.byref(stage), normal.data_ptr(),
+            midx.data_ptr(), code.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     check(err, entry)
     name = "surface_ad" if ad else "surface"
     LAUNCHES[name if cull is None else name + "_culled"] += 1

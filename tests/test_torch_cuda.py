@@ -10,8 +10,10 @@ that both hit in the same number of steps (nvcc contracts a*b+c into FMA,
 the plain version rounds twice); surface outputs on identical inputs:
 codes equal on ≥ 99.9% of hit lanes, normals within 1e-4 there; the block
 gather is exact.  The culled forms are held to the same bounds on the
-same candidate tables.  The AD-mode surface pass (plans with a smooth
-union): normals within 1e-4 of the plain version on ≥ 99.9% of hit lanes
+same candidate tables; K3 on synthesised hit masks (an empty tile, a full
+block, a ragged batch, staged and unstaged pairs) to equal codes and
+materials on every lane and normals within 1e-4.  The AD-mode surface
+pass (plans with a smooth union): normals within 1e-4 of the plain version on ≥ 99.9% of hit lanes
 (both sum the same exp weights, in another order and with FMA), materials
 equal, and within 1e-3 of the dense autograd normal.  ``sign`` lanes: hit
 masks equal and t within 1e-4 of the plain version.  The gradient path:
@@ -304,25 +306,37 @@ def overbudget_scene(dev, groups=5, per_group=1024):
     return ft.flatten(ft.Scene(root=ft.union(*parts)), device=dev)
 
 
+def block_lanes(scene, size, dev, z=-10.0):
+    """Camera rays in 32×32 block order with the root-bound start and
+    budget, as ``cuda_march_raw`` hands them to K1."""
+    from fraytracer_tpu_torch.render import _to_blocks
+    cam = ft.look_at((0, 0, z), (0, 0, 0), device=dev)
+    rays = ft.camera_rays(cam, size, size, 0.01, 30.0).map(
+        lambda x: _to_blocks(x, size, size, 32).contiguous())
+    t0, miss0, t_exit = bound_skip_start(scene, rays)
+    length = torch.where(miss0, 0.0, torch.minimum(rays.length, t_exit))
+    return (rays.origin, rays.direction, length.contiguous(), rays.epsilon,
+            t0.contiguous())
+
+
+def overbudget_inputs(dev):
+    """The over-budget scene at 64² with tables of m 1024: 5 pairs."""
+    from fraytracer_tpu_torch.ops.cuda import cull
+    scene = overbudget_scene(dev)
+    args = block_lanes(scene, 64, dev)
+    pairs = cull._cull_pairs(scene.kind_counts, scene.plan, 512)
+    assert len(pairs) == 5
+    tables = cull.build_pair_tables(scene, *args[:2], args[4], args[2],
+                                    args[3], pairs, 1024, 0.125)
+    return scene, args, tables
+
+
 def test_culled_march_with_staged_and_unstaged_pairs(dev):
     """Culled K1/K2 on a plan whose pairs exceed a block's shared memory:
     the first pairs are staged, the rest read from device memory, in one
     launch, against the plain version (the K1 bounds)."""
     from fraytracer_tpu_torch.ops.cuda import cull
-    from fraytracer_tpu_torch.render import _to_blocks
-    scene = overbudget_scene(dev)
-    size = 64
-    cam = ft.look_at((0, 0, -10), (0, 0, 0), device=dev)
-    rays = ft.camera_rays(cam, size, size, 0.01, 30.0).map(
-        lambda x: _to_blocks(x, size, size, 32).contiguous())
-    t0, miss0, t_exit = bound_skip_start(scene, rays)
-    length = torch.where(miss0, 0.0, torch.minimum(rays.length, t_exit))
-    args = (rays.origin, rays.direction, length.contiguous(), rays.epsilon,
-            t0.contiguous())
-    pairs = cull._cull_pairs(scene.kind_counts, scene.plan, 512)
-    assert len(pairs) == 5
-    tables = cull.build_pair_tables(scene, *args[:2], args[4], args[2],
-                                    args[3], pairs, 1024, 0.125)
+    scene, args, tables = overbudget_inputs(dev)
     prog = mk.lower_program(scene, dev, tables.pairs)
     plan = mk.march_stage_plan(prog, tables)
     assert plan.staged == (True, True, True, True, False)
@@ -337,6 +351,80 @@ def test_culled_march_with_staged_and_unstaged_pairs(dev):
     assert (tk - tp).abs()[same].max().item() <= 1e-4
     ho, _so = mk.march_kernel(scene, *args, **kw, occlusion=True)
     assert torch.equal(ho, hk)
+
+
+def assert_surface_matches_plain(scene, o, d, t, e, hit, tables):
+    """K3 against its plain version on the same inputs: codes and
+    materials equal on every lane, normals within 1e-4 (miss lanes exact);
+    one launch of the form's kernel."""
+    ad = not mk.slot_surface_mode(scene.plan)
+    name = ("surface_ad" if ad else "surface") \
+        + ("" if tables is None else "_culled")
+    ops_cuda.reset_launch_counts()
+    nk, mk_, ck = mk.surface_kernel(scene, o, d, t, e, hit, cull=tables)
+    assert {k: v for k, v in ops_cuda.launch_counts().items() if v} \
+        == {name: 1}
+    np_, mp, cp = mk.surface_plain(scene, o, d, t, e, hit, cull=tables)
+    assert torch.equal(ck, cp) and (not ad or not ck.any())
+    assert torch.equal(mk_, mp)
+    assert (nk - np_).abs().max().item() <= 1e-4
+    assert torch.equal(nk[~hit], np_[~hit])
+
+
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("name", ["torus96", "blend96"])
+def test_surface_kernels_on_compacted_blocks(dev, name, cull):
+    """K3, slot mode (the 96-torus scene) and AD mode (its blend), culled
+    and dense, against the plain versions on K1's hits at 128², then on
+    the same hits with one tile's lanes all misses (its blocks leave before
+    they stage) and one block's lanes all hits (its misses placed 9 along
+    the ray), and on a ragged batch of 16,384 - 700 lanes."""
+    from fraytracer_tpu_torch.ops.cuda import cull as C
+    scene = ft.flatten(torus_csg_scene(19, 96) if name == "torus96"
+                       else smooth_scene(name), device=dev)
+    args = block_lanes(scene, 128, dev)
+    pairs = C._cull_pairs(scene.kind_counts, scene.plan, 48)
+    tables = C.build_pair_tables(scene, *args[:2], args[4], args[2],
+                                 args[3], pairs, 256, 0.125)
+    t, hit, _d, _s = mk.march_kernel(scene, *args, max_steps=192, omega=1.4,
+                                     cull=tables)
+    tables = tables if cull else None
+    o, d, _l, e, _t0 = args
+    per_tile = hit.view(-1, 1024).sum(1)
+    per_block = hit.view(-1, 128).sum(1)
+    tile = int(torch.nonzero(per_tile > 0)[0])
+    part = torch.nonzero((per_block > 0) & (per_block < 128)).flatten()
+    blk = int(part[part // 8 != tile][0])
+    assert bool((per_block == 0).any())
+    h, t2 = hit.clone(), t.clone()
+    h[tile * 1024:(tile + 1) * 1024] = False
+    lanes = slice(blk * 128, (blk + 1) * 128)
+    t2[lanes] = torch.where(hit[lanes], t[lanes], 9.0)
+    h[lanes] = True
+    assert int(hit.sum()) > 1000
+    assert_surface_matches_plain(scene, o, d, t, e, hit, tables)
+    assert_surface_matches_plain(scene, o, d, t2, e, h, tables)
+    n = o.shape[0] - 700
+    assert n % 1024 and n % 128
+    assert_surface_matches_plain(scene, o[:n], d[:n], t2[:n], e[:n], h[:n],
+                                 tables)
+
+
+def test_surface_kernel_with_staged_and_unstaged_pairs(dev):
+    """Culled K3 on the over-budget plan: its shared-memory plan stages
+    the first four pairs and reads the fifth from device memory, in one
+    launch; against the plain version."""
+    scene, args, tables = overbudget_inputs(dev)
+    prog = mk.lower_program(scene, dev, tables.pairs)
+    assert mk.surface_stage_plan(prog, tables).staged \
+        == (True, True, True, True, False)
+    t, hit, _d, _s = mk.march_kernel(scene, *args, max_steps=192, omega=1.4,
+                                     cull=tables)
+    assert int(hit.sum()) > 100
+    o, d, _l, e, _t0 = args
+    assert_surface_matches_plain(scene, o, d, t, e, hit, tables)
+    with pytest.raises(TypeError):
+        mk.surface_kernel(scene, o, d, t, e, hit.int(), cull=tables)
 
 
 @pytest.mark.parametrize("block_floats,n_blocks", [(100, 7), (1100, 7),

@@ -2,13 +2,15 @@
 (``fraytracer_tpu_torch/csrc/ft_sdf.cuh`` against ``ops/cuda/cull.py`` and
 ``ops/cuda/march_kernel.py``): the ``#define``s of the table layout, the
 field order and size of the structs a launch passes by value, and the host
-function that sizes a K1/K2 block's shared memory.  No kernel runs here:
+function that sizes a K1/K2/K3 block's shared memory.  No kernel runs here:
 the header is parsed as text."""
 import ctypes
+import dataclasses
 import re
 from pathlib import Path
 
 import pytest
+import torch
 
 from fraytracer_tpu_torch.ops.cuda import cull as TC
 from fraytracer_tpu_torch.ops.cuda import march_kernel as MK
@@ -30,6 +32,7 @@ def define(name: str) -> int:
     ("FT_PSTRIDE", TC.PSTRIDE),
     ("FT_MAX_PAIRS", TC.MAX_PAIRS),
     ("FT_MAX_STACK", MK.MAX_STACK),
+    ("FT_SURF_LIST_BYTES", TC.SURF_LIST_BYTES),
 ])
 def test_header_defines_match_python(name, want):
     assert define(name) == want
@@ -49,6 +52,14 @@ def test_window_and_block_granularity():
     block = define("FT_BLOCK")
     assert block % TC.WINDOW_LANES == 0 and TC.TILE % block == 0
     assert TC.TABLE_W == define("FT_TABLE_W") and TC.TABLE_W % 4 == 0
+
+
+def test_surface_list_layout():
+    """K3's hit-lane list: an int count a warp of a block, then one byte a
+    lane (thread indices fit a byte), 16-byte aligned at the plan's end."""
+    block = define("FT_BLOCK")
+    assert TC.SURF_LIST_BYTES == 4 * (block // 32) + block
+    assert TC.SURF_LIST_BYTES % 16 == 0 and block <= 256
 
 
 def struct_fields(name: str):
@@ -162,3 +173,40 @@ def test_stage_plan_dense_form_and_limits():
         TC.stage_plan((), n_ops=20000, n_dense=0)
     with pytest.raises(NotImplementedError):
         TC.stage_plan((8,) * (TC.MAX_PAIRS + 1), 5, 2)
+
+
+class _Shapes:
+    """Stands in for CullTables where only the pairs' table rows are read:
+    a plan is made from shapes, never from the tables' contents."""
+
+    def __init__(self, ms):
+        self.tables = [type("Pair", (), {"m": m})() for m in ms]
+
+
+@pytest.mark.parametrize("ms", [(256,), (512,), (1000,) * 8, ()])
+def test_surface_stage_plan_is_the_march_plan_and_the_list(ms):
+    """K3's plan from shapes alone: K1/K2's offsets and staged pairs, then
+    the hit-lane list at its end (``S.bytes - FT_SURF_LIST_BYTES``)."""
+    five_ops = torch.zeros((5, 2), dtype=torch.int32)
+    prog = MK.Program(**{f.name: five_ops for f in dataclasses.fields(
+        MK.Program) if f.name != "n_dense"}, n_dense=2)
+    march = MK.march_stage_plan(prog, _Shapes(ms))
+    surf = MK.surface_stage_plan(prog, _Shapes(ms))
+    assert surf == TC.stage_plan(ms, 5, 2, TC.SURF_LIST_BYTES)
+    assert surf.bytes == march.bytes + TC.SURF_LIST_BYTES <= TC.SMEM_LIMIT
+    assert (surf.ops_off, surf.ents_off, surf.pair_off, surf.bulk_bytes) \
+        == (march.ops_off, march.ents_off, march.pair_off, march.bulk_bytes)
+    assert (surf.bytes - TC.SURF_LIST_BYTES) % 16 == 0
+
+
+def test_stage_plan_reserve_counts_against_the_limit():
+    """A pair that fits a block with fewer than SURF_LIST_BYTES to spare is
+    staged by K1/K2's plan and read from device memory by K3's."""
+    m = 4680
+    start = TC.STAGE_HEADER + 5 * TC.STAGE_OP_BYTES + 2 * TC.TABLE_W * 4
+    end = start + TC.pair_stage_bytes(m)
+    assert TC.SMEM_LIMIT - TC.SURF_LIST_BYTES < end <= TC.SMEM_LIMIT
+    assert TC.stage_plan((m,), 5, 2).staged == (True,)
+    plan = TC.stage_plan((m,), 5, 2, TC.SURF_LIST_BYTES)
+    assert plan.staged == (False,) and plan.bulk_bytes == 0
+    assert plan.bytes == start + TC.SURF_LIST_BYTES
