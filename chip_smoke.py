@@ -41,14 +41,29 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    runs in AD mode), 1024², culled, with its launch counts, timing,
    profile and peak memory; the same frame with cull=False once; culled
    against dense; the 256² blended frame kernels against plain.
-
-8. probe   — W (the bench warm-up kernel) and P1-P4 (the feature probes,
+8. spectral — the spectral wavefront (``ops/wavefront.py``): (a) a 64²
+   × 8-bin, depth-3 frame on ``spectral_csg_scene(19, 1000)`` through the
+   kernels against the plain route, max |diff| < 1e-4 (its bounce rounds
+   build tables of m 1000 and march inside-glass lanes); (b) the 512² ×
+   8-bin, depth-4 frame on the same scene with the bench's march
+   configuration:
+   launch counts around it alone (4 march_culled, 4 surface_culled, 8
+   occlusion_culled, 24 block_gather, plus any overflow re-run or
+   block-tier repair, which the spied frame reports), active lanes and
+   candidates per tile round by round, the median of 5, peak memory, a
+   profiled frame; (c) K4 at the path's shapes (4,096 blocks of the queue
+   in, 2,048 out), bit for bit against its plain version and
+   ``index_select``, with device times and bound; (a') one bounce round
+   on 32 tiles of (b)'s round-1 queue, each K1/K2/K3 call against its
+   plain version on the same inputs and tables (m 1000, sign -1 lanes, the
+   point light's converging cone).
+9. probe   — W (the bench warm-up kernel) and P1-P4 (the feature probes,
    csrc/probe.cu): the probe program itself with the launch counts read
    around it, then each kernel against its plain version on the TPU
    probe's own inputs, its time by CUDA events (P3/P4 with the table in
    shared memory and through __ldg), W's first launch apart from its
    steady time, and the empty kernel's launch time as the practical floor.
-9. grad    — the gradient path: (a) 256² / 96 tori, culled kernels against
+10. grad   — the gradient path: (a) 256² / 96 tori, culled kernels against
    the plain route, per-leaf relative L2 error of d sum(render²) with the
    lanes whose discrete outcome or t differ masked out (the unmasked
    figure printed); (b) central differences of the loss along 4 random
@@ -60,8 +75,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    material lookup read three ways; (d) one step of the
    blended frame (the point_eval route: certificate, branch, time, peak
    memory); (e) 10 ``fit`` steps at 256² / 100 tori: the loss decreases.
-10. bench  — ``python -m fraytracer_tpu_torch.bench --quick`` in a process
-   of its own; its last JSON line parsed and echoed, W launched once.
+11. bench  — ``python -m fraytracer_tpu_torch.bench`` at its defaults in a
+   process of its own; its three JSON lines parsed (forward, fwd+bwd,
+   spectral, each a superset of the last), the last echoed, W launched
+   once, the spectral stage's launches 9 × the spectral phase's frame.
 
 Three more modes time parts alone (none is the smoke test; all need the
 card):
@@ -88,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -1337,10 +1355,12 @@ def forced_repair(scene, cam, cfg):
     return counts
 
 
-def profile_frame(scene, cam, cfg, trace_path, fn=None):
+def profile_frame(scene, cam, cfg, trace_path, fn=None, ops=0):
     """One frame (or one call of ``fn``) under torch.profiler: device time
     by kernel and the device's idle share between the first and last
-    kernel; the Chrome trace goes to ``trace_path``."""
+    kernel; with ``ops`` the ``ops`` host operators whose kernels took the
+    most device time, with their call counts.  The Chrome trace goes to
+    ``trace_path``."""
     import fraytracer_tpu_torch as ft
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1386,6 +1406,14 @@ def profile_frame(scene, cam, cfg, trace_path, fn=None):
     log("  profile, port kernels in launch order: " + ", ".join(
         f"{e.name.split('(')[0].replace('void ', '')} "
         f"{e.time_range.elapsed_us() / 1e3:.3f} ms" for e in ours))
+    if ops:
+        def dev_us(a):
+            return getattr(a, "self_device_time_total",
+                           getattr(a, "self_cuda_time_total", 0.0))
+        top_ops = sorted(prof.key_averages(), key=lambda a: -dev_us(a))
+        for a in top_ops[:ops]:
+            log(f"    op {dev_us(a) / 1e3:9.3f} ms in {a.count:5d} calls  "
+                f"{a.key[:60]}")
     return 1 - busy / span
 
 
@@ -1486,7 +1514,356 @@ def phase_parity(dev, scene, culled_cfg, tag="frame"):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: W and P1-P4
+# phase 8: the spectral wavefront
+# ---------------------------------------------------------------------------
+
+SPECTRAL_SIZE = 512
+# one frame at depth 4 when no march overflows its tables: K1 and K3 once a
+# round, K2 once a light a round, K4 once a field (8) a compaction (3)
+SPECTRAL_LAUNCHES = {"march_culled": 4, "surface_culled": 4,
+                     "occlusion_culled": 8, "block_gather": 24}
+# (a)'s bound, kernels vs plain route on one card and the same inputs: the
+# readings were max |diff| 2.06e-6 (96 tori) and 4.53e-6 (1000 tori), two
+# runs of one route differ by up to 6e-8 (index_add_'s atomic order); one
+# flipped hit or occlusion outcome moves a pixel by far more
+SPECTRAL_PLAIN_MAX = 1e-4
+
+
+def spectral_config(depth=4):
+    """The JAX bench's spectral section (bench.py:341-344): 8 bins, depth
+    4, the bench frame's march configuration."""
+    import fraytracer_tpu_torch as ft
+    return ft.WavefrontConfig(depth=depth, epsilon=EPS, length=30.0,
+                              march=bench_config(SIZE).march)
+
+
+@contextlib.contextmanager
+def spectral_spies():
+    """For one spectral frame, round by round: the queue's active and
+    inside-glass lanes (and round 1's queue itself), each culled march's
+    tables (rows ``m``, lanes with a budget, candidates
+    per tile max / mean, overflow — an overflowed call runs again with
+    whole-group tables, a table build of its own) and the material
+    repair's tier; and the first compaction's inputs of K4 (a scalar and a
+    vec3 field with the kept block indices).  Recorded by wrapping the
+    functions from outside; their reductions sync the host, so timed
+    frames run without the spies."""
+    from fraytracer_tpu_torch.ops import wavefront as tw
+    from fraytracer_tpu_torch.ops.cuda import gather, march_kernel as mk
+    from fraytracer_tpu_torch.ops.cuda.gather import BLOCK
+    rec = {"rounds": [{"active": None, "tables": [], "repair": []}],
+           "k4": {}}
+    real = (mk.build_pair_tables, tw.resolve_material, tw._bounce,
+            gather.flat_block_gather)
+
+    def tables(scene, origin, direction, t0, length, *a, **k):
+        out = real[0](scene, origin, direction, t0, length, *a, **k)
+        q = out.tables[0]
+        rec["rounds"][-1]["tables"].append(dict(
+            m=q.m, lanes=int((length > 0).sum()), max=int(q.count.max()),
+            mean=q.count.float().mean().item(),
+            overflow=out.overflow is not None and bool(out.overflow)))
+        return out
+
+    def repair(scene, pos, hit, midx, backend="cuda"):
+        bad = (hit & (midx < 0)).reshape(-1)
+        nb = bad.numel() // BLOCK
+        blocks = int(bad[:nb * BLOCK].reshape(nb, BLOCK).any(1).sum())
+        rec["rounds"][-1]["repair"].append(
+            repair_tier(int(bad.sum()), blocks, bad.numel()))
+        return real[1](scene, pos, hit, midx, backend=backend)
+
+    def bounce(scene, q, *a, **k):
+        fields = [getattr(q, f.name) for f in dataclasses.fields(q)]
+        rec["rounds"].append({"active": int(q.active.sum()), "tables": [],
+                              "repair": [], "queue_bytes": nbytes(*fields),
+                              "inside": int((q.active & q.inside).sum())})
+        if len(rec["rounds"]) == 2:
+            rec["queue1"] = q
+        return real[2](scene, q, *a, **k)
+
+    def gather_spy(x, idx, n):
+        # a compaction halves its queue (the repair's tier gathers 16)
+        name = "vec3" if x.ndim == 2 else "scalar"
+        if 2 * n * BLOCK == x.shape[0] and name not in rec["k4"]:
+            rec["k4"][name] = (x, idx)
+        return real[3](x, idx, n)
+
+    (mk.build_pair_tables, tw.resolve_material, tw._bounce,
+     gather.flat_block_gather) = tables, repair, bounce, gather_spy
+    try:
+        yield rec
+    finally:
+        (mk.build_pair_tables, tw.resolve_material, tw._bounce,
+         gather.flat_block_gather) = real
+
+
+def spectral_rounds(rec):
+    """Label each round's table builds (the march, then one shadow march
+    a light, a re-run right after the call that overflowed) and count the
+    re-runs of marches and of shadow marches; log a line a round."""
+    reruns = {"march": 0, "occlusion": 0}
+    out = []
+    for r, rnd in enumerate(rec["rounds"]):
+        names, prev = [], None
+        for tab in rnd["tables"]:
+            if prev is not None and prev["overflow"]:
+                name = f"re-run of {names[-1]}"
+                reruns["march" if names[-1] == "march" else "occlusion"] += 1
+            else:
+                calls = [n for n in names if not n.startswith("re-run")]
+                name = "march" if not calls else f"light {len(calls) - 1}"
+            names.append(name)
+            prev = tab
+        log(f"  round {r}: {rnd['active'] if r else 'primary'} active lanes"
+            + (f" ({rnd['inside']} inside glass) in a queue of "
+               f"{rnd['queue_bytes']} bytes; " if r else "; ")
+            + "; ".join(f"{n}: m {t['m']}, {t['lanes']} lanes with a budget,"
+                        f" candidates per tile max {t['max']} mean "
+                        f"{t['mean']:.2f}{', OVERFLOW' if t['overflow'] else ''}"
+                        for n, t in zip(names, rnd["tables"]))
+            + f"; repair {rnd['repair']}")
+        out.append(dict(active=rnd["active"], repair=rnd["repair"],
+                        queue_bytes=rnd.get("queue_bytes"),
+                        inside=rnd.get("inside"),
+                        tables=dict(zip(names, rnd["tables"]))))
+    return out, reruns
+
+
+def spectral_k4_times(rec):
+    """K4 at the spectral path's shapes (the first compaction: 4,096 blocks
+    of the 2C queue in, 2,048 out): bit for bit against its plain version
+    and the library's ``index_select`` of the same blocks; device ms of
+    each beside the bound (bytes read and written once)."""
+    from fraytracer_tpu_torch.ops.cuda.gather import (
+        BLOCK, _gather_blocks, block_gather_plain)
+    device_ms = device_timer()
+    out = {}
+    for name in ("scalar", "vec3"):
+        x, idx = rec["k4"][name]
+        xb = x.contiguous().reshape(x.shape[0] // BLOCK, -1)
+        lidx = idx.long()
+        gk = _gather_blocks(xb, idx)
+        gp = block_gather_plain(xb, idx)
+        lib = xb.index_select(0, lidx)
+        same = lambda a, b: torch.equal(a.view(torch.int32),
+                                        b.view(torch.int32))
+        check(same(gk, gp), f"K4 spectral {name}: kernel differs from plain")
+        check(same(gk, lib), f"K4 spectral {name}: kernel differs from "
+              "index_select")
+        out[name] = dict(
+            blocks_in=xb.shape[0], blocks_out=idx.numel(),
+            block_bytes=xb.shape[1] * 4,
+            ms=device_ms(lambda: _gather_blocks(xb, idx)),
+            plain_ms=device_ms(lambda: block_gather_plain(xb, idx)),
+            library_ms=device_ms(lambda: xb.index_select(0, lidx)),
+            bound_ms=bound(2 * nbytes(gk) + nbytes(idx), 0.0)[0])
+        r = out[name]
+        log(f"  K4 spectral {name} field ({r['blocks_in']} blocks of "
+            f"{r['block_bytes']} bytes in, {r['blocks_out']} out): kernel "
+            f"{r['ms']:.5f} ms on the device, plain {r['plain_ms']:.5f}, "
+            f"index_select {r['library_ms']:.5f}, bound {r['bound_ms']:.5f} "
+            "(bytes); bit for bit equal to both")
+    return out
+
+
+def spectral_path_kernels(scene, q, cfg, tiles=32):
+    """K1/K2/K3 against their plain versions at the spectral path's shapes:
+    one bounce round (``_bounce``) of the 512² frame's round-1 queue ``q``
+    on ``tiles`` of its 1024-lane tiles — half those with the most
+    inside-glass lanes, half the busiest of the rest — with every kernel
+    call recorded and run again through its plain version on the same
+    inputs and tables.  The tiles keep their lanes, so their tables are
+    the frame's: m 1000 (staged above the 48 KB opt-in, keys and suffix
+    minima copied by the threads), sign = -1 lanes, the point light's
+    converging cone from scattered secondary hits."""
+    from fraytracer_tpu_torch.ops import wavefront as tw
+    from fraytracer_tpu_torch.ops.cuda import cull, march_kernel as mk
+    from fraytracer_tpu_torch.ops.cuda.gather import BLOCK
+    nt = q.active.numel() // BLOCK
+    per_tile = lambda x: x.view(nt, BLOCK).sum(1)
+    inside = per_tile((q.active & q.inside).int())
+    busy = per_tile(q.active.int())
+    pick = torch.topk(inside, tiles // 2).indices
+    busy[pick] = -1
+    pick = torch.cat([pick, torch.topk(busy, tiles - tiles // 2).indices])
+    pick = pick.sort().values
+    sub = q.map(lambda x: x.view((nt, BLOCK) + tuple(x.shape[1:]))[pick]
+                .reshape((-1,) + tuple(x.shape[1:])))
+    log(f"  (a') one bounce round on {tiles} of the {nt} tiles of the "
+        f"{SPECTRAL_SIZE}^2 frame's round-1 queue: {int(sub.active.sum())} active lanes, "
+        f"{int((sub.active & sub.inside).sum())} inside glass")
+    calls = []
+    real = (mk.march_kernel, mk.surface_kernel)
+
+    def march_rec(scene, *a, **k):
+        out = real[0](scene, *a, **k)
+        calls.append(("K2" if k.get("occlusion") else "K1", a, k, out))
+        return out
+
+    def surface_rec(scene, *a, **k):
+        out = real[1](scene, *a, **k)
+        calls.append(("K3", a, k, out))
+        return out
+    mk.march_kernel, mk.surface_kernel = march_rec, surface_rec
+    try:
+        npix = SPECTRAL_SIZE * SPECTRAL_SIZE
+        tw._bounce(scene, sub, torch.zeros((npix, 3), device=q.pixel.device),
+                   cfg, is_last=False)
+    finally:
+        mk.march_kernel, mk.surface_kernel = real
+    labels = iter(["march"] + [f"light {i}" for i in range(scene.num_lights)])
+    names = [c[0] + ("" if c[0] == "K3" else f" ({next(labels)})")
+             for c in calls]
+    check([c[0] for c in calls] == ["K1", "K3"] + ["K2"] * scene.num_lights,
+          f"(a') kernel calls {names}: an overflow re-run or a missing call")
+    for name, (kind, a, k, out) in zip(names, calls):
+        tab = k["cull"]
+        check(tab is not None, f"(a') {name}: not culled")
+        ms = [t.m for t in tab.tables]
+        want_m = [cull._pair_m(cfg.bounce_cull_m, r1 - r0)
+                  for (_g, _k, _ki, r0, r1) in tab.pairs]
+        check(ms == want_m and 1000 in ms, f"(a') {name}: tables of m {ms}")
+        plan = mk.march_stage_plan(mk.lower_program(scene, a[0].device,
+                                                    tab.pairs), tab)
+        lanes = a[4] if kind == "K3" else a[2] > 0
+        # K3 marches nothing: its hit lanes' sign is the march's
+        sign = calls[0][2].get("sign") if kind != "K2" else None
+        neg = "" if sign is None \
+            else f", {int((lanes & (sign < 0)).sum())} of them sign -1"
+        label = (f"{name} culled, path tiles (m {ms}, candidates per tile "
+                 f"max {[int(t.count.max()) for t in tab.tables]}, "
+                 f"{plan.bytes} bytes staged a block, bulk copies "
+                 f"{[cull.bulk_slices(m) for m in ms]}, {int(lanes.sum())} "
+                 f"{'hit lanes' if kind == 'K3' else 'lanes with a budget'}"
+                 f"{neg})")
+        if kind == "K1":
+            check(plan.bytes > 48 * 1024
+                  and bool((lanes & (sign < 0)).any()),
+                  f"(a') {label}: not the shapes this phase is for")
+            compare_march(out, mk.march_plain(scene, *a, **k), label)
+        elif kind == "K2":
+            p = mk.march_plain(scene, *a, **k)
+            agree = (out[0] == p[0]).float().mean().item()
+            log(f"  {label}: hit agreement {agree:.6f}")
+            check(agree >= 0.999, f"{label}: {agree}")
+        else:
+            compare_surface(out, mk.surface_plain(scene, *a, **k), a[4],
+                            label)
+    torch.cuda.synchronize()
+
+
+def phase_spectral(dev, build_dir, reps=5):
+    """(a) the 64² × 8-bin, depth-3 frame on ``spectral_csg_scene(19,
+    1000)`` through the kernels against the plain route (its bounce rounds
+    build tables of m 1000 and march inside-glass lanes); (b) the
+    full-width frame (512² × 8 bins, depth 4, the same scene, the bench's
+    march configuration): launch counts around the first call checked
+    against ``SPECTRAL_LAUNCHES`` plus the re-runs the spied frame shows,
+    active lanes and candidates per tile round by round, the median of
+    ``reps``, peak memory, a profiled frame; (c) K4 at the path's shapes;
+    (a') K1/K2/K3 against their plain versions on tiles of (b)'s round-1
+    queue."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.image.io import save_image
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    from fraytracer_tpu_torch.scene.generators import spectral_csg_scene
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+
+    scene = ft.flatten(spectral_csg_scene(19, BENCH_N_TORI), device=dev)
+    scfg = spectral_config(depth=3)
+    ops_cuda.reset_launch_counts()
+    with spectral_spies() as srec:
+        ik, nk = ft.render_spectral_with_stats(scene, cam, 64, 64, scfg)
+    small_counts = ops_cuda.launch_counts()
+    with plain_route():
+        ip, np_ = ft.render_spectral_with_stats(scene, cam, 64, 64, scfg)
+    check(ops_cuda.launch_counts() == small_counts,
+          "the plain route launched a kernel")
+    d = (ik - ip).abs()
+    bounce_m = sorted({t["m"] for rnd in srec["rounds"][1:]
+                       for t in rnd["tables"]})
+    inside = [rnd["inside"] for rnd in srec["rounds"][1:]]
+    log(f"  (a) 64^2 x 8 bins, depth 3, {BENCH_N_TORI} tori, kernels vs "
+        f"plain route: max |diff| {d.max().item():.3e}, mean "
+        f"{d.mean().item():.3e}, pixels off by > 1e-4 "
+        f"{int((d.amax(-1) > 1e-4).sum())}; n_rays {int(nk)} vs {int(np_)}; "
+        f"bounce tables of m {bounce_m}, inside-glass lanes a bounce round "
+        f"{inside}; kernel launches {small_counts}")
+    check(bool(torch.isfinite(ik).all()), "(a) non-finite pixels")
+    check(d.max().item() < SPECTRAL_PLAIN_MAX,
+          "(a) spectral frame kernels vs plain route")
+    check(abs(int(nk) - int(np_)) <= 5e-3 * int(np_), "(a) n_rays")
+    check(small_counts["block_gather"] >= 16
+          and small_counts["march_culled"] >= 3, "(a) kernels not launched")
+    check(bounce_m == [1000] and min(inside) > 0,
+          f"(a) bounce tables of m {bounce_m}, inside lanes {inside}")
+
+    cfg = spectral_config()
+    render = lambda: ft.render_spectral_with_stats(
+        scene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, cfg)
+    ops_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, n_rays = render()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = ops_cuda.launch_counts()
+    log(f"  (b) launches in the spectral frame: {counts}")
+    with spectral_spies() as rec:
+        render()
+    rounds, reruns = spectral_rounds(rec)
+    block_repairs = sum(t == "block (K4)" for rnd in rounds
+                        for t in rnd["repair"])
+    want = dict(SPECTRAL_LAUNCHES)
+    want["march_culled"] += reruns["march"]
+    want["surface_culled"] += reruns["march"]
+    want["occlusion_culled"] += reruns["occlusion"]
+    want["block_gather"] += block_repairs
+    got = {k: v for k, v in counts.items() if v}
+    log(f"  (b) expected launches {want} (re-runs {reruns}, block-tier "
+        f"repairs {block_repairs})")
+    check(got == want, f"(b) spectral frame launches {got}, want {want}")
+    check(len(rounds) == 4, f"(b) {len(rounds)} rounds")
+    check(img.shape == (SPECTRAL_SIZE, SPECTRAL_SIZE, 3)
+          and bool(torch.isfinite(img).all()) and img.min().item() >= 0.0,
+          "(b) spectral image")
+    n_primary = SPECTRAL_SIZE * SPECTRAL_SIZE
+    check(int(n_rays) > n_primary * 1.05, f"(b) n_rays {int(n_rays)}")
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, n_rays = render()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    log(f"  (b) spectral frame {SPECTRAL_SIZE}^2 x 8 bins, depth 4: first "
+        f"{first_s * 1e3:.1f} ms, median of {reps} {med * 1e3:.2f} ms "
+        f"({[round(t * 1e3, 2) for t in times]}), n_rays {int(n_rays)}, "
+        f"{int(n_rays) / med:.4g} rays/s")
+    torch.cuda.reset_peak_memory_stats()
+    render()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  (b) spectral frame peak device memory {peak / 2**20:.1f} MiB")
+    idle = profile_frame(scene, cam, None,
+                         build_dir / "chip_smoke_spectral_frame_trace.json",
+                         fn=render, ops=16)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    png = build_dir / "chip_smoke_spectral_frame.png"
+    save_image(str(png), ft.tonemap(img, gen, 2.2).cpu().numpy())
+    log(f"  wrote {png}")
+    k4 = spectral_k4_times(rec)
+    spectral_path_kernels(scene, rec["queue1"], cfg)
+    return dict(counts=counts, want=want, reruns=reruns, rounds=rounds,
+                n_rays=int(n_rays), first_s=first_s, med=med, peak=peak,
+                idle=idle, k4=k4, small_err=d.max().item())
+
+
+# ---------------------------------------------------------------------------
+# phase 9: W and P1-P4
 # ---------------------------------------------------------------------------
 
 PROBE_SRC = f"{SRC}/probe.cu"
@@ -1602,7 +1979,7 @@ def phase_probe(dev, warm_first_ms):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the gradient path
+# phase 10: the gradient path
 # ---------------------------------------------------------------------------
 
 def outcome_masks(scene, cam, cfg):
@@ -2066,34 +2443,45 @@ def phase_grad(dev, scene, blend, build_dir, fwd_med, blend_fwd_med):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the bench entry point
+# phase 11: the bench entry point
 # ---------------------------------------------------------------------------
 
-def phase_bench():
+def phase_bench(spectral_counts):
     """``python -m fraytracer_tpu_torch.bench`` at its defaults (the full
-    width: 1024², 1000 tori, forward and forward + backward) in a process
-    of its own (its warm-up is a process's first launch); every JSON line
-    parsed, the last one echoed."""
+    width: 1024², 1000 tori, forward, forward + backward, the 512² spectral
+    frame) in a process of its own (its warm-up is a process's first
+    launch); every JSON line parsed, the last one echoed.
+    ``spectral_counts``: one spectral frame's launches in the spectral
+    phase, the same frame the bench runs 9 times."""
     cmd = [sys.executable, "-m", "fraytracer_tpu_torch.bench"]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                           cwd=str(Path(__file__).resolve().parent))
     check(proc.returncode == 0, f"bench exited {proc.returncode}:\n"
           f"{proc.stderr[-2000:]}")
     lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
-    check(len(lines) == 2, f"bench printed {len(lines)} JSON lines, want 2")
-    first, last = (json.loads(l) for l in lines)
-    check(set(first) < set(last), "bench stages are not supersets")
+    check(len(lines) == 3, f"bench printed {len(lines)} JSON lines, want 3")
+    first, second, last = (json.loads(l) for l in lines)
+    check(set(first) < set(second) < set(last),
+          "bench stages are not supersets")
     check("fwd_bwd_time_s" not in first and first["value"] == last["value"],
           "bench: the forward stage's line")
+    check("spectral_time_s" not in second
+          and second["fwd_bwd_time_s"] == last["fwd_bwd_time_s"],
+          "bench: the fwd+bwd stage's line")
     log(f"  bench: {lines[-1]}")
     for k in ("value", "n_rays", "fwd_time_s", "backend_warmup_s",
               "fwd_bwd_time_s", "fwd_bwd_over_fwd", "device",
-              "kernel_launches"):
+              "kernel_launches", "spectral_time_s", "spectral_size",
+              "spectral_rays_marched", "spectral_rays_per_sec"):
         check(k in last, f"bench line lacks {k}")
+    check(not any("compile" in k for k in last), "bench: a compile field")
     check((last["image_size"], last["n_tori"]) == (SIZE, BENCH_N_TORI),
           f"bench ran {last['image_size']}^2 / {last['n_tori']} tori")
     check(last["n_rays_primary"] == SIZE * SIZE <= last["n_rays"],
           "bench ray counts")
+    check(last["spectral_size"] == SPECTRAL_SIZE
+          and last["spectral_rays_marched"] > SPECTRAL_SIZE ** 2
+          and last["spectral_time_s"] > 0, "bench spectral fields")
     # the forward stage's counts: W once, then the 1 + 15 culled frames
     kl = first["kernel_launches"]
     frames = 16
@@ -2101,15 +2489,20 @@ def phase_bench():
     check((kl["march_culled"], kl["surface_culled"], kl["occlusion_culled"],
            kl["block_gather"]) == (frames, frames, 2 * frames, 0),
           f"bench forward launches {kl}")
-    check(last["fwd_bwd_time_s"] > 0 and last["grad_abs_sum_prim_params"] > 0,
-          "bench fwd+bwd")
+    check(second["fwd_bwd_time_s"] > 0
+          and second["grad_abs_sum_prim_params"] > 0, "bench fwd+bwd")
     # 1 + 9 fwd+bwd steps more, each one frame's launches (the backward
     # launches no kernel of the port)
-    kl, frames = last["kernel_launches"], frames + 1 + last["fwd_bwd_steps"]
+    kl, frames = second["kernel_launches"], \
+        frames + 1 + second["fwd_bwd_steps"]
     check((kl["warm"], kl["march_culled"], kl["surface_culled"],
            kl["occlusion_culled"], kl["block_gather"])
           == (1, frames, frames, 2 * frames, 0),
           f"bench launches after fwd+bwd {kl}")
+    # then 1 + 8 spectral frames, each the spectral phase's frame
+    spec = {k: v - kl[k] for k, v in last["kernel_launches"].items()}
+    want = {k: 9 * v for k, v in spectral_counts.items()}
+    check(spec == want, f"bench spectral launches {spec}, want {want}")
     return last
 
 
@@ -2398,6 +2791,10 @@ def main() -> int:
                               tag="blend_dense", ad=True, reps=1)
     phase_parity(dev, blend, blend_culled["cfg"], tag="blend")
 
+    log(f"[spectral] the spectral wavefront: kernels vs plain route at 64^2, "
+        f"the {SPECTRAL_SIZE}^2 x 8-bin depth-4 frame, K4 at its shapes")
+    spectral = phase_spectral(dev, build.BUILD_DIR)
+
     log("[probe] W and P1-P4: the probe program, kernel vs plain, times")
     probe_times, probe_counts, empty_ms = phase_probe(dev, warm_first_ms)
     times.update(probe_times)
@@ -2405,7 +2802,7 @@ def main() -> int:
     grad = phase_grad(dev, scene, blend, build.BUILD_DIR, culled["med"],
                       blend_culled["med"])
     log("[bench] the bench entry point in a process of its own")
-    bench = phase_bench()
+    bench = phase_bench(spectral["counts"])
 
     mk = f"{TPU}/march_kernel.py"
     rows = [("march", f"{SRC}/march.cu", f"{mk}:1637", dense),
@@ -2450,6 +2847,15 @@ def main() -> int:
                for name, src, rep, path in rows]
     kernels[3]["forced_repair_launches"] = repair["block_gather"]
     kernels[3]["culled_frame_launches"] = culled["counts"]["block_gather"]
+    # K4 at the spectral path's shapes: the vec3 field (origin) of the
+    # first compaction, the scalar field (pixel) beside it
+    for prefix, field in (("spectral_", "vec3"), ("spectral_scalar_",
+                                                   "scalar")):
+        r = spectral["k4"][field]
+        kernels[3].update({prefix + "ms": r["ms"],
+                           prefix + "plain_ms": r["plain_ms"],
+                           prefix + "bound_ms": r["bound_ms"],
+                           prefix + "library_ms": r["library_ms"]})
     # W's path is a bench process (its launch count comes from that
     # process's own counter, in its JSON line), P1-P4's the probe program;
     # "ms", "plain_ms" and "library_ms" are device times between a pair
@@ -2483,6 +2889,9 @@ def main() -> int:
         if name + "_ldg" in times:
             kernels[-1]["ms_ldg"] = times[name + "_ldg"]["ms"]
     kernels[-5]["first_launch_ms"] = warm_first_ms
+    # launches in one spectral frame (512², 8 bins, depth 4) of each row
+    for row in kernels:
+        row["spectral_frame_launches"] = spectral["counts"][row["name"]]
     for tag, st in (("culled", culled), ("dense", dense),
                     ("blend", blend_culled), ("blend_dense", blend_dense)):
         log(f"[summary] {tag} frame first {st['first_s'] * 1e3:.1f} ms, "
@@ -2492,6 +2901,15 @@ def main() -> int:
     for tag, st in (("culled", culled), ("blend", blend_culled)):
         log(f"[summary] {tag} frame: repair tier {st['repair'][0]}, "
             f"candidates per tile (max, mean) {st['candidates']}")
+    log(f"[summary] spectral frame {SPECTRAL_SIZE}^2 x 8 bins, depth 4: "
+        f"first {spectral['first_s'] * 1e3:.1f} ms, median "
+        f"{spectral['med'] * 1e3:.2f} ms, n_rays {spectral['n_rays']}, "
+        f"{spectral['n_rays'] / spectral['med']:.4g} rays/s, peak "
+        f"{spectral['peak'] / 2**20:.1f} MiB, idle share "
+        f"{spectral['idle'] if spectral['idle'] is None else round(spectral['idle'], 4)}"
+        f", launches {spectral['want']} (re-runs {spectral['reruns']}), "
+        f"active lanes by round "
+        f"{[r['active'] for r in spectral['rounds']]}")
     full = grad["full"]
     log(f"[summary] fwd+bwd culled frame: median {full['med'] * 1e3:.2f} ms "
         f"({full['med'] / culled['med']:.2f} x the forward), peak "

@@ -22,6 +22,11 @@ Quick start::
 
     scene.requires_grad_(True)              # inverse rendering
     (ft.render(scene, camera, cfg) ** 2).sum().backward()
+
+    from fraytracer_tpu_torch.scene.generators import spectral_csg_scene
+    glass = ft.flatten(spectral_csg_scene(19, 1000))   # spectral wavefront
+    img = ft.render_spectral(glass, camera, 512, 512,
+                             ft.WavefrontConfig(march=cfg.march))
 """
 
 from .camera import Camera, camera_rays, look_at
@@ -29,7 +34,10 @@ from .ops.march import MarchConfig, march
 from .ops.sdf import (material_at, prim_bounds, prim_distances, root_bound,
                       scene_distance, scene_normal)
 from .ops.shade import surface_hit, trace
+from .ops import spectral
 from .ops.tonemap import tonemap
+from .ops.wavefront import (WavefrontConfig, render_spectral,
+                            render_spectral_with_stats)
 from .render import (RenderConfig, render, render_image, render_rays,
                      render_scene, render_with_stats)
 from .scene.flatten import FlatScene, flatten
@@ -48,6 +56,8 @@ __all__ = [
     "material_at", "prim_bounds", "prim_distances", "root_bound",
     "scene_distance", "scene_normal",
     "surface_hit", "trace", "tonemap",
+    "spectral", "WavefrontConfig", "render_spectral",
+    "render_spectral_with_stats",
     "RenderConfig", "render", "render_image", "render_rays", "render_scene",
     "render_with_stats",
     "FlatScene", "flatten",

@@ -1,20 +1,25 @@
 """Benchmark of the port: forward and forward + backward frame times on
-the CSG scene (counterpart of the JAX package's ``bench.py``, its warm-up,
-forward and fwd+bwd sections).
+the CSG scene and the spectral wavefront's frame time (counterpart of the
+JAX package's ``bench.py``, its warm-up, forward, fwd+bwd and spectral
+sections).
 
 Workload = the reference's de-facto benchmark: the 1000-random-tori CSG
 scene at 1024x1024 with 2 lights, epsilon 0.01, ray budget 30, through the
-culled CUDA kernels.
+culled CUDA kernels.  The spectral section renders
+``spectral_csg_scene`` (the same tori, a quarter of them dispersive glass
+and a tenth mirrors) at ``min(size, 512)``², 8 wavelength bins, depth 4.
 
     python -m fraytracer_tpu_torch.bench [--size 1024] [--tori 1000]
-        [--quick] [--repeats 3] [--no-bwd] [--device cuda|cpu]
+        [--quick] [--repeats 3] [--no-bwd] [--no-spectral]
+        [--device cuda|cpu]
 
 Prints ONE JSON line per finished stage, each a superset of the last (a
 reader takes the LAST line): the headline ``rays_per_sec_per_chip_fwd``
 as soon as the forward timing and the ray count are known, then the
-fwd+bwd fields.  Times are medians of frames bracketed by a device
-synchronize; ``device`` names the card and its power limit.  Progress goes
-to stderr.
+fwd+bwd fields, then the spectral fields.  Times are medians of frames
+bracketed by a device synchronize (the spectral frame: the best of 2
+rounds of 4); ``device`` names the card and its power limit.  Progress
+goes to stderr.
 """
 from __future__ import annotations
 
@@ -74,6 +79,8 @@ def main(argv=None) -> int:
                     help="rounds of 5 forward frames / 3 fwd+bwd steps")
     ap.add_argument("--no-bwd", action="store_true",
                     help="skip the fwd+bwd timing")
+    ap.add_argument("--no-spectral", action="store_true",
+                    help="skip the spectral wavefront timing")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (kernels, default) or cpu (plain versions)")
     args = ap.parse_args(argv)
@@ -185,6 +192,45 @@ def main(argv=None) -> int:
         result["kernel_launches"] = launch_counts()
         log(f"fwd+bwd {result['fwd_bwd_time_s'] * 1e3:.2f}ms "
             f"({result['fwd_bwd_over_fwd']:.2f}x fwd, median of {steps})")
+        emit(result)
+
+    if not args.no_spectral:
+        # the spectral wavefront: 8 bins, a depth-4 bounce queue over the
+        # CSG scene with glass and mirror tori (a purely diffuse scene
+        # skips the queue and would measure nothing); the queue holds
+        # size² · 8 lanes
+        from .scene.generators import spectral_csg_scene
+        spec_size = min(args.size, 512)
+        sscene = ft.flatten(spectral_csg_scene(seed=19, n_tori=args.tori),
+                            device=device)
+        wcfg = ft.WavefrontConfig(depth=4, epsilon=0.01, length=30.0,
+                                  march=cfg.march)
+
+        def spectral():
+            return ft.render_spectral_with_stats(sscene, camera, spec_size,
+                                                 spec_size, wcfg)
+
+        log(f"spectral {spec_size}x{spec_size}x{wcfg.num_bins} bins, depth "
+            f"{wcfg.depth} (glass + mirror scene)...")
+        _img, n_spec = spectral()
+        sync()
+        times = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(4):
+                _img, n_spec = spectral()
+            sync()
+            times.append((time.perf_counter() - t0) / 4)
+        result["spectral_time_s"] = min(times)
+        result["spectral_size"] = spec_size
+        result["spectral_rays_marched"] = float(n_spec)
+        result["spectral_rays_per_sec"] = (float(n_spec)
+                                           / result["spectral_time_s"])
+        # + 9 spectral frames' launches
+        result["kernel_launches"] = launch_counts()
+        log(f"spectral {result['spectral_time_s']:.3f}s (best of 2 x 4 "
+            f"frames), {float(n_spec):.0f} rays")
         emit(result)
     return 0
 

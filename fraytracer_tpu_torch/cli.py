@@ -1,13 +1,16 @@
-"""Command line of the port: the ``render``, ``fit`` and ``bench``
-subcommands of the JAX CLI (reference ``FrayTracer.Console``,
+"""Command line of the port: the ``render``, ``spectral``, ``fit`` and
+``bench`` subcommands of the JAX CLI (reference ``FrayTracer.Console``,
 Program.fs:14-100).
 
     python -m fraytracer_tpu_torch.cli render --size 1024 --out x.png
+    python -m fraytracer_tpu_torch.cli spectral --depth 4 --out s.png
     python -m fraytracer_tpu_torch.cli fit --size 256 --tori 100 --steps 50
     python -m fraytracer_tpu_torch.cli bench [--quick]
 
 ``render`` draws the seed-19 1000-torus scene through the culled CUDA
-kernels and prints the frame time; ``fit`` is the inverse-rendering demo
+kernels and prints the frame time; ``spectral`` renders a scene through
+the spectral wavefront (8 wavelength bins, ``--depth`` bounce rounds:
+dispersion, reflection, refraction); ``fit`` is the inverse-rendering demo
 (perturb the geometry, descend the image L2 back to the target); ``bench``
 runs ``fraytracer_tpu_torch.bench``.  All default to ``--device cuda``;
 without a GPU they stop with an error unless ``--device cpu`` is given,
@@ -66,6 +69,36 @@ def cmd_render(args) -> int:
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     out = ft.tonemap(img, gen, cfg.gamma)
+    save_image(args.out, out.cpu().numpy())
+    print(f"Wrote {args.out}")
+    return 0
+
+
+def cmd_spectral(args) -> int:
+    import torch
+
+    import fraytracer_tpu_torch as ft
+    from .image.io import save_image
+    from .ops.march import MarchConfig
+
+    device = _device(args)
+    scene = ft.flatten(_scene_by_name(args.scene, args.seed, args.tori),
+                       device=device)
+    camera = ft.look_at(tuple(args.camera), tuple(args.target),
+                        fov_degrees=args.fov, device=device)
+    cfg = ft.WavefrontConfig(depth=args.depth, epsilon=args.epsilon,
+                             length=args.length,
+                             march=MarchConfig(max_steps=args.max_steps,
+                                               relax_omega=1.4))
+    print(f"Spectral rendering (depth {args.depth}, "
+          f"{cfg.num_bins} bins)...", flush=True)
+    t0 = time.perf_counter()
+    img = ft.render_spectral(scene, camera, args.size, args.size, cfg)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(f"Time = {time.perf_counter() - t0:.2f} sec")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    out = ft.tonemap(img, gen, args.gamma)
     save_image(args.out, out.cpu().numpy())
     print(f"Wrote {args.out}")
     return 0
@@ -161,6 +194,8 @@ def cmd_bench(args) -> int:
         argv.append("--quick")
     if args.no_bwd:
         argv.append("--no-bwd")
+    if args.no_spectral:
+        argv.append("--no-spectral")
     return bench.main(argv)
 
 
@@ -195,6 +230,12 @@ def main(argv=None) -> int:
     sp.add_argument("--out", default="result.png")
     sp.set_defaults(fn=cmd_render)
 
+    sp = sub.add_parser("spectral", help="spectral wavefront render")
+    common(sp)
+    sp.add_argument("--depth", type=int, default=4)
+    sp.add_argument("--out", default="spectral.png")
+    sp.set_defaults(fn=cmd_spectral)
+
     sp = sub.add_parser("fit", help="inverse rendering demo")
     common(sp)
     sp.add_argument("--steps", type=int, default=50)
@@ -209,6 +250,7 @@ def main(argv=None) -> int:
     sp = sub.add_parser("bench", help="run the benchmark")
     sp.add_argument("--quick", action="store_true")
     sp.add_argument("--no-bwd", action="store_true")
+    sp.add_argument("--no-spectral", action="store_true")
     device(sp)
     sp.set_defaults(fn=cmd_bench)
 

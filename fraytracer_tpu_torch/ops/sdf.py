@@ -17,6 +17,7 @@ primitive per lane, for the backward pass), and the bounding spheres
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -391,6 +392,13 @@ def take_rows(table: Tensor, idx: Tensor) -> Tensor:
         tuple(idx.shape) + tuple(table.shape[1:]))
 
 
+@functools.lru_cache(maxsize=32)
+def mat_kinds(mat_kind: Tuple[int, ...], device: torch.device) -> Tensor:
+    """A scene's material kinds (``FlatScene.mat_kind``) as an int32 tensor
+    on ``device``, copied there once per scene and device."""
+    return torch.as_tensor(np.asarray(mat_kind, np.int32), device=device)
+
+
 def albedo_of(scene: FlatScene, midx: Tensor, p: Tensor) -> Tensor:
     """Albedo of material ``midx [...]`` evaluated at ``p [..., 3]``.
 
@@ -401,9 +409,8 @@ def albedo_of(scene: FlatScene, midx: Tensor, p: Tensor) -> Tensor:
     albedo = take_rows(scene.mat_albedo, midx)
     if MAT_PROCEDURAL in scene.mat_kind:
         from ..utils.noise import fbm
-        kinds = torch.as_tensor(np.asarray(scene.mat_kind, np.int64),
-                                device=midx.device)
-        is_proc = kinds[midx] == MAT_PROCEDURAL
+        is_proc = mat_kinds(scene.mat_kind, midx.device)[midx] \
+            == MAT_PROCEDURAL
         scale = take_rows(scene.mat_reflectivity, midx)
         blend = 0.5 * (fbm(p * scale[..., None], octaves=3) + 1.0)
         proc_albedo = (albedo * (1.0 - blend[..., None])

@@ -564,6 +564,47 @@ def test_frame_gradient_kernels_match_plain_route(dev):
         assert err <= 1e-3, (name, err)
 
 
+def test_spectral_frame_kernels_match_plain_route(dev):
+    """The spectral wavefront at 64² × 8 bins, depth 3, on
+    ``spectral_csg_scene(19, 1000)`` (bounce tables of m 1000, inside-glass
+    lanes): through the kernels and through their plain versions (K4
+    included) on the same CUDA tensors — max |Δ| < 1e-4 (the kernels and
+    their plain versions differ by ulps; the order of ``index_add_``'s
+    atomic sums varies), rays marched within 0.5%; the kernel route
+    launches each culled kernel a round and K4 for the block-tier
+    compaction."""
+    from fraytracer_tpu_torch.scene.generators import spectral_csg_scene
+    scene = ft.flatten(spectral_csg_scene(19, 1000), device=dev)
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    cfg = ft.WavefrontConfig(depth=3, march=ft.MarchConfig(relax_omega=1.4))
+
+    def run(plain):
+        saved = (mk.march_kernel, mk.surface_kernel, gather._gather_blocks)
+        if plain:
+            mk.march_kernel, mk.surface_kernel = mk.march_plain, \
+                mk.surface_plain
+            gather._gather_blocks = gather.block_gather_plain
+        try:
+            ops_cuda.reset_launch_counts()
+            img, n = ft.render_spectral_with_stats(scene, cam, 64, 64, cfg)
+            torch.cuda.synchronize()
+            return img, int(n), ops_cuda.launch_counts()
+        finally:
+            mk.march_kernel, mk.surface_kernel, gather._gather_blocks = saved
+
+    ik, nk, counts = run(False)
+    ip, np_, plain_counts = run(True)
+    assert torch.isfinite(ik).all() and ik.shape == (64, 64, 3)
+    d = (ik - ip).abs()
+    assert d.max().item() < 1e-4
+    assert abs(nk - np_) <= 5e-3 * np_
+    assert not any(plain_counts.values())
+    assert counts["march_culled"] >= 3 and counts["surface_culled"] >= 3
+    assert counts["occlusion_culled"] >= 6
+    assert counts["block_gather"] >= 16        # 8 fields × 2 compactions
+    assert counts["march"] == counts["surface"] == counts["occlusion"] == 0
+
+
 def test_probe_kernels_match_plain(dev):
     from fraytracer_tpu_torch.ops.cuda import probe
     inp = probe.probe_inputs(dev)

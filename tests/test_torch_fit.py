@@ -118,7 +118,7 @@ def _bench_lines(capsys, *argv):
 
 def test_bench_forward_only_json_line(capsys):
     (line,) = _bench_lines(capsys, "--size", "32", "--tori", "16",
-                           "--repeats", "1", "--no-bwd")
+                           "--repeats", "1", "--no-bwd", "--no-spectral")
     for k in JAX_NAMES:
         assert k in line, k
     assert not set(TPU_ROUND) & set(line)
@@ -133,7 +133,7 @@ def test_bench_forward_only_json_line(capsys):
 
 def test_bench_stages_are_supersets_and_report_the_backward(capsys):
     first, last = _bench_lines(capsys, "--size", "32", "--tori", "16",
-                               "--repeats", "1")
+                               "--repeats", "1", "--no-spectral")
     assert set(first) < set(last)
     assert all(last[k] == v for k, v in first.items())
     for k in ("fwd_bwd_time_s", "fwd_bwd_over_fwd", "fwd_bwd_first_s",
@@ -145,11 +145,49 @@ def test_bench_stages_are_supersets_and_report_the_backward(capsys):
     assert last["grad_abs_sum_prim_params"] > 0
 
 
+def test_bench_spectral_line_is_the_third_superset(capsys):
+    """The spectral section (bench.py:329-370 of the JAX package): a third
+    line holding every field of the second, the spectral frame's time,
+    size and rays, no compile field and no target."""
+    lines = _bench_lines(capsys, "--size", "16", "--tori", "16",
+                         "--repeats", "1")
+    assert len(lines) == 3
+    fwd, bwd, spec = lines
+    assert set(fwd) < set(bwd) < set(spec)
+    assert all(spec[k] == v for k, v in bwd.items() if k != "kernel_launches")
+    assert "spectral_time_s" not in bwd
+    assert spec["spectral_size"] == 16
+    assert spec["spectral_time_s"] > 0
+    # primary rays, then bounce and shadow rays of 16² · 8 bins
+    assert spec["spectral_rays_marched"] > 16 * 16
+    assert spec["spectral_rays_per_sec"] == pytest.approx(
+        spec["spectral_rays_marched"] / spec["spectral_time_s"])
+    assert not {k for k in spec if "compile" in k} | (set(TPU_ROUND)
+                                                       & set(spec))
+
+
 def test_cli_bench_runs_the_module(capsys, monkeypatch):
     seen = []
     monkeypatch.setattr(tbench, "main", lambda argv: seen.append(argv) or 0)
     assert tcli.main(["bench", "--quick", "--no-bwd", "--device", "cpu"]) == 0
-    assert seen == [["--device", "cpu", "--quick", "--no-bwd"]]
+    assert tcli.main(["bench", "--no-spectral", "--device", "cpu"]) == 0
+    assert seen == [["--device", "cpu", "--quick", "--no-bwd"],
+                    ["--device", "cpu", "--no-spectral"]]
+
+
+def test_cli_spectral_writes_the_image(tmp_path, capsys):
+    """``cli spectral`` (the JAX command's arguments, cli.py:62-88): the
+    glass demo scene through the wavefront, tone-mapped to a PNG."""
+    import struct
+    out = tmp_path / "s.png"
+    assert tcli.main(["spectral", "--device", "cpu", "--scene", "glass",
+                      "--size", "16", "--depth", "3", "--out", str(out)]) == 0
+    text = capsys.readouterr().out
+    assert "depth 3, 8 bins" in text and "Time = " in text
+    assert f"Wrote {out}" in text
+    png = out.read_bytes()
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+    assert struct.unpack(">II", png[16:24]) == (16, 16)
 
 
 def test_entry_points_need_a_card_unless_told(monkeypatch):
@@ -160,3 +198,5 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
         tcli.main(["fit", "--size", "16", "--steps", "1"])
     with pytest.raises(SystemExit, match="no CUDA device"):
         tbench.main(["--quick"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tcli.main(["spectral", "--size", "16"])

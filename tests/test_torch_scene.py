@@ -192,8 +192,8 @@ def test_flatten_rejects_foreign_nodes():
 
 def test_defaults_are_the_card_and_the_kernels():
     """The entry points run on the GPU through the kernels unless the
-    caller names the CPU or the plain march (signatures only: no device
-    is touched)."""
+    caller names the CPU or the plain march (signatures and defaults; no
+    device is touched)."""
     import inspect
     from fraytracer_tpu_torch import camera
     from fraytracer_tpu_torch.ops import shade
@@ -208,6 +208,13 @@ def test_defaults_are_the_card_and_the_kernels():
         .parameters["backend"].default == "cuda"
     on_cpu = tft.make_rays(torch.zeros(3), (0, 0, 1.0), 1.0, 1e-3)
     assert on_cpu.origin.device.type == "cpu"
+    assert tft.WavefrontConfig().march.backend == "cuda"
+    if not torch.cuda.is_available():
+        # the spectral entry point on the defaults: torch's own error, no
+        # render on the CPU
+        with pytest.raises(AssertionError, match="CUDA"):
+            tft.render_spectral(tft.flatten(single_sphere(TN, TG)),
+                                tft.look_at((0, 0, -5), (0, 0, 0)), 8, 8)
 
 
 def test_import_leaves_jax_out():
