@@ -75,10 +75,36 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    material lookup read three ways; (d) one step of the
    blended frame (the point_eval route: certificate, branch, time, peak
    memory); (e) 10 ``fit`` steps at 256² / 100 tori: the loss decreases.
-11. bench  — ``python -m fraytracer_tpu_torch.bench`` at its defaults in a
-   process of its own; its three JSON lines parsed (forward, fwd+bwd,
-   spectral, each a superset of the last), the last echoed, W launched
-   once, the spectral stage's launches 9 × the spectral phase's frame.
+11. multi  — the sharded paths (``parallel/``) on the one card: (a) one
+   NCCL rank in this process — ``render_sharded`` of the 1024² frame bit
+   for bit ``render``'s with its launches (1 / 1 / 2), the exposure max,
+   the training step at 4 chunks and at 1 against the one-process step
+   (loss rtol 1e-4, gradients within 2e-4 of each leaf's largest), the
+   rebalanced sharded 512² × 8-bin depth-4 spectral frame against
+   ``render_spectral`` (mean |d| < 2e-3), each beside the one-process
+   time; (b) two gloo ranks spawned on the card (NCCL takes one rank a
+   device): the gathered frame bit for bit, each rank's launches, the
+   step (the ranks' scenes equal bit for bit), the rebalanced spectral
+   frame with each rank's live lanes a round, times beside backend, ranks
+   and cards.
+12. tori10k — 10,000 tori at 1024² (``bench_10k.py``): the tables sized
+   from the scene's candidate counts, the frame's launches (no overflow
+   re-run), median of 5, the primary table build alone, peak memory, a
+   profiled frame, which pairs were staged, and K1/K2/K3 against their
+   plain versions on the 16 tiles with the most candidates at those
+   tables, with device times beside their bounds; then the same tiles
+   with tables of m 4,864, past a block's shared memory (the unstaged
+   path).
+13. periphery — ``validate_scene`` on the benchmark scene and a broken
+   copy, ``nan_guard`` over a clean 256² frame and its backward and on an
+   injected NaN, a ``march_stats`` report of the 1024² primary rays, a
+   ``trace`` written.
+14. bench  — ``python -m fraytracer_tpu_torch.bench`` at its defaults in a
+   process of its own; its five JSON lines parsed (forward, fwd+bwd,
+   spectral, ``tori_10k``, scaling, each a superset of the last), the last
+   echoed, W launched once in each of its three processes, the spectral
+   stage's launches 9 × the spectral phase's frame, the 10k frame's
+   launches one frame's, the scaling report one NCCL rank on one card.
 
 Three more modes time parts alone (none is the smoke test; all need the
 card):
@@ -1355,12 +1381,13 @@ def forced_repair(scene, cam, cfg):
     return counts
 
 
-def profile_frame(scene, cam, cfg, trace_path, fn=None, ops=0):
+def profile_frame(scene, cam, cfg, trace_path, fn=None, ops=0, record=None):
     """One frame (or one call of ``fn``) under torch.profiler: device time
     by kernel and the device's idle share between the first and last
     kernel; with ``ops`` the ``ops`` host operators whose kernels took the
     most device time, with their call counts.  The Chrome trace goes to
-    ``trace_path``."""
+    ``trace_path``; ``record`` (a dict) gets the port's kernels in launch
+    order with their device ms under ``"kernels"``."""
     import fraytracer_tpu_torch as ft
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1406,6 +1433,9 @@ def profile_frame(scene, cam, cfg, trace_path, fn=None, ops=0):
     log("  profile, port kernels in launch order: " + ", ".join(
         f"{e.name.split('(')[0].replace('void ', '')} "
         f"{e.time_range.elapsed_us() / 1e3:.3f} ms" for e in ours))
+    if record is not None:
+        record["kernels"] = [(e.name.split("(")[0].replace("void ", ""),
+                              e.time_range.elapsed_us() / 1e3) for e in ours]
     if ops:
         def dev_us(a):
             return getattr(a, "self_device_time_total",
@@ -2443,38 +2473,584 @@ def phase_grad(dev, scene, blend, build_dir, fwd_med, blend_fwd_med):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the bench entry point
+# phase 11: the sharded paths (parallel/mesh.py, parallel/multihost.py)
+# ---------------------------------------------------------------------------
+
+FRAME_LAUNCHES = {"march_culled": 1, "surface_culled": 1,
+                  "occlusion_culled": 2}
+# the culled spectral bound's mean (tests/test_torch_wavefront_culled.py):
+# the sharded queue marches a lane a bin in round 0 where render_spectral
+# marches one a pixel, and rebalancing reorders lanes, so culled hits land
+# elsewhere in the ε shell (tests/test_torch_sharding_spectral.py)
+SHARDED_SPECTRAL_MEAN = 2e-3
+# gradients of the same frame and lanes summed in another order, as a
+# share of each leaf's largest |g|: the backward's index_add_ sums ~1M lane
+# terms a leaf in float32 atomics in no fixed order (√N · 2⁻²⁴ ≈ 6e-5 of
+# the terms' scale), and the chunks and ranks add their sums in another
+# order again; read 7.7e-6–3.6e-5 over five runs on the H100.  A missing,
+# doubled or foreign chunk moves a leaf by 1e-1 or more.
+GRAD_REL = 2e-4
+MULTI_RANKS = 2
+
+
+def check_frame_launches(counts, label):
+    """One culled torus frame's launches and no dense or AD-mode form."""
+    got = {k: counts[k] for k in FRAME_LAUNCHES}
+    others = {k: counts[k] for k in ("march", "occlusion", "surface",
+                                     "surface_ad", "surface_ad_culled")}
+    check(got == FRAME_LAUNCHES and not any(others.values()),
+          f"{label}: launches {counts}")
+
+
+def median_ms(fn, reps, barrier=None):
+    """Median and all of ``reps`` host-clock times (ms) of ``fn``, each
+    between device synchronizations (and barriers, when given)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        if barrier:
+            barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if barrier:
+            barrier()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times), times
+
+
+# the learning rate of the steps that recover their gradients: a power of
+# two, so lr·g and the division by it are exact, and large, so that the
+# step's rounding is one of lr·g, not of the parameter
+GRAD_LR = 2.0 ** 20
+
+
+def leaf_grads(scene, new_scene):
+    """The summed gradients of a sharded step taken at lr = GRAD_LR."""
+    new = new_scene.tensors()
+    return {k: ((v.detach() - new[k]) / GRAD_LR).cpu() for k, v in
+            scene.tensors().items()}
+
+
+def one_process_step(scene, cam, cfg, target):
+    """The one-process step: loss and gradients of sum((render -
+    target)²) w.r.t. every floating leaf."""
+    import fraytracer_tpu_torch as ft
+    s = scene.with_tensors({k: v.detach().clone().requires_grad_(True)
+                            for k, v in scene.tensors().items()})
+    loss = torch.sum((ft.render(s, cam, cfg) - target) ** 2)
+    loss.backward()
+    return loss.item(), {k: (torch.zeros_like(v) if v.grad is None
+                             else v.grad).detach().cpu()
+                         for k, v in s.tensors().items()}
+
+
+def compare_grads(got, want, label):
+    """Each leaf's largest |difference| over its largest |gradient|."""
+    worst = (-1.0, "")
+    for k, w in want.items():
+        scale = max(float(w.abs().max()), 1e-30)
+        err = float((got[k] - w).abs().max()) / scale
+        worst = max(worst, (err, k))
+    log(f"  {label}: worst leaf {worst[1]} at {worst[0]:.3e} of its "
+        f"largest |g|")
+    check(worst[0] <= GRAD_REL, f"{label}: gradient error {worst}")
+    return worst[0]
+
+
+def phase_multi_world1(dev, scene, sscene):
+    """(a) NCCL at world size 1, in this process: the sharded 1024² frame
+    against ``render`` bit for bit, with its launches; the exposure max;
+    the sharded training step at 4 chunks and at 1 against the
+    one-process step; the rebalanced sharded spectral frame (512² × 8
+    bins, depth 4) against ``render_spectral``; each beside the
+    one-process time."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    from fraytracer_tpu_torch.parallel import mesh as pm
+    from fraytracer_tpu_torch.parallel import multihost
+    multihost.initialize()
+    mesh = pm.make_mesh()
+    check((mesh.size, mesh.backend, mesh.device) == (1, "nccl", dev),
+          f"world-1 mesh {mesh}")
+    tag = f"1 rank, nccl, 1 card ({nvidia_smi()})"
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    cfg = bench_config(SIZE)
+    single = ft.render(scene, cam, cfg)
+    pm.render_sharded(scene, cam, cfg, mesh)
+    torch.cuda.synchronize()
+    ops_cuda.reset_launch_counts()
+    rows = pm.render_sharded(scene, cam, cfg, mesh)
+    torch.cuda.synchronize()
+    counts = ops_cuda.launch_counts()
+    check_frame_launches(counts, "[multi] a sharded frame")
+    check(torch.equal(rows, single), "[multi] a: the sharded frame is not "
+          "render's bit for bit")
+    sh_med, sh_t = median_ms(lambda: pm.render_sharded(scene, cam, cfg,
+                                                       mesh), 5)
+    one_med, one_t = median_ms(lambda: ft.render(scene, cam, cfg), 5)
+    log(f"  sharded {SIZE}^2 frame [{tag}]: bit for bit render's, launches "
+        f"{ {k: counts[k] for k in FRAME_LAUNCHES} }, median "
+        f"{sh_med:.2f} ms ({[round(t, 2) for t in sh_t]}) against "
+        f"render's {one_med:.2f} ms ({[round(t, 2) for t in one_t]})")
+    emax = float(pm.exposure_max_sharded(rows, mesh))
+    check(emax == float(single.amax()), f"exposure max {emax}")
+
+    target = torch.full((SIZE, SIZE, 3), 0.05, device=dev)
+    loss1, want = one_process_step(scene, cam, cfg, target)
+    out = {"frame_ms": sh_med, "single_ms": one_med, "counts": counts,
+           "single": single, "cam": cam, "target": target,
+           "step_grads": want, "step_loss": loss1}
+    for chunks in (4, 1):
+        step = pm.make_train_step(cfg, mesh, lr=GRAD_LR, grad_chunks=chunks)
+        s1, loss = step(scene, cam, target)
+        check(abs(loss.item() - loss1) <= 1e-4 * abs(loss1),
+              f"[multi] a step loss {loss.item()} against {loss1}")
+        err = compare_grads(leaf_grads(scene, s1), want,
+                            f"train step, {chunks} chunk(s) [{tag}]")
+        med, _t = median_ms(lambda: step(scene, cam, target), 3)
+        out[f"step{chunks}_ms"], out[f"step{chunks}_err"] = med, err
+    sone, _t = median_ms(lambda: one_process_step(scene, cam, cfg, target),
+                         3)
+    log(f"  train step median: 4 chunks {out['step4_ms']:.2f} ms, 1 chunk "
+        f"{out['step1_ms']:.2f} ms, one-process fwd+bwd {sone:.2f} ms "
+        f"[{tag}]")
+    out["single_step_ms"] = sone
+
+    wcfg = spectral_config()
+    want_s = ft.render_spectral(sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE,
+                                wcfg)
+    torch.cuda.synchronize()
+    ops_cuda.reset_launch_counts()
+    img, scounts = pm.render_spectral_sharded(
+        sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, wcfg, mesh, rebalance=True)
+    torch.cuda.synchronize()
+    spec = ops_cuda.launch_counts()
+    d = (img - want_s).abs()
+    log(f"  rebalanced sharded spectral frame {SPECTRAL_SIZE}^2 x 8 bins, "
+        f"depth 4 [{tag}]: against render_spectral mean |d| "
+        f"{d.mean().item():.3e}, max {d.max().item():.3e}; live lanes by "
+        f"round {scounts.tolist()}; launches {spec}")
+    check(bool(torch.isfinite(img).all()) and d.mean().item()
+          < SHARDED_SPECTRAL_MEAN, "[multi] a sharded spectral frame")
+    check(tuple(scounts.shape) == (1, 4) and int(scounts[0, 0])
+          == SPECTRAL_SIZE ** 2 * 8, f"spectral counts {scounts}")
+    check(spec["march_culled"] >= 4 and spec["surface_culled"] >= 4
+          and spec["occlusion_culled"] >= 8 and spec["block_gather"] >= 24,
+          f"[multi] a spectral launches {spec}")
+    smed, _t = median_ms(lambda: pm.render_spectral_sharded(
+        sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, wcfg, mesh,
+        rebalance=True), 3)
+    one_s, _t = median_ms(lambda: ft.render_spectral(
+        sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, wcfg), 3)
+    log(f"  sharded spectral frame median {smed:.2f} ms against "
+        f"render_spectral's {one_s:.2f} ms [{tag}]")
+    out.update(spectral_counts=spec, spectral_ms=smed, single_spectral_ms=
+               one_s, want_spectral=want_s)
+    return out
+
+
+def _multi_rank():
+    """One of the gloo ranks sharing the card: its rows of the 1024²
+    frame with the launches around them, a training step (at GRAD_LR: the
+    summed gradients), the rebalanced spectral frame with its live lanes
+    per round; each timed between barriers."""
+    import torch.distributed as dist
+
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    from fraytracer_tpu_torch.parallel import mesh as pm
+    from fraytracer_tpu_torch.scene.generators import (spectral_csg_scene,
+                                                       torus_csg_scene)
+    mesh = pm.make_mesh()
+    dev = mesh.device
+
+    def barrier():
+        dist.barrier(group=mesh.group)
+    scene = ft.flatten(torus_csg_scene(19, BENCH_N_TORI), device=dev)
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    cfg = bench_config(SIZE)
+    pm.render_sharded(scene, cam, cfg, mesh)
+    torch.cuda.synchronize()
+    barrier()
+    ops_cuda.reset_launch_counts()
+    rows = pm.render_sharded(scene, cam, cfg, mesh)
+    torch.cuda.synchronize()
+    counts = ops_cuda.launch_counts()
+    frame_ms = median_ms(lambda: pm.render_sharded(scene, cam, cfg, mesh),
+                         5, barrier)
+    target = torch.full((SIZE, SIZE, 3), 0.05, device=dev)
+    step = pm.make_train_step(cfg, mesh, lr=GRAD_LR)
+    s1, loss = step(scene, cam, target)
+    step_ms = median_ms(lambda: step(scene, cam, target), 3, barrier)
+    sscene = ft.flatten(spectral_csg_scene(19, BENCH_N_TORI), device=dev)
+    wcfg = spectral_config()
+    torch.cuda.synchronize()
+    barrier()
+    ops_cuda.reset_launch_counts()
+    img, scounts = pm.render_spectral_sharded(
+        sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, wcfg, mesh, rebalance=True)
+    torch.cuda.synchronize()
+    spec = ops_cuda.launch_counts()
+    spec_ms = median_ms(lambda: pm.render_spectral_sharded(
+        sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, wcfg, mesh,
+        rebalance=True), 3, barrier)
+    return {"rank": mesh.rank, "backend": mesh.backend,
+            "device": str(dev), "rows": rows.cpu(), "counts": counts,
+            "frame_ms": frame_ms, "loss": loss.item(),
+            "grads": leaf_grads(scene, s1),
+            "leaves": {k: v.cpu() for k, v in s1.tensors().items()},
+            "step_ms": step_ms, "spectral": img.cpu(),
+            "spectral_counts": scounts.cpu(), "spectral_launches": spec,
+            "spectral_ms": spec_ms}
+
+
+def phase_multi_gloo(world1):
+    """(b) two gloo ranks spawned on the one card (NCCL refuses two ranks
+    on a device): the gathered 1024² frame equal to ``render``'s (its
+    512-row bands are whole block rows), each rank's launches, the
+    training step (replicated bit for bit, against the one-process
+    step), the rebalanced spectral frame with each rank's live lanes per
+    round.  The gloo collectives take the CUDA tensors as they are."""
+    from fraytracer_tpu_torch.parallel.multihost import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(_multi_rank, MULTI_RANKS, device="cuda",
+                      backend="gloo", timeout=600)
+    wall = time.perf_counter() - t0
+    tag = (f"{MULTI_RANKS} ranks, gloo, {torch.cuda.device_count()} card "
+           f"({nvidia_smi()})")
+    check({r["backend"] for r in ranks} == {"gloo"}
+          and {r["device"] for r in ranks} == {"cuda:0"},
+          f"[multi] b ranks {[(r['backend'], r['device']) for r in ranks]}")
+    full = torch.cat([r["rows"] for r in ranks])
+    check(torch.equal(full, world1["single"].cpu()),
+          "[multi] b: the gathered frame is not render's bit for bit")
+    for r in ranks:
+        check_frame_launches(r["counts"], f"[multi] b rank {r['rank']}")
+        log(f"  rank {r['rank']} [{tag}]: launches "
+            f"{ {k: r['counts'][k] for k in FRAME_LAUNCHES} }, band of "
+            f"{r['rows'].shape[0]} rows, frame median {r['frame_ms'][0]:.2f}"
+            f" ms ({[round(t, 2) for t in r['frame_ms'][1]]}), train step "
+            f"median {r['step_ms'][0]:.2f} ms, spectral frame median "
+            f"{r['spectral_ms'][0]:.2f} ms, spectral live lanes by round "
+            f"{r['spectral_counts'][r['rank']].tolist()}, spectral "
+            f"launches {r['spectral_launches']}")
+    r0, r1 = ranks
+    check(r0["loss"] == r1["loss"] and all(
+        torch.equal(r0["leaves"][k], r1["leaves"][k]) for k in r0["leaves"]),
+        "[multi] b: the ranks' scenes differ after the step")
+    check(abs(r0["loss"] - world1["step_loss"])
+          <= 1e-4 * abs(world1["step_loss"]), f"[multi] b loss {r0['loss']}")
+    err = compare_grads(r0["grads"], world1["step_grads"],
+                        f"train step over {tag}")
+    img = torch.cat([r["spectral"] for r in ranks])
+    d = (img - world1["want_spectral"].cpu()).abs()
+    counts = r0["spectral_counts"]
+    log(f"  rebalanced spectral frame [{tag}]: against render_spectral mean "
+        f"|d| {d.mean().item():.3e}, max {d.max().item():.3e}; live lanes "
+        f"[rank, round] {counts.tolist()}")
+    check(all(torch.equal(r["spectral_counts"], counts) for r in ranks)
+          and tuple(counts.shape) == (MULTI_RANKS, 4),
+          "[multi] b spectral counts")
+    check(d.mean().item() < SHARDED_SPECTRAL_MEAN, "[multi] b spectral")
+    log(f"  [multi] b took {wall:.1f} s (spawn, CUDA contexts, library "
+        f"load, the work)")
+    return {"ranks": ranks, "step_err": err, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: 10,000 tori (bench_10k.py)
+# ---------------------------------------------------------------------------
+
+TORI_10K = 10000
+SAMPLE_TILES_10K = 16
+# table rows past a block's shared memory (cull.pair_stage_bytes(4864) =
+# 233,472 > SMEM_LIMIT): the sample tiles again with tables this long
+# drive the unstaged path (tables read from device memory) at the 10k scene
+UNSTAGED_M_10K = 4864
+
+
+@contextlib.contextmanager
+def kernel_recorder():
+    """Every K1/K2/K3 call made in the scope, with its arguments and
+    outputs (the wrappers are wrapped from outside)."""
+    from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
+    calls = []
+    real = (mk.march_kernel, mk.surface_kernel)
+
+    def march_rec(scene, *a, **k):
+        out = real[0](scene, *a, **k)
+        calls.append(("K2" if k.get("occlusion") else "K1", a, k, out))
+        return out
+
+    def surface_rec(scene, *a, **k):
+        out = real[1](scene, *a, **k)
+        calls.append(("K3", a, k, out))
+        return out
+    mk.march_kernel, mk.surface_kernel = march_rec, surface_rec
+    try:
+        yield calls
+    finally:
+        mk.march_kernel, mk.surface_kernel = real
+
+
+def tori10k_sample_tiles(scene, flat, mcfg, tables, staged):
+    """K1/K2/K3 against their plain versions at the 10k tables: one frame's
+    trace (``shade.trace_with_stats``) of the ``SAMPLE_TILES_10K`` tiles
+    with the most primary candidates (from ``tables``), every kernel call
+    recorded and run again through its plain version on the same inputs
+    and tables (the tiles keep their lanes, so at the frame's ``mcfg``
+    their tables are the frame's); each call's device time beside its
+    bound (window rows counted on the plain march).  ``staged``: whether
+    every pair must be staged in shared memory, or none."""
+    from fraytracer_tpu_torch.ops import shade
+    from fraytracer_tpu_torch.ops.cuda import cull, march_kernel as mk
+    device_ms = device_timer()
+    nt = flat.origin.shape[0] // cull.TILE
+    pick = torch.topk(tables.tables[0].count, SAMPLE_TILES_10K).indices \
+        .sort().values
+    sub = flat.map(lambda x: x.view((nt, cull.TILE) + tuple(x.shape[1:]))
+                   [pick].reshape((-1,) + tuple(x.shape[1:])).contiguous())
+    with kernel_recorder() as calls:
+        shade.trace_with_stats(scene, sub, mcfg)
+    names = [c[0] for c in calls]
+    check(names == ["K1", "K3"] + ["K2"] * scene.num_lights,
+          f"[tori10k] sample tiles: kernel calls {names}")
+    out, light = {}, 0
+    for kind, a, k, res in calls:
+        tab = k["cull"]
+        ms_ = [q.m for q in tab.tables]
+        # shadow marches take max(cull_m, cull_m_shadow) (ops/march.py)
+        want_m = max(mcfg.cull_m, mcfg.cull_m_shadow) if kind == "K2" \
+            else mcfg.cull_m
+        check(ms_ == [cull._pair_m(want_m, r1 - r0) for (_g, _k, _ki, r0, r1)
+                      in tab.pairs], f"[tori10k] {kind} tables of m {ms_}")
+        prog = mk.lower_program(scene, a[0].device, tab.pairs)
+        plan = mk.surface_stage_plan(prog, tab) if kind == "K3" \
+            else mk.march_stage_plan(prog, tab)
+        check(all(x == staged for x in plan.staged),
+              f"[tori10k] {kind} pairs staged {plan.staged}, want {staged}")
+        label = (f"{kind}{'' if kind != 'K2' else f' light {light}'} at the "
+                 f"10k tables, {SAMPLE_TILES_10K} tiles (m {ms_}, candidates "
+                 f"per tile max {[int(q.count.max()) for q in tab.tables]}, "
+                 f"pairs staged {plan.staged}, {plan.bytes} bytes of shared "
+                 f"memory a block)")
+        if kind == "K3":
+            kk = mk.surface_kernel(scene, *a, **k)
+            pp, plain_ms = host_ms(lambda: mk.surface_plain(scene, *a, **k))
+            err = compare_surface(kk, pp, a[4], label)
+            bnd = surface_bound(scene, a, kk, tab)
+            ms = device_ms(lambda: mk.surface_kernel(scene, *a, **k))
+            name = "surface_culled"
+        else:
+            lanes = dict(zip(("origin", "direction", "length", "epsilon",
+                              "t0"), a))
+            with window_rows(tab) as win:
+                p, plain_ms = host_ms(lambda: mk.march_plain(scene, *a, **k))
+            if kind == "K1":
+                err = compare_march(res, p, label)
+                name = "march_culled"
+            else:
+                agree = (res[0] == p[0]).float().mean().item()
+                log(f"  {label}: hit agreement {agree:.6f}")
+                check(agree >= 0.999, f"{label}: {agree}")
+                err = float(agree < 1.0)
+                name = "occlusion_culled"
+            bnd = march_bound(scene, lanes, res, tab, win)
+            ms = device_ms(lambda: mk.march_kernel(scene, *a, **k), reps=20)
+        log(f"  {label}: kernel {ms:.4f} ms on the device, plain "
+            f"{plain_ms:.2f} ms, bound {bnd[0]:.4g} ms ({bnd[1]})")
+        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+               "bound_by": bnd[1], "err": err, "staged": plan.staged,
+               "m": ms_}
+        if kind == "K2":
+            row = {f"{key}_light{light}" if light else key: v
+                   for key, v in row.items()}
+            light += 1
+        out.setdefault(name, {}).update(row)
+    return out
+
+
+def phase_tori10k(dev, build_dir):
+    """The 10,000-torus 1024² frame (``bench_10k.py``): the table sizing
+    from the scene's own candidate counts, the frame's launches (no
+    overflow re-run), its median time, the table build's time alone, peak
+    memory, a profiled frame, which pairs were staged, and K1/K2/K3
+    against their plain versions on sample tiles at those tables."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch import bench_10k
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    scene, cam, base, flat = bench_10k.setup(SIZE, TORI_10K, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sizes = bench_10k.table_sizes(scene, base, flat)
+    torch.cuda.synchronize()
+    sizing_s = time.perf_counter() - t0
+    sizing_peak = torch.cuda.max_memory_allocated()
+    log(f"  sizing ({sizing_s:.2f} s, peak {sizing_peak / 2**20:.1f} MiB): "
+        f"{sizes}")
+    mcfg = dataclasses.replace(base, cull_m=sizes["cull_m"],
+                               cull_m_shadow=sizes["cull_m_shadow"])
+    cfg = ft.RenderConfig(width=SIZE, height=SIZE, epsilon=EPS, length=30.0,
+                          march=mcfg)
+    ops_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, n_rays = ft.render_with_stats(scene, cam, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = ops_cuda.launch_counts()
+    check_frame_launches(counts, "[tori10k] frame")
+    check(bool(torch.isfinite(img).all()), "[tori10k] non-finite pixels")
+    share = (img - scene.background).abs().amax(-1).gt(1e-6).float() \
+        .mean().item()
+    log(f"  10k frame {SIZE}^2: launches "
+        f"{ {k: counts[k] for k in FRAME_LAUNCHES} }, n_rays {int(n_rays)}, "
+        f"non-background share {share:.4f}, first {first_s * 1e3:.1f} ms")
+    with frame_spies() as rec:
+        ft.render_with_stats(scene, cam, cfg)
+    for name, tabs in zip(["primary"] + [f"light {i}" for i in
+                                         range(scene.num_lights)],
+                          rec["tables"]):
+        log(f"  candidates per tile, {name}: " + ", ".join(
+            f"max {mx} mean {mean:.2f} (table m {m})"
+            for mx, mean, m in tabs))
+    med, times = median_ms(lambda: ft.render_with_stats(scene, cam, cfg), 5)
+    torch.cuda.reset_peak_memory_stats()
+    ft.render_with_stats(scene, cam, cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        tables = bench_10k.primary_tables(scene, mcfg, flat)
+        build, _t = median_ms(lambda: bench_10k.primary_tables(
+            scene, mcfg, flat), 5)
+    table_bytes = sum(nbytes(q.table, q.keys, q.hsuf, q.misc, q.idx)
+                      for q in tables.tables)
+    log(f"  10k frame median {med:.2f} ms ({[round(t, 2) for t in times]}), "
+        f"{int(n_rays) / med * 1e3:.4g} rays/s, peak {peak / 2**20:.1f} MiB; "
+        f"primary table build alone {build:.2f} ms, {table_bytes} bytes of "
+        f"tables and indices")
+    prof = {}
+    idle = profile_frame(scene, cam, cfg,
+                         build_dir / "chip_smoke_tori10k_frame_trace.json",
+                         record=prof)
+    sample = tori10k_sample_tiles(scene, flat, mcfg, tables, staged=True)
+    log(f"  the same tiles with tables of m {UNSTAGED_M_10K}, past a "
+        f"block's shared memory (read from device memory)")
+    unstaged = tori10k_sample_tiles(
+        scene, flat, dataclasses.replace(mcfg, cull_m=UNSTAGED_M_10K,
+                                         cull_m_shadow=UNSTAGED_M_10K),
+        tables, staged=False)
+    for name, row in unstaged.items():
+        sample[name].update({"unstaged_" + k: v for k, v in row.items()})
+    return {"sizes": sizes, "counts": counts, "med": med, "first_s": first_s,
+            "peak": peak, "sizing_peak": sizing_peak, "build_ms": build,
+            "table_bytes": table_bytes, "idle": idle, "n_rays": int(n_rays),
+            "profile": prof.get("kernels", []), "sample": sample}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the periphery (utils/debug.py, utils/profiling.py)
+# ---------------------------------------------------------------------------
+
+def phase_periphery(dev, scene, build_dir):
+    """``validate_scene`` on the benchmark scene and on a broken copy;
+    ``nan_guard`` silent over a clean 256² frame and its backward on the
+    card, raising on a NaN put in the scene; a ``march_stats`` report of
+    the 1024² primary rays; a ``trace`` file written."""
+    import shutil
+
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.render import _to_blocks
+    from fraytracer_tpu_torch.utils import debug, profiling
+    check(debug.validate_scene(scene) == [], "validate_scene: problems on "
+          "the benchmark scene")
+    leaves = {k: v.clone() for k, v in scene.tensors().items()}
+    leaves["prim_params/torus"][0, 0] = float("nan")
+    bad = scene.with_tensors(leaves)
+    problems = debug.validate_scene(bad)
+    check(problems == ["torus: non-finite parameters"], f"{problems}")
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    small = bench_config(256)
+    live = scene.with_tensors({k: v.detach().clone().requires_grad_(True)
+                               for k, v in scene.tensors().items()})
+    with debug.nan_guard():
+        (ft.render(live, cam, small) ** 2).sum().backward()
+    try:
+        with debug.nan_guard():
+            ft.render(bad, cam, small)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    check(raised is not None, "nan_guard let the injected NaN through")
+    log(f"  validate_scene: [] on the benchmark scene, {problems} with a "
+        f"NaN put in; nan_guard silent over a clean 256^2 frame and its "
+        f"backward, raised on the NaN: {raised}")
+    flat = ft.camera_rays(cam, SIZE, SIZE, EPS, 30.0).map(
+        lambda x: _to_blocks(x, SIZE, SIZE, 32))
+    stats = profiling.march_stats(scene, flat, bench_config(SIZE).march)
+    log(f"  march_stats {SIZE}^2 primary rays: {stats.to_json()}")
+    check(stats.n_rays == SIZE * SIZE and 0.0 < stats.hit_fraction < 1.0
+          and stats.steps_max <= 192
+          and sum(stats.steps_histogram.values()) == SIZE * SIZE,
+          "march_stats report")
+    out_dir = build_dir / "periphery_trace"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    with profiling.trace(str(out_dir)):
+        ft.render(scene, cam, bench_config(SIZE))
+        torch.cuda.synchronize()
+    files = list(out_dir.iterdir())
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = sorted({e["name"].split("(")[0].replace("void ", "")
+                      for e in events if e.get("cat") == "kernel"
+                      and "_kernel" in e.get("name", "")})
+    check(len(files) == 1 and any("march_kernel" in k for k in kernels),
+          f"trace: {files}, kernels {kernels}")
+    log(f"  trace: {files[0].name}, {len(events)} events, port kernels "
+        f"{[k for k in kernels if k.split('<')[0] in ('march_kernel', 'surface_kernel')]}")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the bench entry point
 # ---------------------------------------------------------------------------
 
 def phase_bench(spectral_counts):
     """``python -m fraytracer_tpu_torch.bench`` at its defaults (the full
     width: 1024², 1000 tori, forward, forward + backward, the 512² spectral
-    frame) in a process of its own (its warm-up is a process's first
-    launch); every JSON line parsed, the last one echoed.
-    ``spectral_counts``: one spectral frame's launches in the spectral
-    phase, the same frame the bench runs 9 times."""
+    frame, the 10,000-torus frame, the scaling report) in a process of its
+    own (its warm-up is a process's first launch); every JSON line parsed,
+    the last one echoed.  ``spectral_counts``: one spectral frame's
+    launches in the spectral phase, the same frame the bench runs 9
+    times."""
     cmd = [sys.executable, "-m", "fraytracer_tpu_torch.bench"]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
                           cwd=str(Path(__file__).resolve().parent))
     check(proc.returncode == 0, f"bench exited {proc.returncode}:\n"
           f"{proc.stderr[-2000:]}")
     lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
-    check(len(lines) == 3, f"bench printed {len(lines)} JSON lines, want 3")
-    first, second, last = (json.loads(l) for l in lines)
-    check(set(first) < set(second) < set(last),
+    check(len(lines) == 5, f"bench printed {len(lines)} JSON lines, want 5")
+    first, second, third, tenk, last = (json.loads(l) for l in lines)
+    check(set(first) < set(second) < set(third) < set(tenk) < set(last),
           "bench stages are not supersets")
     check("fwd_bwd_time_s" not in first and first["value"] == last["value"],
           "bench: the forward stage's line")
     check("spectral_time_s" not in second
           and second["fwd_bwd_time_s"] == last["fwd_bwd_time_s"],
           "bench: the fwd+bwd stage's line")
+    check("tori_10k" not in third and set(tenk) - set(third) == {"tori_10k"}
+          and not any(k.startswith("scaling_") for k in tenk),
+          "bench: the 10k stage's line")
     log(f"  bench: {lines[-1]}")
     for k in ("value", "n_rays", "fwd_time_s", "backend_warmup_s",
               "fwd_bwd_time_s", "fwd_bwd_over_fwd", "device",
               "kernel_launches", "spectral_time_s", "spectral_size",
               "spectral_rays_marched", "spectral_rays_per_sec"):
         check(k in last, f"bench line lacks {k}")
-    check(not any("compile" in k for k in last), "bench: a compile field")
+    check(not any("compile" in k for k in last)
+          and not any("compile" in k for k in last["tori_10k"]),
+          "bench: a compile field")
     check((last["image_size"], last["n_tori"]) == (SIZE, BENCH_N_TORI),
           f"bench ran {last['image_size']}^2 / {last['n_tori']} tori")
     check(last["n_rays_primary"] == SIZE * SIZE <= last["n_rays"],
@@ -2500,9 +3076,24 @@ def phase_bench(spectral_counts):
           == (1, frames, frames, 2 * frames, 0),
           f"bench launches after fwd+bwd {kl}")
     # then 1 + 8 spectral frames, each the spectral phase's frame
-    spec = {k: v - kl[k] for k, v in last["kernel_launches"].items()}
+    spec = {k: v - kl[k] for k, v in third["kernel_launches"].items()}
     want = {k: 9 * v for k, v in spectral_counts.items()}
     check(spec == want, f"bench spectral launches {spec}, want {want}")
+    # the 10k frame's process: W once, its first frame one culled frame
+    t = last["tori_10k"]
+    check((t["tori10k_n_tori"], t["tori10k_image_size"]) == (10000, SIZE)
+          and t["tori10k_warm_launches"] == 1
+          and all(t["tori10k_frame_launches"][k] == v
+                  for k, v in FRAME_LAUNCHES.items())
+          and t["tori10k_fwd_time_s"] > 0 and t["tori10k_prep_ms_primary"] > 0
+          and t["tori10k_cull_m"] > 0, f"bench tori_10k {t}")
+    # the scaling report's process: one NCCL rank on the card, W once
+    check((last["scaling_ranks"], last["scaling_backend"],
+           last["scaling_cards"], last["scaling_image_size"],
+           last["scaling_n_tori"]) == (1, "nccl", 1, 256, 100)
+          and last["scaling_kernel_launches"]["warm"] == 1
+          and last["scaling_max_abs_diff"] == 0.0,
+          f"bench scaling {[(k, v) for k, v in last.items() if k.startswith('scaling_')]}")
     return last
 
 
@@ -2801,6 +3392,18 @@ def main() -> int:
     log("[grad] the gradient path")
     grad = phase_grad(dev, scene, blend, build.BUILD_DIR, culled["med"],
                       blend_culled["med"])
+    log(f"[multi] a: the sharded paths over one NCCL rank on the card "
+        f"({SIZE}^2 frame, train step, {SPECTRAL_SIZE}^2 rebalanced "
+        f"spectral frame)")
+    from fraytracer_tpu_torch.scene.generators import spectral_csg_scene
+    sscene = ft.flatten(spectral_csg_scene(19, BENCH_N_TORI), device=dev)
+    multi = phase_multi_world1(dev, scene, sscene)
+    log(f"[multi] b: {MULTI_RANKS} gloo ranks spawned on the one card")
+    multi_b = phase_multi_gloo(multi)
+    log(f"[tori10k] {TORI_10K} tori at {SIZE}^2")
+    tenk = phase_tori10k(dev, build.BUILD_DIR)
+    log("[periphery] validate_scene, nan_guard, march_stats, trace")
+    phase_periphery(dev, scene, build.BUILD_DIR)
     log("[bench] the bench entry point in a process of its own")
     bench = phase_bench(spectral["counts"])
 
@@ -2889,9 +3492,31 @@ def main() -> int:
         if name + "_ldg" in times:
             kernels[-1]["ms_ldg"] = times[name + "_ldg"]["ms"]
     kernels[-5]["first_launch_ms"] = warm_first_ms
-    # launches in one spectral frame (512², 8 bins, depth 4) of each row
+    # launches in one spectral frame (512², 8 bins, depth 4) of each row,
+    # in the 10,000-torus frame, in the sharded frame (one NCCL rank; each
+    # of two gloo ranks) and in the rebalanced sharded spectral frame (one
+    # NCCL rank); the culled K1/K2/K3 at the 10k tables: device time on the
+    # sample tiles with its bound and plain time, and the profiled 10k
+    # frame's launches (K1, then K2 a light; K3)
+    by_kernel = {}
+    for kname, ms in tenk["profile"]:
+        by_kernel.setdefault(kname.split("<")[0], []).append(ms)
+    marches = by_kernel.get("march_kernel", [])
+    profiled = {"march_culled": marches[:1], "occlusion_culled": marches[1:],
+                "surface_culled": by_kernel.get("surface_kernel", [])}
     for row in kernels:
-        row["spectral_frame_launches"] = spectral["counts"][row["name"]]
+        name = row["name"]
+        row["spectral_frame_launches"] = spectral["counts"][name]
+        row["tori10k_frame_launches"] = tenk["counts"][name]
+        row["sharded_frame_launches"] = multi["counts"][name]
+        row["sharded_frame_launches_per_gloo_rank"] = [
+            r["counts"][name] for r in multi_b["ranks"]]
+        row["sharded_spectral_frame_launches"] = \
+            multi["spectral_counts"][name]
+        for k, v in tenk["sample"].get(name, {}).items():
+            row["tori10k_" + k] = v
+        if name in profiled:
+            row["tori10k_frame_profile_ms"] = profiled[name]
     for tag, st in (("culled", culled), ("dense", dense),
                     ("blend", blend_culled), ("blend_dense", blend_dense)):
         log(f"[summary] {tag} frame first {st['first_s'] * 1e3:.1f} ms, "
@@ -2910,6 +3535,24 @@ def main() -> int:
         f", launches {spectral['want']} (re-runs {spectral['reruns']}), "
         f"active lanes by round "
         f"{[r['active'] for r in spectral['rounds']]}")
+    log(f"[summary] sharded paths: one NCCL rank frame median "
+        f"{multi['frame_ms']:.2f} ms against render's "
+        f"{multi['single_ms']:.2f} ms, train step (4 chunks) "
+        f"{multi['step4_ms']:.2f} ms against one-process fwd+bwd "
+        f"{multi['single_step_ms']:.2f} ms, rebalanced spectral "
+        f"{multi['spectral_ms']:.2f} ms against "
+        f"{multi['single_spectral_ms']:.2f} ms; {MULTI_RANKS} gloo ranks on "
+        f"one card: frame medians "
+        f"{[round(r['frame_ms'][0], 2) for r in multi_b['ranks']]} ms, step "
+        f"{[round(r['step_ms'][0], 2) for r in multi_b['ranks']]} ms, "
+        f"spectral {[round(r['spectral_ms'][0], 2) for r in multi_b['ranks']]}"
+        f" ms ({nvidia_smi()})")
+    log(f"[summary] 10k frame: tables {tenk['sizes']}, median "
+        f"{tenk['med']:.2f} ms, first {tenk['first_s'] * 1e3:.1f} ms, peak "
+        f"{tenk['peak'] / 2**20:.1f} MiB (sizing "
+        f"{tenk['sizing_peak'] / 2**20:.1f} MiB), primary table build "
+        f"{tenk['build_ms']:.2f} ms, {tenk['table_bytes']} bytes of primary "
+        f"tables, idle share {tenk['idle']}")
     full = grad["full"]
     log(f"[summary] fwd+bwd culled frame: median {full['med'] * 1e3:.2f} ms "
         f"({full['med'] / culled['med']:.2f} x the forward), peak "
@@ -2925,6 +3568,8 @@ def main() -> int:
         f"{bench['backend_warmup_s']} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
+    import torch.distributed as dist
+    dist.destroy_process_group()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,25 +1,32 @@
 """Benchmark of the port: forward and forward + backward frame times on
-the CSG scene and the spectral wavefront's frame time (counterpart of the
-JAX package's ``bench.py``, its warm-up, forward, fwd+bwd and spectral
-sections).
+the CSG scene, the spectral wavefront's frame time, the 10,000-torus frame
+and the sharded render's scaling report (counterpart of the JAX package's
+``bench.py``, its warm-up, forward, fwd+bwd, spectral, ``tori_10k`` and
+scaling sections).
 
 Workload = the reference's de-facto benchmark: the 1000-random-tori CSG
 scene at 1024x1024 with 2 lights, epsilon 0.01, ray budget 30, through the
 culled CUDA kernels.  The spectral section renders
 ``spectral_csg_scene`` (the same tori, a quarter of them dispersive glass
 and a tenth mirrors) at ``min(size, 512)``², 8 wavelength bins, depth 4.
+On the card at ``size >= 1024`` and ``tori >= 1000``, ``bench_10k.py``
+renders 10,000 tori at ``size``² in a process of its own (field
+``tori_10k``).  Last, ``parallel/scaling.py`` in a process of its own times
+the sharded render at ``min(size, 256)``² / ``min(tori, 100)`` tori over one
+rank (NCCL on the card, gloo on the CPU) against one process: its
+``scaling_*`` fields name the ranks, backend and cards that ran.
 
     python -m fraytracer_tpu_torch.bench [--size 1024] [--tori 1000]
-        [--quick] [--repeats 3] [--no-bwd] [--no-spectral]
+        [--quick] [--repeats 3] [--no-bwd] [--no-spectral] [--no-scaling]
         [--device cuda|cpu]
 
 Prints ONE JSON line per finished stage, each a superset of the last (a
 reader takes the LAST line): the headline ``rays_per_sec_per_chip_fwd``
 as soon as the forward timing and the ray count are known, then the
-fwd+bwd fields, then the spectral fields.  Times are medians of frames
-bracketed by a device synchronize (the spectral frame: the best of 2
-rounds of 4); ``device`` names the card and its power limit.  Progress
-goes to stderr.
+fwd+bwd fields, then the spectral fields, ``tori_10k``, the scaling
+fields.  Times are medians of frames bracketed by a device synchronize
+(the spectral frame: the best of 2 rounds of 4); ``device`` names the card
+and its power limit.  Progress goes to stderr.
 """
 from __future__ import annotations
 
@@ -29,6 +36,12 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+# fields of the headline record that a merged report may not overwrite
+PROTECTED = ("metric", "value", "unit", "image_size", "n_tori", "n_rays",
+             "n_rays_primary")
 
 
 def log(msg: str) -> None:
@@ -56,6 +69,18 @@ def device_label(device) -> str:
     return out or torch.cuda.get_device_name(device)
 
 
+def run_json(module: str, *argv: str, timeout: float) -> dict:
+    """``python -m module argv`` in a process of its own; its last stdout
+    line parsed as JSON.  Raises with the process's stderr when it fails."""
+    proc = subprocess.run([sys.executable, "-m", module, *argv],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=str(ROOT))
+    if proc.returncode != 0:
+        raise SystemExit(f"{module} exited {proc.returncode}:\n"
+                         f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def timed(fn, sync, frames: int):
     """Seconds of each of ``frames`` calls of ``fn``, each bracketed by
     ``sync`` (a device synchronize)."""
@@ -81,6 +106,8 @@ def main(argv=None) -> int:
                     help="skip the fwd+bwd timing")
     ap.add_argument("--no-spectral", action="store_true",
                     help="skip the spectral wavefront timing")
+    ap.add_argument("--no-scaling", action="store_true",
+                    help="skip the sharded render's scaling report")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (kernels, default) or cpu (plain versions)")
     args = ap.parse_args(argv)
@@ -231,6 +258,29 @@ def main(argv=None) -> int:
         result["kernel_launches"] = launch_counts()
         log(f"spectral {result['spectral_time_s']:.3f}s (best of 2 x 4 "
             f"frames), {float(n_spec):.0f} rays")
+        emit(result)
+
+    if on_card and args.size >= 1024 and args.tori >= 1000:
+        # the 10× scene: 10,000 tori with tables sized from the scene's own
+        # candidate counts, and the table build timed alone; in a process
+        # of its own, as the JAX bench runs it
+        log(f"10,000 tori at {args.size}^2 (bench_10k)...")
+        result["tori_10k"] = run_json("fraytracer_tpu_torch.bench_10k",
+                                      str(args.size), "10000", timeout=900)
+        emit(result)
+
+    if not args.no_scaling:
+        # the sharded render over one rank against one process; the report
+        # names ranks, backend and cards, and claims no multi-card scaling
+        size, tori = min(args.size, 256), min(args.tori, 100)
+        log(f"scaling report {size}^2, {tori} tori (parallel.scaling)...")
+        extra = run_json("fraytracer_tpu_torch.parallel.scaling", str(size),
+                         str(tori), "--device", args.device, timeout=600)
+        clobber = set(extra) & set(PROTECTED)
+        if clobber:
+            raise SystemExit(f"the scaling report would overwrite "
+                             f"{sorted(clobber)}")
+        result.update(extra)
         emit(result)
     return 0
 

@@ -962,6 +962,35 @@ def _overflow_on_host(cull: CullTables | None):
 
 
 @torch.no_grad()
+def march_tables(scene: FlatScene, rays: Rays, cfg: MarchConfig,
+                 cone_apex: Tensor | None = None, sign: Tensor | None = None):
+    """A flat batch's march range and tables as K1/K2/K3 read them:
+    ``(t0, miss0, length, cull)`` — the root-bound skip's start, the lanes
+    that miss the bound, the budget clamped to the bound's exit (0 on those
+    lanes), and the culled pairs' candidate tables (``None`` without
+    culled pairs)."""
+    n = rays.origin.shape[0]
+    dev = rays.origin.device
+    t0 = torch.zeros(n, dtype=torch.float32, device=dev)
+    miss0 = torch.zeros(n, dtype=torch.bool, device=dev)
+    length = rays.length
+    if cfg.bound_skip:
+        t0, miss0, t_exit = bound_skip_start(scene, rays, sign)
+        length = torch.minimum(length, t_exit)
+    length = torch.where(miss0, 0.0, length).contiguous()
+    t0 = t0.contiguous()
+    pairs = cull_pairs_for(scene, cfg)
+    cull = None
+    if pairs:
+        cull = build_pair_tables(scene, rays.origin.contiguous(),
+                                 rays.direction.contiguous(), t0, length,
+                                 rays.epsilon.contiguous(), pairs,
+                                 cfg.cull_m, cfg.cull_window_clamp,
+                                 cone_apex, cfg.cull_early_out)
+    return t0, miss0, length, cull
+
+
+@torch.no_grad()
 def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
                    want_surface: bool = False, occlusion: bool = False,
                    cone_apex: Tensor | None = None,
@@ -983,22 +1012,9 @@ def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
     origin = rays.origin.contiguous()
     direction = rays.direction.contiguous()
     epsilon = rays.epsilon.contiguous()
-    n = origin.shape[0]
-    t0 = torch.zeros(n, dtype=torch.float32, device=origin.device)
-    miss0 = torch.zeros(n, dtype=torch.bool, device=origin.device)
-    length = rays.length
-    if cfg.bound_skip:
-        t0, miss0, t_exit = bound_skip_start(scene, rays, sign)
-        length = torch.minimum(length, t_exit)
-    length = torch.where(miss0, 0.0, length).contiguous()
-    t0 = t0.contiguous()
-    pairs = cull_pairs_for(scene, cfg)
-    cull = None
-    if pairs:
-        cull = build_pair_tables(scene, origin, direction, t0, length,
-                                 epsilon, pairs, cfg.cull_m,
-                                 cfg.cull_window_clamp, cone_apex,
-                                 cfg.cull_early_out)
+    t0, miss0, length, cull = march_tables(scene, rays, cfg, cone_apex,
+                                           sign)
+    pairs = cull.pairs if cull is not None else ()
     overflowed = _overflow_on_host(cull)
     kw = dict(max_steps=cfg.max_steps, omega=cfg.relax_omega, cull=cull,
               sign=sign)

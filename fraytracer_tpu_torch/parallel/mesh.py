@@ -1,0 +1,340 @@
+"""Multi-process execution: image rows sharded over the ranks of a process
+group (counterpart of ``fraytracer_tpu.parallel.mesh``).
+
+One rank is one process with one device.  The scene and the camera are
+replicated; rank ``k`` of ``n`` traces rows ``[k·H/n, (k+1)·H/n)`` and keeps
+them.  The only communication is explicit ``torch.distributed`` calls on
+the mesh's group:
+
+* one ``all_reduce(MAX)`` for the auto-exposure maximum;
+* in the training step, one ``all_reduce(SUM)`` of each chunk's gradients,
+  issued asynchronously so that it runs during the next chunk's backward,
+  and one of the chunk losses;
+* in the rebalanced spectral frame, an ``all_gather`` of the active counts
+  and an ``all_to_all_single`` of ray lanes a round, one ``all_reduce(SUM)``
+  of the frame and an ``all_gather`` of the counts.
+
+The gloo backend takes all of these on CUDA tensors as well as on CPU
+tensors (torch 2.11, two ranks on one H100), so no collective is staged
+through host memory here.  Multi-host runs call
+``parallel.multihost.initialize`` first; these functions then see every
+rank of every host.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional, Union
+
+import torch
+import torch.distributed as dist
+
+from .. import camera as cam
+from ..render import (BLOCK_EDGE, RenderConfig, _from_blocks, _to_blocks,
+                      render_grid)
+from ..ops.march import check_config
+from ..scene.flatten import FlatScene
+
+Tensor = torch.Tensor
+
+AXIS = "rays"
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A 1-D mesh of ranks along the axis ``"rays"``: the process group,
+    this process's rank in it, the group's size and this rank's device."""
+
+    group: object
+    rank: int
+    size: int
+    device: torch.device
+    axis: str = AXIS
+
+    @property
+    def backend(self) -> str:
+        return dist.get_backend(self.group)
+
+
+def local_rank() -> int:
+    """This process's card on its host: torchrun's ``LOCAL_RANK``, else the
+    global rank modulo the host's cards (ranks spawned on one host)."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    return dist.get_rank() % max(torch.cuda.device_count(), 1)
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              devices: Union[None, str, torch.device] = None
+              ) -> Optional[Mesh]:
+    """A mesh over the first ``n_devices`` ranks of the initialized process
+    group (all of them by default).  Every rank must call it: a mesh
+    smaller than the world is a new group, whose creation is collective;
+    a rank outside it gets ``None``.
+
+    ``devices``: ``None`` puts this rank on ``cuda:<local rank>``; a device
+    (e.g. ``"cpu"``) puts every rank there."""
+    if not dist.is_initialized():
+        raise RuntimeError("torch.distributed is not initialized: call "
+                           "parallel.multihost.initialize() first")
+    world = dist.get_world_size()
+    n = world if n_devices is None else int(n_devices)
+    if not 1 <= n <= world:
+        raise ValueError(f"a mesh of {n} ranks in a world of {world}")
+    group = dist.group.WORLD if n == world else dist.new_group(list(range(n)))
+    rank = dist.get_rank()
+    if rank >= n:
+        return None
+    device = torch.device("cuda", local_rank()) if devices is None \
+        else torch.device(devices)
+    return Mesh(group=group, rank=rank, size=n, device=device)
+
+
+def _shard_rows(mesh: Mesh, height: int) -> int:
+    """Rows a rank holds; raises when ``height`` does not divide."""
+    if height % mesh.size != 0:
+        raise ValueError(
+            f"image height {height} must divide by mesh size {mesh.size}")
+    return height // mesh.size
+
+
+def _band(x: Tensor, mesh: Mesh, rows: int) -> Tensor:
+    return x[mesh.rank * rows:(mesh.rank + 1) * rows]
+
+
+def all_gather(x: Tensor, mesh: Mesh) -> Tensor:
+    """``[n, *x.shape]``: every rank's ``x`` (at least 1-D), stacked in
+    rank order (gathered in the concatenated form, which gloo takes)."""
+    out = torch.empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
+    return out.reshape((mesh.size,) + tuple(x.shape))
+
+
+def render_sharded(scene: FlatScene, camera: cam.Camera, cfg: RenderConfig,
+                   mesh: Mesh) -> Tensor:
+    """This rank's rows of the full frame, linear RGB ``[H/n, W, 3]`` (no
+    tone map).  Each rank traces its band of the camera's rays on its own,
+    in the 32×32 block order of ``render.render_with_stats`` when 32 divides
+    the band's sides: a band of whole block rows then gets the tiles,
+    candidate tables and windows of the one-process frame, and its pixels
+    are that frame's bit for bit.  A band that is not blocked is traced in
+    row order; on the culled path its tiles differ, and so may its hits
+    inside the ε shell."""
+    check_config(cfg.march)
+    rows = _shard_rows(mesh, cfg.height)
+    rays = cam.camera_rays(camera, cfg.width, cfg.height, cfg.epsilon,
+                           cfg.length)
+    return render_grid(scene, rays.map(lambda x: _band(x, mesh, rows)),
+                       cfg)[0]
+
+
+def exposure_max_sharded(image: Tensor, mesh: Mesh) -> Tensor:
+    """The frame's maximum from every rank's rows: one ``all_reduce(MAX)``
+    (the auto-exposure of ``Image.fs:40-43`` across ranks)."""
+    m = image.detach().amax().reshape(1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.group)
+    return m[0]
+
+
+# ---------------------------------------------------------------------------
+# Spectral wavefront with rows sharded, optionally rebalanced
+# ---------------------------------------------------------------------------
+
+_LANE_WIDTH = 12    # 4-byte columns of a packed queue lane
+
+
+def _pack(q) -> Tensor:
+    """A queue as ``[C, 12]`` float32 rows: origin, direction, then pixel,
+    wavelength bin, throughput, budget, inside and active, the integers
+    and flags bit-cast (one collective moves a lane whole)."""
+    def bits(x):
+        return x.to(torch.int32).view(torch.float32)[:, None]
+    return torch.cat([q.origin, q.direction, bits(q.pixel), bits(q.wl),
+                      q.throughput[:, None], q.length[:, None],
+                      bits(q.inside), bits(q.active)], 1)
+
+
+def _unpack(rows: Tensor):
+    from ..ops.wavefront import RayQueue
+
+    def bits(j):
+        return rows[:, j].contiguous().view(torch.int32)
+    return RayQueue(origin=rows[:, 0:3].contiguous(),
+                    direction=rows[:, 3:6].contiguous(), pixel=bits(6),
+                    wl=bits(7), throughput=rows[:, 8].contiguous(),
+                    length=rows[:, 9].contiguous(), inside=bits(10) != 0,
+                    active=bits(11) != 0)
+
+
+def _rebalance_exchange(q, k: int, n_dev: int, C: int, tmin: float,
+                        mesh: Mesh):
+    """Fixed-size all-to-all ray redistribution (JAX ``mesh.py:88``); each
+    rank keeps O(C) memory whatever the mesh size:
+
+    1. local stable compaction (active lanes first, in their order);
+    2. ``all_gather`` of the active counts only (``[n]`` integers);
+    3. a live lane's global rank gives its destination
+       ``dst = rank·n // A``, an exactly balanced contiguous partition, so
+       each (source, destination) pair exchanges one contiguous block;
+    4. lanes ship by ``all_to_all_single`` over an ``[n, S]`` buffer with
+       ``S = C // n``; lanes past a pair's ``S`` slots stay with their
+       donor;
+    5. received and kept lanes merge and compact back to ``C`` by a
+       lane-granular stable sort of the class (live, live below ``tmin``,
+       dead), as JAX does at :147."""
+    from ..ops.wavefront import _concat
+    order = torch.argsort((~q.active).to(torch.int32), stable=True)
+    q = q.map(lambda x: x[order])
+    dev = q.active.device
+    lane = torch.arange(C, dtype=torch.int64, device=dev)
+    counts = all_gather(q.active.sum().reshape(1), mesh)[:, 0]
+    A = counts.sum()
+    start_k = (torch.cumsum(counts, 0) - counts)[k]
+    S = max(C // n_dev, 1)
+    rank = start_k + lane
+    dst = torch.clamp_max(rank * n_dev // torch.clamp_min(A, 1), n_dev - 1)
+    r0_dst = (dst * A + n_dev - 1) // n_dev          # ceil(dst·A/n)
+    pair_idx = rank - torch.maximum(start_k, r0_dst)
+    ship = q.active & (dst != k) & (pair_idx >= 0) & (pair_idx < S)
+    keep = q.active & ~ship
+    # lanes that stay write a spare last row, which is not sent
+    slot = torch.where(ship, dst * S + pair_idx, n_dev * S)
+    send = torch.zeros((n_dev * S + 1, _LANE_WIDTH), dtype=torch.float32,
+                       device=dev)
+    send[slot] = _pack(dataclasses.replace(q, active=ship))
+    recv = torch.empty((n_dev * S, _LANE_WIDTH), dtype=torch.float32,
+                       device=dev)
+    dist.all_to_all_single(recv, send[:-1], group=mesh.group)
+    both = _concat(dataclasses.replace(q, active=keep), _unpack(recv))
+    low = both.active & (both.throughput < tmin)
+    klass = (~both.active).to(torch.int32) * 2 + low.to(torch.int32)
+    take = torch.argsort(klass, stable=True)[:C]
+    return both.map(lambda x: x[take])
+
+
+@torch.no_grad()
+def render_spectral_sharded(scene: FlatScene, camera: cam.Camera, width: int,
+                            height: int, wcfg, mesh: Mesh,
+                            rebalance: bool = False):
+    """Spectral wavefront frame with image rows sharded over the mesh.
+
+    Each rank runs its band's queue — ``B`` lanes a pixel, pixel-major, in
+    the band's 32×32 block order on the "cuda" backend — through every
+    round of ``ops/wavefront.py::_bounce`` (the JAX sharded frame has no
+    shared primary round either).  ``rebalance=False``: queues stay with
+    their rank.  ``rebalance=True``: before each round after the first,
+    live lanes are spread evenly over the ranks (:func:`_rebalance_exchange`);
+    lanes carry global pixel ids, every rank accumulates into a full-frame
+    buffer, and one ``all_reduce(SUM)`` assembles the frame, of which each
+    rank keeps its band.
+
+    Returns ``(rows [H/n, W, 3], counts [n, depth])``: this rank's linear
+    RGB rows, and the live lanes entering each round on every rank (after
+    the exchange), gathered to every rank."""
+    from ..ops.wavefront import RayQueue, _bounce, _repeat
+    rows = _shard_rows(mesh, height)
+    n, k = mesh.size, mesh.rank
+    base = cam.camera_rays(camera, width, height, wcfg.epsilon, wcfg.length)
+    band = base.map(lambda x: _band(x, mesh, rows))
+    blocked = (wcfg.march.backend == "cuda" and rows % BLOCK_EDGE == 0
+               and width % BLOCK_EDGE == 0)
+    if blocked:
+        o = _to_blocks(band.origin, rows, width, BLOCK_EDGE)
+        d = _to_blocks(band.direction, rows, width, BLOCK_EDGE)
+    else:
+        o = band.origin.reshape(-1, 3)
+        d = band.direction.reshape(-1, 3)
+    dev = o.device
+    npix = rows * width
+    B = wcfg.num_bins
+    C = npix * B
+    pix0 = k * npix if rebalance else 0
+    f32 = dict(dtype=torch.float32, device=dev)
+    q = RayQueue(
+        origin=_repeat(o, B), direction=_repeat(d, B),
+        pixel=pix0 + _repeat(torch.arange(npix, dtype=torch.int32,
+                                          device=dev), B),
+        wl=torch.arange(B, dtype=torch.int32, device=dev).repeat(npix),
+        throughput=torch.full((C,), 1.0 / B, **f32),
+        length=torch.full((C,), wcfg.length, **f32),
+        inside=torch.zeros((C,), dtype=torch.bool, device=dev),
+        active=torch.ones((C,), dtype=torch.bool, device=dev))
+    image = torch.zeros((npix * n if rebalance else npix, 3), **f32)
+    counts = []
+    for bounce in range(wcfg.depth):
+        if rebalance and bounce > 0:
+            q = _rebalance_exchange(q, k, n, C, wcfg.min_throughput, mesh)
+        counts.append(q.active.sum())
+        q, image, _n = _bounce(scene, q, image, wcfg,
+                               is_last=(bounce == wcfg.depth - 1))
+    if rebalance:
+        dist.all_reduce(image, group=mesh.group)
+        image = image[k * npix:(k + 1) * npix]
+    image = _from_blocks(image, rows, width, BLOCK_EDGE) if blocked \
+        else image.reshape(rows, width, 3)
+    return image, all_gather(torch.stack(counts), mesh)
+
+
+# ---------------------------------------------------------------------------
+# The sharded training step
+# ---------------------------------------------------------------------------
+
+def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
+                    grad_chunks: int = 4):
+    """The sharded inverse-rendering step ``step(scene, camera, target) ->
+    (scene', loss)``: each rank renders its rows of the current scene, takes
+    the L2 loss against its rows of ``target [H, W, 3]``, and the
+    gradients of every floating leaf are summed over the ranks (not
+    averaged, as JAX's ``psum``); then one SGD step on the replicated
+    scene.  ``loss`` is the frame's summed loss; ``scene'`` holds new
+    tensors, which need no grad (the caller's scene is left as it was).
+
+    **Overlap of the all-reduce with the backward**: the rank's rows are
+    split into ``grad_chunks`` chunks (one when the rows do not divide);
+    for each chunk the forward, its backward (``torch.autograd.grad``) and
+    an ``all_reduce(SUM, async_op=True)`` of its gradients, flattened into
+    one buffer — which runs while the next chunk computes.  The handles
+    are waited on before the update.  The sum over chunks and ranks equals
+    the monolithic step's up to float32 reassociation."""
+    def step(scene: FlatScene, camera: cam.Camera, target: Tensor):
+        check_config(cfg.march)
+        rows = _shard_rows(mesh, cfg.height)
+        rays = cam.camera_rays(camera, cfg.width, cfg.height, cfg.epsilon,
+                               cfg.length).map(lambda x: _band(x, mesh, rows))
+        tgt = _band(target, mesh, rows)
+        nc = grad_chunks if grad_chunks > 0 and rows % grad_chunks == 0 \
+            else 1
+        hc = rows // nc
+        names = list(scene.tensors())
+        leaves = {name: x.detach().requires_grad_(True)
+                  for name, x in scene.tensors().items()}
+        live = scene.with_tensors(leaves)
+        params = [leaves[name] for name in names]
+        pending, losses = [], []
+        for i in range(nc):
+            chunk = rays.map(lambda x: x[i * hc:(i + 1) * hc])
+            img, _n = render_grid(live, chunk, cfg)
+            loss = torch.sum((img - tgt[i * hc:(i + 1) * hc]) ** 2)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            flat = torch.cat([
+                (torch.zeros_like(p) if g is None else g).reshape(-1)
+                for g, p in zip(grads, params)])
+            pending.append((flat, dist.all_reduce(
+                flat, group=mesh.group, async_op=True)))
+            losses.append(loss.detach())
+        loss = torch.stack(losses)
+        dist.all_reduce(loss, group=mesh.group)
+        total = None
+        for flat, handle in pending:
+            handle.wait()
+            total = flat if total is None else total + flat
+        new, at = {}, 0
+        with torch.no_grad():
+            for name, p in zip(names, params):
+                g = total[at:at + p.numel()].view_as(p)
+                at += p.numel()
+                new[name] = p.detach() - lr * g
+        return scene.with_tensors(new), loss.sum()
+
+    return step

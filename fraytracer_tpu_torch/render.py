@@ -114,19 +114,28 @@ def render_with_stats(scene: FlatScene, camera: cam.Camera,
     check_config(cfg.march)
     rays = cam.camera_rays(camera, cfg.width, cfg.height,
                            cfg.epsilon, cfg.length)
+    return render_grid(scene, rays, cfg)
+
+
+def render_grid(scene: FlatScene, rays: Rays, cfg: RenderConfig):
+    """Trace a ``[h, w]`` grid of camera rays — a whole frame or a band of
+    its rows (``parallel/mesh.py``) — and shade it.  Returns ``(image [h,
+    w, 3], n_rays)``.  On the "cuda" backend, when 32 divides both sides,
+    the rays are traced in 32×32 block order, so a band of whole block
+    rows gets the tiles, tables and windows of the full frame."""
+    h, w = rays.origin.shape[:2]
     kernel = cfg.march.backend == "cuda"
-    blocked = kernel and cfg.height % 32 == 0 and cfg.width % 32 == 0
+    blocked = kernel and h % 32 == 0 and w % 32 == 0
     if blocked:
-        b = _auto_block(cfg.height, cfg.width)
-        flat = rays.map(lambda x: _to_blocks(x, cfg.height, cfg.width, b))
+        b = _auto_block(h, w)
+        flat = rays.map(lambda x: _to_blocks(x, h, w, b))
     else:
-        flat = rays.map(lambda x: x.reshape(
-            (cfg.width * cfg.height,) + tuple(x.shape[2:])))
+        flat = rays.map(lambda x: x.reshape((w * h,) + tuple(x.shape[2:])))
     tile = cfg.tile_rays_pallas if kernel else cfg.tile_rays
     colors, n_rays = _trace(scene, flat, cfg.march, tile)
     if blocked:
-        return _from_blocks(colors, cfg.height, cfg.width, b), n_rays
-    return colors.reshape(cfg.height, cfg.width, 3), n_rays
+        return _from_blocks(colors, h, w, b), n_rays
+    return colors.reshape(h, w, 3), n_rays
 
 
 def render(scene: FlatScene, camera: cam.Camera,

@@ -118,7 +118,8 @@ def _bench_lines(capsys, *argv):
 
 def test_bench_forward_only_json_line(capsys):
     (line,) = _bench_lines(capsys, "--size", "32", "--tori", "16",
-                           "--repeats", "1", "--no-bwd", "--no-spectral")
+                           "--repeats", "1", "--no-bwd", "--no-spectral",
+                           "--no-scaling")
     for k in JAX_NAMES:
         assert k in line, k
     assert not set(TPU_ROUND) & set(line)
@@ -133,7 +134,8 @@ def test_bench_forward_only_json_line(capsys):
 
 def test_bench_stages_are_supersets_and_report_the_backward(capsys):
     first, last = _bench_lines(capsys, "--size", "32", "--tori", "16",
-                               "--repeats", "1", "--no-spectral")
+                               "--repeats", "1", "--no-spectral",
+                               "--no-scaling")
     assert set(first) < set(last)
     assert all(last[k] == v for k, v in first.items())
     for k in ("fwd_bwd_time_s", "fwd_bwd_over_fwd", "fwd_bwd_first_s",
@@ -150,7 +152,7 @@ def test_bench_spectral_line_is_the_third_superset(capsys):
     line holding every field of the second, the spectral frame's time,
     size and rays, no compile field and no target."""
     lines = _bench_lines(capsys, "--size", "16", "--tori", "16",
-                         "--repeats", "1")
+                         "--repeats", "1", "--no-scaling")
     assert len(lines) == 3
     fwd, bwd, spec = lines
     assert set(fwd) < set(bwd) < set(spec)
@@ -164,6 +166,28 @@ def test_bench_spectral_line_is_the_third_superset(capsys):
         spec["spectral_rays_marched"] / spec["spectral_time_s"])
     assert not {k for k in spec if "compile" in k} | (set(TPU_ROUND)
                                                        & set(spec))
+
+
+def test_bench_scaling_line_names_what_ran(capsys):
+    """The scaling section (bench.py:392-414 of the JAX package) as the
+    last line: the sharded render's report merged under ``scaling_*`` keys
+    (the headline fields untouched), naming ranks, backend and cards; on
+    the CPU one gloo rank and no card.  No 10k line off the card."""
+    lines = _bench_lines(capsys, "--size", "32", "--tori", "16",
+                         "--repeats", "1", "--no-bwd", "--no-spectral")
+    assert len(lines) == 2
+    fwd, last = lines
+    assert set(fwd) < set(last) and "tori_10k" not in last
+    assert all(last[k] == v for k, v in fwd.items())
+    added = set(last) - set(fwd)
+    assert all(k.startswith("scaling_") for k in added)
+    assert (last["scaling_ranks"], last["scaling_backend"],
+            last["scaling_cards"]) == (1, "gloo", 0)
+    assert (last["scaling_image_size"], last["scaling_n_tori"]) == (32, 16)
+    assert last["scaling_max_abs_diff"] <= 1e-5
+    assert last["scaling_sharding_overhead"] == pytest.approx(
+        last["scaling_t_sharded_s"] / last["scaling_t_single_s"])
+    assert "not multi-card scaling" in last["scaling_measures"]
 
 
 def test_cli_bench_runs_the_module(capsys, monkeypatch):

@@ -1,0 +1,152 @@
+"""Port parity, the sharded training step (``parallel/mesh.py::
+make_train_step``) on 2 gloo ranks spawned on the CPU, once for the file
+(the counterparts of ``tests/test_sharding.py``'s train-step tests, at its
+shapes: 16×32, 24 tori, ε 0.02, 64 steps):
+
+* two steps lower the loss, and every rank's scene is the same bit for
+  bit after each step (the all-reduced gradients are the same on every
+  rank);
+* against the port's one-process step (``render`` + ``backward`` + SGD):
+  loss rtol 1e-4, ``mat_albedo`` atol 1e-5, as JAX's test holds its own;
+* chunked (4 chunks, each all-reduce overlapping the next chunk) against
+  monolithic (``grad_chunks=1``): loss rtol 1e-5, leaves atol 1e-6 / rtol
+  1e-5;
+* against JAX's ``make_train_step`` on a 2-device virtual mesh, the scene
+  carried across from JAX's arrays: the summed gradients (recovered from
+  a step at ``lr = 2**20``) within 5e-5 of each leaf's largest |g|, the frame-gradient
+  bound of ``tests/test_torch_grad.py`` where no lane differs.
+
+Both routes run: "torch" (the dense plain march) and "cuda" (the kernels'
+plain versions; 24 tori stay under the culling threshold).
+"""
+import numpy as np
+import pytest
+import torch
+
+import fraytracer_tpu_torch as tft
+from fraytracer_tpu_torch.parallel import mesh as tmesh
+from fraytracer_tpu_torch.parallel.multihost import run_ranks
+
+W, H = 16, 32
+LR = 1e-4
+# a step at this rate recovers its gradients, (s - s') / LR_G: a power of
+# two (exact scaling), large (the rounding is one of lr·g, not of s)
+LR_G = 2.0 ** 20
+CAM = ((0.0, 0.0, -10.0), (0.0, 0.0, 0.0))
+ROUTES = ("torch", "cuda")
+
+
+def config(route):
+    return tft.RenderConfig(width=W, height=H, epsilon=0.02, length=30.0,
+                            march=tft.MarchConfig(max_steps=64,
+                                                  backend=route))
+
+
+def camera():
+    return tft.look_at(*CAM, fov_degrees=60.0, device="cpu")
+
+
+def leaves(scene):
+    return {k: v.detach().numpy().copy() for k, v in scene.tensors().items()}
+
+
+def _train_rank(scene, target):
+    mesh = tmesh.make_mesh(devices="cpu")
+    cam = camera()
+    out = {}
+    for route in ROUTES:
+        cfg = config(route)
+        step = tmesh.make_train_step(cfg, mesh, lr=LR)
+        s1, l1 = step(scene, cam, target)
+        s2, l2 = step(s1, cam, target)
+        sm, lm = tmesh.make_train_step(cfg, mesh, lr=LR, grad_chunks=1)(
+            scene, cam, target)
+        g1, _l = tmesh.make_train_step(cfg, mesh, lr=LR_G)(scene, cam,
+                                                           target)
+        out[route] = dict(loss=(float(l1), float(l2)), s1=leaves(s1),
+                          s2=leaves(s2), mono=leaves(sm), mono_loss=float(lm),
+                          grad={k: (leaves(scene)[k] - v) / LR_G
+                                for k, v in leaves(g1).items()},
+                          requires_grad=any(
+                              x.requires_grad for x in s1.tensors().values()))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_scene():
+    import fraytracer_tpu as jft
+    from fraytracer_tpu.scene.generators import torus_csg_scene
+    return jft.flatten(torus_csg_scene(seed=19, n_tori=24))
+
+
+@pytest.fixture(scope="module")
+def scene(jax_scene):
+    from test_torch_grad import port_of
+    return port_of(jax_scene)
+
+
+@pytest.fixture(scope="module")
+def target():
+    return torch.full((H, W, 3), 0.05)
+
+
+@pytest.fixture(scope="module")
+def ranks(scene, target):
+    return run_ranks(_train_rank, 2, scene, target, device="cpu",
+                     timeout=300)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_train_step_decreases_loss_and_stays_replicated(ranks, scene, route):
+    r0, r1 = (r[route] for r in ranks)
+    l1, l2 = r0["loss"]
+    assert l2 < l1 and np.isfinite(l2)
+    assert r1["loss"] == r0["loss"]
+    for s in ("s1", "s2", "mono"):
+        for k in r0[s]:
+            np.testing.assert_array_equal(r1[s][k], r0[s][k], err_msg=k)
+    assert not r0["requires_grad"]
+    assert np.abs(r0["s1"]["mat_albedo"]
+                  - scene.mat_albedo.detach().numpy()).sum() > 0
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_train_step_matches_single_process(ranks, scene, target, route):
+    s = scene.with_tensors({k: v.detach().clone().requires_grad_(True)
+                            for k, v in scene.tensors().items()})
+    img = tft.render(s, camera(), config(route))
+    loss = torch.sum((img - target) ** 2)
+    loss.backward()
+    r0 = ranks[0][route]
+    np.testing.assert_allclose(r0["loss"][0], loss.item(), rtol=1e-4)
+    want = (s.mat_albedo - LR * s.mat_albedo.grad).detach().numpy()
+    np.testing.assert_allclose(r0["s1"]["mat_albedo"], want, atol=1e-5)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_train_step_chunked_overlap_matches_monolithic(ranks, route):
+    r0 = ranks[0][route]
+    np.testing.assert_allclose(r0["loss"][0], r0["mono_loss"], rtol=1e-5)
+    for k in r0["s1"]:
+        np.testing.assert_allclose(r0["s1"][k], r0["mono"][k], atol=1e-6,
+                                   rtol=1e-5, err_msg=k)
+
+
+def test_train_step_matches_jax(ranks, jax_scene, target):
+    import jax
+    import fraytracer_tpu as jft
+    from fraytracer_tpu.ops.march import MarchConfig as JMC
+    from fraytracer_tpu.parallel.mesh import make_mesh, make_train_step
+    from test_torch_grad import assert_leaves_close, jax_grads
+    cfg = jft.RenderConfig(width=W, height=H, epsilon=0.02, length=30.0,
+                           march=JMC(max_steps=64))
+    s1, loss = make_train_step(cfg, make_mesh(2), lr=LR_G)(
+        jax_scene, jft.look_at(*CAM, fov_degrees=60.0),
+        jax.numpy.asarray(target.numpy()))
+    want = jax_grads(jax.tree.map(
+        lambda a, b: (np.asarray(a) - np.asarray(b)) / LR_G, jax_scene, s1))
+    for route in ROUTES:
+        got = ranks[0][route]["grad"]
+        assert_leaves_close(got, want, 5e-5)
+    np.testing.assert_allclose(ranks[0]["torch"]["loss"][0], float(loss),
+                               rtol=1e-4)
