@@ -12,12 +12,15 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    point-light rays with the converging cone; K3 in AD mode (plans with a
    smooth union) dense and culled, also against the dense autograd normal;
    K1/K2 with per-lane sign; culled K1/K2 on a plan whose pairs exceed a
-   block's shared memory (staged and unstaged pairs in one launch); then
-   each kernel's time beside its plain version's, its bound and, where one
-   PyTorch call computes the same function, that call's time, at the main
-   path's shapes.  K4 and the culled K1/K2/K3 are read on the device
-   (``ms``: an event pair while the device works off queued fills) with
-   the reading around one host call beside it (``host_call_ms``).
+   block's shared memory (staged and unstaged pairs in one launch); dense
+   K1/K2/K3 on 8,002 entries, whose packed rows exceed a block's shared
+   memory (read from device memory); then each kernel's time beside its
+   plain version's, its bound and, where one PyTorch call computes the
+   same function, that call's time, at the main path's shapes (dense K2
+   on both lights' shadow batches, dense K1/K2 with their lane efficiency
+   under lane refill).  Every kernel is read on the device (``ms``: an
+   event pair while the device works off queued fills) with the reading
+   around one host call beside it (``host_call_ms``).
    ``[sections]`` lines: the instrumented twin of K1/K2 (clock64 deltas
    per warp) gives each section's share of the culled marches' time —
    ray load, window statistics, candidate rows, early-out checks, dense
@@ -113,15 +116,18 @@ card):
     python3 chip_smoke.py --kernels-only [--tree DIR]
     python3 chip_smoke.py --compare DIR [--pairs 8] [--reps 9]
 
-``--frame-only`` times the culled torus frame; ``--kernels-only`` prints
-one JSON line with the device times of K4 (kernel, plain, library), culled
-K1, culled K2 of both lights and dense K1, the culled marches' lane
-efficiency and ray evaluations and the twin's section shares.  ``DIR`` is
-a directory inside the checkout (``_checkout/`` is ignored by git) that
-holds another commit, e.g. ``git archive HEAD | tar -x -C
-_checkout/parent``; ``--compare`` runs the two trees in turns, a fresh
-process each: first ``--kernels-only`` (other, this, this, other), then
-the frame pairs with the paired differences of their medians.
+``--frame-only`` times the culled torus frame and its dense form;
+``--kernels-only`` prints one JSON line with the device times of K4
+(kernel, plain, library), culled K1, culled K2 of both lights, culled K3
+in both modes, dense K1, dense K2 of both lights and dense K3 in both
+modes, the marches' lane efficiency and ray evaluations, the twin's
+section shares and the output digests.  ``DIR`` is a directory inside the
+checkout (``_checkout/`` is ignored by git) that holds another commit,
+e.g. ``git archive HEAD | tar -x -C _checkout/parent``; ``--compare`` runs
+the two trees in turns, a fresh process each: first ``--kernels-only``
+(other, this, this, other; the digests of both trees held against each
+other), then the frame pairs with the paired differences of their
+medians, culled and dense.
 
 The second-to-last line of output is the card's name and power limit, the
 line before it a JSON object with each kernel's launches, error and times;
@@ -718,6 +724,39 @@ def phase_overbudget_pairs(dev, groups=5, per_group=1024):
     torch.cuda.synchronize()
 
 
+def phase_dense_unstaged(dev, n_tori=8000, size=64):
+    """Dense K1/K2/K3 on a scene whose packed rows exceed a block's shared
+    memory (``n_tori`` tori: 32 bytes a row): the plan reads them from
+    device memory through the same code (K3 still stages each entry's
+    material and slot); against the plain versions."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops.cuda import cull, march_kernel as mk
+    from fraytracer_tpu_torch.scene import generators as G
+    scene = ft.flatten(G.torus_csg_scene(19, n_tori), device=dev)
+    prog = mk.lower_program(scene, dev)
+    plan = mk.march_stage_plan(prog, None)
+    splan = mk.surface_stage_plan(prog, None)
+    log(f"  [stage] dense {scene.num_prims} entries: packed rows "
+        f"{plan.rows_bytes} bytes, limit {cull.SMEM_LIMIT}: staged "
+        f"{plan.staged} (K1/K2 {plan.bytes} bytes a block, K3 "
+        f"{splan.bytes} with (material, slot) staged {splan.ms_off >= 0})")
+    check(not plan.staged and not splan.staged,
+          f"{scene.num_prims} dense entries staged")
+    lanes, kw = primary_lanes(scene, size, 30.0, dev)
+    k = mk.march_kernel(scene, **lanes, **kw)
+    check(int(k[1].sum()) > 500, f"unstaged: {int(k[1].sum())} hits")
+    compare_march(k, mk.march_plain(scene, **lanes, **kw),
+                  f"K1 dense, {scene.num_prims} entries unstaged {size}^2")
+    occ = mk.march_kernel(scene, **lanes, **kw, occlusion=True)
+    check(torch.equal(occ[0], k[1]), "unstaged: K2 != K1")
+    args = (lanes["origin"], lanes["direction"], k[0], lanes["epsilon"],
+            k[1])
+    compare_surface(mk.surface_kernel(scene, *args),
+                    mk.surface_plain(scene, *args), k[1],
+                    f"K3 dense, {scene.num_prims} entries unstaged")
+    torch.cuda.synchronize()
+
+
 def phase_culled_kernels(dev):
     """Culled K1/K2/K3 against their plain versions on the same tables."""
     import fraytracer_tpu_torch as ft
@@ -853,19 +892,22 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def surface_yardstick(name, scene, lanes, kw, tabs, device_ms, dump):
-    """K3 culled on the culled K1's hits of ``lanes``: its device time,
-    how its lanes fall into blocks (:func:`surface_lanes_stats`) and a
-    digest of (normal, material, code), for ``--kernels-only``; the
-    outputs go into ``dump[name]``."""
+def surface_yardstick(name, scene, lanes, kw, tabs, device_ms, dump,
+                      dense=False):
+    """K3 culled (or, ``dense``, the dense form) on the culled K1's hits of
+    ``lanes`` — inputs both trees of a ``--compare`` compute bit for bit
+    alike: its device time, how its lanes fall into blocks
+    (:func:`surface_lanes_stats`) and a digest of (normal, material,
+    code), for ``--kernels-only``; the outputs go into ``dump[name]``."""
     from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
     k = mk.march_kernel(scene, **lanes, **kw, cull=tabs)
     args = (lanes["origin"], lanes["direction"], k[0], lanes["epsilon"],
             k[1])
-    out = mk.surface_kernel(scene, *args, cull=tabs)
+    cull = None if dense else tabs
+    out = mk.surface_kernel(scene, *args, cull=cull)
     dump[name] = [x.cpu() for x in out]
     rec = {f"{name}_ms": device_ms(
-        lambda: mk.surface_kernel(scene, *args, cull=tabs))}
+        lambda: mk.surface_kernel(scene, *args, cull=cull))}
     rec.update({f"{name}_{key}": v
                 for key, v in surface_lanes_stats(k[1]).items()})
     rec[f"{name}_march_digest"] = digest(k[0], k[1])
@@ -883,89 +925,122 @@ def gather_bench_inputs(pos, dev):
     return xb, bidx, bidx.long()
 
 
+def dense_lane_stats(mk, scene, lanes, kw, steps):
+    """Ray evaluations and lane efficiency of a dense K1/K2 launch: the
+    evaluations over the evaluations its warps issued (32 a warp
+    iteration, the kernel's own count under lane refill, read in a launch
+    of its own); for a tree whose dense kernel does not count them (fixed
+    lanes, before refill) the 32-consecutive-lanes formula."""
+    import inspect
+    evals = int(steps.sum())
+    rec = {"ray_evaluations": evals, "issued_evaluations": None}
+    if "issued" in inspect.signature(mk.march_kernel).parameters:
+        buf = torch.zeros(1, dtype=torch.int64, device=steps.device)
+        mk.march_kernel(scene, **lanes, **kw, issued=buf)
+        rec["issued_evaluations"] = 32 * int(buf)
+        rec["lane_efficiency"] = evals / max(rec["issued_evaluations"], 1)
+    else:
+        rec["lane_efficiency"] = lane_efficiency(steps)
+    return rec
+
+
+def dense_shadow_lanes(scene, lanes, k):
+    """The dense frame's shadow batches of K1's hits ``k``: one
+    ``(lanes, facing)`` a light, each after the root-bound skip (the
+    dense form takes no cone apex)."""
+    return [shadow_lanes(scene, lanes, k, light)[::2]
+            for light in range(scene.num_lights)]
+
+
 def phase_kernel_times(dev, bench_scene):
     """Each kernel beside its plain version at the main path's shapes
-    (1024² primary rays on the 1000-torus scene)."""
-    from fraytracer_tpu_torch.ops import shade
+    (1024² primary rays on the 1000-torus scene): dense K1, dense K2 of
+    both lights on the dense frame's shadow batches, dense K3 on K1's
+    hits, each read on the device (``device_ms``) with the reading around
+    one host call beside it; then K4."""
     from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
     from fraytracer_tpu_torch.ops.cuda.gather import (
         _gather_blocks, block_gather_plain)
     out = {}
+    device_ms = device_timer()
     lanes, kw = primary_lanes(bench_scene, SIZE, 30.0, dev)
+    plan = mk.march_stage_plan(mk.lower_program(bench_scene, dev), None)
+    log(f"  [stage] dense K1/K2 bench: {plan.bytes} bytes of shared memory "
+        f"a block, packed rows {plan.rows_bytes} bytes staged "
+        f"{plan.staged}; K3: "
+        f"{mk.surface_stage_plan(mk.lower_program(bench_scene, dev), None)}")
     k = mk.march_kernel(bench_scene, **lanes, **kw)
-    ms = cuda_ms(lambda: mk.march_kernel(bench_scene, **lanes, **kw))
-    t0 = time.perf_counter()
-    p = mk.march_plain(bench_scene, **lanes, **kw)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
+    call = lambda: mk.march_kernel(bench_scene, **lanes, **kw)
+    ms, host_call = device_ms(call, reps=10), cuda_ms(call)
+    p, plain_ms = host_ms(lambda: mk.march_plain(bench_scene, **lanes,
+                                                 **kw))
     err = compare_march(k, p, f"K1 bench {SIZE}^2")
+    stats = dense_lane_stats(mk, bench_scene, lanes, kw, k[3])
     out["march"] = timing(ms, plain_ms, err, int((k[1] != p[1]).sum()),
-                          k[1].numel(), march_bound(bench_scene, lanes, k))
-    evals = int(k[3].sum())
-    log(f"  K1 bench: {evals} ray evaluations ({evals / k[3].numel():.2f} "
-        f"per ray), {evals * bench_scene.num_prims / (ms * 1e-3):.4g} "
-        f"primitive evaluations/s, SIMT lane efficiency "
-        f"{lane_efficiency(k[3]):.4f}")
+                          k[1].numel(), march_bound(bench_scene, lanes, k),
+                          host_call_ms=host_call, **stats)
+    log(f"  K1 bench: {stats['ray_evaluations']} ray evaluations "
+        f"({stats['ray_evaluations'] / k[3].numel():.2f} per ray), "
+        f"{stats['ray_evaluations'] * bench_scene.num_prims / (ms * 1e-3):.4g}"
+        f" primitive evaluations/s, lane efficiency "
+        f"{stats['lane_efficiency']:.4f} ({stats['issued_evaluations']} "
+        f"issued; fixed lanes would read {lane_efficiency(k[3]):.4f})")
 
-    # K2 on the frame's first shadow batch (directional light, facing lanes)
+    # K2 on the frame's shadow batches (facing lanes), both lights
     hitk = k[1]
     pos = lanes["origin"] + (k[0] - lanes["epsilon"])[:, None] \
         * lanes["direction"]
-    normal, _m, _c = mk.surface_kernel(bench_scene, lanes["origin"],
-                                       lanes["direction"], k[0],
-                                       lanes["epsilon"], hitk)
-    ldir, budget, _s = shade.light_dir_and_dist(bench_scene, 0, pos)
-    facing = hitk & ((normal * ldir).sum(-1) > 0)
-    from fraytracer_tpu_torch.ops.march import bound_skip_start
-    from fraytracer_tpu_torch.types import Rays
-    srays = Rays(origin=pos.contiguous(), direction=ldir.contiguous(),
-                 length=torch.where(facing, budget, 0.0),
-                 epsilon=lanes["epsilon"])
-    st0, smiss, sexit = bound_skip_start(bench_scene, srays)
-    slanes = dict(origin=srays.origin, direction=srays.direction,
-                  length=torch.where(smiss, 0.0, torch.minimum(
-                      srays.length, sexit)).contiguous(),
-                  epsilon=srays.epsilon, t0=st0.contiguous())
-    ok_ = mk.march_kernel(bench_scene, **slanes, **kw, occlusion=True)
-    ms = cuda_ms(lambda: mk.march_kernel(bench_scene, **slanes, **kw,
-                                         occlusion=True))
-    evals = int(ok_[1].sum())
-    log(f"  K2 bench: {evals} ray evaluations, "
-        f"{evals * bench_scene.num_prims / (ms * 1e-3):.4g} primitive "
-        f"evaluations/s, SIMT lane efficiency {lane_efficiency(ok_[1]):.4f}")
-    t0 = time.perf_counter()
-    op_ = mk.march_plain(bench_scene, **slanes, **kw, occlusion=True)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    flips = int((ok_[0] != op_[0]).sum())
-    agree = 1.0 - flips / ok_[0].numel()
-    log(f"  K2 bench shadow rays: {int(facing.sum())} facing, "
-        f"{flips} flips ({agree:.6f} agreement)")
-    check(agree >= 0.999, f"K2 bench agreement {agree}")
-    # max |hit_kernel - hit_plain| over the boolean output
-    out["occlusion"] = timing(ms, plain_ms, float(flips > 0), flips,
-                              ok_[0].numel(),
-                              march_bound(bench_scene, slanes, ok_))
+    for light, (slanes, facing) in enumerate(
+            dense_shadow_lanes(bench_scene, lanes, k)):
+        okw = dict(kw, occlusion=True)
+        ok_ = mk.march_kernel(bench_scene, **slanes, **okw)
+        call = lambda: mk.march_kernel(bench_scene, **slanes, **okw)
+        ms, host_call = device_ms(call, reps=10), cuda_ms(call)
+        op_, plain_ms = host_ms(lambda: mk.march_plain(bench_scene,
+                                                       **slanes, **okw))
+        flips = int((ok_[0] != op_[0]).sum())
+        agree = 1.0 - flips / ok_[0].numel()
+        stats = dense_lane_stats(mk, bench_scene, slanes, okw, ok_[1])
+        log(f"  K2 bench light {light}: {int(facing.sum())} facing, "
+            f"{flips} flips ({agree:.6f} agreement), "
+            f"{stats['ray_evaluations']} ray evaluations, lane efficiency "
+            f"{stats['lane_efficiency']:.4f} (fixed lanes "
+            f"{lane_efficiency(ok_[1]):.4f}), {ms:.4f} ms on the device "
+            f"({host_call:.4f} around a host call)")
+        check(agree >= 0.999, f"K2 bench light {light} agreement {agree}")
+        if light == 0:
+            # max |hit_kernel - hit_plain| over the boolean output
+            out["occlusion"] = timing(ms, plain_ms, float(flips > 0), flips,
+                                      ok_[0].numel(),
+                                      march_bound(bench_scene, slanes, ok_),
+                                      host_call_ms=host_call, **stats)
+        else:
+            b = march_bound(bench_scene, slanes, ok_)
+            out["occlusion"].update({
+                f"ms_light{light}": ms,
+                f"host_call_ms_light{light}": host_call,
+                f"plain_ms_light{light}": plain_ms,
+                f"bound_ms_light{light}": b[0],
+                f"lane_efficiency_light{light}": stats["lane_efficiency"],
+                f"ray_evaluations_light{light}": stats["ray_evaluations"]})
 
     # K3 on the frame's primary hits (same inputs to both)
     args = (lanes["origin"], lanes["direction"], k[0], lanes["epsilon"], hitk)
     kk = mk.surface_kernel(bench_scene, *args)
-    ms = cuda_ms(lambda: mk.surface_kernel(bench_scene, *args))
-    t0 = time.perf_counter()
-    pp = mk.surface_plain(bench_scene, *args)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
+    call = lambda: mk.surface_kernel(bench_scene, *args)
+    ms, host_call = device_ms(call), cuda_ms(call)
+    pp, plain_ms = host_ms(lambda: mk.surface_plain(bench_scene, *args))
     err = compare_surface(kk, pp, hitk, f"K3 bench {SIZE}^2")
     out["surface"] = timing(ms, plain_ms, err,
                             int((hitk & (kk[2] != pp[2])).sum()),
                             int(hitk.sum()),
-                            surface_bound(bench_scene, args, kk))
+                            surface_bound(bench_scene, args, kk),
+                            host_call_ms=host_call)
 
     # K4 at the block tier's shape: 16 blocks of the frame's [N, 3] points.
     # "ms", "plain_ms", "library_ms": device times (device_ms); the
     # *host_call_ms beside them: an event pair around one host call, which
     # at 192 KB reads the host's launch path
-    device_ms = device_timer()
     xb, bidx, lidx = gather_bench_inputs(pos, dev)
     gk = _gather_blocks(xb, bidx)
     gp = block_gather_plain(xb, bidx)
@@ -1087,14 +1162,11 @@ def phase_culled_times(dev, bench_scene):
     log_window_rows("K1 culled bench", tabs, win, k[3], p[3])
     sections = {"K1 culled": log_sections(
         "K1 culled", bench_scene, lanes, kw, k)}
-    dense_ms = cuda_ms(lambda: mk.march_kernel(bench_scene, **lanes,
-                                               max_steps=192, omega=1.4))
     evals = int(k[3].sum())
     log(f"  K1 culled bench: {evals} ray evaluations, candidates per tile "
         f"max {int(tabs.tables[0].count.max())} mean "
         f"{tabs.tables[0].count.float().mean().item():.2f}, SIMT lane "
-        f"efficiency {lane_efficiency(k[3]):.4f}; dense K1 in the same "
-        f"call {dense_ms:.3f} ms")
+        f"efficiency {lane_efficiency(k[3]):.4f}")
     for light in range(bench_scene.num_lights):
         sl, apex, facing = shadow_lanes(bench_scene, lanes, k, light)
         st = culled_tables(bench_scene, sl, 48, 512, apex)
@@ -1159,9 +1231,9 @@ def phase_culled_times(dev, bench_scene):
 def phase_blend_times(dev, scene):
     """K3 in AD mode beside its plain version at the blended frame's shape
     (1024² primary rays, tables at cull_m 256): the culled form on the
-    culled K1's hits and the dense form on the dense K1's.  The culled
-    form is read on the device (``ms``) with the reading around one host
-    call beside it (``host_call_ms``); the dense form around a call."""
+    culled K1's hits and the dense form on the dense K1's, each read on
+    the device (``ms``) with the reading around one host call beside it
+    (``host_call_ms``)."""
     from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
     out = {}
     device_ms = device_timer()
@@ -1176,20 +1248,18 @@ def phase_blend_times(dev, scene):
         kk = mk.surface_kernel(scene, *args, cull=tables)
         call = lambda: mk.surface_kernel(scene, *args, cull=tables)
         more = {}
-        if tables is None:
-            ms = cuda_ms(call)
-        else:
-            ms, more["host_call_ms"] = device_ms(call), cuda_ms(call)
+        ms, more["host_call_ms"] = device_ms(call), cuda_ms(call)
         pp, plain_ms = host_ms(lambda: mk.surface_plain(scene, *args,
                                                         cull=tables))
         err, differing = compare_surface_ad(kk, pp, k[1],
                                             f"K3 AD {name} blend {SIZE}^2")
         out[name] = timing(ms, plain_ms, err, differing, int(k[1].sum()),
                            surface_bound(scene, args, kk, tables), **more)
+        eff = lane_efficiency(k[3]) if tables is not None else \
+            dense_lane_stats(mk, scene, lanes, kw, k[3])["lane_efficiency"]
         log(f"  K1 before {name}: {k1_ms:.3f} ms, "
             f"{int(k[3].sum())} ray evaluations, "
-            f"{int(k[1].sum())} hits, SIMT lane efficiency "
-            f"{lane_efficiency(k[3]):.4f}")
+            f"{int(k[1].sum())} hits, lane efficiency {eff:.4f}")
     log_times(out)
     return out
 
@@ -1427,7 +1497,8 @@ def profile_frame(scene, cam, cfg, trace_path, fn=None, ops=0, record=None):
         log(f"    {us / 1e3:9.3f} ms  {name[:70]}")
     # a template instantiation is named "void march_kernel<...>(...)"
     port = ("march_kernel", "surface_kernel", "surface_ad_kernel",
-            "block_gather_kernel")
+            "block_gather_kernel", "march_dense_kernel",
+            "surface_dense_kernel", "surface_ad_dense_kernel")
     ours = [e for e in sorted(evs, key=lambda e: e.time_range.start)
             if any(k in e.name.split("(")[0] for k in port)]
     log("  profile, port kernels in launch order: " + ", ".join(
@@ -3098,11 +3169,12 @@ def phase_bench(spectral_counts):
 
 
 def frame_only(tree, reps) -> int:
-    """The culled torus frame ([main]'s configuration) alone: 3 untimed
-    frames, then ``reps`` timed ones, as one JSON line.  ``tree`` names a
-    directory inside the checkout that holds another commit of the repo
-    (unpacked there with ``git archive``, e.g. under ``_checkout/``); its
-    package is imported instead of this checkout's."""
+    """The culled torus frame ([main]'s configuration) and its dense form
+    ([dense]'s) alone: for each, 3 untimed frames, then ``reps`` timed
+    ones, as one JSON line.  ``tree`` names a directory inside the checkout
+    that holds another commit of the repo (unpacked there with ``git
+    archive``, e.g. under ``_checkout/``); its package is imported instead
+    of this checkout's."""
     if tree:
         sys.path.insert(0, str(Path(tree).resolve()))
     import fraytracer_tpu_torch as ft
@@ -3110,19 +3182,20 @@ def frame_only(tree, reps) -> int:
     dev = torch.device("cuda", 0)
     scene = ft.flatten(torus_csg_scene(19, BENCH_N_TORI), device=dev)
     cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
-    cfg = bench_config(SIZE)
-    times = []
-    for i in range(3 + reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ft.render_with_stats(scene, cam, cfg)
-        torch.cuda.synchronize()
-        if i >= 3:
-            times.append(1e3 * (time.perf_counter() - t0))
-    print(json.dumps({"tree": tree or ".",
-                      "package": str(Path(ft.__file__).parent),
-                      "median_ms": statistics.median(times),
-                      "times_ms": times}))
+    rec = {"tree": tree or ".", "package": str(Path(ft.__file__).parent)}
+    for form, cull in (("", True), ("dense_", False)):
+        cfg = bench_config(SIZE, cull)
+        times = []
+        for i in range(3 + reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ft.render_with_stats(scene, cam, cfg)
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(1e3 * (time.perf_counter() - t0))
+        rec[form + "median_ms"] = statistics.median(times)
+        rec[form + "times_ms"] = times
+    print(json.dumps(rec))
     return 0
 
 
@@ -3132,10 +3205,12 @@ def kernels_only(tree, dump=None) -> int:
     with its plain and library forms, culled K1, culled K2 of both lights,
     culled K3 in slot mode (the torus frame) and in AD mode (the blended
     frame, ``blend_scene``) with their hit and block counts, lane
-    efficiencies and output digests, dense K1, the culled K1/K2 lane
-    efficiency and ray evaluations and, where the tree has the
-    instrumented twin, its section shares.  ``tree`` as in
-    :func:`frame_only`; ``dump``: a file to save the K3 outputs in."""
+    efficiencies and output digests, the culled K1/K2 lane efficiency and
+    ray evaluations and, where the tree has the instrumented twin, its
+    section shares; then the dense form: K3 in both modes, K1, K2 of both
+    lights, each with its lane efficiency (K1/K2) and output digest.
+    ``tree`` as in :func:`frame_only`; ``dump``: a file to save the K3
+    outputs in."""
     if tree:
         sys.path.insert(0, str(Path(tree).resolve()))
     import fraytracer_tpu_torch as ft
@@ -3182,13 +3257,33 @@ def kernels_only(tree, dump=None) -> int:
                                  device_ms, outputs))
     blend = blend_scene(BENCH_N_TORI, dev)
     blanes, bkw = primary_lanes(blend, SIZE, 30.0, dev)
+    btabs = culled_tables(blend, blanes, 48, 256)
     out.update(surface_yardstick("surface_ad_culled", blend, blanes, bkw,
-                                 culled_tables(blend, blanes, 48, 256),
-                                 device_ms, outputs))
+                                 btabs, device_ms, outputs))
+    # the dense form: K1 on the primary rays, K2 on each light's shadow
+    # batch of the culled K1's hits, K3 on those hits (slot mode; AD mode
+    # on the blended scene): inputs both trees compute alike
+    out.update(surface_yardstick("surface_dense", scene, lanes, kw, tabs,
+                                 device_ms, outputs, dense=True))
+    out.update(surface_yardstick("surface_ad_dense", blend, blanes, bkw,
+                                 btabs, device_ms, outputs, dense=True))
     if dump:
         torch.save(outputs, dump)
+    kd = mk.march_kernel(scene, **lanes, **kw)
     out["march_dense_ms"] = device_ms(
         lambda: mk.march_kernel(scene, **lanes, **kw), reps=10)
+    out.update({"march_dense_" + key: v for key, v in dense_lane_stats(
+        mk, scene, lanes, kw, kd[3]).items()})
+    out["march_dense_digest"] = digest(*kd)
+    okw = dict(kw, occlusion=True)
+    for light, (sl, _f) in enumerate(dense_shadow_lanes(scene, lanes, k)):
+        name = f"occlusion_dense_light{light}"
+        o = mk.march_kernel(scene, **sl, **okw)
+        out[name + "_ms"] = device_ms(
+            lambda: mk.march_kernel(scene, **sl, **okw), reps=10)
+        out.update({f"{name}_{key}": v for key, v in dense_lane_stats(
+            mk, scene, sl, okw, o[1]).items()})
+        out[name + "_digest"] = digest(*o)
     pos = lanes["origin"] + (k[0] - lanes["epsilon"])[:, None] \
         * lanes["direction"]
     xb, bidx, lidx = gather_bench_inputs(pos, dev)
@@ -3267,10 +3362,11 @@ def compare_kernels(tree) -> dict:
 
 def compare(tree, pairs, reps) -> int:
     """This checkout against the commit unpacked in ``tree`` on the culled
-    torus frame: ``pairs`` pairs of fresh ``--frame-only`` processes, one
-    per tree, the order swapped from pair to pair; prints each median, the
-    paired differences (this - other) and the card.  Before them, the
-    kernels' device times of both trees (:func:`compare_kernels`)."""
+    torus frame and its dense form: ``pairs`` pairs of fresh
+    ``--frame-only`` processes, one per tree, the order swapped from pair
+    to pair; prints each median, the paired differences (this - other) of
+    each form and the card.  Before them, the kernels' device times and
+    output digests of both trees (:func:`compare_kernels`)."""
     kernels = compare_kernels(tree)
     runs = []
     for i in range(pairs):
@@ -3282,18 +3378,29 @@ def compare(tree, pairs, reps) -> int:
                                  capture_output=True, text=True, check=True,
                                  timeout=600)
             rec = json.loads(out.stdout.strip().splitlines()[-1])
-            log(f"  pair {i} {rec['package']}: median {rec['median_ms']:.2f}"
-                f" ms of {[round(x, 2) for x in rec['times_ms']]}")
-            pair["other" if t else "this"] = rec["median_ms"]
+            log(f"  pair {i} {rec['package']}: culled median "
+                f"{rec['median_ms']:.2f} ms of "
+                f"{[round(x, 2) for x in rec['times_ms']]}; dense median "
+                f"{rec['dense_median_ms']:.2f} ms of "
+                f"{[round(x, 2) for x in rec['dense_times_ms']]}")
+            side = "other" if t else "this"
+            pair[side] = rec["median_ms"]
+            pair["dense_" + side] = rec["dense_median_ms"]
         runs.append(pair)
-    diffs = [r["this"] - r["other"] for r in runs]
-    print(json.dumps({
-        "kernels": kernels, "pairs": runs, "paired_diff_ms": diffs,
-        "median_diff_ms": statistics.median(diffs),
-        "min_diff_ms": min(diffs), "max_diff_ms": max(diffs),
-        "this_slower_in": sum(d > 0 for d in diffs),
-        "median_this_ms": statistics.median(r["this"] for r in runs),
-        "median_other_ms": statistics.median(r["other"] for r in runs)}))
+    res = {"kernels": kernels, "pairs": runs}
+    for form in ("", "dense_"):
+        diffs = [r[form + "this"] - r[form + "other"] for r in runs]
+        res.update({
+            form + "paired_diff_ms": diffs,
+            form + "median_diff_ms": statistics.median(diffs),
+            form + "min_diff_ms": min(diffs),
+            form + "max_diff_ms": max(diffs),
+            form + "this_slower_in": sum(d > 0 for d in diffs),
+            form + "median_this_ms": statistics.median(
+                r[form + "this"] for r in runs),
+            form + "median_other_ms": statistics.median(
+                r[form + "other"] for r in runs)})
+    print(json.dumps(res))
     print(nvidia_smi())
     return 0
 
@@ -3353,6 +3460,7 @@ def main() -> int:
     phase_kernels(dev)
     phase_culled_kernels(dev)
     phase_overbudget_pairs(dev)
+    phase_dense_unstaged(dev)
     phase_ad_kernels(dev)
     phase_sign_kernels(dev)
     scene = ft.flatten(torus_csg_scene(19, BENCH_N_TORI), device=dev)
@@ -3444,9 +3552,10 @@ def main() -> int:
                 # host call), K2's second light, lane efficiency, ray
                 # evaluations and section shares, where the phase took them
                 **{k: v for k, v in times[name].items()
-                   if k.endswith("host_call_ms") or k.startswith("ms_light")
+                   if k.endswith("host_call_ms") or "_light" in k
+                   or k.startswith("ms_light")
                    or k in ("lane_efficiency", "ray_evaluations",
-                            "sections")}}
+                            "issued_evaluations", "sections")}}
                for name, src, rep, path in rows]
     kernels[3]["forced_repair_launches"] = repair["block_gather"]
     kernels[3]["culled_frame_launches"] = culled["counts"]["block_gather"]

@@ -3,7 +3,8 @@
 // templated over the scalar type: float for marching, a 3-component
 // forward-mode dual number for exact gradients), the stack values of the
 // scene program, and its two folds over what a block staged: the march's
-// (windowed candidate passes) and the surface pass's (whole-list scans).
+// (windowed candidate passes) and the surface pass's (whole-list scans),
+// each also over the dense form's kind runs.
 //
 // The formulas are those of fraytracer_tpu_torch/ops/sdf.py (the plain
 // PyTorch versions the kernels are held against), which are algebraically
@@ -39,7 +40,10 @@ enum { G_MIN = 0, G_MAX, G_SUMEXP };
 // Entries are the primitives ordered by group, members of a group in
 // ascending global slot; each group is one contiguous entry range.  The
 // rows of culled pairs come after every group's range: their group reads
-// them from the per-tile candidate tables (FtCull).
+// them from the per-tile candidate tables (FtCull).  Slots are kind-major,
+// so a group's range is a few runs of one kind (at most one a kind): the
+// dense form reads its entries run by run from `packed`, each row at its
+// kind's width rounded up to 16 bytes (ft_kind_width), one dispatch a run.
 struct FtProgram {
   const int* ops;           // [n_ops * 2] (opcode, arg): arg = group id or
                             // operand count
@@ -54,6 +58,12 @@ struct FtProgram {
   const float* ent_params;  // [n_ent * FT_PSTRIDE]; torus axes unit length
   int n_ent;
   const int* group_pairs;   // [n_groups * 2] the group's pairs [start, end)
+  const int* runs;          // [n_runs * 4] (first entry, end, kind, first
+                            // 16-byte word of the run in packed)
+  int n_runs;
+  const int* group_runs;    // [n_groups * 2] the group's runs [start, end)
+  const float* packed;      // the dense entries' rows, run after run
+  const int* ent_ms;        // [n_ent * 2] (CSG-visible material, slot)
 };
 
 // One culled (group, kind) pair: per-tile tables built on the host
@@ -98,6 +108,22 @@ struct FtStage {
   int bulk_keys;    // bit q: pair q's keys slice goes by bulk copy
   int bulk_hsuf;    // bit q: pair q's hsuf slice goes by bulk copy
   int pair_off[FT_MAX_PAIRS];  // pair q's slices, -1: not staged
+};
+
+// The shared-memory plan of a dense-form launch (K1/K2
+// march_dense_kernel, K3's dense kernels), sized on the host from shapes
+// alone (ops/cuda/cull.py dense_stage_plan).  Byte offsets from the block's
+// dynamic shared memory, which starts with the copy barrier (16 bytes):
+// the program (one SOp an op), the runs (one int4 a run), K3's (material,
+// slot) pairs (one int2 an entry) and the packed rows (one bulk copy), the
+// last two while they fit, else read from device memory; K3's hit-lane
+// list at the end.
+struct FtDenseStage {
+  int bytes;        // dynamic shared memory of a block
+  int ops_off, runs_off;
+  int ms_off;       // -1: (material, slot) from device memory (ent_ms)
+  int rows_off;     // -1: the packed rows from device memory
+  int rows_bytes;   // bytes of the packed rows, a multiple of 16
 };
 
 // A lane as the culled passes see it.  K1/K2 call the scene with every
@@ -191,10 +217,11 @@ __device__ __forceinline__ float sign_(T a) {
 }
 
 // A primitive row as the distance functions read it.  GRow: device memory
-// through the read-only cache, exact (IEEE) square roots — the dense form's
-// entries in K1/K2.  RRow: a row held in registers (loaded as 16-byte words
-// from shared or device memory); FAST takes sqrt.approx for the march
-// distance (K1/K2 only: a step length, held against the plain version at
+// through the read-only cache, exact (IEEE) square roots — a culled
+// launch's dense entries in K1/K2 when there are more than the block
+// stages.  RRow: a row held in registers (loaded as 16-byte words from
+// shared or device memory); FAST takes sqrt.approx for the march distance
+// (K1/K2 only: a step length, held against the plain version at
 // t <= 1e-4), K3 keeps exact roots.
 struct GRow {
   const float* p;
@@ -382,6 +409,19 @@ __device__ __forceinline__ T kind_dist(const G& g, T px, T py, T pz) {
   else if constexpr (KIND == K_CONE) return d_cone(g, px, py, pz);
   else return d_plane(g, px, py, pz);
 }
+
+// runs CALL with the run-time primitive kind `kind` as the compile-time
+// constant K (one dispatch around a loop, not one a row)
+#define FT_KIND_SWITCH(kind, CALL)                             \
+  switch (kind) {                                              \
+    case K_SPHERE: { constexpr int K = K_SPHERE; CALL; } break;     \
+    case K_CAPSULE: { constexpr int K = K_CAPSULE; CALL; } break;   \
+    case K_TORUS: { constexpr int K = K_TORUS; CALL; } break;       \
+    case K_TRIANGLE: { constexpr int K = K_TRIANGLE; CALL; } break; \
+    case K_BOX: { constexpr int K = K_BOX; CALL; } break;           \
+    case K_CONE: { constexpr int K = K_CONE; CALL; } break;         \
+    default: { constexpr int K = K_PLANE; CALL; }                   \
+  }
 
 // exact gradient of one primitive's distance at p (forward-mode dual
 // numbers), the kind known at run time or at compile time
@@ -798,10 +838,122 @@ __device__ __forceinline__ float march_group(const MarchCtx& X, const Lane& L,
   return acc;
 }
 
+// ---------------------------------------------------------------------------
+// The dense form (K1/K2 march_dense_kernel, K3's dense kernels)
+// ---------------------------------------------------------------------------
+//
+// The block stages the program, its kind runs and, while they fit, the
+// packed rows of the dense entries (FtDenseStage); a group reads its
+// runs one after the other, each with the kind known at compile time, so
+// the seven-way dispatch sits outside the row loop and a row is read as
+// the 16-byte words its kind needs (a torus 32 bytes, a sphere 16).  Rows
+// that did not fit are read from device memory through the same code.
+
+#define FT_DENSE_FAST_ROOTS 1  // sqrt.approx in the dense march distance
+
+// The dense form's staged view.
+struct DenseCtx {
+  const FtProgram& P;
+  const FtDenseStage& S;
+  const unsigned char* smem;
+  const float4* rows;  // the packed rows: shared memory or P.packed
+  const int2* ms;      // (material, slot): shared memory or P.ent_ms
+  __device__ __forceinline__ const SOp* ops() const {
+    return (const SOp*)(smem + S.ops_off);
+  }
+  __device__ __forceinline__ const int4* runs() const {
+    return (const int4*)(smem + S.runs_off);
+  }
+};
+
+// A min or max run folded into acc: 4 rows in flight on two accumulators
+// (min and max are exact in any order).  A warp reads one row at a time:
+// a broadcast.
+template <int KIND, bool MN>
+__device__ __forceinline__ float run_extremum(const float4* r4, int count,
+                                              float acc, float px, float py,
+                                              float pz) {
+  constexpr int W = (ft_kind_width(KIND) + 3) / 4;
+  constexpr bool FAST = FT_DENSE_FAST_ROOTS != 0;
+  float a0 = acc, a1 = acc;
+  int i = 0;
+#pragma unroll 1
+  for (; i + 4 <= count; i += 4) {
+    const float d0 = kind_dist<KIND>(load_row<W, FAST>(r4 + i * W), px, py,
+                                     pz);
+    const float d1 = kind_dist<KIND>(load_row<W, FAST>(r4 + (i + 1) * W),
+                                     px, py, pz);
+    const float d2 = kind_dist<KIND>(load_row<W, FAST>(r4 + (i + 2) * W),
+                                     px, py, pz);
+    const float d3 = kind_dist<KIND>(load_row<W, FAST>(r4 + (i + 3) * W),
+                                     px, py, pz);
+    a0 = MN ? fminf(a0, d0) : fmaxf(a0, d0);
+    a1 = MN ? fminf(a1, d1) : fmaxf(a1, d1);
+    a0 = MN ? fminf(a0, d2) : fmaxf(a0, d2);
+    a1 = MN ? fminf(a1, d3) : fmaxf(a1, d3);
+  }
+#pragma unroll 1
+  for (; i < count; ++i) {
+    const float d = kind_dist<KIND>(load_row<W, FAST>(r4 + i * W), px, py,
+                                    pz);
+    a0 = MN ? fminf(a0, d) : fmaxf(a0, d);
+  }
+  return MN ? fminf(a0, a1) : fmaxf(a0, a1);
+}
+
+// A sumexp run added to s in entry order (the float sum keeps its order).
+template <int KIND>
+__device__ __forceinline__ float run_sumexp(const float4* r4, int count,
+                                            float k, float s, float px,
+                                            float py, float pz) {
+  constexpr int W = (ft_kind_width(KIND) + 3) / 4;
+  constexpr bool FAST = FT_DENSE_FAST_ROOTS != 0;
+#pragma unroll 1
+  for (int i = 0; i < count; ++i) {
+    s += expf(-kind_dist<KIND>(load_row<W, FAST>(r4 + i * W), px, py, pz) /
+              k);
+  }
+  return s;
+}
+
+// a group of the dense form, run by run (its SOp's q0/q1 name its runs)
 template <typename Hook>
-__device__ __forceinline__ float march_distance(const MarchCtx& X,
-                                                const Lane& L, float px,
-                                                float py, float pz,
+__device__ __forceinline__ float march_group(const DenseCtx& X, const Lane&,
+                                             const SOp& o, float px,
+                                             float py, float pz, Hook&) {
+  const int4* runs = X.runs();
+  if (o.gop == G_SUMEXP) {
+    float s = 0.f;
+#pragma unroll 1
+    for (int r = o.q0; r < o.q1; ++r) {
+      const int4 u = runs[r];
+      FT_KIND_SWITCH(u.z, s = run_sumexp<K>(X.rows + u.w, u.y - u.x, o.k, s,
+                                            px, py, pz))
+    }
+    return -o.k * logf(fmaxf(s, 1e-30f));
+  }
+  const bool mn = o.gop == G_MIN;
+  float acc = mn ? FT_BIG : -FT_BIG;
+#pragma unroll 1
+  for (int r = o.q0; r < o.q1; ++r) {
+    const int4 u = runs[r];
+    // (the parentheses keep the template's comma out of the macro)
+    if (mn) {
+      FT_KIND_SWITCH(u.z, (acc = run_extremum<K, true>(
+                              X.rows + u.w, u.y - u.x, acc, px, py, pz)))
+    } else {
+      FT_KIND_SWITCH(u.z, (acc = run_extremum<K, false>(
+                              X.rows + u.w, u.y - u.x, acc, px, py, pz)))
+    }
+  }
+  return acc;
+}
+
+// The scene's distance: the program folded with Dist values, the groups
+// read the culled way (MarchCtx) or the dense way (DenseCtx).
+template <typename Ctx, typename Hook>
+__device__ __forceinline__ float march_distance(const Ctx& X, const Lane& L,
+                                                float px, float py, float pz,
                                                 Hook& hook) {
   Dist st[FT_MAX_STACK];
   int sp = 0;
@@ -1035,6 +1187,18 @@ __device__ __forceinline__ RRow<false> entry_row(const MarchCtx& X, int e,
   return r;
 }
 
+// the dense form's entry e from device memory, exact roots (the winner's
+// gradient: one evaluation a lane)
+__device__ __forceinline__ RRow<false> entry_row(const DenseCtx& X, int e,
+                                                 int& kind) {
+  RRow<false> r;
+  const float* p = X.P.ent_params + (size_t)e * FT_PSTRIDE;
+#pragma unroll
+  for (int j = 0; j < FT_PSTRIDE; ++j) r.v[j] = __ldg(p + j);
+  kind = __ldg(X.P.ent_kind + e);
+  return r;
+}
+
 // the gradient at p of the row at r4, kind at run time (one dispatch)
 __device__ __forceinline__ Dual row_dual(int kind, const float4* r4, float px,
                                          float py, float pz) {
@@ -1068,6 +1232,13 @@ __device__ __forceinline__ Dual leaf_dual(const MarchCtx& X, int at,
   const RRow<false> r = entry_row(X, -at - 2, kind);
   return prim_dual(kind, r, px, py, pz);
 }
+// the dense form has no pairs: the leaf is an entry
+__device__ __forceinline__ Dual leaf_dual(const DenseCtx& X, int at,
+                                          float px, float py, float pz) {
+  int kind;
+  const RRow<false> r = entry_row(X, -at - 2, kind);
+  return prim_dual(kind, r, px, py, pz);
+}
 
 // group member e (global slot `slot`) with distance d; members run in
 // ascending slot, strict compares keep the first extremum.  DistGrad only
@@ -1084,10 +1255,12 @@ __device__ __forceinline__ void take_member(DistGrad& acc, int& won, bool mn,
     won = e;
   }
 }
-__device__ __forceinline__ void finish_members(DistCode&, int, const MarchCtx&,
+template <typename Ctx>
+__device__ __forceinline__ void finish_members(DistCode&, int, const Ctx&,
                                                float, float, float) {}
+template <typename Ctx>
 __device__ __forceinline__ void finish_members(DistGrad& acc, int won,
-                                               const MarchCtx& X, float px,
+                                               const Ctx& X, float px,
                                                float py, float pz) {
   if (won < 0) return;
   int kind;
@@ -1163,8 +1336,156 @@ __device__ __forceinline__ V surface_group(const MarchCtx& X, const SOp& o,
   return acc;
 }
 
+// K3's dense form: each min/max group scans its runs with the kind known
+// at compile time (rows in flight as scan_rows keeps them, each row's
+// material and slot beside it: the order on (distance, slot) is total, so
+// the runs' results merge to the sequential scan's); a sumexp group adds
+// its members in entry order.  Exact roots; the winner's gradient from
+// device memory, once (finish_members, leaf_dual).
+template <int KIND>
+__device__ __forceinline__ void scan_entry(const float4* r4, const int2* ms,
+                                           int e0, int i, bool mn, float px,
+                                           float py, float pz, PairScan& acc,
+                                           RowArgmin& mat) {
+  constexpr int W = (ft_kind_width(KIND) + 3) / 4;
+  const float d = kind_dist<KIND>(load_row<W, false>(r4 + i * W), px, py,
+                                  pz);
+  const int2 m = ms[e0 + i];
+  const float slot = (float)m.y;
+  mat(d, (float)m.x, slot);
+  if (scan_better(mn, d, slot, acc)) acc = {d, slot, e0 + i};
+}
+// the run of `count` entries from entry e0 whose rows start at r4; brow
+// names the winning entry
+template <int KIND>
+__device__ __forceinline__ PairScan scan_run(const float4* r4, const int2* ms,
+                                             int e0, int count, bool mn,
+                                             float px, float py, float pz,
+                                             MaterialArgmin& material) {
+  PairScan acc[ft_surface_rows];
+  RowArgmin mat[ft_surface_rows];
+#pragma unroll
+  for (int k = 0; k < ft_surface_rows; ++k) {
+    acc[k] = {mn ? FT_BIG : -FT_BIG, FT_BIG, -1};
+  }
+  int i = 0;
+#pragma unroll 1
+  for (; i + ft_surface_rows <= count; i += ft_surface_rows) {
+#pragma unroll
+    for (int k = 0; k < ft_surface_rows; ++k) {
+      scan_entry<KIND>(r4, ms, e0, i + k, mn, px, py, pz, acc[k], mat[k]);
+    }
+  }
+#pragma unroll 1
+  for (; i < count; ++i) {
+    scan_entry<KIND>(r4, ms, e0, i, mn, px, py, pz, acc[0], mat[0]);
+  }
+#pragma unroll
+  for (int k = 0; k < ft_surface_rows; ++k) {
+    if (k > 0 && scan_better(mn, acc[k].bd, acc[k].bslot, acc[0])) {
+      acc[0] = acc[k];
+    }
+    if (mat[k].mat >= 0.f) {
+      material(mat[k].md, (int)mat[k].mat, (int)mat[k].mslot);
+    }
+  }
+  return acc[0];
+}
+
+// a sumexp run in entry order: sum e (DistCode), or also sum e * gradient
+template <int KIND>
+__device__ __forceinline__ void sumexp_run(const DenseCtx& X, int4 u, float k,
+                                           float px, float py, float pz,
+                                           MaterialArgmin& material,
+                                           float& s) {
+  constexpr int W = (ft_kind_width(KIND) + 3) / 4;
+#pragma unroll 1
+  for (int i = 0; i < u.y - u.x; ++i) {
+    const float d = kind_dist<KIND>(load_row<W, false>(X.rows + u.w + i * W),
+                                    px, py, pz);
+    const int2 m = X.ms[u.x + i];
+    material(d, m.x, m.y);
+    s += expf(-d / k);
+  }
+}
+template <int KIND>
+__device__ __forceinline__ void sumexp_run(const DenseCtx& X, int4 u, float k,
+                                           float px, float py, float pz,
+                                           MaterialArgmin& material,
+                                           float4& s) {
+  constexpr int W = (ft_kind_width(KIND) + 3) / 4;
+#pragma unroll 1
+  for (int i = 0; i < u.y - u.x; ++i) {
+    const Dual g = kind_dual<KIND>(load_row<W, false>(X.rows + u.w + i * W),
+                                   px, py, pz);
+    const int2 m = X.ms[u.x + i];
+    material(g.v, m.x, m.y);
+    const float w = expf(-g.v / k);
+    s.x += w;
+    s.y += w * g.x;
+    s.z += w * g.y;
+    s.w += w * g.z;
+  }
+}
 template <typename V>
-__device__ __forceinline__ V surface_scene(const MarchCtx& X, float eps,
+__device__ __forceinline__ V sumexp_runs(const DenseCtx& X, const SOp& o,
+                                         float px, float py, float pz,
+                                         MaterialArgmin& material, V*) {
+  float s = 0.f;
+#pragma unroll 1
+  for (int r = o.q0; r < o.q1; ++r) {
+    const int4 u = X.runs()[r];
+    FT_KIND_SWITCH(u.z, sumexp_run<K>(X, u, o.k, px, py, pz, material, s))
+  }
+  V acc;
+  smooth_value(acc, -o.k * logf(fmaxf(s, 1e-30f)));
+  return acc;
+}
+__device__ __forceinline__ DistGrad sumexp_runs(const DenseCtx& X,
+                                                const SOp& o, float px,
+                                                float py, float pz,
+                                                MaterialArgmin& material,
+                                                DistGrad*) {
+  float4 s = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int r = o.q0; r < o.q1; ++r) {
+    const int4 u = X.runs()[r];
+    FT_KIND_SWITCH(u.z, sumexp_run<K>(X, u, o.k, px, py, pz, material, s))
+  }
+  s.x = fmaxf(s.x, 1e-30f);
+  return {-o.k * logf(s.x), s.y / s.x, s.z / s.x, s.w / s.x};
+}
+
+template <typename V>
+__device__ __forceinline__ V surface_group(const DenseCtx& X, const SOp& o,
+                                           float, float px, float py,
+                                           float pz,
+                                           MaterialArgmin& material) {
+  if (o.gop == G_SUMEXP) {
+    return sumexp_runs(X, o, px, py, pz, material, (V*)nullptr);
+  }
+  const bool mn = o.gop == G_MIN;
+  PairScan best = {mn ? FT_BIG : -FT_BIG, FT_BIG, -1};
+#pragma unroll 1
+  for (int r = o.q0; r < o.q1; ++r) {
+    const int4 u = X.runs()[r];
+    PairScan run;
+    FT_KIND_SWITCH(u.z, run = scan_run<K>(X.rows + u.w, X.ms, u.x, u.y - u.x,
+                                          mn, px, py, pz, material))
+    if (scan_better(mn, run.bd, run.bslot, best)) best = run;
+  }
+  V acc;
+  smooth_value(acc, mn ? FT_BIG : -FT_BIG);
+  int won = -1;
+  if (best.brow >= 0) {
+    take_member(acc, won, mn, best.bd, (int)best.bslot, best.brow);
+  }
+  finish_members(acc, won, X, px, py, pz);
+  return acc;
+}
+
+template <typename V, typename Ctx>
+__device__ __forceinline__ V surface_scene(const Ctx& X, float eps,
                                            float px, float py, float pz,
                                            MaterialArgmin& material) {
   V st[FT_MAX_STACK];

@@ -13,15 +13,40 @@
 //
 // What bounds K1/K2 on an H100: instruction issue and latency, not bytes.  A
 // dense step of one ray evaluates every primitive (about 30 flops and 2
-// square roots per torus, 1002 primitives on the benchmark scene); a
-// culled step evaluates the dense rest plus the window chunks of its
-// warp's tile table (tens of candidates) behind a chain of dependent
-// reads: program, group, pair record, chunk keys, then the rows.  Warps
-// run as long as their slowest lane (58% of the lane-steps are useful),
-// and two thirds of a frame's blocks hold no lane that marches, so the
-// fixed cost of a block counts too.
+// square roots per torus, 1002 primitives on the benchmark scene): its
+// cost is the issue slots a primitive takes, the dispatch on its kind and
+// the lanes that idle in a warp whose other lanes still march.  A culled
+// step evaluates the dense rest plus the window chunks of its warp's tile
+// table (tens of candidates) behind a chain of dependent reads: program,
+// group, pair record, chunk keys, then the rows.  Culled warps run as long
+// as their slowest lane (58% of the lane-steps are useful), and two
+// thirds of a frame's blocks hold no lane that marches, so the fixed cost
+// of a block counts too.
 //
-// Design of K1/K2:
+// Design of the dense form (march_dense_kernel, below march_kernel):
+// - the host lowers each group's entries as runs of one kind (slots are
+//   kind-major and a group's members ascend: no entry moves, a sumexp
+//   group's sum keeps its order) and packs their rows at their kind's
+//   width rounded up to 16 bytes (a torus 32 bytes, a sphere 16: 32,032
+//   bytes for the benchmark's 1002 entries);
+// - a block stages the program, the runs and the packed rows (one bulk
+//   copy on its mbarrier, sized from shapes alone: cull.py
+//   dense_stage_plan); rows that do not fit are read from device memory
+//   through the same code;
+// - a group dispatches once per run on the kind, keeps 4 rows in flight on
+//   two accumulators in a min/max run (exact in any order; a warp reads
+//   one row at a time, a broadcast) and adds a sumexp run in order; the
+//   march distance takes sqrt.approx (FT_DENSE_FAST_ROOTS), held to the
+//   plain version's bounds as the culled form is;
+// - lane refill over a persistent grid: a lane whose ray ends takes the
+//   next ray index from a counter (one warp-aggregated atomicAdd a
+//   refill), so no lane idles while its warp marches on; a lane counts its
+//   own steps against max_steps (the pattern of Aila & Laine,
+//   "Understanding the Efficiency of Ray Traversal on GPUs", HPG 2009,
+//   persistent threads).  The culled form keeps fixed lanes: its window is
+//   warp-collective.
+//
+// Design of the culled form (march_kernel):
 // - one thread per ray over a 1-D grid of FT_BLOCK = 128 threads, 6
 //   blocks an SM (80 registers): rays are flat [N] (origin and direction
 //   [N, 3]); the grid masks the ragged end, and lanes past N stay in the
@@ -50,25 +75,27 @@
 // - the candidate loop is specialised by primitive kind (one dispatch per
 //   pair and step, not per row), reads a row as 16-byte words from shared
 //   memory (a warp reads one row: a broadcast), keeps 4 rows in flight on
-//   two accumulators, and takes sqrt.approx for the march distance (the
-//   dense form's entries in device memory keep IEEE roots);
-// - the dense form (cull = None) runs through the same kernel: it stages
-//   the program alone and reads its entries through the read-only cache;
+//   two accumulators, and takes sqrt.approx for the march distance (dense
+//   entries beyond the few a block stages, read from device memory, keep
+//   IEEE roots);
 // - the march loop runs while any lane of the warp is active; a lane
 //   evaluates once per iteration while active, so a cap of max_steps
 //   iterations reproduces the TPU tile loop's i < max_steps per lane;
 // - omega-relaxed stepping with the overstep revert and the
 //   budget-crossing rule of march_kernel.py:1697-1722, exactly;
-// Measured and left out: 256-thread blocks, 8 rows in flight, blocks
-// without an active lane skipping the staging, copying only a table's
-// first ceil8(count) rows (PERF.md has the figures).  Later work
-// (ROADMAP): the dense form's entry loop in shared memory, compaction of
-// finished lanes.
+// Measured and left out for the culled form: 256-thread blocks, 8 rows in
+// flight, blocks without an active lane skipping the staging, copying only
+// a table's first ceil8(count) rows (PERF.md has the figures).
 //
 // Design of K3 (the section below has the details): the same tile-aligned
-// blocks and the same staging; the block's hit lanes compacted onto its
-// first warps; a whole-list scan of each pair specialised by kind, with
-// exact roots; the winner's gradient from its staged row.
+// blocks and the same staging (the dense form: the packed rows and each
+// entry's material and slot); the block's hit lanes compacted onto its
+// first warps; a whole-list scan of each pair, or of each run of the dense
+// form, specialised by kind, with exact roots; the winner's gradient from
+// its staged row (the dense form: from device memory, once).
+#include <algorithm>
+#include <type_traits>
+
 #include "ft_sdf.cuh"
 
 // ---------------------------------------------------------------------------
@@ -341,6 +368,215 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
 }
 
 // ---------------------------------------------------------------------------
+// K1 / K2, the dense form
+// ---------------------------------------------------------------------------
+
+// Occupancy of the dense march: FT_DENSE_BLOCK threads x FT_DENSE_BLOCKS
+// blocks an SM (the staged rows of the benchmark scene take 32,032 bytes a
+// block).
+#define FT_DENSE_BLOCK 128
+#define FT_DENSE_BLOCKS 6
+
+// A dense block's prologue: thread 0 starts the bulk copy of the packed
+// rows where the plan stages them; every thread copies its share of the
+// program (a group's record carries its run range in q0/q1), the runs and
+// (K3) each entry's (material, slot).  Then a __syncthreads and, where the
+// rows are staged, the barrier.
+__device__ __forceinline__ void dense_stage_begin(unsigned char* smem,
+                                                  const FtProgram& P,
+                                                  const FtDenseStage& S) {
+  const unsigned bar = smem_addr(smem);
+  if (S.rows_off >= 0 && threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_expect_tx(bar, (unsigned)S.rows_bytes);
+    bulk_copy(smem + S.rows_off, P.packed, (unsigned)S.rows_bytes, bar);
+  }
+  SOp* sops = (SOp*)(smem + S.ops_off);
+  for (int i = threadIdx.x; i < P.n_ops; i += blockDim.x) {
+    SOp o = {__ldg(P.ops + 2 * i), __ldg(P.ops + 2 * i + 1), 0, 0, 0, 0, 0,
+             __ldg(P.op_k + i)};
+    if (o.op == OP_GROUP) {
+      const int g = o.arg;
+      o.e0 = __ldg(P.groups + 3 * g);
+      o.e1 = __ldg(P.groups + 3 * g + 1);
+      o.gop = __ldg(P.groups + 3 * g + 2);
+      o.k = __ldg(P.group_k + g);
+      o.q0 = __ldg(P.group_runs + 2 * g);
+      o.q1 = __ldg(P.group_runs + 2 * g + 1);
+    }
+    sops[i] = o;
+  }
+  int4* runs = (int4*)(smem + S.runs_off);
+  for (int r = threadIdx.x; r < P.n_runs; r += blockDim.x) {
+    runs[r] = __ldg((const int4*)P.runs + r);
+  }
+  if (S.ms_off >= 0) {
+    int2* ms = (int2*)(smem + S.ms_off);
+    for (int e = threadIdx.x; e < P.n_ent; e += blockDim.x) {
+      ms[e] = __ldg((const int2*)P.ent_ms + e);
+    }
+  }
+}
+
+// The block's view once the copies are in (dense_stage_begin, a
+// __syncthreads, the packed rows' barrier where they are staged).
+// STAGED: the rows (and K3's pairs) in shared memory, named from the
+// block's array itself so that the compiler emits shared-memory loads; else
+// the rows from device memory (generic loads for the pairs).
+template <bool STAGED>
+__device__ __forceinline__ DenseCtx dense_ctx(const unsigned char* smem,
+                                              const FtProgram& P,
+                                              const FtDenseStage& S) {
+  if constexpr (STAGED) {
+    return {P, S, smem, (const float4*)(smem + S.rows_off),
+            (const int2*)(smem + S.ms_off)};
+  } else {
+    return {P, S, smem, (const float4*)P.packed,
+            S.ms_off >= 0 ? (const int2*)(smem + S.ms_off)
+                          : (const int2*)P.ent_ms};
+  }
+}
+
+// The rays of the dense march (below), as one argument.
+struct DenseRays {
+  const float *origin, *dir, *length, *eps, *t0;
+  const float* sign;  // or null
+  float* t_out;       // null for occlusion, as d_out
+  int* hit_out;
+  float* d_out;
+  int* steps_out;
+  int n, max_steps, occlusion;
+  float omega;
+};
+
+// The dense march with lane refill over a persistent grid: a lane's march
+// reads its own ray alone (no warp-collective window), so a lane whose ray
+// ends takes the next one.  Each warp takes ray indices from the counter
+// `next` with one atomicAdd per refill (ballot, popc, shuffle), in lane
+// order; a lane counts its own steps against max_steps; a ray that does
+// not march (a zero budget, t0 past it) is written out at once.  Every
+// ray's outputs are those of a fixed lane, bit for bit.  `issued` (or
+// null) receives the warps' march iterations, 32 evaluations each.
+template <bool STAGED>
+__device__ __forceinline__ void march_dense_lanes(
+    const unsigned char* smem, const FtProgram& P, const FtDenseStage& S,
+    const DenseRays& R, int* __restrict__ next,
+    unsigned long long* __restrict__ issued) {
+  const DenseCtx X = dense_ctx<STAGED>(smem, P, S);
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const bool relaxed = R.omega > 1.f;
+  Lane none;  // the dense groups read no window statistics
+  none.oa = none.ca = none.t = 0.f;
+  none.eps = 1.f;
+  none.active = true;
+  NoPrimHook hook;
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  float L = 0.f, t = 0.f, e = 1.f, sgn = 1.f;
+  float d_last = FT_BIG, d_start = FT_BIG, step_taken = 0.f;
+  int ray = 0, steps = 0;
+  bool hit = false, active = false, done = false;
+  unsigned long long iters = 0;
+  for (;;) {
+    // refill every lane that neither marches nor has run out of rays
+    unsigned need;
+    while ((need = __ballot_sync(FT_FULL_MASK, !active && !done)) != 0u) {
+      const int leader = __ffs(need) - 1;
+      int base = 0;
+      if (lane == leader) base = atomicAdd(next, __popc(need));
+      base = __shfl_sync(FT_FULL_MASK, base, leader);
+      if (!active && !done) {
+        ray = base + __popc(need & below);
+        if (ray >= R.n) {
+          done = true;
+        } else {
+          ox = R.origin[3 * ray];
+          oy = R.origin[3 * ray + 1];
+          oz = R.origin[3 * ray + 2];
+          dx = R.dir[3 * ray];
+          dy = R.dir[3 * ray + 1];
+          dz = R.dir[3 * ray + 2];
+          L = R.length[ray];
+          t = R.t0[ray];
+          e = R.eps[ray];
+          sgn = R.sign != nullptr ? R.sign[ray] : 1.f;
+          hit = false;
+          steps = 0;
+          d_last = FT_BIG;
+          d_start = FT_BIG;
+          step_taken = 0.f;
+          active = L > 0.f && t < L && R.max_steps > 0;
+          if (!active) {
+            R.hit_out[ray] = 0;
+            R.steps_out[ray] = 0;
+            if (!R.occlusion) {
+              R.t_out[ray] = t;
+              R.d_out[ray] = d_last;
+            }
+          }
+        }
+      }
+    }
+    if (!__any_sync(FT_FULL_MASK, active)) break;
+    ++iters;
+    if (!active) continue;  // the other lanes step; the ballot above waits
+    // Per-lane sign: -1 marches inside the solid toward its exit surface.
+    const float d = sgn * march_distance(X, none, ox + t * dx, oy + t * dy,
+                                         oz + t * dz, hook);
+    ++steps;
+    if (relaxed) {
+      // as march_kernel: the overstep revert and the budget-crossing rule
+      const bool over = step_taken > d_start + d;
+      const bool is_hit = !over && d < e;
+      const float step_rel = R.omega * d;
+      const float step_new = (t + step_rel >= L) ? d : step_rel;
+      const float adv = (over || is_hit) ? 0.f : step_new;
+      const float t_new = over ? (t - step_taken) + d_start : t + adv;
+      const bool still = over || (!is_hit && t_new < L);
+      if ((still && !over) || is_hit) d_last = d;
+      step_taken = over ? d_start : adv;
+      d_start = over ? d_start : d;
+      t = t_new;
+      hit = hit || is_hit;
+      active = still;
+    } else {
+      const bool is_hit = d < e;
+      const float t_new = is_hit ? t : t + d;
+      const bool still = !is_hit && t_new < L;
+      if (still || is_hit) d_last = d;
+      t = t_new;
+      hit = hit || is_hit;
+      active = still;
+    }
+    if (!active || steps == R.max_steps) {
+      active = false;
+      R.hit_out[ray] = hit ? 1 : 0;
+      R.steps_out[ray] = steps;
+      if (!R.occlusion) {
+        R.t_out[ray] = t;
+        R.d_out[ray] = d_last;
+      }
+    }
+  }
+  if (issued != nullptr && lane == 0) atomicAdd(issued, iters);
+}
+
+__global__ void __launch_bounds__(FT_DENSE_BLOCK, FT_DENSE_BLOCKS)
+march_dense_kernel(DenseRays R, FtProgram P, FtDenseStage S,
+                   int* __restrict__ next,
+                   unsigned long long* __restrict__ issued) {
+  extern __shared__ __align__(16) unsigned char ft_smem[];
+  dense_stage_begin(ft_smem, P, S);
+  __syncthreads();  // the threads' own copies, and the barrier's init
+  if (S.rows_off >= 0) {
+    mbar_wait(smem_addr(ft_smem), 0);
+    march_dense_lanes<true>(ft_smem, P, S, R, next, issued);
+  } else {
+    march_dense_lanes<false>(ft_smem, P, S, R, next, issued);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K3: the surface pass, slot mode (plans of min/max alone) and AD mode
 // (plans with a smooth union)
 // ---------------------------------------------------------------------------
@@ -366,17 +602,22 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
 // - tile-aligned blocks of FT_BLOCK threads stage the program, the dense
 //   entries and the tile's candidate-table slices as K1/K2 do (stage_begin;
 //   the host's plan, cull.py stage_plan, adds the hit-lane list at its
-//   end), so the scan reads shared memory, not dependent __ldg chains;
+//   end), so the scan reads shared memory, not dependent __ldg chains; the
+//   dense form stages the program, its kind runs, each entry's (material,
+//   slot) and the packed rows (dense_stage_begin, cull.py
+//   dense_stage_plan);
 // - the block compacts its hit lanes: misses write their defaults at once,
 //   a block without a hit leaves before it stages anything, and the others
 //   list their hit lanes in shared memory (a ballot and a popcount prefix
 //   per warp) so that h hits run ceil(h / 32) warps of scans instead of
 //   four.  No lane's arithmetic changes: K3 has no warp-collective window,
 //   each lane scans its tile's whole list;
-// - the candidate scan is specialised by kind (one dispatch per pair),
-//   reads rows as 16-byte words and keeps ft_surface_rows rows in flight on
-//   separate accumulators, which merge exactly (ft_sdf.cuh scan_rows);
-// - the winner's gradient comes from its staged row.
+// - the candidate scan is specialised by kind (one dispatch per pair, or
+//   per run in the dense form), reads rows as 16-byte words and keeps
+//   ft_surface_rows rows in flight on separate accumulators, which merge
+//   exactly (ft_sdf.cuh scan_rows, scan_run);
+// - the winner's gradient comes from its staged row (the dense form: its
+//   entry in device memory, one evaluation a lane).
 __device__ __forceinline__ void write_normal(float* normal, int i, float gx,
                                              float gy, float gz) {
   const float inv = rsqrtf(gx * gx + gy * gy + gz * gz + 1e-20f);
@@ -385,8 +626,9 @@ __device__ __forceinline__ void write_normal(float* normal, int i, float gx,
   normal[3 * i + 2] = gz * inv;
 }
 
+template <typename Ctx>
 __device__ __forceinline__ void write_surface(const DistCode& v,
-                                              const MarchCtx& X, int i,
+                                              const Ctx& X, int i,
                                               float px, float py, float pz,
                                               float* normal, float* code) {
   float gx = 0.f, gy = 0.f, gz = 0.f;
@@ -400,8 +642,9 @@ __device__ __forceinline__ void write_surface(const DistCode& v,
   write_normal(normal, i, gx, gy, gz);
   code[i] = v.code;
 }
+template <typename Ctx>
 __device__ __forceinline__ void write_surface(const DistGrad& v,
-                                              const MarchCtx&, int i, float,
+                                              const Ctx&, int i, float,
                                               float, float, float* normal,
                                               float* code) {
   write_normal(normal, i, v.x, v.y, v.z);
@@ -415,13 +658,30 @@ static_assert(FT_SURF_LIST_BYTES == 4 * (FT_BLOCK / 32) + FT_BLOCK &&
                   FT_SURF_LIST_BYTES % 16 == 0 && FT_BLOCK <= 256,
               "FT_SURF_LIST_BYTES");
 
-template <typename V>
+// one hit lane's surface at p, folded over what the block staged
+template <typename V, typename Ctx>
+__device__ __forceinline__ void surface_lane(const Ctx& X, int li, float e,
+                                             float px, float py, float pz,
+                                             float* __restrict__ normal,
+                                             int* __restrict__ midx_out,
+                                             float* __restrict__ code_out) {
+  MaterialArgmin material;
+  const V v = surface_scene<V>(X, e, px, py, pz, material);
+  write_surface(v, X, li, px, py, pz, normal, code_out);
+  midx_out[li] = material.mat;
+}
+
+// Stage = FtStage: the culled form (C its tables); FtDenseStage: the
+// dense form (C null), which stages the program, its runs, each entry's
+// (material, slot) and the packed rows (dense_stage_begin)
+template <typename V, typename Stage>
 __device__ __forceinline__ void surface_block(
     const float* __restrict__ origin, const float* __restrict__ dir,
     const float* __restrict__ tt, const float* __restrict__ eps,
     const unsigned char* __restrict__ hitm, int n, const FtProgram& P,
-    const FtCull& C, const FtStage& S, float* __restrict__ normal,
+    const FtCull* C, const Stage& S, float* __restrict__ normal,
     int* __restrict__ midx_out, float* __restrict__ code_out) {
+  constexpr bool dense = std::is_same<Stage, FtDenseStage>::value;
   extern __shared__ __align__(16) unsigned char ft_smem[];
   const int i = blockIdx.x * FT_BLOCK + threadIdx.x;
   const int tile = blockIdx.x / (FT_TILE / FT_BLOCK);
@@ -439,7 +699,11 @@ __device__ __forceinline__ void surface_block(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const unsigned ball = __ballot_sync(FT_FULL_MASK, hit);
   if (lane == 0) counts[warp] = __popc(ball);
-  stage_begin(ft_smem, P, C, S, tile);
+  if constexpr (dense) {
+    dense_stage_begin(ft_smem, P, S);
+  } else {
+    stage_begin(ft_smem, P, *C, S, tile);
+  }
   __syncthreads();  // the counts, the threads' copies, the barrier's init
   int before = 0, hits = 0;
 #pragma unroll
@@ -457,12 +721,20 @@ __device__ __forceinline__ void surface_block(
   const float px = origin[3 * li] + ts * dir[3 * li];
   const float py = origin[3 * li + 1] + ts * dir[3 * li + 1];
   const float pz = origin[3 * li + 2] + ts * dir[3 * li + 2];
-  if (S.bulk_bytes > 0) mbar_wait(smem_addr(ft_smem), 0);
-  const MarchCtx X = {P, S, ft_smem, C.early_out};
-  MaterialArgmin material;
-  const V v = surface_scene<V>(X, e, px, py, pz, material);
-  write_surface(v, X, li, px, py, pz, normal, code_out);
-  midx_out[li] = material.mat;
+  if constexpr (dense) {
+    if (S.rows_off >= 0) {
+      mbar_wait(smem_addr(ft_smem), 0);
+      surface_lane<V>(dense_ctx<true>(ft_smem, P, S), li, e, px, py, pz,
+                      normal, midx_out, code_out);
+    } else {
+      surface_lane<V>(dense_ctx<false>(ft_smem, P, S), li, e, px, py, pz,
+                      normal, midx_out, code_out);
+    }
+  } else {
+    if (S.bulk_bytes > 0) mbar_wait(smem_addr(ft_smem), 0);
+    const MarchCtx X = {P, S, ft_smem, C->early_out};
+    surface_lane<V>(X, li, e, px, py, pz, normal, midx_out, code_out);
+  }
 }
 
 __global__ void __launch_bounds__(FT_BLOCK, FT_SURF_BLOCKS)
@@ -471,7 +743,7 @@ surface_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
                const unsigned char* __restrict__ hitm, int n, FtProgram P,
                FtCull C, FtStage S, float* __restrict__ normal,
                int* __restrict__ midx_out, float* __restrict__ code_out) {
-  surface_block<DistCode>(origin, dir, tt, eps, hitm, n, P, C, S, normal,
+  surface_block<DistCode>(origin, dir, tt, eps, hitm, n, P, &C, S, normal,
                           midx_out, code_out);
 }
 
@@ -482,8 +754,35 @@ surface_ad_kernel(const float* __restrict__ origin,
                   const unsigned char* __restrict__ hitm, int n, FtProgram P,
                   FtCull C, FtStage S, float* __restrict__ normal,
                   int* __restrict__ midx_out, float* __restrict__ code_out) {
-  surface_block<DistGrad>(origin, dir, tt, eps, hitm, n, P, C, S, normal,
+  surface_block<DistGrad>(origin, dir, tt, eps, hitm, n, P, &C, S, normal,
                           midx_out, code_out);
+}
+
+// the dense form of both modes: the same blocks over the packed rows
+__global__ void __launch_bounds__(FT_BLOCK, FT_SURF_BLOCKS)
+surface_dense_kernel(const float* __restrict__ origin,
+                     const float* __restrict__ dir,
+                     const float* __restrict__ tt,
+                     const float* __restrict__ eps,
+                     const unsigned char* __restrict__ hitm, int n,
+                     FtProgram P, FtDenseStage S, float* __restrict__ normal,
+                     int* __restrict__ midx_out, float* __restrict__ code_out) {
+  surface_block<DistCode>(origin, dir, tt, eps, hitm, n, P, nullptr, S,
+                          normal, midx_out, code_out);
+}
+
+__global__ void __launch_bounds__(FT_BLOCK, FT_SURF_BLOCKS)
+surface_ad_dense_kernel(const float* __restrict__ origin,
+                        const float* __restrict__ dir,
+                        const float* __restrict__ tt,
+                        const float* __restrict__ eps,
+                        const unsigned char* __restrict__ hitm, int n,
+                        FtProgram P, FtDenseStage S,
+                        float* __restrict__ normal,
+                        int* __restrict__ midx_out,
+                        float* __restrict__ code_out) {
+  surface_block<DistGrad>(origin, dir, tt, eps, hitm, n, P, nullptr, S,
+                          normal, midx_out, code_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -530,6 +829,45 @@ extern "C" int ft_march(const float* origin, const float* dir,
                                   cull, stage, max_steps, omega, occlusion,
                                   t_out, hit_out, d_out, steps_out, nullptr,
                                   stream);
+}
+
+// The dense form: a persistent grid of as many blocks as fit the card at
+// once (no more than the rays need), the ray counter zeroed on the
+// launch's stream first.
+extern "C" int ft_march_dense(const float* origin, const float* dir,
+                              const float* length, const float* eps,
+                              const float* t0, const float* sign, int n,
+                              const FtProgram* prog,
+                              const FtDenseStage* stage, int max_steps,
+                              float omega, int occlusion, float* t_out,
+                              int* hit_out, float* d_out, int* steps_out,
+                              int* next, unsigned long long* issued,
+                              void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  cudaError_t err;
+  if (stage->bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(march_dense_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               stage->bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, march_dense_kernel, FT_DENSE_BLOCK, stage->bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = std::min(std::max(per_sm, 1) * sms,
+                            blocks_for(n, FT_DENSE_BLOCK));
+  err = cudaMemsetAsync(next, 0, sizeof(int), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  const DenseRays R = {origin, dir, length, eps, t0, sign, t_out, hit_out,
+                       d_out, steps_out, n, max_steps, occlusion, omega};
+  march_dense_kernel<<<grid, FT_DENSE_BLOCK, stage->bytes,
+                       (cudaStream_t)stream>>>(R, *prog, *stage, next,
+                                               issued);
+  return (int)cudaGetLastError();
 }
 
 // The instrumented twin: the same kernel with SectionHook, adding each
@@ -591,6 +929,50 @@ extern "C" int ft_surface_ad(const float* origin, const float* dir,
                              float* code, void* stream) {
   return launch_surface(surface_ad_kernel, origin, dir, t, eps, hit, n, prog,
                         cull, stage, normal, midx, code, stream);
+}
+
+typedef void (*SurfaceDenseKernel)(const float*, const float*, const float*,
+                                   const float*, const unsigned char*, int,
+                                   FtProgram, FtDenseStage, float*, int*,
+                                   float*);
+static int launch_surface_dense(SurfaceDenseKernel kernel,
+                                const float* origin, const float* dir,
+                                const float* t, const float* eps,
+                                const unsigned char* hit, int n,
+                                const FtProgram* prog,
+                                const FtDenseStage* stage, float* normal,
+                                int* midx, float* code, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (stage->bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, stage->bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<blocks_for(n, FT_BLOCK), FT_BLOCK, stage->bytes,
+           (cudaStream_t)stream>>>(origin, dir, t, eps, hit, n, *prog,
+                                   *stage, normal, midx, code);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ft_surface_dense(const float* origin, const float* dir,
+                                const float* t, const float* eps,
+                                const unsigned char* hit, int n,
+                                const FtProgram* prog,
+                                const FtDenseStage* stage, float* normal,
+                                int* midx, float* code, void* stream) {
+  return launch_surface_dense(surface_dense_kernel, origin, dir, t, eps, hit,
+                              n, prog, stage, normal, midx, code, stream);
+}
+
+extern "C" int ft_surface_ad_dense(const float* origin, const float* dir,
+                                   const float* t, const float* eps,
+                                   const unsigned char* hit, int n,
+                                   const FtProgram* prog,
+                                   const FtDenseStage* stage, float* normal,
+                                   int* midx, float* code, void* stream) {
+  return launch_surface_dense(surface_ad_dense_kernel, origin, dir, t, eps,
+                              hit, n, prog, stage, normal, midx, code,
+                              stream);
 }
 
 extern "C" const char* ft_error_string(int err) {

@@ -13,8 +13,9 @@ Counterpart of the jnp host prep in
 * :func:`build_pair_tables` — the per-pair tables ``pallas_march_raw``
   builds before its ``pallas_call`` (:1857-1977);
 * :func:`stage_plan` — where a K1/K2/K3 block keeps a tile's slices of
-  those tables in shared memory (no JAX counterpart: the TPU kernel's
-  BlockSpecs did this).
+  those tables in shared memory, and :func:`dense_stage_plan` where a
+  dense-form block keeps the program's packed rows (no JAX counterpart:
+  the TPU kernel's BlockSpecs did this).
 
 A tile is :data:`TILE` consecutive lanes of the flat ray batch: one 32×32
 screen block in ``render.py``'s block order, and the JAX kernel's
@@ -53,9 +54,14 @@ _BIG = 3.0e38
 SMEM_LIMIT = 232448      # bytes a block may use on the H100 (227 KB)
 STAGE_HEADER = 16 + MAX_PAIRS * 48   # the copy barrier + the pair records
 STAGE_OP_BYTES = 32      # one staged op of the program (struct SOp)
-STAGE_ENTS_MAX = 128     # dense entries staged at most, TABLE_W floats each
+STAGE_ENTS_MAX = 128     # a culled launch's dense entries staged at most,
+#                          TABLE_W floats each
 SURF_LIST_BYTES = 144    # K3's hit-lane list at the plan's end: a count a
 #                          warp, a byte a lane (FT_SURF_LIST_BYTES)
+# What a dense-form block stages (csrc/ft_sdf.cuh FtDenseStage)
+DENSE_HEADER = 16        # the copy barrier
+STAGE_RUN_BYTES = 16     # one run of the program's dense entries (int4)
+STAGE_MEMBER_BYTES = 8   # K3: an entry's (material, slot) (int2)
 
 
 # ---------------------------------------------------------------------------
@@ -244,8 +250,8 @@ def stage_plan(ms: Tuple[int, ...], n_ops: int, n_dense: int,
     After the header come the program, one record of STAGE_OP_BYTES an op
     (always: a plan whose program does not fit a block's shared memory is
     refused, as one deeper than the value stack is), and the dense entries
-    as rows of TABLE_W floats (when there are at most STAGE_ENTS_MAX; the
-    dense form's whole scene is read from device memory).  Then the pairs
+    as rows of TABLE_W floats (when there are at most STAGE_ENTS_MAX; more
+    are read from device memory).  Then the pairs
     in program order: a pair is staged while the block stays within
     SMEM_LIMIT; one that does not fit is read from device memory, and so is
     every pair after it."""
@@ -280,6 +286,57 @@ def stage_plan(ms: Tuple[int, ...], n_ops: int, n_dense: int,
     return StagePlan(bytes=at + reserve, bulk_bytes=bulk_bytes, ents=ents,
                      pair_off=tuple(pair_off), bulk_keys=bulk_keys,
                      bulk_hsuf=bulk_hsuf, **offs)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseStagePlan:
+    """Where a dense-form block (K1/K2 ``march_dense_kernel``, dense K3)
+    keeps what it stages (byte offsets into its dynamic shared memory;
+    mirrored by ``struct FtDenseStage``)."""
+    bytes: int        # dynamic shared memory of a block
+    ops_off: int      # the program: one STAGE_OP_BYTES record an op
+    runs_off: int     # the kind runs: one STAGE_RUN_BYTES record a run
+    ms_off: int       # K3: (material, slot) of each entry; -1: device
+    rows_off: int     # the packed rows; -1: read from device memory
+    rows_bytes: int   # bytes of the packed rows (one bulk copy if staged)
+
+    @property
+    def staged(self) -> bool:
+        return self.rows_off >= 0
+
+
+@functools.lru_cache(maxsize=256)
+def dense_stage_plan(n_ops: int, n_runs: int, rows_bytes: int,
+                     members: int = 0, reserve: int = 0) -> DenseStagePlan:
+    """The shared-memory plan of a dense-form launch, from sizes alone: the
+    program's op count, its kind runs, the bytes of its packed rows (each
+    entry at its kind's width rounded up to 16 bytes), ``members`` entries
+    whose (material, slot) K3 stages (0 for K1/K2) and ``reserve`` bytes
+    at the end (K3: SURF_LIST_BYTES).
+
+    After the barrier come the program and the runs (always: a program
+    that does not fit a block is refused), then the members while they
+    fit, then the packed rows while they fit (one bulk copy).  What does
+    not fit is read from device memory through the same code."""
+    limit = SMEM_LIMIT - reserve
+    ops_off = DENSE_HEADER
+    runs_off = ops_off + STAGE_OP_BYTES * n_ops
+    at = runs_off + STAGE_RUN_BYTES * n_runs
+    if at > limit:
+        raise NotImplementedError(
+            f"a CSG program of {n_ops} ops and {n_runs} kind runs does not "
+            f"fit a block's shared memory ({at + reserve} > {SMEM_LIMIT} "
+            "bytes)")
+    ms_off = -1
+    ms_bytes = _round16(STAGE_MEMBER_BYTES * members)
+    if members and at + ms_bytes <= limit:
+        ms_off, at = at, at + ms_bytes
+    rows_off = -1
+    if rows_bytes and at + rows_bytes <= limit:
+        rows_off, at = at, at + rows_bytes
+    return DenseStagePlan(bytes=at + reserve, ops_off=ops_off,
+                          runs_off=runs_off, ms_off=ms_off,
+                          rows_off=rows_off, rows_bytes=rows_bytes)
 
 
 # ---------------------------------------------------------------------------

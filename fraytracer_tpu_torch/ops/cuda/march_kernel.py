@@ -20,11 +20,16 @@ Each kernel has a wrapper and a plain PyTorch version beside it:
   (:func:`surface_ad_plain`) for plans with a smooth union (value and
   gradient folded through the tree, material argmin, code 0).
 
-A K1/K2/K3 block stages its tile's candidate tables, the program and the
-few dense entries in shared memory; the wrapper sizes that from shapes
-alone (``cull.stage_plan``, no device read).  :func:`march_sections`
-launches the kernel's instrumented twin (per-section clock counts, a
-diagnostic of ``chip_smoke.py`` with a launch counter of its own).
+A culled K1/K2/K3 block stages its tile's candidate tables, the program
+and the few dense entries in shared memory; the wrapper sizes that from
+shapes alone (``cull.stage_plan``, no device read).  The dense form has
+kernels of its own: the lowering also emits each group's entries as runs
+of one kind and packs their rows at their kind's width (``packed``), which
+a dense block stages with one bulk copy where it fits
+(``cull.dense_stage_plan``); dense K1/K2 run a persistent grid whose lanes
+take the next ray from a counter when theirs ends.  :func:`march_sections`
+launches the culled kernel's instrumented twin (per-section clock counts,
+a diagnostic of ``chip_smoke.py`` with a launch counter of its own).
 
 A wrapper launches the kernel for CUDA tensors and counts the launch in
 ``LAUNCHES`` (``march``/``occlusion``/``surface``/``surface_ad`` for the
@@ -48,10 +53,10 @@ from .. import sdf
 from ..march import (MarchConfig, bound_skip_start, check_config, chunked,
                      _chunk_elems, sphere_trace)
 from .build import check, library, on_device
-from .cull import (CAND_UNROLL, MAX_PAIRS, PSTRIDE, SURF_LIST_BYTES, TILE,
-                   WINDOW_LANES, CullTables, PairTable, StagePlan,
-                   _build_groups, _cull_pairs, build_pair_tables, kind_offset,
-                   stage_plan)
+from .cull import (CAND_UNROLL, MAX_PAIRS, PSTRIDE, SURF_LIST_BYTES, TABLE_W,
+                   TILE, WINDOW_LANES, CullTables, DenseStagePlan, PairTable,
+                   StagePlan, _build_groups, _cull_pairs, build_pair_tables,
+                   dense_stage_plan, kind_offset, stage_plan)
 
 Tensor = torch.Tensor
 
@@ -92,6 +97,9 @@ class FtProgram(ctypes.Structure):
         ("ent_mat", ctypes.c_void_p), ("ent_params", ctypes.c_void_p),
         ("n_ent", ctypes.c_int),
         ("group_pairs", ctypes.c_void_p),
+        ("runs", ctypes.c_void_p), ("n_runs", ctypes.c_int),
+        ("group_runs", ctypes.c_void_p), ("packed", ctypes.c_void_p),
+        ("ent_ms", ctypes.c_void_p),
     ]
 
 
@@ -126,6 +134,22 @@ class FtStage(ctypes.Structure):
     ]
 
 
+class FtDenseStage(ctypes.Structure):
+    """Mirror of ``struct FtDenseStage`` (csrc/ft_sdf.cuh): a
+    :class:`cull.DenseStagePlan` as the dense-form kernels take it."""
+    _fields_ = [
+        ("bytes", ctypes.c_int), ("ops_off", ctypes.c_int),
+        ("runs_off", ctypes.c_int), ("ms_off", ctypes.c_int),
+        ("rows_off", ctypes.c_int), ("rows_bytes", ctypes.c_int),
+    ]
+
+
+@functools.lru_cache(maxsize=256)
+def _dense_stage_struct(plan: DenseStagePlan) -> FtDenseStage:
+    return FtDenseStage(plan.bytes, plan.ops_off, plan.runs_off, plan.ms_off,
+                        plan.rows_off, plan.rows_bytes)
+
+
 @functools.lru_cache(maxsize=256)
 def _stage_struct(plan: StagePlan) -> FtStage:
     pad = (-1,) * (MAX_PAIRS - len(plan.pair_off))
@@ -134,14 +158,9 @@ def _stage_struct(plan: StagePlan) -> FtStage:
                    (ctypes.c_int * MAX_PAIRS)(*plan.pair_off, *pad))
 
 
-_NO_CULL = FtCull()
-
-
-def _cull_struct(cull: CullTables | None) -> FtCull:
-    """The launch's ``FtCull`` (no pairs for the dense form), kept on the
-    tables until their ``early_out`` changes."""
-    if cull is None:
-        return _NO_CULL
+def _cull_struct(cull: CullTables) -> FtCull:
+    """A culled launch's ``FtCull``, kept on the tables until their
+    ``early_out`` changes."""
     memo = cull.__dict__.get("_struct")
     if memo is not None and memo[0] == cull.early_out:
         return memo[1]
@@ -173,6 +192,13 @@ class Program:
     ent_mat: Tensor      # int32 [E]
     ent_params: Tensor   # float32 [E, PSTRIDE]
     group_pairs: Tensor  # int32 [G, 2] the group's culled pairs [start, end)
+    runs: Tensor         # int32 [R, 4] the dense entries as runs of one
+    #                      kind: (first entry, end, kind, first 16-byte
+    #                      word of the run in ``packed``)
+    group_runs: Tensor   # int32 [G, 2] the group's runs [start, end)
+    packed: Tensor       # float32 [words * 4] the dense entries' rows, each
+    #                      at its kind's width rounded up to 16 bytes
+    ent_ms: Tensor       # int32 [E, 2] (material, slot) of each entry
     n_dense: int = 0     # entries inside the groups' ranges (not culled)
 
     def struct(self) -> FtProgram:
@@ -191,7 +217,9 @@ class Program:
             self.ent_kind.data_ptr(), self.ent_slot.data_ptr(),
             self.ent_mat.data_ptr(), self.ent_params.data_ptr(),
             self.ent_kind.shape[0],
-            self.group_pairs.data_ptr())
+            self.group_pairs.data_ptr(), self.runs.data_ptr(),
+            self.runs.shape[0], self.group_runs.data_ptr(),
+            self.packed.data_ptr(), self.ent_ms.data_ptr())
 
 
 def _culled_slots(kind_counts, pairs) -> set:
@@ -204,12 +232,47 @@ def _culled_slots(kind_counts, pairs) -> set:
             for r in range(r0, r1)}
 
 
+def row_words(kind: int) -> int:
+    """16-byte words of a packed row of primitive kind ``kind`` (its
+    PARAM_WIDTH floats rounded up; ``ft_kind_width`` in csrc/ft_sdf.cuh)."""
+    return -(-PARAM_WIDTH[KINDS[kind]] // 4)
+
+
+def _kind_runs(rows, entries, kind_of_slot):
+    """The dense entries of each group as runs of one kind: a group's
+    members are in ascending slot and slots are kind-major, so its range
+    is already at most one run per kind, and no entry moves.  Returns the
+    runs ``(first entry, end, kind, first 16-byte word of the run in the
+    packed rows)``, each group's run range ``[start, end)`` and the index
+    of every packed float into the entries' parameters padded to
+    TABLE_W columns."""
+    runs, group_runs, pack, word = [], [], [], 0
+    for e0, e1, _op in rows:
+        start = len(runs)
+        e = e0
+        while e < e1:
+            kind = int(kind_of_slot[entries[e]])
+            f = e
+            while f < e1 and kind_of_slot[entries[f]] == kind:
+                f += 1
+            w = row_words(kind)
+            runs.append((e, f, kind, word))
+            pack.append((np.arange(e, f)[:, None] * TABLE_W
+                         + np.arange(4 * w)[None, :]).ravel())
+            word += (f - e) * w
+            e = f
+        group_runs.append((start, len(runs)))
+    return runs, group_runs, \
+        np.concatenate(pack) if pack else np.zeros(0, np.int64)
+
+
 @functools.lru_cache(maxsize=32)
 def _lower_static(plan: Plan, kind_counts, prim_material, pairs=()):
     """The static part of the program as numpy arrays (cached per scene
-    structure and cull pairs): postfix ops, groups, entry order and
-    per-entry tables.  A culled pair's rows sit after every group's range
-    (read through the tables; K3 still finds the winning leaf's entry)."""
+    structure and cull pairs): postfix ops, groups, entry order,
+    per-entry tables and the dense entries' kind runs.  A culled pair's
+    rows sit after every group's range (read through the tables; K3 still
+    finds the winning leaf's entry)."""
     groups, tree = _build_groups(plan)
     culled = _culled_slots(kind_counts, pairs)
     entries, rows, gpairs = [], [], []
@@ -252,6 +315,7 @@ def _lower_static(plan: Plan, kind_counts, prim_material, pairs=()):
         [np.full(c, KINDS.index(k), np.int32) for k, c in kind_counts])
     mat_vis = np.asarray(visible_materials(plan, prim_material), np.int32)
     ent = np.asarray(entries, np.int64)
+    runs, group_runs, pack_idx = _kind_runs(rows, entries, kind_of_slot)
     return dict(
         ops=np.asarray(ops, np.int32).reshape(-1, 2),
         op_k=np.asarray(op_k, np.float32),
@@ -260,8 +324,13 @@ def _lower_static(plan: Plan, kind_counts, prim_material, pairs=()):
         ent_kind=kind_of_slot[ent],
         ent_slot=ent.astype(np.int32),
         ent_mat=mat_vis[ent],
+        ent_ms=np.stack([mat_vis[ent], ent.astype(np.int32)], 1)
+        .astype(np.int32),
         entries=ent,
         group_pairs=np.asarray(gpairs, np.int32).reshape(-1, 2),
+        runs=np.asarray(runs, np.int32).reshape(-1, 4),
+        group_runs=np.asarray(group_runs, np.int32).reshape(-1, 2),
+        pack_idx=pack_idx.astype(np.int64),
         n_dense=n_dense,
     )
 
@@ -316,12 +385,18 @@ def lower_program(scene: FlatScene, device, pairs=()) -> Program:
     st = _static_on(scene.plan, scene.kind_counts, scene.prim_material,
                     key[1], key[0])
     params = slot_param_rows(scene).to(key[0])
+    ent_params = params.index_select(0, st["entries"]).contiguous()
+    # the packed rows: one gather from the entries' rows padded to TABLE_W
+    padded = torch.nn.functional.pad(ent_params[:st["n_dense"]],
+                                     (0, TABLE_W - PSTRIDE))
     prog = Program(ops=st["ops"], op_k=st["op_k"], groups=st["groups"],
                    group_k=st["group_k"], ent_kind=st["ent_kind"],
                    ent_slot=st["ent_slot"], ent_mat=st["ent_mat"],
-                   ent_params=params.index_select(0, st["entries"])
+                   ent_params=ent_params, group_pairs=st["group_pairs"],
+                   runs=st["runs"], group_runs=st["group_runs"],
+                   packed=padded.reshape(-1).index_select(0, st["pack_idx"])
                    .contiguous(),
-                   group_pairs=st["group_pairs"], n_dense=st["n_dense"])
+                   ent_ms=st["ent_ms"], n_dense=st["n_dense"])
     cur = tuple(scene.prim_params.values())
     scene.__dict__.setdefault("_lowered", {})[key] = (
         scene.plan, cur, tuple(p._version for p in cur), prog)
@@ -692,17 +767,26 @@ def march_plain(scene: FlatScene, origin: Tensor, direction: Tensor,
 
 
 def march_stage_plan(prog: Program, cull: CullTables | None,
-                     reserve: int = 0) -> StagePlan:
+                     reserve: int = 0, members: bool = False):
     """The shared-memory plan of a K1/K2 launch of ``prog`` on ``cull``
-    (``reserve``: bytes of the kernel's own at the end)."""
-    ms = () if cull is None else tuple(q.m for q in cull.tables)
-    return stage_plan(ms, prog.ops.shape[0], prog.n_dense, reserve)
+    (``reserve``: bytes of the kernel's own at the end): a
+    :class:`cull.StagePlan` for the culled form, a
+    :class:`cull.DenseStagePlan` for the dense form (``members``: with
+    each entry's material and slot, as K3 reads them)."""
+    if cull is None:
+        return dense_stage_plan(prog.ops.shape[0], prog.runs.shape[0],
+                                4 * prog.packed.numel(),
+                                prog.ent_ms.shape[0] if members else 0,
+                                reserve)
+    return stage_plan(tuple(q.m for q in cull.tables), prog.ops.shape[0],
+                      prog.n_dense, reserve)
 
 
-def surface_stage_plan(prog: Program, cull: CullTables | None) -> StagePlan:
-    """The shared-memory plan of a K3 launch: K1/K2's, then the block's
-    hit-lane list."""
-    return march_stage_plan(prog, cull, SURF_LIST_BYTES)
+def surface_stage_plan(prog: Program, cull: CullTables | None):
+    """The shared-memory plan of a K3 launch: K1/K2's (the dense form's
+    with each entry's material and slot), then the block's hit-lane
+    list."""
+    return march_stage_plan(prog, cull, SURF_LIST_BYTES, members=True)
 
 
 def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
@@ -710,9 +794,12 @@ def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
                   t0: Tensor, max_steps: int, omega: float, occlusion: bool,
                   cull: CullTables | None, sign: Tensor | None, extra=()):
     """Check the lanes, allocate the outputs and call the C entry point
-    ``entry`` (``ft_march`` or its instrumented twin, which takes ``extra``
-    before the stream).  Returns ``(t, hit int32, d, steps)`` with ``t`` and
-    ``d`` None for occlusion."""
+    ``entry``: ``ft_march`` (the culled form) or its instrumented twin,
+    which take the tables and the plan, or ``ft_march_dense`` (the dense
+    form), which takes the plan alone; ``extra`` goes before the stream
+    (the twin's sections buffer; the dense form's ray counter and issue
+    count).  Returns ``(t, hit int32, d, steps)`` with ``t`` and ``d``
+    None for occlusion."""
     n = origin.shape[0]
     _check_lanes(n, origin=_f32("origin", origin),
                  direction=_f32("direction", direction),
@@ -730,15 +817,18 @@ def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
     steps = torch.empty(n, dtype=torch.int32, device=dev)
     t = None if occlusion else torch.empty(n, **f32)
     d = None if occlusion else torch.empty(n, **f32)
-    s, c = prog.struct(), _cull_struct(cull)
+    s = prog.struct()
     # what the blocks stage in shared memory: sized from shapes alone
-    stage = _stage_struct(march_stage_plan(prog, cull))
+    plan = march_stage_plan(prog, cull)
+    tables = () if cull is None else (ctypes.byref(_cull_struct(cull)),)
+    stage = _dense_stage_struct(plan) if cull is None \
+        else _stage_struct(plan)
     with on_device(dev):
         err = getattr(lib, entry)(
             origin.data_ptr(), direction.data_ptr(), length.data_ptr(),
             epsilon.data_ptr(), t0.data_ptr(),
             None if sign is None else sign.data_ptr(), n, ctypes.byref(s),
-            ctypes.byref(c), ctypes.byref(stage), int(max_steps),
+            *tables, ctypes.byref(stage), int(max_steps),
             float(omega), int(occlusion),
             None if occlusion else t.data_ptr(), hit.data_ptr(),
             None if occlusion else d.data_ptr(), steps.data_ptr(), *extra,
@@ -750,20 +840,38 @@ def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
 def march_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
                  length: Tensor, epsilon: Tensor, t0: Tensor, *,
                  max_steps: int, omega: float, occlusion: bool = False,
-                 cull: CullTables | None = None, sign: Tensor | None = None):
+                 cull: CullTables | None = None, sign: Tensor | None = None,
+                 issued: Tensor | None = None):
     """K1 (``occlusion=False``) / K2 (``occlusion=True``) over flat lanes:
     ``origin``/``direction [N, 3]``, ``length``/``epsilon``/``t0 [N]``
     (lanes with ``length <= 0`` or ``t0 >= length`` never step); ``cull``
     selects the culled form; ``sign [N]`` (±1) multiplies the scene
-    distance per lane, -1 marching inside the solid.  Returns
-    ``(t, hit, d, steps)``, or ``(hit, steps)`` for occlusion."""
+    distance per lane, -1 marching inside the solid.  ``issued``: an int64
+    ``[1]`` CUDA tensor to which the dense form adds its warps' march
+    iterations (32 issued evaluations each: the denominator of its lane
+    efficiency; a diagnostic).  Returns ``(t, hit, d, steps)``, or
+    ``(hit, steps)`` for occlusion."""
     if not _route(origin):
         return march_plain(scene, origin, direction, length, epsilon, t0,
                            max_steps=max_steps, omega=omega,
                            occlusion=occlusion, cull=cull, sign=sign)
+    extra = ()
+    if cull is None:
+        if issued is not None and (issued.dtype != torch.int64
+                                   or issued.device != origin.device):
+            raise TypeError("issued must be an int64 tensor on the rays' "
+                            "device")
+        # the persistent grid's ray counter, zeroed on the launch's stream;
+        # its last refills overshoot the ray count by up to 32 a warp
+        if origin.shape[0] > 2 ** 31 - 2 ** 20:
+            raise ValueError("too many rays for one dense launch")
+        nxt = torch.empty(1, dtype=torch.int32, device=origin.device)
+        extra = (nxt.data_ptr(),
+                 None if issued is None else issued.data_ptr())
     t, hit, d, steps = _launch_march(
-        "ft_march", scene, origin, direction, length, epsilon, t0, max_steps,
-        omega, occlusion, cull, sign)
+        "ft_march" if cull is not None else "ft_march_dense", scene, origin,
+        direction, length, epsilon, t0, max_steps, omega, occlusion, cull,
+        sign, extra)
     name = "occlusion" if occlusion else "march"
     LAUNCHES[name if cull is None else name + "_culled"] += 1
     if occlusion:
@@ -795,6 +903,8 @@ def march_sections(scene: FlatScene, origin: Tensor, direction: Tensor,
     :data:`SECTION_LAUNCHES`."""
     if origin.device.type != "cuda":
         raise ValueError("march_sections needs CUDA tensors")
+    if cull is None:
+        raise ValueError("march_sections instruments the culled form")
     buf = torch.zeros(len(SECTIONS) + len(SECTION_COUNTS),
                       dtype=torch.int64, device=origin.device)
     t, hit, d, steps = _launch_march(
@@ -914,15 +1024,22 @@ def surface_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
     midx = torch.empty(n, dtype=torch.int32, device=dev)
     code = torch.empty(n, dtype=torch.float32, device=dev)
-    s, c = prog.struct(), _cull_struct(cull)
-    # the staged program and tables, then the hit-lane list: from shapes
-    stage = _stage_struct(surface_stage_plan(prog, cull))
-    entry = "ft_surface_ad" if ad else "ft_surface"
+    s = prog.struct()
+    # the staged program and tables (or packed rows), then the hit-lane
+    # list: from shapes
+    plan = surface_stage_plan(prog, cull)
+    if cull is None:
+        tables, stage = (), _dense_stage_struct(plan)
+    else:
+        tables = (ctypes.byref(_cull_struct(cull)),)
+        stage = _stage_struct(plan)
+    entry = ("ft_surface_ad" if ad else "ft_surface") \
+        + ("_dense" if cull is None else "")
     with on_device(dev):
         err = getattr(lib, entry)(
             origin.data_ptr(), direction.data_ptr(), t.data_ptr(),
             epsilon.data_ptr(), hit.data_ptr(), n, ctypes.byref(s),
-            ctypes.byref(c), ctypes.byref(stage), normal.data_ptr(),
+            *tables, ctypes.byref(stage), normal.data_ptr(),
             midx.data_ptr(), code.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, entry)

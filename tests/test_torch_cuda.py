@@ -54,11 +54,15 @@ def lanes(scene, size, dev):
 
 
 @pytest.mark.parametrize("omega", [1.0, 1.4])
-@pytest.mark.parametrize("name", ["torus", "csg_demo"])
+@pytest.mark.parametrize("name", ["torus", "csg_demo", "torus1000"])
 def test_march_and_surface_kernels_match_plain(dev, name, omega):
+    """Dense K1/K2/K3 against the plain versions: the 96-torus scene and
+    ``csg_demo_scene`` at 128², the benchmark's 1002 entries at 64² (the
+    dense form's packed rows staged in shared memory)."""
     scene = ft.flatten(torus_csg_scene(19, 96) if name == "torus"
+                       else torus_csg_scene(19, 1000) if name == "torus1000"
                        else csg_demo_scene(), device=dev)
-    args = lanes(scene, 128, dev)
+    args = lanes(scene, 64 if name == "torus1000" else 128, dev)
     kw = dict(max_steps=192, omega=omega)
     ops_cuda.reset_launch_counts()
     tk, hk, _dk, sk = mk.march_kernel(scene, *args, **kw)
@@ -246,7 +250,8 @@ def test_surface_ad_kernel_matches_plain_and_dense(dev, name, cull):
 
 def test_sign_lanes_match_plain(dev):
     """K1/K2 with per-lane sign: rays starting inside a solid march to its
-    exit surface; a mixed-sign batch on the culled 96-torus scene."""
+    exit surface; a mixed-sign batch on the 96-torus scene, dense and
+    culled, and on the benchmark's 1002 entries at 64², dense."""
     scene = ft.flatten(ft.Scene(root=ft.union(
         ft.sphere((0, 0, 0), 1.0), ft.box((2.5, 0, 0), (0.5, 0.5, 0.5)))),
         device=dev)
@@ -265,10 +270,12 @@ def test_sign_lanes_match_plain(dev):
     assert (tk - want).abs().max().item() <= 2e-3
 
     scene, args, tables = culled_inputs("torus96", dev)
+    bench = ft.flatten(torus_csg_scene(19, 1000), device=dev)
     g = torch.Generator().manual_seed(3)
-    sg = torch.where(torch.rand(args[0].shape[0], generator=g) < 0.5,
-                     -1.0, 1.0).to(dev)
-    for cull in (None, tables):
+    for scene, args, cull in ((scene, args, None), (scene, args, tables),
+                              (bench, block_lanes(bench, 64, dev), None)):
+        sg = torch.where(torch.rand(args[0].shape[0], generator=g) < 0.5,
+                         -1.0, 1.0).to(dev)
         kw = dict(max_steps=192, omega=1.4, cull=cull, sign=sg)
         tk, hk, _dk, sk = mk.march_kernel(scene, *args, **kw)
         tp, hp, _dp, sp = mk.march_plain(scene, *args, **kw)
@@ -287,6 +294,62 @@ def test_sign_lanes_match_plain(dev):
         # lanes, so these lanes step otherwise and land within 3ε
         dt = (tk - t1).abs()[out & h1].max().item()
         assert dt <= (0.0 if cull is None else 0.03)
+
+
+def test_dense_refill_beyond_the_persistent_grid(dev):
+    """Dense K1/K2 on more rays than the persistent grid holds at once
+    (512² on the 96-torus scene: 262,144 lanes against at most 6 blocks of
+    128 lanes an SM), so lanes take new rays as theirs end: against the
+    plain version; each ray's outputs bit for bit those of the same rays
+    launched as a batch of their own (a lane's march reads its own ray
+    alone); the warps' issue count covers the evaluations."""
+    scene = ft.flatten(torus_csg_scene(19, 96), device=dev)
+    args = block_lanes(scene, 512, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert args[0].shape[0] > sms * 6 * 128
+    kw = dict(max_steps=192, omega=1.4)
+    issued = torch.zeros(1, dtype=torch.int64, device=dev)
+    tk, hk, dk, sk = mk.march_kernel(scene, *args, **kw, issued=issued)
+    tp, hp, _dp, sp = mk.march_plain(scene, *args, **kw)
+    assert int(hk.sum()) > 10000
+    assert (hk == hp).float().mean().item() >= 0.999
+    same = hk & hp & (sk == sp)
+    assert int(same.sum()) >= 0.999 * int((hk & hp).sum())
+    assert (tk - tp).abs()[same].max().item() <= 1e-4
+    evals = int(sk.sum())
+    assert 0 < evals <= 32 * int(issued)
+    part = slice(100_003, 105_003)
+    alone = mk.march_kernel(scene, *[a[part].contiguous() for a in args],
+                            **kw)
+    for got, want in zip(alone, (tk, hk, dk, sk)):
+        assert torch.equal(got, want[part])
+    ho, so = mk.march_kernel(scene, *args, **kw, occlusion=True)
+    assert torch.equal(ho, hk) and torch.equal(so, sk)
+
+
+def test_dense_kernels_with_unstaged_rows(dev):
+    """The dense form on 8002 entries at 64²: their packed rows (256,032
+    bytes) exceed a block's shared memory, so K1/K2 and K3 read them from
+    device memory through the same code (K3 still stages each entry's
+    material and slot); against the plain versions."""
+    from fraytracer_tpu_torch.ops.cuda import cull
+    scene = ft.flatten(torus_csg_scene(19, 8000), device=dev)
+    prog = mk.lower_program(scene, dev)
+    plan, splan = mk.march_stage_plan(prog, None), \
+        mk.surface_stage_plan(prog, None)
+    assert plan.rows_bytes == 8000 * 32 + 2 * 16 > cull.SMEM_LIMIT
+    assert not plan.staged and not splan.staged and splan.ms_off >= 0
+    args = block_lanes(scene, 64, dev)
+    kw = dict(max_steps=192, omega=1.4)
+    tk, hk, _dk, sk = mk.march_kernel(scene, *args, **kw)
+    tp, hp, _dp, sp = mk.march_plain(scene, *args, **kw)
+    assert int(hk.sum()) > 500
+    assert (hk == hp).float().mean().item() >= 0.999
+    same = hk & hp & (sk == sp)
+    assert int(same.sum()) >= 0.999 * int((hk & hp).sum())
+    assert (tk - tp).abs()[same].max().item() <= 1e-4
+    o, d, _l, e, _t0 = args
+    assert_surface_matches_plain(scene, o, d, tk, e, hk, None)
 
 
 def overbudget_scene(dev, groups=5, per_group=1024):

@@ -103,7 +103,8 @@ def c_layout(fields):
 
 @pytest.mark.parametrize("name,mirror", [
     ("FtProgram", MK.FtProgram), ("FtPair", MK.FtPair),
-    ("FtCull", MK.FtCull), ("FtStage", MK.FtStage)])
+    ("FtCull", MK.FtCull), ("FtStage", MK.FtStage),
+    ("FtDenseStage", MK.FtDenseStage)])
 def test_struct_mirrors_header(name, mirror):
     """Field names in order, each field's type, and the struct's size."""
     fields = struct_fields(name)
@@ -164,11 +165,33 @@ def test_stage_plan(name):
 
 
 def test_stage_plan_dense_form_and_limits():
-    """The dense form stages its program alone (its 1002 entries stay in
-    device memory); a plan too large for a block is refused."""
-    plan = TC.stage_plan((), n_ops=5, n_dense=1002)
-    assert plan.ents == 0 and plan.bulk_bytes == 0 and plan.pair_off == ()
-    assert plan.bytes < 1024
+    """The dense form stages its program, its kind runs and its packed
+    rows: the benchmark's 1002 entries (1000 tori at 32 bytes, 2 spheres
+    at 16) fit a block beside them, as one bulk copy at the plan's end;
+    rows past the limit are read from device memory, and so are K3's
+    (material, slot) pairs; a plan too large for a block is refused."""
+    rows = 1000 * 32 + 2 * 16
+    plan = TC.dense_stage_plan(n_ops=5, n_runs=3, rows_bytes=rows)
+    assert (plan.ops_off, plan.runs_off) == (TC.DENSE_HEADER,
+                                             TC.DENSE_HEADER + 5 * 32)
+    assert plan.staged and plan.ms_off == -1
+    assert plan.rows_off == plan.runs_off + 3 * TC.STAGE_RUN_BYTES
+    assert plan.rows_off % 16 == 0 and plan.rows_bytes == rows
+    assert plan.bytes == plan.rows_off + rows < 48 * 1024
+    surf = TC.dense_stage_plan(5, 3, rows, members=1002,
+                               reserve=TC.SURF_LIST_BYTES)
+    assert surf.ms_off == plan.rows_off and surf.staged
+    assert surf.rows_off == surf.ms_off + 8 * 1002
+    assert surf.bytes == surf.rows_off + rows + TC.SURF_LIST_BYTES
+    # past the limit: the rows from device memory, the rest still staged
+    big = TC.dense_stage_plan(5, 3, TC.SMEM_LIMIT)
+    assert big.rows_off == -1 and not big.staged
+    assert big.bytes == big.runs_off + 3 * TC.STAGE_RUN_BYTES
+    members = TC.dense_stage_plan(5, 3, rows, members=30000,
+                                  reserve=TC.SURF_LIST_BYTES)
+    assert members.ms_off == -1 and members.staged
+    with pytest.raises(NotImplementedError):
+        TC.dense_stage_plan(n_ops=20000, n_runs=1, rows_bytes=16)
     with pytest.raises(NotImplementedError):
         TC.stage_plan((), n_ops=20000, n_dense=0)
     with pytest.raises(NotImplementedError):
