@@ -108,6 +108,23 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    echoed, W launched once in each of its three processes, the spectral
    stage's launches 9 × the spectral phase's frame, the 10k frame's
    launches one frame's, the scaling report one NCCL rank on one card.
+15. oracle — the kernels' frames (the default "cuda" route) against the
+   port's float64 oracle (``fraytracer_tpu_torch/oracle/cpu_ref.py``)
+   through one gate function, ``oracle_gate``, with the bounds of the JAX
+   suite (``tests/test_benchmark_oracle.py``, ``tests/test_render_e2e.py``)
+   and two departures, each printed beside JAX's reading: a shadow flip
+   the frame did not march (a facing flip) is not graded as grazing, and
+   ``blend1000``'s shell p99 is not gated.  (a) the benchmark gate at
+   64², culled and dense (the culled frame's plain route printed); (b)
+   the e2e gate on its small scene at 128²; (c) the 1024² bench frame at
+   512 steps, culled and dense, read at a seeded sample: 4,096 uniform
+   pixels gated as a 64² frame, the 8 blocks with the most primary
+   candidates gated but for the whole-frame shares; gated at ω 1.0, the
+   bench's ω 1.4 printed; (d) the same at the bench's 192 steps,
+   budget-stopped rays counted apart; (e) ``blend1000`` dense, gated but
+   for the shell's p99, the culled blended frame printed.  The oracle's
+   rays run in a pool of processes,
+   one a core.  Runs after phase 7.
 
 Three more modes time parts alone (none is the smoke test; all need the
 card):
@@ -508,18 +525,24 @@ def compare_surface_ad(k, p, hit, label):
     return nerr, n_hit - int(close.sum())
 
 
-def blend_scene(n_tori, dev):
+def blend_nodes(n_tori):
     """The torus scene smooth-united (k = 0.25) with a sphere at the
-    origin: every hit lies on the blended root, the torus union stays a
-    culled min group, the root is a sumexp group of one sphere plus a
-    sub-plan."""
+    origin, as builder nodes: every hit lies on the blended root, the
+    torus union stays a culled min group, the root is a sumexp group of
+    one sphere plus a sub-plan."""
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.scene import generators as G
     base = G.torus_csg_scene(19, n_tori)
-    return ft.flatten(ft.Scene(
+    return ft.Scene(
         root=ft.smooth_union(0.25, base.root, ft.sphere(
             (0, 0, 0), 1.5, material=ft.solid(0.8, 0.7, 0.3))),
-        background=base.background, lights=base.lights), dev)
+        background=base.background, lights=base.lights)
+
+
+def blend_scene(n_tori, dev):
+    """``blend_nodes(n_tori)`` flattened on ``dev``."""
+    import fraytracer_tpu_torch as ft
+    return ft.flatten(blend_nodes(n_tori), dev)
 
 
 def smooth_scenes(dev):
@@ -1288,7 +1311,7 @@ def frame_spies():
     from fraytracer_tpu_torch.ops import shade
     from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
     from fraytracer_tpu_torch.ops.cuda.gather import BLOCK
-    rec = {"tables": [], "repair": []}
+    rec = {"tables": [], "counts": [], "repair": []}
     real_tables, real_repair = mk.build_pair_tables, shade.resolve_material
 
     def tables(*a, **k):
@@ -1296,6 +1319,9 @@ def frame_spies():
         rec["tables"].append([(int(q.count.max()),
                                q.count.float().mean().item(), q.m)
                               for q in out.tables])
+        # candidates per tile summed over the pairs
+        rec["counts"].append(sum(q.count.long() for q in out.tables)
+                             .tolist())
         return out
 
     def repair(scene, pos, hit, midx, backend="cuda"):
@@ -3168,6 +3194,457 @@ def phase_bench(spectral_counts):
     return last
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the float64 oracle gate
+# ---------------------------------------------------------------------------
+
+# The JAX suite's f64-oracle gates: "bench" is
+# tests/test_benchmark_oracle.py:59-117, "e2e" tests/test_render_e2e.py:79-137
+# (no shell-divergent ray, every occlusion flip grazing, facing flips too,
+# and the whole frame within 3e-2 in place of the shell's 99th percentile);
+# "oracle_hit" is the share of rays the oracle must see hit (the bench
+# gate's "oracle sees the torus blob")
+ORACLE_GATES = {
+    "bench": dict(oracle_hit=0.25, flips=0.02, graze=5e-3, divergent=0.02,
+                  occ=0.03, occ_all_graze=False, clean=0.6, clean_max=1e-4,
+                  shell_p99=3e-2, max_diff=None, median=1e-5),
+    "e2e": dict(oracle_hit=None, flips=0.01, graze=2e-3, divergent=None,
+                occ=0.02, occ_all_graze=True, clean=0.9, clean_max=1e-5,
+                shell_p99=None, max_diff=3e-2, median=1e-5),
+}
+# the 1024² sample: uniform pixels from the seed, plus the whole 32x32
+# blocks whose primary tables hold the most candidates
+ORACLE_SEED = 19
+ORACLE_UNIFORM = 4096
+ORACLE_BLOCKS = 8
+
+
+def oracle_gate(label, frame, oracle, gate="bench", keep=None,
+                enforce=True, ungated=(), oracle_hit=None):
+    """The JAX suite's f64-oracle gate ``ORACLE_GATES[gate]`` on N rays,
+    all numpy: ``frame`` = (colors [N, 3], primary hit [N], t [N], facing
+    bit per light [L][N], occlusion bit per light [L][N]) as
+    ``frame_outcomes`` gives them, ``oracle`` = (colors [N, 3], aux dict
+    per ray) as ``oracle_sample`` gives them.  ``keep`` (a mask over the
+    N rays) gates those rays only.  Every ray falls in one class: a hit
+    flip (grazing only), shell-divergent (both hit, |Δt| > 3ε), an
+    occlusion flip on the rest (the shadow march grazing), clean (|Δt| ≤
+    2e-6·(1 + t), within ``clean_max``) or a same-surface shell ray.
+
+    One departure from JAX's bench gate: it spares a shadow flip from the
+    grazing test where the oracle did not march it (cos ≤ 0 there); this
+    gate also spares it where the frame did not (its facing bit false).
+    Either is a facing flip from a near-perpendicular normal: the side
+    that marched found the ray occluded, so the light reaches the pixel on
+    neither side (``shade``'s 1[facing ∧ unoccluded]).  It is counted in
+    the occlusion flips, not graded.  ``occ_graze_jax`` is the largest
+    |smin − ε| under JAX's own rule, printed beside; the e2e gate grades
+    every flip, as JAX's does.
+
+    ``ungated`` names bounds printed, not checked: "clean" and "median"
+    (shares of a whole frame, most of it background, which a sample of
+    hit-dense blocks is not), "shell_p99".  ``oracle_hit`` replaces the
+    gate's least share of rays the oracle sees hit, for a scene other than
+    the one the gate was set on.  Prints one ``[oracle]`` line, applies
+    ``check`` to each bound unless ``enforce`` is false, returns the
+    readings."""
+    import numpy as np
+    b = ORACLE_GATES[gate]
+    img, hit, t, facing, occ = frame
+    want, aux = oracle[:2]
+    idx = np.arange(len(aux)) if keep is None else np.flatnonzero(keep)
+    if keep is not None:
+        img, want, hit, t = img[idx], want[idx], hit[idx], t[idx]
+        facing, occ = [f[idx] for f in facing], [o[idx] for o in occ]
+        aux = [aux[i] for i in idx]
+    hit_o = np.array([a["hit"] for a in aux])
+    t_o = np.array([a["t"] for a in aux])
+    min_o = np.array([a["min_d"] for a in aux])
+
+    def worst(mask, x):
+        return float(np.abs(x[mask] - EPS).max()) if mask.any() else 0.0
+
+    flips = hit != hit_o
+    both = hit & hit_o
+    dt = np.abs(t - t_o)
+    divergent = both & (dt > 3 * EPS)
+    agree = both & ~divergent
+    occ_flip = np.zeros(len(aux), bool)
+    occ_graze, occ_graze_jax, facing_rays = 0.0, 0.0, []
+    for i, (facing_j, occ_j) in enumerate(zip(facing, occ)):
+        occ_o = np.array([bool(a["occluded"][i]) if len(a["occluded"]) > i
+                          else False for a in aux])
+        smin_o = np.array([a["shadow_min_d"][i]
+                           if len(a["shadow_min_d"]) > i else np.inf
+                           for a in aux])
+        f = agree & (occ_j != occ_o)
+        occ_flip |= f
+        # smin == inf: the oracle never marched this shadow ray; ~facing_j:
+        # the frame never did
+        jax_rule = f if b["occ_all_graze"] else f & np.isfinite(smin_o)
+        graded = f if b["occ_all_graze"] else jax_rule & facing_j
+        occ_graze = max(occ_graze, worst(graded, smin_o))
+        occ_graze_jax = max(occ_graze_jax, worst(jax_rule, smin_o))
+        facing_rays += [(int(idx[k]), i, float(smin_o[k]))
+                        for k in np.flatnonzero(f & ~(np.isfinite(smin_o)
+                                                      & facing_j))]
+    diff = np.abs(img - want).max(axis=-1)
+    clean = ~flips & ~occ_flip & ~divergent \
+        & (~both | (dt <= 2e-6 * (1 + t_o)))
+    shell = agree & ~flips & ~occ_flip & ~clean
+    r = {"rays": len(aux), "oracle_hit": float(hit_o.mean()),
+         "flips": int(flips.sum()), "flip_share": float(flips.mean()),
+         "flip_graze": worst(flips, min_o),
+         "divergent": int(divergent.sum()),
+         "divergent_share": float(divergent.mean()),
+         "agree_dt": float(dt[agree].max()) if agree.any() else 0.0,
+         "occ_flips": int(occ_flip.sum()),
+         "occ_share": float(occ_flip.mean()), "occ_graze": occ_graze,
+         "occ_graze_jax": occ_graze_jax, "facing_rays": facing_rays,
+         "clean_share": float(clean.mean()),
+         "clean_max": float(diff[clean].max()) if clean.any() else 0.0,
+         "shell": int(shell.sum()),
+         "shell_p99": float(np.percentile(diff[shell], 99))
+         if shell.any() else 0.0,
+         "max_diff": float(diff.max()), "median": float(np.median(diff))}
+    spared = ", ".join(f"{k} light {i} smin {s:.3e}"
+                       for k, i, s in facing_rays[:6])
+    log(f"[oracle] {label}: {r['rays']} rays (oracle hits "
+        f"{r['oracle_hit']:.4f}); hit flips {r['flips']} "
+        f"({r['flip_share']:.6f}, max |min_d - eps| {r['flip_graze']:.3e}); "
+        f"divergent {r['divergent']} ({r['divergent_share']:.6f}; max |dt| "
+        f"of the rest {r['agree_dt']:.3e}); occlusion flips {r['occ_flips']}"
+        f" ({r['occ_share']:.6f}, {len(facing_rays)} of them facing flips"
+        + (f" [{spared}]" if spared else "")
+        + f", max |smin - eps| graded {r['occ_graze']:.3e}, under JAX's "
+        f"rule {r['occ_graze_jax']:.3e}); clean "
+        f"{r['clean_share']:.6f}, max |d| {r['clean_max']:.3e}; shell "
+        f"{r['shell']}, p99 {r['shell_p99']:.3e}; max |d| "
+        f"{r['max_diff']:.3e}; median |d| "
+        f"{r['median']:.3e}" + ("" if enforce else " (not gated)")
+        + (f" (not gated: {', '.join(ungated)})"
+           if ungated and enforce else ""))
+    if not enforce:
+        return r
+    least = b["oracle_hit"] if oracle_hit is None else oracle_hit
+    if least is not None:
+        check(r["oracle_hit"] > least,
+              f"{label}: the oracle hits {r['oracle_hit']}")
+    check(r["flip_share"] < b["flips"], f"{label}: {r['flip_share']} flips")
+    check(r["flip_graze"] < b["graze"],
+          f"{label}: a hit flip that was not a grazing ray")
+    if b["divergent"] is None:
+        check(r["divergent"] == 0, f"{label}: {r['divergent']} rays hit "
+              "beyond 3 eps of the oracle's t")
+    else:
+        check(r["divergent_share"] < b["divergent"],
+              f"{label}: {r['divergent_share']} divergent")
+    check(r["agree_dt"] < 3 * EPS, f"{label}: agreeing t {r['agree_dt']}")
+    check(r["occ_graze"] < b["graze"],
+          f"{label}: an occlusion flip that was not a grazing shadow ray")
+    check(r["occ_share"] < b["occ"],
+          f"{label}: {r['occ_share']} occlusion flips")
+    if "clean" not in ungated:
+        check(r["clean_share"] > b["clean"],
+              f"{label}: only {r['clean_share']} clean")
+    check(r["clean_max"] < b["clean_max"],
+          f"{label}: clean-pixel error {r['clean_max']}")
+    if b["shell_p99"] is not None and "shell_p99" not in ungated:
+        check(r["shell_p99"] < b["shell_p99"],
+              f"{label}: shell p99 {r['shell_p99']}")
+    if b["max_diff"] is not None:
+        check(r["max_diff"] < b["max_diff"], f"{label}: max {r['max_diff']}")
+    if "median" not in ungated:
+        check(r["median"] < b["median"], f"{label}: median {r['median']}")
+    return r
+
+
+def oracle_rays(cam_pos, width, height, pixels):
+    """The float64 rays (origin, direction) of the flat pixels ``y·width +
+    x`` seen from ``cam_pos`` towards the origin, fov 60, computed as
+    ``Oracle.render`` computes them."""
+    import math
+    import numpy as np
+
+    def unit(v):
+        return v / float(math.sqrt(float(v @ v)))
+    pos = np.asarray(cam_pos, np.float64)
+    fwd = unit(np.zeros(3) - pos)
+    right = np.cross(np.array([0.0, 1.0, 0.0]), fwd)
+    right /= float(math.sqrt(float(right @ right)))
+    true_up = np.cross(fwd, right)
+    half = math.tan(math.radians(60.0) * 0.5)
+    m = float(max(width, height))
+    rays = []
+    for p in pixels:
+        yy, xx = divmod(int(p), width)
+        v = 2.0 * (((height - 1 - yy) + 0.5) / m - 0.5 * height / m)
+        u = 2.0 * ((xx + 0.5) / m - 0.5 * width / m)
+        rays.append((pos, unit(fwd + (u * right * half
+                                      + v * true_up * half))))
+    return rays
+
+
+def oracle_shade(task):
+    """One chunk of rays through the port's float64 oracle: (colors
+    [n, 3], aux dicts).  A module-level function: the pool's workers
+    import it."""
+    import numpy as np
+    from fraytracer_tpu_torch.oracle.cpu_ref import Oracle
+    scene, rays = task
+    oracle = Oracle(scene)
+    colors, auxs = [], []
+    for o, d in rays:
+        aux = {}
+        colors.append(oracle.shade_ray(o, d, EPS, 30.0, aux=aux))
+        auxs.append(aux)
+    return np.array(colors).reshape(-1, 3), auxs
+
+
+def oracle_sample(scene, cam_pos, width, height, pixels, workers=None):
+    """The oracle's colors [N, 3] and aux dicts at the flat ``pixels`` of
+    the builder ``scene`` seen from ``cam_pos`` (towards the origin, fov
+    60), split over ``workers`` processes (default: every core; 1: this
+    process), and its wall-clock seconds."""
+    import multiprocessing
+    import os
+    import numpy as np
+    workers = workers or os.cpu_count() or 1
+    rays = oracle_rays(cam_pos, width, height, pixels)
+    n = max(1, min(len(rays), 8 * workers))
+    step = -(-len(rays) // n)
+    tasks = [(scene, rays[i:i + step])
+             for i in range(0, len(rays), step)]
+    t0 = time.perf_counter()
+    if workers == 1:
+        parts = [oracle_shade(task) for task in tasks]
+    else:
+        with multiprocessing.get_context("spawn").Pool(workers) as pool:
+            parts = pool.map(oracle_shade, tasks)
+    secs = time.perf_counter() - t0
+    return (np.concatenate([c for c, _a in parts]),
+            [a for _c, aux in parts for a in aux], secs)
+
+
+def frame_outcomes(scene, cam, cfg, pixels=None):
+    """``frame_and_masks`` as numpy at the flat ``pixels`` (all if None):
+    colors [N, 3], primary hit [N], t [N], then the facing and the
+    occlusion bit per light, [L][N] each."""
+    img, masks, t = frame_and_masks(scene, cam, cfg)
+    flat = [img.reshape(-1, 3), masks[0].reshape(-1), t.reshape(-1)] \
+        + [m.reshape(-1) for m in masks[2:]]
+    if pixels is not None:
+        idx = torch.as_tensor(pixels, device=img.device)
+        flat = [x[idx] for x in flat]
+    img, hit, t, *lights = (x.cpu().numpy() for x in flat)
+    return img, hit, t, lights[0::2], lights[1::2]
+
+
+def primary_steps(scene, cam, cfg, pixels):
+    """The primary march's steps at the flat ``pixels``, marched in the
+    frame's block order (so the culled tables are the frame's)."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops.march import march
+    from fraytracer_tpu_torch.render import (_auto_block, _from_blocks,
+                                             _to_blocks)
+    hh, ww = cfg.height, cfg.width
+    b = _auto_block(hh, ww)
+    rays = ft.camera_rays(cam, ww, hh, cfg.epsilon, cfg.length).map(
+        lambda x: _to_blocks(x, hh, ww, b))
+    steps = _from_blocks(march(scene, rays, cfg.march).steps, hh, ww, b)
+    idx = torch.as_tensor(pixels, device=steps.device)
+    return steps.reshape(-1)[idx].cpu().numpy()
+
+
+def oracle_pixels(scene, cam, cfg):
+    """The 1024² sample: ``ORACLE_UNIFORM`` pixels drawn by
+    ``np.random.default_rng(ORACLE_SEED)`` (a 64²-sized uniform sample of
+    the frame) and the ``ORACLE_BLOCKS`` whole 32x32 blocks whose primary
+    tables (the culled frame's first table build) hold the most
+    candidates.  Returns a dict: ``pixels`` (flat ``y·width + x``,
+    sorted), the masks ``uniform`` and ``blocks`` over them, ``top``
+    [(block, candidates)]."""
+    import numpy as np
+    import fraytracer_tpu_torch as ft
+    with frame_spies() as rec:
+        ft.render(scene, cam, cfg)
+    counts = rec["counts"][0]
+    top = sorted(range(len(counts)), key=lambda i: (-counts[i], i))
+    top = top[:ORACLE_BLOCKS]
+    size = cfg.width
+    rng = np.random.default_rng(ORACLE_SEED)
+    uniform = rng.choice(size * cfg.height, ORACLE_UNIFORM, replace=False)
+    iy, ix = np.mgrid[0:32, 0:32]
+    blocks = np.concatenate([
+        ((blk // (size // 32) * 32 + iy) * size
+         + blk % (size // 32) * 32 + ix).ravel() for blk in top])
+    pixels = np.union1d(uniform, blocks)
+    return {"pixels": pixels, "uniform": np.isin(pixels, uniform),
+            "blocks": np.isin(pixels, blocks),
+            "top": [(blk, counts[blk]) for blk in top]}
+
+
+def e2e_nodes():
+    """``tests/test_render_e2e.py::small_scene`` in the port's builders:
+    union, intersect and subtract, three materials, a directional and a
+    point light."""
+    import fraytracer_tpu_torch as ft
+    return ft.Scene(
+        root=ft.subtract(
+            ft.intersect(
+                ft.union(
+                    ft.sphere((0, 0, 0), 1.0,
+                              material=ft.solid(0.8, 0.2, 0.2)),
+                    ft.torus((0.7, 0.2, 0), (0.3, 1, 0), 0.8, 0.25,
+                             material=ft.solid(0.2, 0.7, 0.3)),
+                    ft.box((-0.8, -0.4, 0.3), (0.4, 0.4, 0.4), 0.1,
+                           material=ft.solid(0.2, 0.3, 0.9)),
+                ),
+                ft.sphere((0, 0, 0), 1.6),
+            ),
+            ft.sphere((0.4, 0.6, -0.9), 0.6),
+        ),
+        background=(0.1, 0.1, 0.1),
+        lights=(
+            ft.directional_light((-0.5, -1, 1), (0.5, 0.5, 0.5)),
+            ft.point_light((-0.5, 0, -2), (10.0, 0.0, 0.0)),
+        ),
+    )
+
+
+def with_march(cfg, **kw):
+    """``cfg`` with these ``MarchConfig`` fields replaced."""
+    return dataclasses.replace(cfg, march=dataclasses.replace(cfg.march,
+                                                              **kw))
+
+
+def phase_oracle(dev, scene, blend):
+    """The kernels' frames (the default "cuda" route) against the port's
+    float64 oracle, each case through ``oracle_gate``:
+
+    (a) the JAX suite's benchmark gate: 64², ω 1.0, 512 steps, culled and
+        dense; the culled frame through the plain route too, printed (a
+        second witness of its facing flips);
+    (b) its e2e gate: ``e2e_nodes`` at 128² from (0, 0.6, -2.6), no bound
+        skip;
+    (c) the bench frame (``bench_config(SIZE)``) at 512 steps, culled and
+        dense, rendered whole and read at the ``oracle_pixels`` sample, its
+        uniform pixels gated as a 64² frame and its blocks apart (not on
+        the whole-frame shares).  Gated at ω 1.0; the bench's ω 1.4, which
+        breaks the occlusion bounds here as the plain route does, printed;
+    (d) the same sample at the bench's own 192 steps: the rays the kernel
+        stops on its budget where the oracle hits (at ω 1.4 and 1.0),
+        counted apart, left out of the gate at ω 1.0;
+    (e) ``blend`` (the ``blend_nodes`` scene) dense on the sample, gated as
+        (c) but for the shell's p99, which the plain route breaks as much:
+        the bright point-lit blend moves colors farther across the ε shell
+        than the torus scene the bound was set on; the culled blended
+        frame printed (the JAX package's culling excludes members within
+        a blend's reach).
+
+    The oracle's rays are computed once a scene and camera.  Returns every
+    case's readings."""
+    import numpy as np
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.scene.generators import torus_csg_scene
+    t_phase = time.perf_counter()
+    size, n_tori, small = SIZE, BENCH_N_TORI, 64
+    pos = (0.0, 0.0, -10.0)
+    cam = ft.look_at(pos, (0, 0, 0), fov_degrees=60.0, device=dev)
+    out = {}
+
+    def case(key, label, sc, camera, cfg, oracle, sample=None, keep=None,
+             plain=False, ungated=(), **kw):
+        """Render one case (through the plain route if ``plain``) and gate
+        it: the whole frame, or the sample's uniform pixels and its blocks
+        apart (rays in ``keep`` only)."""
+        label += f"; oracle {oracle[2]:.1f} s"
+        with plain_route() if plain else contextlib.nullcontext():
+            frame = frame_outcomes(sc, camera, cfg, None if sample is None
+                                   else sample["pixels"])
+        if sample is None:
+            out[key] = oracle_gate(label, frame, oracle, ungated=ungated,
+                                   **kw)
+            return
+        out[key] = {part: oracle_gate(
+            f"{label}; {part} ({int(sample[part].sum())} pixels)", frame,
+            oracle, keep=sample[part] & (True if keep is None else keep),
+            ungated=ungated + (("clean", "median") if part == "blocks"
+                               else ()), **kw)
+            for part in ("uniform", "blocks")}
+
+    nodes = torus_csg_scene(19, n_tori)
+    oracle = oracle_sample(nodes, pos, small, small, range(small * small))
+    for cull, plain in ((True, False), (False, False), (True, True)):
+        form = "culled" if cull else "dense"
+        case(f"a_{form}" + ("_plain" if plain else ""),
+             f"(a) benchmark gate, {n_tori} tori {small}^2, {form}, "
+             + ("plain route, " if plain else "") + "omega 1.0, 512 steps",
+             scene, cam,
+             ft.RenderConfig(width=small, height=small, epsilon=EPS,
+                             length=30.0, march=ft.MarchConfig(
+                                 bound_skip=True, max_steps=512, cull=cull)),
+             oracle, plain=plain, enforce=not plain)
+
+    e2e = e2e_nodes()
+    e2e_pos = (0.0, 0.6, -2.6)
+    oracle = oracle_sample(e2e, e2e_pos, 128, 128, range(128 * 128))
+    case("b", "(b) e2e gate, small scene 128^2, no bound skip, 512 steps",
+         ft.flatten(e2e, dev),
+         ft.look_at(e2e_pos, (0, 0, 0), fov_degrees=60.0, device=dev),
+         ft.RenderConfig(width=128, height=128, epsilon=EPS, length=30.0,
+                         march=ft.MarchConfig(bound_skip=False,
+                                              max_steps=512)),
+         oracle, gate="e2e")
+
+    sample = oracle_pixels(scene, cam, bench_config(size))
+    log(f"  the {size}^2 sample: {len(sample['pixels'])} pixels: "
+        f"{ORACLE_UNIFORM} uniform (seed {ORACLE_SEED}) and the "
+        f"{ORACLE_BLOCKS} blocks with the most primary candidates (block, "
+        f"candidates) {sample['top']}")
+    oracle = oracle_sample(nodes, pos, size, size, sample["pixels"])
+    for cull, omega in ((True, 1.0), (False, 1.0), (True, 1.4)):
+        form = "culled" if cull else "dense"
+        case(f"c_{form}_{omega}", f"(c) bench frame {size}^2 sample, "
+             f"{form}, omega {omega}, 512 steps", scene, cam,
+             with_march(bench_config(size, cull), max_steps=512,
+                        relax_omega=omega), oracle, sample,
+             enforce=omega == 1.0)
+
+    hit_o = np.array([a["hit"] for a in oracle[1]])
+    for omega in (1.4, 1.0):
+        cfg = with_march(bench_config(size), relax_omega=omega)
+        steps = primary_steps(scene, cam, cfg, sample["pixels"])
+        hit = frame_outcomes(scene, cam, cfg, sample["pixels"])[1]
+        budget = (steps == cfg.march.max_steps) & ~hit & hit_o
+        log(f"  (d) omega {omega}: the kernel stops {int(budget.sum())} of "
+            f"{len(sample['pixels'])} rays ({budget.mean():.6f}) on its "
+            f"budget of {cfg.march.max_steps} steps where the oracle hits: "
+            "the configuration's budget, counted apart, left out of the gate")
+        out[f"d_budget_stopped_{omega}"] = int(budget.sum())
+    case("d", f"(d) bench frame {size}^2 sample, culled, omega 1.0, "
+         f"{cfg.march.max_steps} steps, {int(budget.sum())} budget-stopped "
+         "rays left out", scene, cam, cfg, oracle, sample, keep=~budget)
+
+    oracle = oracle_sample(blend_nodes(n_tori), pos, size, size,
+                           sample["pixels"])
+    case("e_dense", f"(e) blend{n_tori} {size}^2 sample, dense, omega 1.0, "
+         "512 steps", blend, cam,
+         with_march(bench_config(size, False), max_steps=512,
+                    relax_omega=1.0), oracle, sample,
+         ungated=("shell_p99",))
+    case("e_culled", f"(e) blend{n_tori} {size}^2 sample, culled, omega "
+         "1.0, 512 steps, a measurement: culling under a smooth union "
+         "excludes members within the blend's reach (the JAX package's "
+         "rule, pinned by tests/test_torch_surface_ad.py::"
+         "test_culled_blend_excludes_members_within_its_reach)", blend, cam,
+         with_march(bench_config(size), max_steps=512, relax_omega=1.0),
+         oracle, sample, enforce=False)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  [oracle] phase {out['seconds']:.1f} s")
+    return out
+
+
 def frame_only(tree, reps) -> int:
     """The culled torus frame ([main]'s configuration) and its dense form
     ([dense]'s) alone: for each, 3 untimed frames, then ``reps`` timed
@@ -3490,6 +3967,11 @@ def main() -> int:
                               tag="blend_dense", ad=True, reps=1)
     phase_parity(dev, blend, blend_culled["cfg"], tag="blend")
 
+    log("[oracle] the kernels' frames against the port's float64 oracle "
+        "(the JAX suite's gates and bounds; not graded: facing flips the "
+        "frame did not march; not gated: blend1000's shell p99)")
+    oracle = phase_oracle(dev, scene, blend)
+
     log(f"[spectral] the spectral wavefront: kernels vs plain route at 64^2, "
         f"the {SPECTRAL_SIZE}^2 x 8-bin depth-4 frame, K4 at its shapes")
     spectral = phase_spectral(dev, build.BUILD_DIR)
@@ -3675,6 +4157,9 @@ def main() -> int:
         f"{bench['fwd_time_s'] * 1e3:.2f} ms, fwd+bwd "
         f"{bench['fwd_bwd_time_s'] * 1e3:.2f} ms, warm-up "
         f"{bench['backend_warmup_s']} s")
+    log(f"[summary] oracle gate: {oracle['seconds']:.1f} s, (d) "
+        f"{oracle['d_budget_stopped_1.4']} rays of the sample stopped on the "
+        "budget where the oracle hits (omega 1.4, 192 steps)")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     import torch.distributed as dist

@@ -1,8 +1,9 @@
-"""Procedural noise: value noise, gradient noise, fbm.
+"""Procedural noise: Catmull-Rom splines, value noise, gradient noise, fbm.
 
-Counterpart of ``fraytracer_tpu.utils.noise`` (reference ``Noise.fs:7-113``
-permutation-table value/gradient noise): the backing of the procedural
-materials (``ops.sdf.albedo_of``).  All functions are shape-polymorphic
+Counterpart of ``fraytracer_tpu.utils.noise`` (reference ``Spline.fs:13-30``
+Catmull-Rom interpolation; ``Noise.fs:7-113`` permutation-table
+value/gradient noise): the backing of the procedural materials
+(``ops.sdf.albedo_of``).  All functions are shape-polymorphic
 over ``p [..., 3]``, run on ``p``'s device and are differentiable.
 """
 from __future__ import annotations
@@ -32,6 +33,39 @@ _DIRS = np.array([
     [1, 0, 1], [-1, 0, 1], [1, 0, -1], [-1, 0, -1],
     [0, 1, 1], [0, -1, 1], [0, 1, -1], [0, -1, -1],
 ], np.float32)
+
+
+def catmull_rom(p0: Tensor, p1: Tensor, p2: Tensor, p3: Tensor,
+                t: Tensor) -> Tensor:
+    """Catmull-Rom cubic interpolation (reference Spline.catmulRom1D,
+    Spline.fs:13-30): interpolates between p1 (t=0) and p2 (t=1)."""
+    t2 = t * t
+    t3 = t2 * t
+    return 0.5 * ((2.0 * p1)
+                  + (-p0 + p2) * t
+                  + (2.0 * p0 - 5.0 * p1 + 4.0 * p2 - p3) * t2
+                  + (-p0 + 3.0 * p1 - 3.0 * p2 + p3) * t3)
+
+
+def catmull_rom_1d(knots, t, device=None) -> Tensor:
+    """Spline through a knot array sampled at t ∈ [0, n-1] (clamped; the
+    knot indices clamp at both ends), on ``device``; without one, on the
+    device of ``t`` when it is a tensor, else of ``knots`` when it is one,
+    else on the GPU."""
+    if device is None:
+        device = next((x.device for x in (t, knots)
+                       if isinstance(x, Tensor)), "cuda")
+    knots = torch.as_tensor(knots, dtype=torch.float32, device=device)
+    t = torch.as_tensor(t, dtype=torch.float32, device=device)
+    n = knots.shape[0]
+    t = torch.clamp(t, 0.0, n - 1.0)
+    i = torch.clamp(torch.floor(t).to(torch.int64), 0, n - 2)
+    f = t - i
+
+    def at(j):
+        return knots[torch.clamp(j, 0, n - 1)]
+
+    return catmull_rom(at(i - 1), at(i), at(i + 1), at(i + 2), f)
 
 
 @functools.lru_cache(maxsize=8)

@@ -22,7 +22,10 @@ backward on the CPU (1e-5 of each leaf's max |g|: the same plain PyTorch
 on two devices); a frame's gradient through the kernels against the plain
 route with the lanes whose outcome or t differ masked out (1e-3 of each
 leaf's norm).  W, P1 and P2 exact, P3 within rtol 1e-6, P4 equal trips and
-1e-5."""
+1e-5.  The kernels' 64² frame of the benchmark scene against the port's
+float64 oracle: tests/test_benchmark_oracle.py's bounds, through
+``chip_smoke.oracle_gate`` (a facing flip the frame did not march is not
+graded, as JAX's gate spares one the oracle did not)."""
 import pytest
 import torch
 
@@ -686,3 +689,44 @@ def test_probe_kernels_match_plain(dev):
         probe.warm(x.double())
     with pytest.raises(ValueError):
         probe.dyn_loop(inp["x3"], inp["cand3"].cpu(), inp["keys3"])
+
+
+@pytest.fixture(scope="module")
+def oracle64():
+    """``chip_smoke.py`` loaded by path (its gate function; it imports
+    only torch at module level) and the port's float64 oracle over the 64²
+    frame of tests/test_benchmark_oracle.py, in this process."""
+    import importlib.util
+    from pathlib import Path
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_by_path", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    oracle = cs.oracle_sample(torus_csg_scene(19, 1000), (0.0, 0.0, -10.0),
+                              64, 64, range(64 * 64), workers=1)
+    return cs, oracle
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_benchmark_oracle_gate_on_the_card(dev, oracle64, cull):
+    """tests/test_benchmark_oracle.py's gate and bounds on the
+    kernels' 64² frame of the 1000-torus scene (ω 1.0, 512 steps, the
+    bound skip), culled and dense (dense K1/K2 step with ``sqrt.approx``),
+    against the port's oracle, through ``chip_smoke.oracle_gate``."""
+    cs, oracle = oracle64
+    scene = ft.flatten(torus_csg_scene(19, 1000), device=dev)
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    cfg = ft.RenderConfig(width=64, height=64, epsilon=0.01, length=30.0,
+                          march=ft.MarchConfig(bound_skip=True, max_steps=512,
+                                               cull=cull))
+    ops_cuda.reset_launch_counts()
+    frame = cs.frame_outcomes(scene, cam, cfg)
+    counts = ops_cuda.launch_counts()
+    sfx = "_culled" if cull else ""
+    assert counts["march" + sfx] >= 1 and counts["surface" + sfx] >= 1
+    assert counts["occlusion" + sfx] >= 2
+    r = cs.oracle_gate(f"64^2 {'culled' if cull else 'dense'}", frame,
+                       oracle)
+    assert r["rays"] == 64 * 64

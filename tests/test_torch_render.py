@@ -2,12 +2,16 @@
 (the "cuda" backend on CPU tensors, i.e. the kernels' plain versions behind
 the real host glue) against ``fraytracer_tpu.render`` (JAX kernels in
 interpret mode, ``cull=False``, ω = 1.4), tone mapping with shared noise,
-and the float64 oracle gate of tests/test_benchmark_oracle.py with its
-bounds unchanged.
+and the float64 oracle gate of tests/test_benchmark_oracle.py through
+``chip_smoke.py``'s ``oracle_gate``.
 
 Frame tolerance: max |Δ| < 2e-3 outside pixels whose primary hit, facing
 or occlusion bit flipped, median < 1e-5 — float32 in two frameworks lands
 hits at slightly different points inside the epsilon shell."""
+import functools
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +29,6 @@ from fraytracer_tpu.types import Rays as JRays
 from fraytracer_tpu_torch.ops import shade as tshade
 from fraytracer_tpu_torch.ops import tonemap as ttonemap
 from fraytracer_tpu_torch.ops.march import MarchConfig as TMC
-from fraytracer_tpu_torch.ops.march import march as tmarch
 from fraytracer_tpu_torch.ops.march import march_occlusion as tocclusion
 from fraytracer_tpu_torch.scene import generators as TG
 from fraytracer_tpu_torch.scene.nodes import LIGHT_POINT
@@ -59,6 +62,17 @@ def jax_masks(js, cfg, w, h, with_t=False):
     out = [np.asarray(_from_blocks(m, h, w, 32)) for m in masks]
     return (out, np.asarray(_from_blocks(sh.t, h, w, 32))) if with_t \
         else out
+
+
+@functools.cache
+def load_chip_smoke():
+    """``chip_smoke.py``, loaded by path (it imports only torch at module
+    level): its ``oracle_gate`` is the one f64-oracle gate of the port."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_by_path", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def port_camera(fov=60.0):
@@ -192,7 +206,7 @@ def test_tonemap_matches_jax_with_shared_dither(monkeypatch):
 
 def test_benchmark_scene_image_allclose_oracle():
     """tests/test_benchmark_oracle.py on the port's "cuda" path (plain
-    versions on CPU), dense, bounds unchanged."""
+    versions on CPU), dense, through ``chip_smoke.py``'s gate."""
     oracle_gate(TMC(backend="cuda", cull=False, bound_skip=True,
                     max_steps=512))
 
@@ -205,75 +219,23 @@ def test_benchmark_scene_image_allclose_oracle_culled():
 
 
 def oracle_gate(mcfg):
-    """The f64-oracle gate of tests/test_benchmark_oracle.py at 64²."""
+    """The f64-oracle gate of tests/test_benchmark_oracle.py at 64²:
+    ``chip_smoke.py``'s ``oracle_gate`` (the gate the card runs) on the
+    frame's own outcomes (``frame_outcomes``: marched in its block order)
+    against JAX's oracle."""
+    cs = load_chip_smoke()
     W = H = 64
-    scene = TG.torus_csg_scene(seed=19, n_tori=1000)
-    fscene = tft.flatten(scene, device="cpu")
+    fscene = tft.flatten(TG.torus_csg_scene(seed=19, n_tori=1000),
+                         device="cpu")
     cfg = tft.RenderConfig(width=W, height=H, epsilon=EPS, length=30.0,
                            march=mcfg)
-    cam = port_camera()
-    img = tft.render(fscene, cam, cfg).numpy()
+    frame = cs.frame_outcomes(fscene, port_camera(), cfg)
     want, aux = Oracle(SCENES["torus1000"](*_jax_modules())).render(
         CAM, (0, 0, 0), fov_degrees=60.0, width=W, height=H,
         epsilon=EPS, length=30.0, return_aux=True)
-
-    rays = tft.camera_rays(cam, W, H, EPS, 30.0)
-    res = tmarch(fscene, rays, mcfg)
-    hit_j = res.hit.numpy()
-    t_j = res.t.numpy()
-    sh = tshade.surface_hit(fscene, rays, mcfg)
-    occ_j = []
-    for i in range(fscene.num_lights):
-        ldir, budget, _ = tshade.light_dir_and_dist(fscene, i, sh.position)
-        facing = sh.hit & ((sh.normal * ldir).sum(-1) > 0.0)
-        sr = tft.Rays(origin=sh.position, direction=ldir,
-                      length=torch.where(facing, budget, 0.0),
-                      epsilon=rays.epsilon)
-        occ_j.append(tmarch(fscene, sr, mcfg).hit.numpy())
-
-    hit_o = np.array([[aux[y][x]["hit"] for x in range(W)]
-                      for y in range(H)])
-    t_o = np.array([[aux[y][x]["t"] for x in range(W)] for y in range(H)])
-    min_o = np.array([[aux[y][x]["min_d"] for x in range(W)]
-                      for y in range(H)])
-    assert hit_o.mean() > 0.25, "oracle sees the torus blob"
-
-    flips = hit_j != hit_o
-    assert flips.mean() < 0.02, f"{flips.mean():.4f} hit flips"
-    if flips.any():
-        assert np.abs(min_o[flips] - EPS).max() < 5e-3
-    both = hit_j & hit_o
-    dt = np.abs(t_j - t_o)
-    divergent = both & (dt > 3 * EPS)
-    assert divergent.mean() < 0.02, f"{divergent.mean():.4f} divergent"
-    agree = both & ~divergent
-    assert dt[agree].max() < 3 * EPS
-
-    occ_flip = np.zeros((H, W), bool)
-    for i in range(fscene.num_lights):
-        occ_o = np.array([[bool(aux[y][x]["occluded"][i])
-                           if len(aux[y][x]["occluded"]) > i else False
-                           for x in range(W)] for y in range(H)])
-        smin_o = np.array([[aux[y][x]["shadow_min_d"][i]
-                            if len(aux[y][x]["shadow_min_d"]) > i
-                            else np.inf
-                            for x in range(W)] for y in range(H)])
-        f = agree & (occ_j[i] != occ_o)
-        occ_flip |= f
-        marched = f & np.isfinite(smin_o)
-        if marched.any():
-            assert np.abs(smin_o[marched] - EPS).max() < 5e-3
-    assert occ_flip.mean() < 0.03
-
-    diff = np.abs(img - want).max(axis=-1)
-    clean = (~flips) & (~occ_flip) & ~divergent \
-        & ((~both) | (dt <= 2e-6 * (1 + t_o)))
-    assert clean.mean() > 0.6, f"only {clean.mean():.2f} clean pixels"
-    assert diff[clean].max() < 1e-4, f"clean-pixel error {diff[clean].max()}"
-    shell = agree & (~flips) & (~occ_flip) & ~clean
-    if shell.any():
-        assert np.percentile(diff[shell], 99) < 3e-2
-    assert float(np.median(diff)) < 1e-5
+    r = cs.oracle_gate(f"torus1000 {W}^2, cull={mcfg.cull}", frame,
+                       (want.reshape(-1, 3), [a for row in aux for a in row]))
+    assert r["rays"] == W * H
 
 
 def _jax_modules():

@@ -200,8 +200,10 @@ def test_defaults_are_the_card_and_the_kernels():
     for fn in (tft.flatten, from_jax_arrays, tft.look_at,
                camera.pixel_grid_uv):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    assert inspect.signature(tft.make_rays).parameters["device"].default \
-        is None                     # follows its inputs, else the GPU
+    from fraytracer_tpu_torch.utils import noise
+    for fn in (tft.make_rays, noise.catmull_rom_1d):
+        # follows its inputs, else the GPU
+        assert inspect.signature(fn).parameters["device"].default is None
     assert tft.MarchConfig().backend == "cuda"
     assert tft.RenderConfig().march.backend == "cuda"
     assert inspect.signature(shade.resolve_material) \
@@ -215,6 +217,9 @@ def test_defaults_are_the_card_and_the_kernels():
         with pytest.raises(AssertionError, match="CUDA"):
             tft.render_spectral(tft.flatten(single_sphere(TN, TG)),
                                 tft.look_at((0, 0, -5), (0, 0, 0)), 8, 8)
+        # the spline on plain knots and a float: the card, not the CPU
+        with pytest.raises(AssertionError, match="CUDA"):
+            noise.catmull_rom_1d([0.0, 1.0, 4.0], 1.5)
 
 
 def test_import_leaves_jax_out():
