@@ -44,6 +44,20 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    runs in AD mode), 1024², culled, with its launch counts, timing,
    profile and peak memory; the same frame with cull=False once; culled
    against dense; the 256² blended frame kernels against plain.
+7b. graph  — ``render_with_stats`` as one captured CUDA graph a key (the
+   counterpart of jax.jit, ``render.py``): (a) the culled, dense,
+   blended culled and blended dense 1024² frames: the capture's time, the
+   memory the graph keeps, the replay bit for bit the eager frame
+   (``render_grid``, digests printed), the launches per replay equal to
+   the eager frame's (1 / 1 / 2, K4 0); (b) a forced overflow (cull_m 8)
+   and a forced material repair at 256²: the flag set, one eager re-run,
+   its launches and its frame equal to the eager frame; (c) a torus moved
+   in place between two replays against the eager frame of the edited
+   scene; (d) the deferred frame under sync debug mode "error" (0 syncs);
+   (e) graph and eager frames paired (median of 9 each), 32 chained frames
+   of each, each one's profile (device ops, busy / span) and peak memory.
+   Frames that the main phases time are graph frames; spied frames (their
+   spies read the device) run the eager frame.
 8. spectral — the spectral wavefront (``ops/wavefront.py``): (a) a 64²
    × 8-bin, depth-3 frame on ``spectral_csg_scene(19, 1000)`` through the
    kernels against the plain route, max |diff| < 1e-4 (its bounce rounds
@@ -133,7 +147,8 @@ card):
     python3 chip_smoke.py --kernels-only [--tree DIR]
     python3 chip_smoke.py --compare DIR [--pairs 8] [--reps 9]
 
-``--frame-only`` times the culled torus frame and its dense form;
+``--frame-only`` times the culled torus frame and its dense form, the
+graph frame and the eager frame in turns;
 ``--kernels-only`` prints one JSON line with the device times of K4
 (kernel, plain, library), culled K1, culled K2 of both lights, culled K3
 in both modes, dense K1, dense K2 of both lights and dense K3 in both
@@ -153,6 +168,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -1302,6 +1318,16 @@ def bench_config(size, cull=True, backend="cuda"):
                                                 relax_omega=1.4))
 
 
+def eager_frame(scene, cam, cfg):
+    """The eager frame (``render_grid`` of the camera's rays): what
+    ``render_with_stats`` ran before the graph frame, and what a flagged
+    replay runs again.  Spied frames run it: the spies read the device."""
+    import fraytracer_tpu_torch as ft
+    rays = ft.camera_rays(cam, cfg.width, cfg.height, cfg.epsilon,
+                          cfg.length)
+    return ft.render_grid(scene, rays, cfg)
+
+
 @contextlib.contextmanager
 def frame_spies():
     """For one frame: each culled march's candidates per tile (from its
@@ -1371,7 +1397,8 @@ def phase_frame(dev, scene, build_dir, cull, tag=None, ad=False, reps=5):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = ops_cuda.launch_counts()
-    log(f"  launches in the {tag} frame: {counts}")
+    log(f"  launches in the {tag} frame (its first call: the eager run "
+        f"before the capture): {counts}")
     sfx = "_culled" if cull else ""
     other = "" if cull else "_culled"
     surf, other_surf = ("surface_ad", "surface") if ad \
@@ -1397,7 +1424,7 @@ def phase_frame(dev, scene, build_dir, cull, tag=None, ad=False, reps=5):
     stats = {}
     if cull:
         with frame_spies() as rec:
-            ft.render_with_stats(scene, cam, cfg)
+            eager_frame(scene, cam, cfg)
         names = ["primary"] + [
             f"light {i} ({'point' if scene.light_kind[i] else 'directional'})"
             for i in range(scene.num_lights)]
@@ -1424,10 +1451,11 @@ def phase_frame(dev, scene, build_dir, cull, tag=None, ad=False, reps=5):
         f"({[round(t * 1e3, 2) for t in times]}), "
         f"{int(n_rays) / med:.4g} rays/s")
     torch.cuda.reset_peak_memory_stats()
-    ft.render_with_stats(scene, cam, cfg)
+    eager_frame(scene, cam, cfg)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    log(f"  {tag} frame peak device memory {peak / 2**20:.1f} MiB")
+    log(f"  {tag} frame peak device memory {peak / 2**20:.1f} MiB (the "
+        "eager frame; the graph's own memory: [graph])")
     stats["idle"] = profile_frame(
         scene, cam, cfg, build_dir / f"chip_smoke_{tag}_frame_trace.json")
     gen = torch.Generator(device=dev).manual_seed(19)
@@ -1533,6 +1561,8 @@ def profile_frame(scene, cam, cfg, trace_path, fn=None, ops=0, record=None):
     if record is not None:
         record["kernels"] = [(e.name.split("(")[0].replace("void ", ""),
                               e.time_range.elapsed_us() / 1e3) for e in ours]
+        record.update(busy_ms=busy / 1e3, span_ms=span / 1e3, ops=len(evs),
+                      host_ms=wall_us / 1e3)
     if ops:
         def dev_us(a):
             return getattr(a, "self_device_time_total",
@@ -1638,6 +1668,393 @@ def phase_parity(dev, scene, culled_cfg, tag="frame"):
     check(near >= 0.995, f"{tag}: culled t within 3 eps on {near}")
     return compare_frames(culled, dense, f"{tag} {SIZE}^2 culled vs dense",
                           shell_t=True)
+
+
+# ---------------------------------------------------------------------------
+# [graph]: the graph frame (render.py), the counterpart of jax.jit
+# ---------------------------------------------------------------------------
+
+GRAPH_REPS = 9        # paired graph / eager frames, median of each
+GRAPH_CHAIN = 32      # chained frames of the sustained time (JAX's K)
+# one frame's launches, per replay and in the eager frame, by form
+GRAPH_LAUNCHES = {
+    "culled": {"march_culled": 1, "surface_culled": 1,
+               "occlusion_culled": 2},
+    "dense": {"march": 1, "surface": 1, "occlusion": 2},
+    "blend": {"march_culled": 1, "surface_ad_culled": 1,
+              "occlusion_culled": 2},
+    "blend_dense": {"march": 1, "surface_ad": 1, "occlusion": 2}}
+# a launch count's kernel as a trace names it (K1 and K2 are one kernel)
+TRACE_NAMES = {"march_culled": "march_kernel",
+               "occlusion_culled": "march_kernel",
+               "surface_culled": "surface_kernel",
+               "surface_ad_culled": "surface_ad_kernel",
+               "march": "march_dense_kernel", "occlusion": "march_dense_kernel",
+               "surface": "surface_dense_kernel",
+               "surface_ad": "surface_ad_dense_kernel",
+               "block_gather": "block_gather_kernel"}
+NO_GRAPH = {"captures": 0, "replays": 0, "eager_reruns": 0, "eager_frames": 0}
+
+
+def traced_launches(record):
+    """The port's kernels in a profiled frame (``profile_frame``'s
+    ``record``), counted by name as the card ran them."""
+    return collections.Counter(name.split("<")[0]
+                               for name, _ms in record.get("kernels", ()))
+
+
+def paired_ms(fns, reps=GRAPH_REPS):
+    """``reps`` synchronized calls of each function in turns: the times in
+    ms, one list a function."""
+    out = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ms in zip(fns, out):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def render_module():
+    """``fraytracer_tpu_torch/render.py`` (the package's ``render`` is the
+    function of that name)."""
+    import fraytracer_tpu_torch  # noqa: F401
+    return sys.modules["fraytracer_tpu_torch.render"]
+
+
+def launched(counts):
+    """The kernels that launched, by name."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def graph_frame_case(dev, tag, scene, cam, cfg, build_dir):
+    """One 1024² frame as a graph: (a) its capture (time, the device
+    memory it added, the peak during the capture), the replay bit for bit
+    the eager frame, the launches per replay equal to the eager frame's,
+    counted by the wrappers and read from the profiled replay; (d)
+    the deferred frame run eagerly under sync debug mode "error"; (e) the
+    graph and the eager frame paired, median of ``GRAPH_REPS`` each, then
+    ``GRAPH_CHAIN`` chained frames of each between two synchronizes, each
+    one's profile (device ops, busy / span) and the eager frame's peak."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred
+    R = render_module()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    ops_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = ft.render_with_stats(scene, cam, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    capture_peak = torch.cuda.max_memory_allocated()
+    fg = R.frame_graph(scene, cam, cfg)
+    check(fg is not None and fg.graph is not None
+          and ops_cuda.graph_counts() == dict(NO_GRAPH, captures=1),
+          f"[graph] {tag}: capture {ops_cuda.graph_counts()}")
+    first_counts = launched(ops_cuda.launch_counts())
+    del first
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - reserved0
+
+    ops_cuda.reset_launch_counts()
+    img, n_rays = ft.render_with_stats(scene, cam, cfg)
+    replay = launched(ops_cuda.launch_counts())
+    check(ops_cuda.graph_counts() == dict(NO_GRAPH, replays=1),
+          f"[graph] {tag}: replay {ops_cuda.graph_counts()}")
+    ops_cuda.reset_launch_counts()
+    eimg, en = eager_frame(scene, cam, cfg)
+    eager = launched(ops_cuda.launch_counts())
+    check(replay == eager == first_counts == launched(fg.launches)
+          == GRAPH_LAUNCHES[tag],
+          f"[graph] {tag}: launches per replay {replay}, recorded "
+          f"{launched(fg.launches)}, eager {eager}, first call "
+          f"{first_counts}, want {GRAPH_LAUNCHES[tag]}")
+    same = torch.equal(img, eimg) and int(n_rays) == int(en)
+    log(f"  {tag}: graph frame digest {digest(img, n_rays)}, eager "
+        f"{digest(eimg, en)}, bit for bit: {same}; launches per replay "
+        f"{replay} (eager {eager}); capture (eager run + capture) "
+        f"{fg.capture_s * 1e3:.1f} ms of a first call of "
+        f"{first_s * 1e3:.1f} ms; the capture added {held / 2**20:.1f} MiB "
+        f"of device memory (graphs share one pool), peak during the capture "
+        f"{capture_peak / 2**20:.1f} MiB")
+    check(same, f"[graph] {tag}: the graph frame is not the eager frame")
+
+    frame = deferred.Frame(dev)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad(), deferred.deferring(frame):
+            dimg, _n = R._frame(scene, cam, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    check(torch.equal(dimg, eimg) and not bool(frame.flag),
+          f"[graph] {tag}: the deferred frame")
+    log(f"  {tag}: the deferred frame under sync debug mode \"error\": "
+        "0 syncs, bit for bit the eager frame, flag clear")
+
+    g_ms, e_ms = paired_ms((lambda: ft.render_with_stats(scene, cam, cfg),
+                            lambda: eager_frame(scene, cam, cfg)))
+    chain = {}
+    for name, fn in (("graph", lambda: ft.render_with_stats(scene, cam, cfg)),
+                     ("eager", lambda: eager_frame(scene, cam, cfg))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_CHAIN):
+            fn()
+        torch.cuda.synchronize()
+        chain[name] = 1e3 * (time.perf_counter() - t0) / GRAPH_CHAIN
+    # after 1 + GRAPH_REPS + GRAPH_CHAIN replays: still the eager frame
+    # (the dense form's ray counter is zeroed by a captured memset)
+    check(torch.equal(ft.render_with_stats(scene, cam, cfg)[0], eimg),
+          f"[graph] {tag}: a later replay is not the eager frame")
+    torch.cuda.reset_peak_memory_stats()
+    eager_frame(scene, cam, cfg)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated()
+    prof = {}
+    for name, fn in (("graph", lambda: ft.render_with_stats(scene, cam, cfg)),
+                     ("eager", lambda: eager_frame(scene, cam, cfg))):
+        rec = {}
+        profile_frame(scene, cam, cfg,
+                      build_dir / f"chip_smoke_graph_{tag}_{name}_trace.json",
+                      fn=fn, record=rec)
+        prof[name] = rec
+    # the launches of a replay as the card ran them (the counts above add
+    # what the capture recorded)
+    want = collections.Counter()
+    for k, v in GRAPH_LAUNCHES[tag].items():
+        want[TRACE_NAMES[k]] += v
+    traced = {name: traced_launches(rec) for name, rec in prof.items()}
+    log(f"  {tag}: the port's kernels in the profiled replay "
+        f"{dict(traced['graph'])}, in the eager frame "
+        f"{dict(traced['eager'])}, want {dict(want)}")
+    check(traced["graph"] == traced["eager"] == want,
+          f"[graph] {tag}: traced launches {traced}, want {dict(want)}")
+    res = {"digest": digest(eimg, en),"graph_ms": statistics.median(g_ms), "eager_ms":
+           statistics.median(e_ms), "graph_times_ms": g_ms,
+           "eager_times_ms": e_ms, "paired_diff_ms": statistics.median(
+               [a - b for a, b in zip(g_ms, e_ms)]),
+           "sustained_graph_ms": chain["graph"],
+           "sustained_eager_ms": chain["eager"],
+           "capture_ms": 1e3 * fg.capture_s, "first_call_ms": 1e3 * first_s,
+           "graph_mib": held / 2**20, "capture_peak_mib":
+           capture_peak / 2**20, "eager_peak_mib": eager_peak / 2**20,
+           "launches": replay,
+           **{f"{name}_{k}": v for name, rec in prof.items()
+              for k, v in rec.items() if k != "kernels"}}
+    log(f"  {tag}: graph {res['graph_ms']:.3f} ms ({min(g_ms):.3f}–"
+        f"{max(g_ms):.3f}) / eager {res['eager_ms']:.3f} ms "
+        f"({min(e_ms):.3f}–{max(e_ms):.3f}) (medians of {GRAPH_REPS}, paired; "
+        f"median paired difference {res['paired_diff_ms']:.3f} ms), "
+        f"sustained over {GRAPH_CHAIN} chained frames: graph "
+        f"{chain['graph']:.3f} ms, eager {chain['eager']:.3f} ms; profile "
+        + "; ".join(f"{name} {rec.get('ops')} device ops, busy "
+                    f"{rec.get('busy_ms', float('nan')):.3f} of "
+                    f"{rec.get('span_ms', float('nan')):.3f} ms"
+                    for name, rec in prof.items())
+        + f"; eager frame peak {eager_peak / 2**20:.1f} MiB ({nvidia_smi()})")
+    return res
+
+
+def graph_eager_key_case(dev, scene, cam, cfg, label, patch=None):
+    """A key whose first frame raises the flag: that call runs the eager
+    frame again and captures nothing, and the key's later calls run the
+    eager frame; each equal to the eager frame bit for bit, with its
+    launches.  Then its calls against the eager frame's, paired.
+    ``patch``: a context that forces the flag's cause (a material repair)
+    in every frame."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    R = render_module()
+    with patch() if patch else contextlib.nullcontext():
+        ops_cuda.reset_launch_counts()
+        img0, n0 = ft.render_with_stats(scene, cam, cfg)
+        first = ops_cuda.graph_counts()
+        fg = R.frame_graph(scene, cam, cfg)
+        ops_cuda.reset_launch_counts()
+        img, n = ft.render_with_stats(scene, cam, cfg)
+        counts, gc = ops_cuda.launch_counts(), ops_cuda.graph_counts()
+        ops_cuda.reset_launch_counts()
+        eimg, en = eager_frame(scene, cam, cfg)
+        eager = ops_cuda.launch_counts()
+        k_ms, e_ms = paired_ms((lambda: ft.render_with_stats(scene, cam, cfg),
+                                lambda: eager_frame(scene, cam, cfg)))
+    R._graphs.pop(R.frame_key(scene, cam, cfg))
+    check(first == dict(NO_GRAPH, eager_reruns=1) and fg.graph is None,
+          f"[graph] {label}: first call {first}, graph {fg.graph}")
+    check(gc == dict(NO_GRAPH, eager_frames=1), f"[graph] {label}: {gc}")
+    check(counts == eager, f"[graph] {label}: launches {launched(counts)}, "
+          f"want {launched(eager)}")
+    check(all(torch.equal(x, eimg) for x in (img0, img))
+          and int(n0) == int(n) == int(en),
+          f"[graph] {label}: the key's frames are not the eager frame")
+    res = {"launches": launched(counts), "key_ms": statistics.median(k_ms),
+           "eager_ms": statistics.median(e_ms), "key_times_ms": k_ms,
+           "eager_times_ms": e_ms}
+    log(f"  {label}: the first frame raised the flag (first call {first}), "
+        f"no graph; a later call {gc}, launches {launched(counts)} = the "
+        f"eager frame's; equal to the eager frame bit for bit (digest "
+        f"{digest(img, n)}); the key's frame {res['key_ms']:.3f} ms, eager "
+        f"{res['eager_ms']:.3f} ms (medians of {GRAPH_REPS}, paired; "
+        f"{nvidia_smi()})")
+    return res
+
+
+def graph_flagged_replay_case(dev, scene, cam, cfg, label):
+    """A captured key whose replay raises the flag: the tori's centres
+    pulled toward the origin (x 0.05) in place, so that a tile's
+    candidates overflow its table.  The replay runs the eager frame again,
+    equal to the edited scene's eager frame bit for bit, its launches the
+    replay's recorded ones plus the re-run's; then such calls against the
+    eager frame's, paired (what a key whose every replay flags would pay);
+    undone, the replay is the first frame again."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    R = render_module()
+    before = ft.render_with_stats(scene, cam, cfg)
+    fg = R.frame_graph(scene, cam, cfg)
+    check(fg is not None and fg.graph is not None,
+          f"[graph] {label}: the key has no graph")
+    tori = scene.prim_params["torus"]
+    old = tori.clone()
+    with torch.no_grad():
+        tori[:, 0:3] *= 0.05
+    try:
+        ops_cuda.reset_launch_counts()
+        img, n = ft.render_with_stats(scene, cam, cfg)
+        counts, gc = ops_cuda.launch_counts(), ops_cuda.graph_counts()
+        ops_cuda.reset_launch_counts()
+        eimg, en = eager_frame(scene, cam, cfg)
+        eager = ops_cuda.launch_counts()
+        f_ms, e_ms = paired_ms((lambda: ft.render_with_stats(scene, cam, cfg),
+                                lambda: eager_frame(scene, cam, cfg)))
+    finally:
+        with torch.no_grad():
+            tori.copy_(old)
+    want = {k: fg.launches[k] + eager[k] for k in eager}
+    check(gc == dict(NO_GRAPH, replays=1, eager_reruns=1),
+          f"[graph] {label}: {gc}")
+    check(counts == want, f"[graph] {label}: launches {launched(counts)}, "
+          f"want {launched(want)}")
+    check(torch.equal(img, eimg) and int(n) == int(en),
+          f"[graph] {label}: the re-run is not the eager frame")
+    again = ft.render_with_stats(scene, cam, cfg)
+    check(torch.equal(again[0], before[0]),
+          f"[graph] {label}: the replay after the edit was undone")
+    res = {"launches": launched(counts), "flagged_ms": statistics.median(f_ms),
+           "eager_ms": statistics.median(e_ms), "flagged_times_ms": f_ms,
+           "eager_times_ms": e_ms}
+    log(f"  {label}: flag set, {gc}; launches {launched(counts)} = the "
+        f"replay's {launched(fg.launches)} + the eager re-run's "
+        f"{launched(eager)}; equal to the eager frame bit for bit (digest "
+        f"{digest(img, n)}); replay + re-run {res['flagged_ms']:.3f} ms "
+        f"against eager {res['eager_ms']:.3f} ms (medians of {GRAPH_REPS}, "
+        f"paired; {nvidia_smi()}); undone, the replay is the first frame")
+    return res
+
+
+@contextlib.contextmanager
+def forced_repair_frames():
+    """Every frame's surface pass marks a fifth of the lanes of every
+    seventh block of 1024 unresolved (material -1), as ``forced_repair``
+    does on one frame's hit points: device ops alone, so the graph
+    captures them, and the frame needs a material repair."""
+    from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
+    from fraytracer_tpu_torch.ops.cuda.gather import BLOCK
+    real = mk.surface_kernel
+
+    def marked(*a, **k):
+        normal, midx, code = real(*a, **k)
+        lane = torch.arange(midx.shape[0], device=midx.device)
+        mark = (lane // BLOCK % 7 == 3) & (lane % 5 == 0)
+        return normal, torch.where(mark, -1, midx), code
+    mk.surface_kernel = marked
+    try:
+        yield
+    finally:
+        mk.surface_kernel = real
+
+
+def phase_graph(dev, scene, blend, build_dir):
+    """[graph]: ``render_with_stats`` as a captured CUDA graph (render.py)
+    on the culled, dense, ``blend1000`` culled and ``blend1000`` dense
+    1024² frames (:func:`graph_frame_case`: (a), (d), (e)), the four graphs
+    in one memory pool, replayed again in reverse order; (b) a forced
+    overflow (cull_m 8) and a forced material repair at 256², keys kept
+    eager, and a replay that overflows; (c) one torus moved in place
+    between two replays against the eager frame of the edited scene."""
+    import fraytracer_tpu_torch as ft
+    R = render_module()
+    R._graphs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    out = {}
+    cases = (("culled", scene, True), ("dense", scene, False),
+             ("blend", blend, True), ("blend_dense", blend, False))
+    for tag, sc, cull in cases:
+        out[tag] = graph_frame_case(dev, tag, sc, cam, bench_config(SIZE,
+                                                                    cull),
+                                    build_dir)
+    # the graphs share one pool: each replay writes what it reads
+    for tag, sc, cull in reversed(cases):
+        img, n = ft.render_with_stats(sc, cam, bench_config(SIZE, cull))
+        check(digest(img, n) == out[tag]["digest"],
+              f"[graph] {tag}: a replay after the other keys' captures")
+    del img, n
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["graphs_mib"] = (torch.cuda.memory_reserved() - reserved0) / 2**20
+    log(f"  the four graphs, replayed again in reverse order: each its eager "
+        f"frame bit for bit; together they keep {out['graphs_mib']:.1f} MiB "
+        f"of device memory (one pool; each capture's own growth: "
+        + ", ".join(f"{tag} {out[tag]['graph_mib']:.1f}" for tag, *_ in cases)
+        + f" MiB; {nvidia_smi()})")
+    small = bench_config(256)
+    out["overflow"] = graph_eager_key_case(
+        dev, scene, cam, dataclasses.replace(small, march=dataclasses.replace(
+            small.march, cull_m=8, cull_m_shadow=8)), "forced overflow "
+        "(256^2, cull_m 8)")
+    out["repair"] = graph_eager_key_case(
+        dev, scene, cam, small, "forced repair (256^2, lanes of every "
+        "seventh block marked -1)", patch=forced_repair_frames)
+    check(out["repair"]["launches"].get("block_gather", 0) >= 1,
+          "[graph] the forced repair's re-run launched no K4")
+    cfg = bench_config(SIZE)
+    out["flagged_replay"] = graph_flagged_replay_case(
+        dev, scene, cam, cfg, f"a replay that overflows ({SIZE}^2, the "
+        "tori's centres x 0.05)")
+
+    # (c) one torus moved in place between two replays: torus 0 to the
+    # front of the blob (inside the bounding sphere, outside the cut one)
+    before = ft.render_with_stats(scene, cam, cfg)[0]
+    tori = scene.prim_params["torus"]
+    old = tori[0, 0:3].clone()
+    with torch.no_grad():
+        tori[0, 0:3] = torch.tensor([1.2, -1.2, -2.6], device=dev)
+    try:
+        moved, n = ft.render_with_stats(scene, cam, cfg)
+        want, wn = eager_frame(scene, cam, cfg)
+    finally:
+        with torch.no_grad():
+            tori[0, 0:3] = old
+    changed = int((moved != before).any(-1).sum())
+    check(torch.equal(moved, want) and int(n) == int(wn) and changed > 0,
+          f"[graph] the replay after an edit: {changed} pixels changed, "
+          f"equal to the edited scene's eager frame: "
+          f"{torch.equal(moved, want)}")
+    check(torch.equal(ft.render_with_stats(scene, cam, cfg)[0], before),
+          "[graph] the replay after the edit was undone")
+    log(f"  torus 0 moved in place to (1.2, -1.2, -2.6) between two "
+        f"replays: {changed} pixels changed, the replay bit for bit the "
+        f"eager frame of the edited scene; undone, the replay is the first "
+        f"frame again")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3006,7 +3423,7 @@ def phase_tori10k(dev, build_dir):
         f"{ {k: counts[k] for k in FRAME_LAUNCHES} }, n_rays {int(n_rays)}, "
         f"non-background share {share:.4f}, first {first_s * 1e3:.1f} ms")
     with frame_spies() as rec:
-        ft.render_with_stats(scene, cam, cfg)
+        eager_frame(scene, cam, cfg)
     for name, tabs in zip(["primary"] + [f"light {i}" for i in
                                          range(scene.num_lights)],
                           rec["tables"]):
@@ -3015,7 +3432,7 @@ def phase_tori10k(dev, build_dir):
             for mx, mean, m in tabs))
     med, times = median_ms(lambda: ft.render_with_stats(scene, cam, cfg), 5)
     torch.cuda.reset_peak_memory_stats()
-    ft.render_with_stats(scene, cam, cfg)
+    eager_frame(scene, cam, cfg)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     with torch.no_grad():
@@ -3141,6 +3558,7 @@ def phase_bench(spectral_counts):
           "bench: the 10k stage's line")
     log(f"  bench: {lines[-1]}")
     for k in ("value", "n_rays", "fwd_time_s", "backend_warmup_s",
+              "capture_s", "fwd_time_sustained_s", "fwd_time_eager_s",
               "fwd_bwd_time_s", "fwd_bwd_over_fwd", "device",
               "kernel_launches", "spectral_time_s", "spectral_size",
               "spectral_rays_marched", "spectral_rays_per_sec"):
@@ -3156,8 +3574,15 @@ def phase_bench(spectral_counts):
           and last["spectral_rays_marched"] > SPECTRAL_SIZE ** 2
           and last["spectral_time_s"] > 0, "bench spectral fields")
     # the forward stage's counts: W once, then the 1 + 15 culled frames
+    # of fwd_time_s and 32 + 32 chained ones (the graph frame's and the
+    # eager frame's sustained times)
     kl = first["kernel_launches"]
-    frames = 16
+    frames = 16 + 2 * GRAPH_CHAIN
+    check(first["capture_s"] > 0 and first["fwd_time_sustained_s"] > 0
+          and first["fwd_time_eager_s"] > 0,
+          f"bench: capture_s {first['capture_s']}, sustained "
+          f"{first['fwd_time_sustained_s']}, eager "
+          f"{first['fwd_time_eager_s']}")
     check(kl["warm"] == 1, f"bench launched W {kl['warm']} times")
     check((kl["march_culled"], kl["surface_culled"], kl["occlusion_culled"],
            kl["block_gather"]) == (frames, frames, 2 * frames, 0),
@@ -3467,7 +3892,7 @@ def oracle_pixels(scene, cam, cfg):
     import numpy as np
     import fraytracer_tpu_torch as ft
     with frame_spies() as rec:
-        ft.render(scene, cam, cfg)
+        eager_frame(scene, cam, cfg)
     counts = rec["counts"][0]
     top = sorted(range(len(counts)), key=lambda i: (-counts[i], i))
     top = top[:ORACLE_BLOCKS]
@@ -3648,13 +4073,16 @@ def phase_oracle(dev, scene, blend):
 def frame_only(tree, reps) -> int:
     """The culled torus frame ([main]'s configuration) and its dense form
     ([dense]'s) alone: for each, 3 untimed frames, then ``reps`` timed
-    ones, as one JSON line.  ``tree`` names a directory inside the checkout
-    that holds another commit of the repo (unpacked there with ``git
-    archive``, e.g. under ``_checkout/``); its package is imported instead
-    of this checkout's."""
+    ones of ``render_with_stats`` (the graph frame where the tree has one)
+    and, in turns with them, of the eager frame (``render_grid``), as one
+    JSON line.  ``tree`` names a directory inside the checkout that holds
+    another commit of the repo (unpacked there with ``git archive``, e.g.
+    under ``_checkout/``); its package is imported instead of this
+    checkout's."""
     if tree:
         sys.path.insert(0, str(Path(tree).resolve()))
     import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.render import render_grid
     from fraytracer_tpu_torch.scene.generators import torus_csg_scene
     dev = torch.device("cuda", 0)
     scene = ft.flatten(torus_csg_scene(19, BENCH_N_TORI), device=dev)
@@ -3662,16 +4090,21 @@ def frame_only(tree, reps) -> int:
     rec = {"tree": tree or ".", "package": str(Path(ft.__file__).parent)}
     for form, cull in (("", True), ("dense_", False)):
         cfg = bench_config(SIZE, cull)
-        times = []
+        rays = ft.camera_rays(cam, SIZE, SIZE, cfg.epsilon, cfg.length)
+        times = {"": [], "eager_": []}
         for i in range(3 + reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ft.render_with_stats(scene, cam, cfg)
-            torch.cuda.synchronize()
-            if i >= 3:
-                times.append(1e3 * (time.perf_counter() - t0))
-        rec[form + "median_ms"] = statistics.median(times)
-        rec[form + "times_ms"] = times
+            for kind, fn in (
+                    ("", lambda: ft.render_with_stats(scene, cam, cfg)),
+                    ("eager_", lambda: render_grid(scene, rays, cfg))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if i >= 3:
+                    times[kind].append(1e3 * (time.perf_counter() - t0))
+        for kind, ts in times.items():
+            rec[form + kind + "median_ms"] = statistics.median(ts)
+            rec[form + kind + "times_ms"] = ts
     print(json.dumps(rec))
     return 0
 
@@ -3857,15 +4290,17 @@ def compare(tree, pairs, reps) -> int:
             rec = json.loads(out.stdout.strip().splitlines()[-1])
             log(f"  pair {i} {rec['package']}: culled median "
                 f"{rec['median_ms']:.2f} ms of "
-                f"{[round(x, 2) for x in rec['times_ms']]}; dense median "
+                f"{[round(x, 2) for x in rec['times_ms']]} (eager frame "
+                f"{rec['eager_median_ms']:.2f}); dense median "
                 f"{rec['dense_median_ms']:.2f} ms of "
-                f"{[round(x, 2) for x in rec['dense_times_ms']]}")
+                f"{[round(x, 2) for x in rec['dense_times_ms']]} (eager "
+                f"{rec['dense_eager_median_ms']:.2f})")
             side = "other" if t else "this"
-            pair[side] = rec["median_ms"]
-            pair["dense_" + side] = rec["dense_median_ms"]
+            for form in ("", "dense_", "eager_", "dense_eager_"):
+                pair[form + side] = rec[form + "median_ms"]
         runs.append(pair)
     res = {"kernels": kernels, "pairs": runs}
-    for form in ("", "dense_"):
+    for form in ("", "dense_", "eager_", "dense_eager_"):
         diffs = [r[form + "this"] - r[form + "other"] for r in runs]
         res.update({
             form + "paired_diff_ms": diffs,
@@ -3966,6 +4401,11 @@ def main() -> int:
     blend_dense = phase_frame(dev, blend, build.BUILD_DIR, cull=False,
                               tag="blend_dense", ad=True, reps=1)
     phase_parity(dev, blend, blend_culled["cfg"], tag="blend")
+
+    log(f"[graph] render_with_stats as one captured CUDA graph a key: the "
+        f"culled, dense and blended {SIZE}^2 frames, forced flags, an edit "
+        "between replays, timings")
+    graph = phase_graph(dev, scene, blend, build.BUILD_DIR)
 
     log("[oracle] the kernels' frames against the port's float64 oracle "
         "(the JAX suite's gates and bounds; not graded: facing flips the "
@@ -4154,9 +4594,29 @@ def main() -> int:
         f"{grad['blend']['peak'] / 2**20:.1f} MiB, point_eval "
         f"{grad['blend']['route']}; bench (its own process, {SIZE}^2 / "
         f"{BENCH_N_TORI} tori) fwd "
-        f"{bench['fwd_time_s'] * 1e3:.2f} ms, fwd+bwd "
+        f"{bench['fwd_time_s'] * 1e3:.2f} ms (sustained "
+        f"{bench['fwd_time_sustained_s'] * 1e3:.2f}, eager "
+        f"{bench['fwd_time_eager_s'] * 1e3:.2f}, capture "
+        f"{bench['capture_s']:.3f} s), fwd+bwd "
         f"{bench['fwd_bwd_time_s'] * 1e3:.2f} ms, warm-up "
         f"{bench['backend_warmup_s']} s")
+    for tag in ("culled", "dense", "blend", "blend_dense"):
+        g = graph[tag]
+        log(f"[summary] graph frame, {tag}: {g['graph_ms']:.3f} ms against "
+            f"eager {g['eager_ms']:.3f} ms (paired medians of {GRAPH_REPS}), "
+            f"sustained {g['sustained_graph_ms']:.3f} / "
+            f"{g['sustained_eager_ms']:.3f} ms, capture "
+            f"{g['capture_ms']:.1f} ms, memory the capture added "
+            f"{g['graph_mib']:.1f} MiB, idle share graph "
+            f"{1 - g['graph_busy_ms'] / g['graph_span_ms'] if 'graph_busy_ms' in g else None}"
+            f" / eager "
+            f"{1 - g['eager_busy_ms'] / g['eager_span_ms'] if 'eager_busy_ms' in g else None}")
+    log(f"[summary] graph frames: the four graphs keep "
+        f"{graph['graphs_mib']:.1f} MiB in one pool; a key kept eager "
+        f"(forced overflow) {graph['overflow']['key_ms']:.3f} ms against "
+        f"eager {graph['overflow']['eager_ms']:.3f} ms; a replay that "
+        f"overflows + its re-run {graph['flagged_replay']['flagged_ms']:.3f} "
+        f"ms against eager {graph['flagged_replay']['eager_ms']:.3f} ms")
     log(f"[summary] oracle gate: {oracle['seconds']:.1f} s, (d) "
         f"{oracle['d_budget_stopped_1.4']} rays of the sample stopped on the "
         "budget where the oracle hits (omega 1.4, 192 steps)")

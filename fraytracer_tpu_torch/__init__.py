@@ -7,8 +7,10 @@ each step with ``cull=False`` — or through the kernels' plain PyTorch
 versions on the CPU.  A frame is differentiable w.r.t. every scene tensor
 that requires grad (implicit differentiation at the hit points,
 ``ops/march.py``).  The entry points default to the GPU and the kernels;
-name ``device="cpu"`` to run the plain versions.  Importing the package
-builds nothing and needs no GPU.
+name ``device="cpu"`` to run the plain versions.  On the card a frame
+that autograd need not see replays one captured CUDA graph per scene
+structure, shapes and config (``render.py``; ``render_grid`` is the eager
+frame).  Importing the package builds nothing and needs no GPU.
 
 Quick start::
 
@@ -38,8 +40,8 @@ from .ops import spectral
 from .ops.tonemap import tonemap
 from .ops.wavefront import (WavefrontConfig, render_spectral,
                             render_spectral_with_stats)
-from .render import (RenderConfig, render, render_image, render_rays,
-                     render_scene, render_with_stats)
+from .render import (RenderConfig, render, render_grid, render_image,
+                     render_rays, render_scene, render_with_stats)
 from .scene.flatten import FlatScene, flatten
 from .scene.nodes import (Light, Material, Scene, SdfNode, box, capsule, cone,
                           dielectric, directional_light, emissive, intersect,
@@ -58,8 +60,8 @@ __all__ = [
     "surface_hit", "trace", "tonemap",
     "spectral", "WavefrontConfig", "render_spectral",
     "render_spectral_with_stats",
-    "RenderConfig", "render", "render_image", "render_rays", "render_scene",
-    "render_with_stats",
+    "RenderConfig", "render", "render_grid", "render_image", "render_rays",
+    "render_scene", "render_with_stats",
     "FlatScene", "flatten",
     "Light", "Material", "Scene", "SdfNode", "box", "capsule", "cone",
     "dielectric", "directional_light", "emissive", "intersect", "mirror",

@@ -26,7 +26,12 @@ as soon as the forward timing and the ray count are known, then the
 fwd+bwd fields, then the spectral fields, ``tori_10k``, the scaling
 fields.  Times are medians of frames bracketed by a device synchronize
 (the spectral frame: the best of 2 rounds of 4); ``device`` names the card
-and its power limit.  Progress goes to stderr.
+and its power limit.  On the card the forward frame is the graph frame
+(``render.py``): ``capture_s`` is its first call's eager run and capture
+(JAX's ``compile_time_s``), ``fwd_time_sustained_s`` 32 frames chained
+between two synchronizes over 32 (JAX's headline loop) and
+``fwd_time_eager_s`` the same of the eager frame (``render_grid``).
+Progress goes to stderr.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+SUSTAINED = 32      # chained frames of the sustained time (JAX's K)
 # fields of the headline record that a merged report may not overwrite
 PROTECTED = ("metric", "value", "unit", "image_size", "n_tori", "n_rays",
              "n_rays_primary")
@@ -81,6 +87,17 @@ def run_json(module: str, *argv: str, timeout: float) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+def chained(fn, sync, frames: int) -> float:
+    """Seconds a call of ``fn``: ``frames`` calls made in a row between two
+    ``sync``s, over their count."""
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / frames
+
+
 def timed(fn, sync, frames: int):
     """Seconds of each of ``frames`` calls of ``fn``, each bracketed by
     ``sync`` (a device synchronize)."""
@@ -119,6 +136,7 @@ def main(argv=None) -> int:
     import fraytracer_tpu_torch as ft
     from .ops.cuda import launch_counts, probe
     from .ops.march import MarchConfig
+    from .render import frame_graph
     from .scene.generators import torus_csg_scene
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -160,11 +178,23 @@ def main(argv=None) -> int:
     first_s = time.perf_counter() - t0
     if img.grad_fn is not None:
         raise SystemExit("a forward-only frame built an autograd graph")
+    # the first call's eager run and capture of the graph frame (the
+    # counterpart of JAX's compile_time_s); None where no graph is made
+    graph = frame_graph(scene, camera, cfg)
+    capture_s = graph.capture_s if graph is not None else None
 
     frames = 5 * args.repeats
     times = timed(lambda: ft.render_with_stats(scene, camera, cfg), sync,
                   frames)
     fwd_s = statistics.median(times)
+    # JAX's headline loop: SUSTAINED frames chained between two
+    # synchronizes, of the graph frame and of the eager frame
+    rays = ft.camera_rays(camera, args.size, args.size, cfg.epsilon,
+                          cfg.length)
+    sustained_s, eager_s = (
+        chained(fn, sync, SUSTAINED) for fn in (
+            lambda: ft.render_with_stats(scene, camera, cfg),
+            lambda: ft.render_grid(scene, rays, cfg)))
     n_rays = float(n_rays_dev)
     n_primary = float(args.size * args.size)
     log(f"n_rays={n_rays:.0f}, fwd={fwd_s * 1e3:.2f}ms (median of {frames})")
@@ -182,12 +212,19 @@ def main(argv=None) -> int:
         "fwd_time_min_s": min(times),
         "timing_method": f"median of {frames} frames, each bracketed by a "
                          "device synchronize",
+        "fwd_time_sustained_s": sustained_s,
+        "fwd_time_eager_s": eager_s,
+        "sustained_method": f"{SUSTAINED} frames chained between two "
+                            "device synchronizes, over their count; eager: "
+                            "the same of render_grid",
+        "capture_s": capture_s,
         "first_frame_s": round(first_s, 4),
         "backend_warmup_s": round(warmup_s, 4),
         "image_checksum": checksum,
         "backend": "cuda" if on_card else "cpu",
         "device": device_label(device),
-        # kernel launches of this process so far (the warm-up kernel once)
+        # kernel launches of this process so far: the warm-up kernel once,
+        # then 1 + 5·repeats + 2·SUSTAINED frames
         "kernel_launches": launch_counts(),
     }
     emit(result)  # the headline is safe whatever happens below

@@ -150,8 +150,11 @@ def run(size: int = 1024, tori: int = 10000, device: str = "cuda") -> dict:
     times = timed(lambda: ft.render_with_stats(scene, camera, cfg), sync,
                   FRAMES)
     fwd_s = statistics.median(times)
+    # the eager frame's peak (a replay of the graph frame allocates
+    # nothing but its outputs' copies)
     torch.cuda.reset_peak_memory_stats(dev)
-    ft.render_with_stats(scene, camera, cfg)
+    ft.render_grid(scene, ft.camera_rays(camera, size, size, 0.01, 30.0),
+                   cfg)
     sync()
     peak = torch.cuda.max_memory_allocated(dev)
     n_rays = float(n_rays)

@@ -3,9 +3,17 @@ their host wrappers.  Importing this package builds nothing: the kernels are
 compiled on the first launch (``build.library``).
 
 Each wrapper counts its launches; :func:`launch_counts` reads the counts
-and :func:`reset_launch_counts` sets them to zero.
+and :func:`reset_launch_counts` sets them to zero.  A wrapper does not run
+when a captured CUDA graph replays (``render.py``'s graph frame): each
+replay adds the launches recorded at its capture (:func:`add_launch_counts`),
+so the counts still mean kernels launched on the card.  ``GRAPH`` counts
+the frames captured, the replays, the eager re-runs of frames that raised
+their flag, and the frames of keys run eagerly because their first frame
+raised it.
 """
 from . import gather, march_kernel
+
+GRAPH = {"captures": 0, "replays": 0, "eager_reruns": 0, "eager_frames": 0}
 
 
 def _tables():
@@ -20,7 +28,22 @@ def launch_counts() -> dict:
     return {k: v for table in _tables() for k, v in table.items()}
 
 
-def reset_launch_counts() -> None:
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (kernel name → launches, as :func:`launch_counts`
+    keys them) to the counts."""
     for table in _tables():
+        for k in table:
+            table[k] += delta.get(k, 0)
+
+
+def graph_counts() -> dict:
+    """Graph frames captured, replayed, run again eagerly, and run eagerly
+    for their key, since the last reset."""
+    return dict(GRAPH)
+
+
+def reset_launch_counts() -> None:
+    """Set every launch count and the graph counts to zero."""
+    for table in _tables() + (GRAPH,):
         for k in table:
             table[k] = 0

@@ -36,6 +36,7 @@ import torch
 
 from ...scene.flatten import FlatScene, Plan, visible_materials
 from ...types import normalize
+from .. import deferred
 from ..sdf import _prim_bound_rows
 
 Tensor = torch.Tensor
@@ -392,9 +393,9 @@ def _tile_cones(origin: Tensor, direction: Tensor, t_lo: Tensor,
     if conv_apex is not None:
         axis = -axis            # from the light back toward the origins
     nrm = torch.linalg.norm(axis, dim=-1, keepdim=True)
+    # (0, 0, 1) where no lane is active, made on the device
     axis = torch.where(nrm > 1e-12, axis / torch.clamp_min(nrm, 1e-12),
-                       torch.tensor([0.0, 0.0, 1.0], dtype=o.dtype,
-                                    device=o.device))
+                       torch.nn.functional.pad(torch.ones_like(nrm), (2, 0)))
     o_rel = o - apex[:, None, :]
     o_par = (o_rel * axis[:, None, :]).sum(-1)
     rho2 = torch.clamp_min((o_rel * o_rel).sum(-1) - o_par * o_par, 0.0)
@@ -539,6 +540,19 @@ class CullTables:
     early_out: bool = False      # MarchConfig.cull_early_out
 
 
+@deferred.device_constant(maxsize=256)
+def _row_ids(plan: Plan, prim_material, off: int, row_lo: int, row_hi: int,
+             device: torch.device) -> Tensor:
+    """The CSG-visible material and the global slot of a pair's rows
+    (``off``: its kind's first slot) as float32 ``[g, 2]`` on ``device``,
+    copied there once (a captured frame keeps what it reads)."""
+    vis = visible_materials(plan, prim_material)
+    mats = np.asarray([vis[off + r] for r in range(row_lo, row_hi)],
+                      np.float32)
+    slots = np.arange(off + row_lo, off + row_hi, dtype=np.float32)
+    return torch.as_tensor(np.stack([mats, slots], 1), device=device)
+
+
 def _table_rows(scene: FlatScene, kind: str, row_lo: int,
                 row_hi: int) -> Tensor:
     """The pair's rows ``[g, PSTRIDE + 2]``: parameters padded to PSTRIDE
@@ -548,12 +562,8 @@ def _table_rows(scene: FlatScene, kind: str, row_lo: int,
     if kind == "torus":
         p = torch.cat([p[:, 0:3], normalize(p[:, 3:6]), p[:, 6:]], -1)
     p = torch.nn.functional.pad(p, (0, PSTRIDE - p.shape[1]))
-    off = kind_offset(scene, kind)
-    vis = visible_materials(scene.plan, scene.prim_material)
-    mats = np.asarray([vis[off + r] for r in range(row_lo, row_hi)],
-                      np.float32)
-    slots = np.arange(off + row_lo, off + row_hi, dtype=np.float32)
-    extra = torch.as_tensor(np.stack([mats, slots], 1), device=p.device)
+    extra = _row_ids(scene.plan, scene.prim_material,
+                     kind_offset(scene, kind), row_lo, row_hi, p.device)
     return torch.cat([p, extra], 1)
 
 

@@ -49,7 +49,7 @@ import torch
 from ...scene.flatten import FlatScene, Plan, PARAM_WIDTH, KINDS, \
     visible_materials
 from ...types import MarchResult, Rays, normalize
-from .. import sdf
+from .. import deferred, sdf
 from ..march import (MarchConfig, bound_skip_start, check_config, chunked,
                      _chunk_elems, sphere_trace)
 from .build import check, library, on_device
@@ -335,8 +335,10 @@ def _lower_static(plan: Plan, kind_counts, prim_material, pairs=()):
     )
 
 
-@functools.lru_cache(maxsize=32)
+@deferred.device_constant(maxsize=32)
 def _static_on(plan: Plan, kind_counts, prim_material, pairs, device: str):
+    """The static part on ``device``, copied there once (a captured frame
+    keeps what it reads: ``deferred.device_constant``)."""
     st = _lower_static(plan, kind_counts, prim_material, pairs)
     return {k: torch.as_tensor(v, device=device)
             if isinstance(v, np.ndarray) else v for k, v in st.items()}
@@ -355,41 +357,18 @@ def slot_param_rows(scene: FlatScene) -> Tensor:
     return torch.cat(rows, 0).contiguous()
 
 
-def _lowered_for(scene: FlatScene, key):
-    """The scene's memoized program for ``key`` (device, pairs), if the
-    plan and every parameter tensor (identity and in-place version) are
-    unchanged."""
-    memo = scene.__dict__.get("_lowered", {}).get(key)
-    if memo is None:
-        return None
-    plan, params, versions, prog = memo
-    cur = tuple(scene.prim_params.values())
-    if (plan is scene.plan and len(params) == len(cur)
-            and all(a is b for a, b in zip(params, cur))
-            and versions == tuple(p._version for p in cur)):
-        return prog
-    return None
-
-
-def lower_program(scene: FlatScene, device, pairs=()) -> Program:
-    """Lower ``scene`` to the kernels' program on ``device`` (``pairs``:
-    the culled pairs of the launch, none for the dense form).  The program
-    is kept on the scene object and reused by every launch until the plan
-    or a parameter tensor changes (an in-place edit bumps the tensor's
-    version; an edit through ``.data`` does not, and is not seen), so a
-    frame lowers its scene once."""
-    key = (str(torch.device(device)), tuple(pairs))
-    prog = _lowered_for(scene, key)
-    if prog is not None:
-        return prog
-    st = _static_on(scene.plan, scene.kind_counts, scene.prim_material,
-                    key[1], key[0])
-    params = slot_param_rows(scene).to(key[0])
+def _lower_values(scene: FlatScene, st: dict) -> Program:
+    """The value part of the lowering on the static part ``st``: the
+    parameters in slot order, each entry's row (``ent_params``) and the
+    packed rows of the dense entries — fresh tensors, computed on the
+    device from the scene's parameter tensors."""
+    dev = st["entries"].device
+    params = slot_param_rows(scene).to(dev)
     ent_params = params.index_select(0, st["entries"]).contiguous()
     # the packed rows: one gather from the entries' rows padded to TABLE_W
     padded = torch.nn.functional.pad(ent_params[:st["n_dense"]],
                                      (0, TABLE_W - PSTRIDE))
-    prog = Program(ops=st["ops"], op_k=st["op_k"], groups=st["groups"],
+    return Program(ops=st["ops"], op_k=st["op_k"], groups=st["groups"],
                    group_k=st["group_k"], ent_kind=st["ent_kind"],
                    ent_slot=st["ent_slot"], ent_mat=st["ent_mat"],
                    ent_params=ent_params, group_pairs=st["group_pairs"],
@@ -397,9 +376,36 @@ def lower_program(scene: FlatScene, device, pairs=()) -> Program:
                    packed=padded.reshape(-1).index_select(0, st["pack_idx"])
                    .contiguous(),
                    ent_ms=st["ent_ms"], n_dense=st["n_dense"])
+
+
+def lower_program(scene: FlatScene, device, pairs=()) -> Program:
+    """Lower ``scene`` to the kernels' program on ``device`` (``pairs``:
+    the culled pairs of the launch, none for the dense form).  The static
+    part is memoized per scene structure; the value part
+    (:func:`_lower_values`) is kept, with the plan, the parameter tensors
+    and their in-place versions it was made from, and reused by every
+    launch until one of them changes (an edit through ``.data`` bumps no
+    version and is not seen), so a frame lowers its scene once.  The
+    eager frame keeps it on the scene object; a deferred frame
+    (``ops/deferred.py``) keeps its own, so that a captured frame lowers
+    the values inside the capture and every replay lowers them again into
+    the buffers whose addresses its launches hold."""
+    key = (str(torch.device(device)), tuple(pairs))
+    frame = deferred.current()
+    memo = frame.programs if frame is not None \
+        else scene.__dict__.setdefault("_lowered", {})
     cur = tuple(scene.prim_params.values())
-    scene.__dict__.setdefault("_lowered", {})[key] = (
-        scene.plan, cur, tuple(p._version for p in cur), prog)
+    seen = memo.get(key)
+    if seen is not None:
+        plan, params, versions, prog = seen
+        if (plan is scene.plan and len(params) == len(cur)
+                and all(a is b for a, b in zip(params, cur))
+                and versions == tuple(p._version for p in cur)):
+            return prog
+    st = _static_on(scene.plan, scene.kind_counts, scene.prim_material,
+                    key[1], key[0])
+    prog = _lower_values(scene, st)
+    memo[key] = (scene.plan, cur, tuple(p._version for p in cur), prog)
     return prog
 
 
@@ -1132,7 +1138,8 @@ def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
     t0, miss0, length, cull = march_tables(scene, rays, cfg, cone_apex,
                                            sign)
     pairs = cull.pairs if cull is not None else ()
-    overflowed = _overflow_on_host(cull)
+    frame = deferred.current()
+    overflowed = _overflow_on_host(cull) if frame is None else None
     kw = dict(max_steps=cfg.max_steps, omega=cfg.relax_omega, cull=cull,
               sign=sign)
     if occlusion:
@@ -1148,10 +1155,16 @@ def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
             normal, midx, code = surface_kernel(scene, origin, direction, t,
                                                 epsilon, hit_k, cull=cull)
             out = (out, normal, torch.where(hit, midx, -1), code)
-    # the one host sync of a culled call: a tile's candidate count
-    # exceeded its table, so its windows were unsound — run the same path
-    # again with full-group tables (m >= every group: cannot overflow,
-    # march_kernel.py:2018-2043, :2092-2096); its launches count too
+    # a tile's candidate count exceeded its table, so its windows were
+    # unsound.  A deferred frame (ops/deferred.py) raises its flag and is
+    # run again eagerly; the eager call reads the flag on the host (its one
+    # host sync) and runs the same path again with full-group tables
+    # (m >= every group: cannot overflow, march_kernel.py:2018-2043,
+    # :2092-2096); the re-run's launches count too
+    if frame is not None:
+        if cull is not None and cull.overflow is not None:
+            frame.raise_if(cull.overflow)
+        return out
     if overflowed():
         big = max(r1 - r0 for (_g, _k, _ki, r0, r1) in pairs)
         return cuda_march_raw(

@@ -1,0 +1,91 @@
+"""Frames that read nothing on the host: the counterpart of the JAX
+package's ``lax.cond``s.
+
+``jax.jit`` compiles a frame into one device program, so its two
+data-dependent branches are ``lax.cond``s on the device: the culled
+march's overflow fallback (``ops/pallas/march_kernel.py:1915-1919``, taken
+at ``:2048`` and ``:2095``) and ``resolve_material``'s repair tiers
+(``ops/shade.py:80-84``, ``:105-111``).  The port's eager frame reads a
+count on the host at each of them instead.  Inside :func:`deferring`,
+those sites read nothing: each ORs the condition of its branch into the
+frame's flag, a bool on the frame's device, and goes on as if the branch
+needed no repair.  Whoever ran the frame reads the flag once at its end
+and, where it is set, runs the frame again eagerly (``render.py``): that
+re-run takes the branches as the eager frame always has, so a flagged
+frame's result is exact.
+
+A :class:`Frame` also keeps the scene's lowered kernel program for the
+frame's marches (``ops/cuda/march_kernel.py::lower_program``), so that the
+lowering of the parameter values runs inside the frame, once, and never
+comes from a memo made outside it: a captured frame then recomputes it on
+every replay.  And it keeps the device constants the frame reads
+(:func:`device_constant`), so that they live as long as a graph captured
+from it, whatever their caches evict.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import functools
+
+import torch
+
+
+class Frame:
+    """A deferred frame's state: ``flag`` (bool ``[]`` on ``device``) is
+    set where a branch needs the eager re-run; ``programs`` holds the
+    lowered programs of the frame's marches, ``constants`` the device
+    constants it read."""
+
+    def __init__(self, device):
+        self.flag = torch.zeros((), dtype=torch.bool, device=device)
+        self.programs = {}
+        self.constants = {}
+
+    def raise_if(self, cond: torch.Tensor) -> None:
+        """OR a bool scalar tensor into the flag, on the device."""
+        self.flag.logical_or_(cond)
+
+
+_current: contextvars.ContextVar = contextvars.ContextVar(
+    "deferred_frame", default=None)
+
+
+def current() -> Frame | None:
+    """The frame being run by :func:`deferring`, else ``None`` (the eager
+    frame, which reads its branches on the host)."""
+    return _current.get()
+
+
+@contextlib.contextmanager
+def deferring(frame: Frame):
+    """Run the scope's frame with its host reads deferred to ``frame``."""
+    token = _current.set(frame)
+    try:
+        yield frame
+    finally:
+        _current.reset(token)
+
+
+def device_constant(maxsize: int):
+    """Cache a function that copies host data to a device, as
+    ``functools.lru_cache(maxsize)`` does, and keep each tensor it returns
+    inside :func:`deferring` in that frame's ``constants``.  A frame
+    captured in a CUDA graph reads them by address, so they live as long as
+    the frame, and its capture finds the copies its eager run made (a copy
+    from host data cannot be captured) whatever the cache evicted since."""
+    def wrap(make):
+        cached = functools.lru_cache(maxsize=maxsize)(make)
+
+        @functools.wraps(make)
+        def get(*args):
+            frame = current()
+            if frame is None:
+                return cached(*args)
+            key = (make, args)
+            if key not in frame.constants:
+                frame.constants[key] = cached(*args)
+            return frame.constants[key]
+        get.cache_info, get.cache_clear = cached.cache_info, cached.cache_clear
+        return get
+    return wrap

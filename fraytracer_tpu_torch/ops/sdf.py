@@ -17,7 +17,6 @@ primitive per lane, for the backward pass), and the bounding spheres
 """
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
@@ -26,6 +25,7 @@ import torch
 from ..scene.flatten import FlatScene, Plan
 from ..scene.nodes import MAT_PROCEDURAL
 from ..types import cross, dot, norm, normalize
+from . import deferred
 
 Tensor = torch.Tensor
 
@@ -326,8 +326,11 @@ def prim_distances(scene: FlatScene, p: Tensor) -> Tensor:
                       for kind, _cnt in scene.kind_counts], dim=-1)
 
 
-def _slots(slots) -> Tensor:
-    return torch.as_tensor(np.asarray(slots, np.int64))
+@deferred.device_constant(maxsize=256)
+def slots_on(slots: Tuple[int, ...], device: torch.device) -> Tensor:
+    """A plan node's global slots as an int64 tensor on ``device``, copied
+    there once (a captured frame keeps what it reads)."""
+    return torch.as_tensor(np.asarray(slots, np.int64), device=device)
 
 
 def combine(plan: Plan, d: Tensor) -> Tensor:
@@ -342,7 +345,7 @@ def combine(plan: Plan, d: Tensor) -> Tensor:
     vals = [combine(c, d) for c in plan.children]
     if plan.op in ("union", "intersect"):
         if plan.prim_slots:
-            sub = d[..., _slots(plan.prim_slots).to(d.device)]
+            sub = d[..., slots_on(plan.prim_slots, d.device)]
             vals.append(torch.amin(sub, -1) if plan.op == "union"
                         else torch.amax(sub, -1))
         out = vals[0]
@@ -355,7 +358,7 @@ def combine(plan: Plan, d: Tensor) -> Tensor:
         k = float(plan.k)
         terms = []
         if plan.prim_slots:
-            terms.append(d[..., _slots(plan.prim_slots).to(d.device)])
+            terms.append(d[..., slots_on(plan.prim_slots, d.device)])
         if vals:
             terms.append(torch.stack(vals, dim=-1))
         alld = torch.cat(terms, dim=-1)
@@ -392,10 +395,11 @@ def take_rows(table: Tensor, idx: Tensor) -> Tensor:
         tuple(idx.shape) + tuple(table.shape[1:]))
 
 
-@functools.lru_cache(maxsize=32)
+@deferred.device_constant(maxsize=32)
 def mat_kinds(mat_kind: Tuple[int, ...], device: torch.device) -> Tensor:
     """A scene's material kinds (``FlatScene.mat_kind``) as an int32 tensor
-    on ``device``, copied there once per scene and device."""
+    on ``device``, copied there once per scene and device (a captured frame
+    keeps what it reads)."""
     return torch.as_tensor(np.asarray(mat_kind, np.int32), device=device)
 
 
@@ -439,7 +443,7 @@ def winning_leaf_code(scene: FlatScene, p: Tensor) -> Tensor:
         if plan.op in ("union", "intersect"):
             vals = [walk(c) for c in plan.children]
             if plan.prim_slots:
-                slots = _slots(plan.prim_slots).to(p.device)
+                slots = slots_on(plan.prim_slots, p.device)
                 sub = d[..., slots]
                 if plan.op == "union":
                     red, win = torch.amin(sub, -1), torch.argmin(sub, -1)
@@ -546,19 +550,22 @@ def plan_bound(scene: FlatScene, plan: Plan, pb: Tensor) -> Tensor:
     if plan.op == "subtract":
         return plan_bound(scene, plan.children[0], pb)
     bounds = [plan_bound(scene, c, pb) for c in plan.children]
-    slots = _slots(plan.prim_slots).to(pb.device)
+    slots = slots_on(plan.prim_slots, pb.device)
     if plan.op == "intersect":
         rows = list(bounds)
         if plan.prim_slots:
-            sub = pb[slots]
-            rows.append(sub[torch.argmin(sub[:, 3])])
+            # the smallest direct child, picked on the device (indexing by
+            # a 0-d tensor would read it on the host)
+            sub = pb.index_select(0, slots)
+            rows.append(sub.index_select(
+                0, torch.argmin(sub[:, 3]).reshape(1))[0])
         out = rows[0]
         for bnd in rows[1:]:
             out = _bound_intersect2(out, bnd)
         return out
     rows = [b[None, :] for b in bounds]
     if plan.prim_slots:
-        rows.append(pb[slots])
+        rows.append(pb.index_select(0, slots))
     out = _bound_union_many(torch.cat(rows, dim=0))
     if plan.op == "smooth_union":
         # exp smooth-min can undershoot the true min by up to k*log(n)

@@ -11,7 +11,9 @@ SdfScene.fs:7-28, and ``SdfLight.fs``):
 
 Each light costs one occlusion march over the whole batch.  The JAX
 ``lax.cond`` tiers of :func:`resolve_material` are Python branches on a
-count read from the device; each such read is a host sync.
+count read from the device; each such read is a host sync.  A deferred
+frame (``ops/deferred.py``) reads nothing: it flags any bad lane and
+leaves the repair to its eager re-run.
 
 Autograd sees the hit distance and normal (``march_surface``'s backward),
 the hit position, the albedo, the lights and the background.  It never
@@ -28,7 +30,7 @@ import torch
 from ..scene.flatten import FlatScene
 from ..scene.nodes import LIGHT_DIRECTIONAL, LIGHT_POINT
 from ..types import Rays, SurfaceHit, dot
-from . import sdf
+from . import deferred, sdf
 from .march import (MarchConfig, check_config, chunked, hit_points, march,
                     march_occlusion, march_surface)
 
@@ -48,9 +50,15 @@ def resolve_material(scene: FlatScene, pos: Tensor, hit: Tensor,
     Tiers: none (free); on the "cuda" backend, bad lanes in ≤ 16 blocks of
     1024 lanes → gather those blocks with the K4 block gather and
     dense-evaluate them; then ≤ 4096 bad lanes → lane gather; else the full
-    dense sweep."""
+    dense sweep.  In a deferred frame (``ops/deferred.py``) only the tier
+    "none" runs: a bad lane raises the frame's flag, read by no one here,
+    and the frame's eager re-run takes the tier it needs."""
     from .cuda.gather import BLOCK, flat_block_gather
     bad = hit & (midx < 0)
+    frame = deferred.current()
+    if frame is not None:
+        frame.raise_if(torch.any(bad))
+        return midx
     flatpos = pos.detach().reshape(-1, 3)
     flatbad = bad.reshape(-1)
     flatm = midx.reshape(-1)

@@ -6,16 +6,36 @@ whole image (reference ``Image.render`` + ``SdfScene.trace``).  On the
 the JAX kernel path does: each block is one 1024-ray tile of the culled
 kernels' candidate tables (``ops/cuda/cull.py``), so a tile's rays are
 coherent and its cone is tight.
+
+The JAX package wraps ``render``, ``render_with_stats`` and
+``render_image`` in ``jax.jit``: a frame is one device program per scene
+structure, shapes and config, and its data-dependent branches are
+``lax.cond``s on the device.  Here a frame of the kernels on a CUDA device
+is one captured CUDA graph per :func:`frame_key` (:class:`_FrameGraph`):
+the first call runs the frame eagerly with its host reads deferred
+(``ops/deferred.py``) and captures it; a later call copies the scene's and
+the camera's tensors into the graph's inputs, replays it and reads one
+device flag, set where an overflowing candidate table or a material repair
+needs the eager frame, which then runs again (exact, and counted).  A key
+whose first run raises the flag is not captured: its frames run eagerly.
+Every graph is captured into one memory pool a device, so the graphs of
+many keys hold about one frame's peak together.  A frame
+that autograd must see (a scene or camera tensor requires grad while grad
+is enabled), a frame on the CPU and a frame on the "torch" backend (whose
+plain march ends its loop on a host read) run eagerly; :func:`render_grid`
+is the eager frame of a ray grid.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import camera as cam
-from .ops import shade, tonemap
+from .ops import cuda as ops_cuda, deferred, shade, tonemap
+from .ops.cuda.build import on_device
 from .ops.march import MarchConfig, check_config
 from .scene.flatten import FlatScene, flatten
 from .scene.nodes import Scene
@@ -105,16 +125,165 @@ def _trace(scene: FlatScene, rays: Rays, march_cfg: MarchConfig,
     return torch.cat(colors)[:n], n_rays - pad
 
 
+def _frame(scene: FlatScene, camera: cam.Camera, cfg: RenderConfig):
+    """The frame: camera rays, then :func:`render_grid`."""
+    rays = cam.camera_rays(camera, cfg.width, cfg.height,
+                           cfg.epsilon, cfg.length)
+    return render_grid(scene, rays, cfg)
+
+
+def _inputs(scene: FlatScene, camera: cam.Camera) -> list:
+    """A frame's tensors: the scene's leaves, then the camera's."""
+    return list(scene.tensors().values()) + [
+        camera.position, camera.forward, camera.up_scaled,
+        camera.right_scaled]
+
+
+def frame_key(scene: FlatScene, camera: cam.Camera, cfg: RenderConfig):
+    """What a captured frame is kept under, as ``jax.jit`` keys the frame:
+    the scene's static fields, the camera's ``ortho_scale``, each tensor's
+    shape, dtype and device, and the config — never the scene object nor a
+    parameter's value."""
+    leaves = tuple((tuple(x.shape), x.dtype, x.device)
+                   for x in _inputs(scene, camera))
+    return (scene.plan, scene.kind_counts, scene.prim_material,
+            scene.mat_kind, scene.light_kind, camera.ortho_scale,
+            tuple(scene.prim_params), leaves, cfg)
+
+
+def _graph_frame(scene: FlatScene, camera: cam.Camera,
+                 cfg: RenderConfig) -> bool:
+    """True when the frame runs as a captured graph: the kernels, every
+    tensor on a CUDA device, and none that autograd must see."""
+    xs = _inputs(scene, camera)
+    return (cfg.march.backend == "cuda" and all(x.is_cuda for x in xs)
+            and not (torch.is_grad_enabled()
+                     and any(x.requires_grad for x in xs)))
+
+
+class _FrameGraph:
+    """One frame captured in a CUDA graph, the counterpart of a
+    ``jax.jit`` executable: copies of the scene's and the camera's tensors
+    as the graph's inputs, its outputs ``(image, n_rays)`` and the flag of
+    its deferred frame in the graph's memory, and the kernel launches
+    recorded at its capture, which each replay adds to the counts (the
+    Python wrappers do not run on a replay).  Its deferred frame also keeps
+    the device constants the graph reads (``deferred.device_constant``).
+
+    Made by the first call of a key: the frame runs eagerly once, its host
+    reads deferred (``first``: its outputs, or ``None`` when it raised the
+    flag), then, unless it raised the flag, is captured (``graph``, else
+    ``None``: the key's frames run eagerly; ``capture_s``: both together,
+    the counterpart of JAX's compile time).  A failure in either raises."""
+
+    def __init__(self, scene: FlatScene, camera: cam.Camera,
+                 cfg: RenderConfig):
+        t0 = time.perf_counter()
+        self.device = scene.device
+        self.inputs = [x.detach().clone() for x in _inputs(scene, camera)]
+        leaves = dict(zip(scene.tensors(), self.inputs))
+        self.scene = scene.with_tensors(leaves)
+        self.camera = dataclasses.replace(
+            camera, position=self.inputs[-4], forward=self.inputs[-3],
+            up_scaled=self.inputs[-2], right_scaled=self.inputs[-1])
+        self.frame = deferred.Frame(self.device)
+        self.graph, self.launches = None, {}
+        with torch.no_grad(), on_device(self.device):
+            # the eager run: it makes the device constants (the lowering's
+            # static part, slot and row tables), whose copies to the device
+            # sync the host and cannot be captured
+            with deferred.deferring(self.frame):
+                out = _frame(self.scene, self.camera, cfg)
+            self.first = None if bool(self.frame.flag) else out
+            if self.first is not None:
+                self._capture(cfg)
+        self.capture_s = time.perf_counter() - t0
+
+    def _capture(self, cfg: RenderConfig) -> None:
+        """Capture the frame into the device's graph memory pool."""
+        graph = torch.cuda.CUDAGraph()
+        self.frame.programs.clear()
+        index = self.device.index if self.device.index is not None \
+            else torch.cuda.current_device()
+        if index not in _pools:
+            _pools[index] = torch.cuda.graph_pool_handle()
+        before = ops_cuda.launch_counts()
+        try:
+            with torch.no_grad(), on_device(self.device), \
+                    torch.cuda.graph(graph, pool=_pools[index]), \
+                    deferred.deferring(self.frame):
+                self.frame.flag.zero_()
+                self.outputs = _frame(self.scene, self.camera, cfg)
+        except BaseException:
+            # a capture that fails leaves its pool bound to it: the
+            # device's next capture takes a new pool
+            del _pools[index]
+            raise
+        after = ops_cuda.launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+        # captured, not launched: the replays count them
+        ops_cuda.add_launch_counts({k: -v for k, v in self.launches.items()})
+        self.graph = graph
+        ops_cuda.GRAPH["captures"] += 1
+
+    def replay(self, scene: FlatScene, camera: cam.Camera):
+        """The frame of ``scene`` and ``camera`` (this graph's key): clones
+        of the outputs, or ``None`` when the replay raised the flag."""
+        with torch.no_grad(), on_device(self.device):
+            for dst, src in zip(self.inputs, _inputs(scene, camera)):
+                dst.copy_(src)
+            self.graph.replay()
+            out = tuple(x.clone() for x in self.outputs)
+            flagged = bool(self.frame.flag)      # the frame's one host read
+        ops_cuda.add_launch_counts(self.launches)
+        ops_cuda.GRAPH["replays"] += 1
+        return None if flagged else out
+
+
+# A graph's memory is its pool's, and every graph of a device shares one
+# (device index → pool, made at the device's first capture): a replay
+# writes each of its pool's tensors before it reads it, and the tensors a
+# graph keeps (its outputs, its lowered programs) are live and so never
+# handed to another capture.
+_pools: dict = {}
+_graphs: "dict[tuple, _FrameGraph]" = {}
+
+
+def frame_graph(scene: FlatScene, camera: cam.Camera,
+                cfg: RenderConfig = RenderConfig()) -> _FrameGraph | None:
+    """What the first call of this call's key made, if any: its
+    ``capture_s``, and its ``graph`` (``None`` for a key run eagerly)."""
+    return _graphs.get(frame_key(scene, camera, cfg))
+
+
 def render_with_stats(scene: FlatScene, camera: cam.Camera,
                       cfg: RenderConfig = RenderConfig()):
     """``render`` + the number of rays marched (primary + shadow per facing
     hit, an int64 scalar tensor).  Returns ``(image [H, W, 3], n_rays)``.
     The image is differentiable w.r.t. every scene tensor that requires
-    grad; when none does, no graph is built."""
+    grad; when none does, no graph is built.  On the kernels of a CUDA
+    device a frame autograd need not see replays a captured CUDA graph (the
+    module docstring); its outputs are the caller's own."""
     check_config(cfg.march)
-    rays = cam.camera_rays(camera, cfg.width, cfg.height,
-                           cfg.epsilon, cfg.length)
-    return render_grid(scene, rays, cfg)
+    if not _graph_frame(scene, camera, cfg):
+        return _frame(scene, camera, cfg)
+    key = frame_key(scene, camera, cfg)
+    fg = _graphs.get(key)
+    if fg is None:
+        fg = _graphs[key] = _FrameGraph(scene, camera, cfg)
+        out, fg.first = fg.first, None
+    elif fg.graph is None:
+        # the key's first run raised the flag: its frames run eagerly, as
+        # a replay that raised it would pay the graph frame, then the eager
+        ops_cuda.GRAPH["eager_frames"] += 1
+        return _frame(scene, camera, cfg)
+    else:
+        out = fg.replay(scene, camera)
+    if out is None:
+        # an overflowing table or a material repair: the eager frame
+        ops_cuda.GRAPH["eager_reruns"] += 1
+        out = _frame(scene, camera, cfg)
+    return out
 
 
 def render_grid(scene: FlatScene, rays: Rays, cfg: RenderConfig):

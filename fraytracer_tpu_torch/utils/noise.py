@@ -8,10 +8,11 @@ over ``p [..., 3]``, run on ``p``'s device and are differentiable.
 """
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
+
+from ..ops import deferred
 
 Tensor = torch.Tensor
 
@@ -68,9 +69,10 @@ def catmull_rom_1d(knots, t, device=None) -> Tensor:
     return catmull_rom(at(i - 1), at(i), at(i + 1), at(i + 2), f)
 
 
-@functools.lru_cache(maxsize=8)
+@deferred.device_constant(maxsize=8)
 def _tables(device: str):
-    """The permutation table and gradient directions on ``device``."""
+    """The permutation table and gradient directions on ``device`` (a
+    captured frame keeps what it reads)."""
     return (torch.as_tensor(_PERM, device=device),
             torch.as_tensor(_DIRS, device=device))
 
@@ -129,8 +131,8 @@ def gradient_noise(p: Tensor) -> Tensor:
 
     def corner(dx, dy, dz):
         g = dirs[_hash3(ix + dx, iy + dy, iz + dz) % 12]
-        off = pf - torch.tensor([dx, dy, dz], dtype=torch.float32,
-                                device=p.device)
+        off = torch.stack((pf[..., 0] - dx, pf[..., 1] - dy,
+                           pf[..., 2] - dz), -1)
         return torch.sum(g * off, dim=-1)
 
     return _trilerp(corner, w)

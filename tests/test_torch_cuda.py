@@ -25,7 +25,13 @@ leaf's norm).  W, P1 and P2 exact, P3 within rtol 1e-6, P4 equal trips and
 1e-5.  The kernels' 64² frame of the benchmark scene against the port's
 float64 oracle: tests/test_benchmark_oracle.py's bounds, through
 ``chip_smoke.oracle_gate`` (a facing flip the frame did not march is not
-graded, as JAX's gate spares one the oracle did not)."""
+graded, as JAX's gate spares one the oracle did not).  The graph frame
+(``render.py``): bit for bit ``render_grid``'s frame, after a parameter
+edit too, a flagged replay run again eagerly, a key whose first frame
+flags kept eager, two keys' graphs in one pool, and a capture that fails
+raises."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -556,6 +562,144 @@ def test_culled_overflow_rerun_on_the_card(dev):
     full = march(scene, rays, dataclasses.replace(cfg, cull_m=96))
     for f in ("hit", "t", "distance", "steps"):
         assert torch.equal(getattr(small, f), getattr(full, f)), f
+
+
+# ---------------------------------------------------------------------------
+# the graph frame (render.py): one captured CUDA graph a key
+# ---------------------------------------------------------------------------
+
+def _graph_setup(dev, size=128, **march):
+    import sys
+    scene = ft.flatten(torus_csg_scene(19, 96), device=dev)
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), device=dev)
+    cfg = ft.RenderConfig(width=size, height=size, march=ft.MarchConfig(
+        max_steps=192, relax_omega=1.4, **march))
+    render_mod = sys.modules["fraytracer_tpu_torch.render"]
+    render_mod._graphs.clear()
+    ops_cuda.reset_launch_counts()
+    return scene, cam, cfg, render_mod
+
+
+def _eager(scene, cam, cfg):
+    rays = ft.camera_rays(cam, cfg.width, cfg.height, cfg.epsilon,
+                          cfg.length)
+    return ft.render_grid(scene, rays, cfg)
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_graph_frame_is_the_eager_frame(dev, cull):
+    """The first call captures, the second replays; both are
+    ``render_grid``'s frame bit for bit, with one frame's launches each."""
+    scene, cam, cfg, R = _graph_setup(dev, cull=cull)
+    want, wn = _eager(scene, cam, cfg)
+    ops_cuda.reset_launch_counts()
+    for call in range(2):
+        img, n = ft.render_with_stats(scene, cam, cfg)
+        assert torch.equal(img, want) and int(n) == int(wn)
+    counts = {k: v for k, v in ops_cuda.launch_counts().items() if v}
+    sfx = "_culled" if cull else ""
+    assert counts == {"march" + sfx: 2, "surface" + sfx: 2,
+                      "occlusion" + sfx: 4}
+    assert ops_cuda.graph_counts() == {"captures": 1, "replays": 1,
+                                       "eager_reruns": 0, "eager_frames": 0}
+    # the outputs are the caller's: a later replay leaves them alone
+    ft.render_with_stats(scene, cam, cfg)
+    assert torch.equal(img, want)
+
+
+def test_graph_frame_after_a_parameter_edit(dev):
+    """A parameter edited in place, or a new scene object of the same
+    structure, between two replays: the replay is the eager frame of the
+    scene it was given."""
+    scene, cam, cfg, R = _graph_setup(dev)
+    ft.render_with_stats(scene, cam, cfg)
+    with torch.no_grad():
+        scene.prim_params["torus"][:, 0:3] += 0.05
+        scene.light_color.mul_(0.5)
+    img, _n = ft.render_with_stats(scene, cam, cfg)
+    assert torch.equal(img, _eager(scene, cam, cfg)[0])
+    other = scene.with_tensors({k: v * 1.01
+                                for k, v in scene.tensors().items()})
+    img, _n = ft.render_with_stats(other, cam, cfg)
+    assert torch.equal(img, _eager(other, cam, cfg)[0])
+    assert len(R._graphs) == 1
+    assert ops_cuda.graph_counts()["captures"] == 1
+
+
+def test_graph_capture_failure_raises(dev, monkeypatch):
+    """A host read inside the frame cannot be captured: the call raises,
+    keeps no graph, and does not fall back to the eager frame."""
+    from fraytracer_tpu_torch.ops import shade
+    scene, cam, cfg, R = _graph_setup(dev)
+    real = shade.resolve_material
+
+    def reads_the_host(scene_, pos, hit, midx, backend="cuda"):
+        int(hit.sum())
+        return real(scene_, pos, hit, midx, backend=backend)
+    monkeypatch.setattr(shade, "resolve_material", reads_the_host)
+    ops_cuda.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        ft.render_with_stats(scene, cam, cfg)
+    assert not R._graphs
+    assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
+                                       "eager_reruns": 0, "eager_frames": 0}
+    monkeypatch.setattr(shade, "resolve_material", real)
+    # the next capture takes a new pool and replays
+    for _ in range(2):
+        img, _n = ft.render_with_stats(scene, cam, cfg)
+        assert torch.equal(img, _eager(scene, cam, cfg)[0])
+    assert ops_cuda.graph_counts()["replays"] == 1
+
+
+def test_graph_frame_overflow_reruns_eagerly(dev):
+    """cull_m 8 overflows: the key's first frame raises the flag and runs
+    again eagerly, nothing is captured, and the key's later frames run
+    eagerly; exact and counted."""
+    scene, cam, cfg, R = _graph_setup(dev, cull_m=8, cull_m_shadow=8)
+    want = _eager(scene, cam, cfg)[0]
+    for _ in range(2):
+        img, _n = ft.render_with_stats(scene, cam, cfg)
+        assert torch.equal(img, want)
+    assert R.frame_graph(scene, cam, cfg).graph is None
+    assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
+                                       "eager_reruns": 1, "eager_frames": 1}
+
+
+def test_graph_frame_flagged_replay_reruns_eagerly(dev):
+    """A captured key (cull_m 64: no table overflows) whose replay
+    overflows after the tori's centres are pulled together in place: the
+    eager frame runs again, equal to the edited scene's, and counted;
+    undone, the replay is the first frame."""
+    scene, cam, cfg, R = _graph_setup(dev, cull_m=64, cull_m_shadow=64)
+    first = ft.render_with_stats(scene, cam, cfg)[0]
+    assert R.frame_graph(scene, cam, cfg).graph is not None
+    tori = scene.prim_params["torus"]
+    old = tori.clone()
+    with torch.no_grad():
+        tori[:, 0:3] *= 0.05
+    img, n = ft.render_with_stats(scene, cam, cfg)
+    want, wn = _eager(scene, cam, cfg)
+    assert torch.equal(img, want) and int(n) == int(wn)
+    assert ops_cuda.graph_counts() == {"captures": 1, "replays": 1,
+                                       "eager_reruns": 1, "eager_frames": 0}
+    with torch.no_grad():
+        tori.copy_(old)
+    assert torch.equal(ft.render_with_stats(scene, cam, cfg)[0], first)
+
+
+def test_graph_frames_of_two_keys_share_one_pool(dev):
+    """Two keys' graphs in one memory pool, replayed in turns: each replay
+    is its key's eager frame bit for bit."""
+    scene, cam, cfg, R = _graph_setup(dev)
+    dense = dataclasses.replace(cfg, march=dataclasses.replace(
+        cfg.march, cull=False))
+    want = {c: _eager(scene, cam, c) for c in (cfg, dense)}
+    for c in (cfg, dense, cfg, dense, cfg):
+        img, n = ft.render_with_stats(scene, cam, c)
+        assert torch.equal(img, want[c][0]) and int(n) == int(want[c][1])
+    assert ops_cuda.graph_counts()["captures"] == 2
+    pools = {R.frame_graph(scene, cam, c).graph.pool() for c in want}
+    assert len(pools) == 1
 
 
 # ---------------------------------------------------------------------------
