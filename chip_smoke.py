@@ -58,6 +58,21 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    of each, each one's profile (device ops, busy / span) and peak memory.
    Frames that the main phases time are graph frames; spied frames (their
    spies read the device) run the eager frame.
+7c. step   — ``render_value_and_grad`` as one captured CUDA graph a key,
+   forward and backward (the counterpart of jax.jit(jax.value_and_grad),
+   ``render.py``): the culled and the dense 1024² bench steps (loss
+   ``sum(render²)``): captures / replays from ``graph_counts()``, the loss
+   bit for bit the eager step's and the gradients within 2e-4 of each
+   leaf's largest |g| (two eager steps' difference beside), 0 syncs in a
+   replay and in the deferred step under sync debug mode "error", launches
+   per replay by kernel name from the profiled replay (K1 1, K3 1, K2 2, K4
+   0), device ops and busy / span of a profiled replay and eager step,
+   paired medians and 8 chained steps of each, the memory the pool keeps
+   with the frame graphs; ``blend1000``'s step kept eager (its backward's
+   certificate fails); a replay with the tori's centres x 0.05 (flagged,
+   re-run, equal to the eager step); the captured 256² / 96-torus step
+   against the plain route's with ``[grad]`` (a)'s masking and bound; 10
+   ``cli fit`` steps at 256² / 100 tori against the eager fit (rtol 1e-5).
 8. spectral — the spectral wavefront (``ops/wavefront.py``): (a) a 64²
    × 8-bin, depth-3 frame on ``spectral_csg_scene(19, 1000)`` through the
    kernels against the plain route, max |diff| < 1e-4 (its bounce rounds
@@ -2057,6 +2072,390 @@ def phase_graph(dev, scene, blend, build_dir):
     return out
 
 
+# [step]: the graph step (render.py::render_value_and_grad), the
+# counterpart of jax.jit(jax.value_and_grad(...))
+# ---------------------------------------------------------------------------
+
+STEP_REPS = 9         # paired graph / eager steps, median of each
+STEP_CHAIN = 8        # chained steps of the sustained time (JAX's KB)
+
+
+def step_loss(img):
+    """The bench's fwd+bwd loss: the L2 of the image against zero."""
+    return (img ** 2).sum()
+
+
+def masked_step_loss(img, mask):
+    """``masked_loss_grads``' loss: the L2 of the masked image, in f64."""
+    return (img * mask[..., None]).double().pow(2).sum()
+
+
+def eager_step(scene, cam, cfg):
+    """The eager step (``render.py::_eager_step``): what a flagged replay
+    and a key kept eager run; ``(loss, grads by leaf)``."""
+    R = render_module()
+    out = R._eager_step(step_loss, scene, cam, cfg)
+    return out[0], dict(zip(scene.tensors(), out[1:]))
+
+
+def pool_mib(pool):
+    """Device memory the segments of one graph memory pool hold (MiB)."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) == tuple(pool)) / 2**20
+
+
+def graph_step_case(dev, tag, scene, cam, cfg, build_dir):
+    """One 1024² step as a graph: its capture (time, the device memory it
+    added), the replay's loss bit for bit the eager step's and its
+    gradients within ``GRAD_REL`` of each leaf's largest |g| (two eager
+    steps' difference printed beside), the launches per replay equal to
+    the eager step's, counted by the wrappers and read from the profiled
+    replay; 0 syncs inside a replay and in the deferred step under sync
+    debug mode "error"; graph and eager steps paired (median of
+    ``STEP_REPS`` each), ``STEP_CHAIN`` chained steps of each, each one's
+    profile (device ops, busy / span) and the eager step's peak."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred
+    R = render_module()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    ops_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = ft.render_value_and_grad(step_loss, scene, cam, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    sg = R.step_graph(step_loss, scene, cam, cfg)
+    check(sg is not None and sg.graph is not None
+          and ops_cuda.graph_counts() == dict(NO_GRAPH, captures=1),
+          f"[step] {tag}: capture {ops_cuda.graph_counts()}")
+    first_counts = launched(ops_cuda.launch_counts())
+    del first
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - reserved0
+
+    ops_cuda.reset_launch_counts()
+    loss, grads = ft.render_value_and_grad(step_loss, scene, cam, cfg)
+    replay = launched(ops_cuda.launch_counts())
+    check(ops_cuda.graph_counts() == dict(NO_GRAPH, replays=1),
+          f"[step] {tag}: replay {ops_cuda.graph_counts()}")
+    ops_cuda.reset_launch_counts()
+    eloss, egrads = eager_step(scene, cam, cfg)
+    eager = launched(ops_cuda.launch_counts())
+    eloss2, egrads2 = eager_step(scene, cam, cfg)
+    check(replay == eager == first_counts == launched(sg.launches)
+          == GRAPH_LAUNCHES[tag],
+          f"[step] {tag}: launches per replay {replay}, recorded "
+          f"{launched(sg.launches)}, eager {eager}, first call "
+          f"{first_counts}, want {GRAPH_LAUNCHES[tag]}")
+    err = compare_grads(grads, egrads, f"[step] {tag}: the graph step's "
+                        "gradients against the eager step's")
+    err2 = compare_grads(egrads2, egrads, f"[step] {tag}: two eager steps' "
+                         "gradients")
+    same = torch.equal(loss, eloss) and torch.equal(eloss2, eloss)
+    log(f"  {tag}: loss {float(loss)!r} (eager {float(eloss)!r}), bit for "
+        f"bit: {same}; launches per replay {replay} (eager {eager}); "
+        f"capture (eager run + capture) {sg.capture_s * 1e3:.1f} ms of a "
+        f"first call of {first_s * 1e3:.1f} ms; the capture added "
+        f"{held / 2**20:.1f} MiB of device memory (one pool with the "
+        "frame graphs)")
+    check(same, f"[step] {tag}: the graph step's loss is not the eager "
+          "step's")
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values())
+          and float(grads["prim_params/torus"].abs().sum()) > 0,
+          f"[step] {tag}: gradients not finite or zero")
+
+    # 0 syncs inside the replay and in the deferred step
+    with torch.no_grad():
+        for dst, src in zip(sg.inputs, R._inputs(scene, cam)):
+            dst.copy_(src)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    frame = deferred.Frame(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sg.graph.replay()
+        with deferred.deferring(frame):
+            dout = R._eager_step(step_loss, scene, cam, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    check(torch.equal(dout[0], eloss) and not bool(frame.flag),
+          f"[step] {tag}: the deferred step")
+    log(f"  {tag}: a replay and the deferred step under sync debug mode "
+        "\"error\": 0 syncs; the deferred step's loss bit for bit, flag "
+        "clear")
+
+    def graph_fn():
+        return ft.render_value_and_grad(step_loss, scene, cam, cfg)
+
+    def eager_fn():
+        return R._eager_step(step_loss, scene, cam, cfg)
+
+    g_ms, e_ms = paired_ms((graph_fn, eager_fn), reps=STEP_REPS)
+    chain = {}
+    for name, fn in (("graph", graph_fn), ("eager", eager_fn)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEP_CHAIN):
+            fn()
+        torch.cuda.synchronize()
+        chain[name] = 1e3 * (time.perf_counter() - t0) / STEP_CHAIN
+    check(torch.equal(graph_fn()[0], eloss),
+          f"[step] {tag}: a later replay's loss is not the eager step's")
+    torch.cuda.reset_peak_memory_stats()
+    eager_fn()
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated()
+    prof = {}
+    for name, fn in (("graph", graph_fn), ("eager", eager_fn)):
+        rec = {}
+        profile_frame(scene, cam, cfg,
+                      build_dir / f"chip_smoke_step_{tag}_{name}_trace.json",
+                      fn=fn, ops=6 if name == "graph" else 0, record=rec)
+        prof[name] = rec
+    want = collections.Counter()
+    for k, v in GRAPH_LAUNCHES[tag].items():
+        want[TRACE_NAMES[k]] += v
+    traced = {name: traced_launches(rec) for name, rec in prof.items()}
+    log(f"  {tag}: the port's kernels in the profiled replay "
+        f"{dict(traced['graph'])}, in the eager step "
+        f"{dict(traced['eager'])}, want {dict(want)}")
+    check(traced["graph"] == traced["eager"] == want,
+          f"[step] {tag}: traced launches {traced}, want {dict(want)}")
+    res = {"graph_ms": statistics.median(g_ms),
+           "eager_ms": statistics.median(e_ms), "graph_times_ms": g_ms,
+           "eager_times_ms": e_ms, "paired_diff_ms": statistics.median(
+               [a - b for a, b in zip(g_ms, e_ms)]),
+           "sustained_graph_ms": chain["graph"],
+           "sustained_eager_ms": chain["eager"],
+           "capture_ms": 1e3 * sg.capture_s, "first_call_ms": 1e3 * first_s,
+           "graph_mib": held / 2**20, "eager_peak_mib": eager_peak / 2**20,
+           "grad_error": err, "eager_grad_error": err2, "launches": replay,
+           **{f"{name}_{k}": v for name, rec in prof.items()
+              for k, v in rec.items() if k != "kernels"}}
+    log(f"  {tag}: graph step {res['graph_ms']:.3f} ms ({min(g_ms):.3f}–"
+        f"{max(g_ms):.3f}) / eager {res['eager_ms']:.3f} ms "
+        f"({min(e_ms):.3f}–{max(e_ms):.3f}) (medians of {STEP_REPS}, "
+        f"paired; median paired difference {res['paired_diff_ms']:.3f} ms), "
+        f"sustained over {STEP_CHAIN} chained steps: graph "
+        f"{chain['graph']:.3f} ms, eager {chain['eager']:.3f} ms; profile "
+        + "; ".join(f"{name} {rec.get('ops')} device ops, busy "
+                    f"{rec.get('busy_ms', float('nan')):.3f} of "
+                    f"{rec.get('span_ms', float('nan')):.3f} ms"
+                    for name, rec in prof.items())
+        + f"; eager step peak {eager_peak / 2**20:.1f} MiB ({nvidia_smi()})")
+    return res
+
+
+def step_kept_eager_case(dev, scene, cam, cfg, label):
+    """The ``blend1000`` step: its deferred first run raises the flag (the
+    backward's certificate fails on the overlapping tori), so that call
+    runs the eager step again and captures nothing, and the key's later
+    steps run eagerly (taking the dense branch); each equal to the eager
+    step."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred
+    from fraytracer_tpu_torch.ops import point_eval
+    R = render_module()
+    frame = deferred.Frame(dev)
+    stats0 = dict(point_eval.STATS)
+    with deferred.deferring(frame):
+        R._eager_step(step_loss, scene, cam, cfg)
+    check(bool(frame.flag) and point_eval.STATS == stats0,
+          f"[step] {label}: the deferred step's flag {bool(frame.flag)}, "
+          f"certificate reads {point_eval.STATS} against {stats0}")
+    # the flag's cause: the forward alone raises none
+    fwd = deferred.Frame(dev)
+    with torch.no_grad(), deferred.deferring(fwd):
+        R._frame(scene, cam, cfg)
+    check(not bool(fwd.flag), f"[step] {label}: the forward raised the flag")
+    ops_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    l0, g0 = ft.render_value_and_grad(step_loss, scene, cam, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = ops_cuda.graph_counts()
+    sg = R.step_graph(step_loss, scene, cam, cfg)
+    stats1 = dict(point_eval.STATS)
+    ops_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    l1, g1 = ft.render_value_and_grad(step_loss, scene, cam, cfg)
+    torch.cuda.synchronize()
+    later_s = time.perf_counter() - t0
+    counts, gc = launched(ops_cuda.launch_counts()), ops_cuda.graph_counts()
+    route = {k: point_eval.STATS[k] - stats1[k] for k in stats1}
+    el, eg = eager_step(scene, cam, cfg)
+    check(first == dict(NO_GRAPH, eager_reruns=1) and sg.graph is None,
+          f"[step] {label}: first call {first}, graph {sg.graph}")
+    check(gc == dict(NO_GRAPH, eager_frames=1), f"[step] {label}: {gc}")
+    check(route == {"certificate_reads": 1, "culled": 0, "dense": 1},
+          f"[step] {label}: the eager step's route {route}")
+    check(counts == GRAPH_LAUNCHES["blend"],
+          f"[step] {label}: launches {counts}")
+    errs = [compare_grads(g, eg, f"[step] {label}: call {i} against the "
+                          "eager step") for i, g in enumerate((g0, g1))]
+    check(torch.equal(l0, el) and torch.equal(l1, el),
+          f"[step] {label}: the key's losses are not the eager step's: "
+          f"{float(l0)} {float(l1)} {float(el)}")
+    R._graphs.pop(R.step_key(step_loss, scene, cam, cfg))
+    log(f"  {label}: kept eager — the deferred step raised the flag (the "
+        "backward's certificate fails on the overlapping tori; the forward "
+        f"raises none); first call {first}, {first_s:.3f} s; a later call "
+        f"{gc}, point_eval {route} (the dense branch), {later_s:.3f} s, "
+        f"launches {counts}; loss bit for bit the eager step's, gradients "
+        f"within {max(errs):.3e} ({nvidia_smi()})")
+    return {"first_s": first_s, "later_s": later_s, "launches": counts}
+
+
+def step_flagged_replay_case(dev, scene, cam, cfg, label):
+    """A captured step whose replay raises the flag: the tori's centres
+    pulled toward the origin (x 0.05) in place, so that a tile's
+    candidates overflow its table.  The replay runs the eager step again,
+    equal to the edited scene's eager step, its launches the replay's
+    recorded ones plus the re-run's; undone, the replay is the first step
+    again."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    R = render_module()
+    before = ft.render_value_and_grad(step_loss, scene, cam, cfg)
+    sg = R.step_graph(step_loss, scene, cam, cfg)
+    check(sg is not None and sg.graph is not None,
+          f"[step] {label}: the key has no graph")
+    tori = scene.prim_params["torus"]
+    old = tori.clone()
+    with torch.no_grad():
+        tori[:, 0:3] *= 0.05
+    try:
+        ops_cuda.reset_launch_counts()
+        loss, grads = ft.render_value_and_grad(step_loss, scene, cam, cfg)
+        counts, gc = ops_cuda.launch_counts(), ops_cuda.graph_counts()
+        ops_cuda.reset_launch_counts()
+        eloss, egrads = eager_step(scene, cam, cfg)
+        eager = ops_cuda.launch_counts()
+        f_ms, e_ms = paired_ms((
+            lambda: ft.render_value_and_grad(step_loss, scene, cam, cfg),
+            lambda: eager_step(scene, cam, cfg)), reps=3)
+    finally:
+        with torch.no_grad():
+            tori.copy_(old)
+    want = {k: sg.launches[k] + eager[k] for k in eager}
+    err = compare_grads(grads, egrads, f"[step] {label}: the re-run against "
+                        "the eager step")
+    check(gc == dict(NO_GRAPH, replays=1, eager_reruns=1),
+          f"[step] {label}: {gc}")
+    check(counts == want, f"[step] {label}: launches {launched(counts)}, "
+          f"want {launched(want)}")
+    check(torch.equal(loss, eloss),
+          f"[step] {label}: the re-run's loss is not the eager step's")
+    again = ft.render_value_and_grad(step_loss, scene, cam, cfg)
+    check(torch.equal(again[0], before[0]),
+          f"[step] {label}: the replay after the edit was undone")
+    log(f"  {label}: flag set, {gc}; launches {launched(counts)} = the "
+        f"replay's {launched(sg.launches)} + the eager re-run's "
+        f"{launched(eager)}; loss bit for bit the edited scene's eager "
+        f"step, gradients within {err:.3e}; replay + re-run "
+        f"{statistics.median(f_ms):.3f} ms against eager "
+        f"{statistics.median(e_ms):.3f} ms (medians of 3, paired; "
+        f"{nvidia_smi()}); undone, the replay is the first step")
+    return {"flagged_ms": statistics.median(f_ms),
+            "eager_ms": statistics.median(e_ms)}
+
+
+def step_kernel_vs_plain(dev):
+    """256² / 96 tori: the captured step's gradients against the plain
+    route's step, with ``[grad]`` (a)'s masking and bound."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    from fraytracer_tpu_torch.scene.generators import torus_csg_scene
+    scene = ft.flatten(torus_csg_scene(19, 96), device=dev)
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    cfg = bench_config(256)
+    mk_, tk, _ck, _nk = outcome_masks(scene, cam, cfg)
+    with plain_route():
+        mp_, tp, _cp, _np = outcome_masks(scene, cam, cfg)
+    same = same_outcomes(mk_, mp_) & ((tk - tp).abs() <= 1e-4)
+    ops_cuda.reset_launch_counts()
+    for _ in range(2):
+        loss, gk = ft.render_value_and_grad(masked_step_loss, scene, cam,
+                                            cfg, same)
+    check(ops_cuda.graph_counts() == dict(NO_GRAPH, captures=1, replays=1),
+          f"[step] 256^2: {ops_cuda.graph_counts()}")
+    with plain_route():
+        gp, lp = masked_loss_grads(scene, cam, cfg, same)
+    worst = worst_leaf_error({k: v.double() for k, v in gk.items()}, gp,
+                             "(step) 256^2 / 96 tori, the captured step vs "
+                             "the plain route's step, masked")
+    log(f"  256^2 / 96 tori: masked loss {float(loss):.9g} (plain "
+        f"{lp:.9g}), lanes masked out {1 - float(same.float().mean()):.6f}"
+        f"; worst leaf {worst:.2e} (bound 1e-3)")
+    check(worst <= 1e-3, f"[step] 256^2 masked error {worst}")
+    return worst
+
+
+def step_fit_vs_eager(build_dir):
+    """10 ``cli fit`` steps at 256² / 100 tori through the graph step
+    against the same fit with every step eager: the losses within rtol
+    1e-5."""
+    from fraytracer_tpu_torch import cli
+    R = render_module()
+    reports = {}
+    for name in ("graph", "eager"):
+        report = build_dir / f"chip_smoke_step_fit_{name}.json"
+        real = R._graph_step
+        if name == "eager":
+            R._graph_step = lambda *a: False
+        try:
+            rc = cli.main(["fit", "--size", "256", "--tori", "100",
+                           "--steps", "10", "--out-report", str(report)])
+        finally:
+            R._graph_step = real
+        check(rc == 0, f"[step] fit ({name}) returned {rc}")
+        reports[name] = json.loads(report.read_text())
+    g, e = reports["graph"]["losses"], reports["eager"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(g, e))
+    log(f"  fit, 10 steps at 256^2 / 100 tori: graph losses "
+        f"{[round(x, 9) for x in g]} in {reports['graph']['wall_s']} s, "
+        f"eager in {reports['eager']['wall_s']} s; largest relative "
+        f"difference {rel:.3e} (bound 1e-5)")
+    check(rel <= 1e-5, f"[step] fit losses differ by {rel}")
+    return {"rel": rel, "graph_wall_s": reports["graph"]["wall_s"],
+            "eager_wall_s": reports["eager"]["wall_s"]}
+
+
+def phase_step(dev, scene, blend, build_dir):
+    """[step]: ``render_value_and_grad`` as one captured CUDA graph a key
+    (render.py): the culled and the dense 1024² bench steps
+    (:func:`graph_step_case`), the graph memory pool with the frame graphs
+    of ``[graph]`` and these steps, ``blend1000``'s step kept eager, a
+    replay that overflows, the captured 256² step against the plain route,
+    and ``cli fit`` against the eager fit."""
+    import fraytracer_tpu_torch as ft
+    R = render_module()
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    out = {}
+    for tag, cull in (("culled", True), ("dense", False)):
+        out[tag] = graph_step_case(dev, tag, scene, cam,
+                                   bench_config(SIZE, cull), build_dir)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["pool_mib"] = pool_mib(R._pools[dev.index])
+    frames = sum(1 for k in R._graphs if k[0] != "step")
+    log(f"  the graph memory pool holds {out['pool_mib']} MiB with "
+        f"{frames} frame graphs and the two step graphs (each step "
+        "capture's own growth: " + ", ".join(
+            f"{tag} {out[tag]['graph_mib']:.1f}" for tag in ("culled",
+                                                             "dense"))
+        + f" MiB; {nvidia_smi()})")
+    out["blend"] = step_kept_eager_case(
+        dev, blend, cam, bench_config(SIZE), f"blend1000 step ({SIZE}^2)")
+    out["flagged_replay"] = step_flagged_replay_case(
+        dev, scene, cam, bench_config(SIZE), f"a replay that overflows "
+        f"({SIZE}^2, the tori's centres x 0.05)")
+    out["plain"] = step_kernel_vs_plain(dev)
+    out["fit"] = step_fit_vs_eager(build_dir)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 8: the spectral wavefront
 # ---------------------------------------------------------------------------
@@ -3559,7 +3958,8 @@ def phase_bench(spectral_counts):
     log(f"  bench: {lines[-1]}")
     for k in ("value", "n_rays", "fwd_time_s", "backend_warmup_s",
               "capture_s", "fwd_time_sustained_s", "fwd_time_eager_s",
-              "fwd_bwd_time_s", "fwd_bwd_over_fwd", "device",
+              "fwd_bwd_time_s", "fwd_bwd_over_fwd", "fwd_bwd_capture_s",
+              "fwd_bwd_time_eager_s", "fwd_bwd_time_sustained_s", "device",
               "kernel_launches", "spectral_time_s", "spectral_size",
               "spectral_rays_marched", "spectral_rays_per_sec"):
         check(k in last, f"bench line lacks {k}")
@@ -3588,11 +3988,14 @@ def phase_bench(spectral_counts):
            kl["block_gather"]) == (frames, frames, 2 * frames, 0),
           f"bench forward launches {kl}")
     check(second["fwd_bwd_time_s"] > 0
-          and second["grad_abs_sum_prim_params"] > 0, "bench fwd+bwd")
-    # 1 + 9 fwd+bwd steps more, each one frame's launches (the backward
-    # launches no kernel of the port)
+          and second["grad_abs_sum_prim_params"] > 0
+          and second["fwd_bwd_capture_s"] > 0
+          and second["fwd_bwd_time_eager_s"] > 0
+          and second["fwd_bwd_time_sustained_s"] > 0, "bench fwd+bwd")
+    # 1 + 9 graph steps, 9 eager steps and 8 chained graph steps more, each
+    # one frame's launches (the backward launches no kernel of the port)
     kl, frames = second["kernel_launches"], \
-        frames + 1 + second["fwd_bwd_steps"]
+        frames + 1 + 2 * second["fwd_bwd_steps"] + STEP_CHAIN
     check((kl["warm"], kl["march_culled"], kl["surface_culled"],
            kl["occlusion_culled"], kl["block_gather"])
           == (1, frames, frames, 2 * frames, 0),
@@ -4406,6 +4809,11 @@ def main() -> int:
         f"culled, dense and blended {SIZE}^2 frames, forced flags, an edit "
         "between replays, timings")
     graph = phase_graph(dev, scene, blend, build.BUILD_DIR)
+    log(f"[step] render_value_and_grad as one captured CUDA graph a key: "
+        f"the culled and dense {SIZE}^2 bench steps, blend1000's step kept "
+        "eager, a replay that overflows, 256^2 against the plain route, "
+        "cli fit against the eager fit")
+    step = phase_step(dev, scene, blend, build.BUILD_DIR)
 
     log("[oracle] the kernels' frames against the port's float64 oracle "
         "(the JAX suite's gates and bounds; not graded: facing flips the "
@@ -4544,6 +4952,11 @@ def main() -> int:
             r["counts"][name] for r in multi_b["ranks"]]
         row["sharded_spectral_frame_launches"] = \
             multi["spectral_counts"][name]
+        # launches per replay of the captured culled and dense 1024² steps
+        # (render_value_and_grad; counts set to 0 just before the replay)
+        row["step_replay_launches"] = {
+            tag: step[tag]["launches"].get(name, 0)
+            for tag in ("culled", "dense")}
         for k, v in tenk["sample"].get(name, {}).items():
             row["tori10k_" + k] = v
         if name in profiled:
@@ -4598,7 +5011,10 @@ def main() -> int:
         f"{bench['fwd_time_sustained_s'] * 1e3:.2f}, eager "
         f"{bench['fwd_time_eager_s'] * 1e3:.2f}, capture "
         f"{bench['capture_s']:.3f} s), fwd+bwd "
-        f"{bench['fwd_bwd_time_s'] * 1e3:.2f} ms, warm-up "
+        f"{bench['fwd_bwd_time_s'] * 1e3:.2f} ms (sustained "
+        f"{bench['fwd_bwd_time_sustained_s'] * 1e3:.2f}, eager "
+        f"{bench['fwd_bwd_time_eager_s'] * 1e3:.2f}, capture "
+        f"{bench['fwd_bwd_capture_s']:.3f} s), warm-up "
         f"{bench['backend_warmup_s']} s")
     for tag in ("culled", "dense", "blend", "blend_dense"):
         g = graph[tag]
@@ -4617,6 +5033,27 @@ def main() -> int:
         f"eager {graph['overflow']['eager_ms']:.3f} ms; a replay that "
         f"overflows + its re-run {graph['flagged_replay']['flagged_ms']:.3f} "
         f"ms against eager {graph['flagged_replay']['eager_ms']:.3f} ms")
+    for tag in ("culled", "dense"):
+        g = step[tag]
+        log(f"[summary] graph step, {tag}: {g['graph_ms']:.3f} ms against "
+            f"eager {g['eager_ms']:.3f} ms (paired medians of {STEP_REPS}), "
+            f"sustained {g['sustained_graph_ms']:.3f} / "
+            f"{g['sustained_eager_ms']:.3f} ms, capture "
+            f"{g['capture_ms']:.1f} ms, memory the capture added "
+            f"{g['graph_mib']:.1f} MiB, eager peak {g['eager_peak_mib']:.1f} "
+            f"MiB, idle share graph "
+            f"{1 - g['graph_busy_ms'] / g['graph_span_ms'] if 'graph_busy_ms' in g else None}"
+            f" / eager "
+            f"{1 - g['eager_busy_ms'] / g['eager_span_ms'] if 'eager_busy_ms' in g else None}"
+            f", gradients within {g['grad_error']:.3e} (eager twice "
+            f"{g['eager_grad_error']:.3e})")
+    log(f"[summary] graph steps: the pool with the frame graphs keeps "
+        f"{step['pool_mib']} MiB; blend1000's step kept eager "
+        f"({step['blend']['later_s']:.3f} s); a replay that overflows + its "
+        f"re-run {step['flagged_replay']['flagged_ms']:.3f} ms against "
+        f"eager {step['flagged_replay']['eager_ms']:.3f} ms; 256^2 against "
+        f"the plain route {step['plain']:.2e}; fit losses within "
+        f"{step['fit']['rel']:.3e} of the eager fit's")
     log(f"[summary] oracle gate: {oracle['seconds']:.1f} s, (d) "
         f"{oracle['d_budget_stopped_1.4']} rays of the sample stopped on the "
         "budget where the oracle hits (omega 1.4, 192 steps)")

@@ -10,7 +10,8 @@ that requires grad (implicit differentiation at the hit points,
 name ``device="cpu"`` to run the plain versions.  On the card a frame
 that autograd need not see replays one captured CUDA graph per scene
 structure, shapes and config (``render.py``; ``render_grid`` is the eager
-frame).  Importing the package builds nothing and needs no GPU.
+frame), and so does a step of ``render_value_and_grad`` (forward and
+backward).  Importing the package builds nothing and needs no GPU.
 
 Quick start::
 
@@ -24,6 +25,8 @@ Quick start::
 
     scene.requires_grad_(True)              # inverse rendering
     (ft.render(scene, camera, cfg) ** 2).sum().backward()
+    loss, grads = ft.render_value_and_grad(  # the step as one CUDA graph
+        lambda img: (img ** 2).sum(), scene, camera, cfg)
 
     from fraytracer_tpu_torch.scene.generators import spectral_csg_scene
     glass = ft.flatten(spectral_csg_scene(19, 1000))   # spectral wavefront
@@ -41,7 +44,8 @@ from .ops.tonemap import tonemap
 from .ops.wavefront import (WavefrontConfig, render_spectral,
                             render_spectral_with_stats)
 from .render import (RenderConfig, render, render_grid, render_image,
-                     render_rays, render_scene, render_with_stats)
+                     render_rays, render_scene, render_value_and_grad,
+                     render_with_stats)
 from .scene.flatten import FlatScene, flatten
 from .scene.nodes import (Light, Material, Scene, SdfNode, box, capsule, cone,
                           dielectric, directional_light, emissive, intersect,
@@ -61,7 +65,7 @@ __all__ = [
     "spectral", "WavefrontConfig", "render_spectral",
     "render_spectral_with_stats",
     "RenderConfig", "render", "render_grid", "render_image", "render_rays",
-    "render_scene", "render_with_stats",
+    "render_scene", "render_value_and_grad", "render_with_stats",
     "FlatScene", "flatten",
     "Light", "Material", "Scene", "SdfNode", "box", "capsule", "cone",
     "dielectric", "directional_light", "emissive", "intersect", "mirror",

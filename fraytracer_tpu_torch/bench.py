@@ -30,8 +30,14 @@ and its power limit.  On the card the forward frame is the graph frame
 (``render.py``): ``capture_s`` is its first call's eager run and capture
 (JAX's ``compile_time_s``), ``fwd_time_sustained_s`` 32 frames chained
 between two synchronizes over 32 (JAX's headline loop) and
-``fwd_time_eager_s`` the same of the eager frame (``render_grid``).
-Progress goes to stderr.
+``fwd_time_eager_s`` the same of the eager frame (``render_grid``).  The
+fwd+bwd step is ``render_value_and_grad`` (on the card one captured CUDA
+graph, forward and backward): ``fwd_bwd_time_s`` the median of
+``3·repeats`` steps, ``fwd_bwd_time_eager_s`` the same of the eager step
+(``render_grid`` and ``backward``), ``fwd_bwd_time_sustained_s`` 8 steps
+chained between two synchronizes over 8 (JAX's ``KB``) and
+``fwd_bwd_capture_s`` the step's eager run and capture (JAX's
+``fwd_bwd_compile_s``).  Progress goes to stderr.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SUSTAINED = 32      # chained frames of the sustained time (JAX's K)
+SUSTAINED_STEPS = 8  # chained fwd+bwd steps of theirs (JAX's KB)
 # fields of the headline record that a merged report may not overwrite
 PROTECTED = ("metric", "value", "unit", "image_size", "n_tori", "n_rays",
              "n_rays_primary")
@@ -85,6 +92,11 @@ def run_json(module: str, *argv: str, timeout: float) -> dict:
         raise SystemExit(f"{module} exited {proc.returncode}:\n"
                          f"{proc.stderr[-3000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def sum_sq(img):
+    """The fwd+bwd stage's loss: the L2 of the image against zero."""
+    return (img ** 2).sum()
 
 
 def chained(fn, sync, frames: int) -> float:
@@ -136,7 +148,7 @@ def main(argv=None) -> int:
     import fraytracer_tpu_torch as ft
     from .ops.cuda import launch_counts, probe
     from .ops.march import MarchConfig
-    from .render import frame_graph
+    from .render import frame_graph, step_graph
     from .scene.generators import torus_csg_scene
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -230,32 +242,49 @@ def main(argv=None) -> int:
     emit(result)  # the headline is safe whatever happens below
 
     if not args.no_bwd:
-        # fwd+bwd wall time: the gradient of the L2-vs-zero image loss
-        # w.r.t. every floating scene parameter
-        scene.requires_grad_(True)
-
+        # fwd+bwd: the value and gradient of the L2-vs-zero image loss
+        # w.r.t. every floating scene leaf (JAX's jitted fwd_bwd); on the
+        # card one captured CUDA graph a step (render_value_and_grad)
         def fwd_bwd():
-            scene.zero_grad()
-            loss = torch.sum(ft.render(scene, camera, cfg) ** 2)
-            loss.backward()
+            return ft.render_value_and_grad(sum_sq, scene, camera, cfg)
+
+        def fwd_bwd_eager():
+            s = scene.with_tensors({k: v.detach().requires_grad_(True)
+                                    for k, v in scene.tensors().items()})
+            torch.sum(ft.render_grid(s, rays, cfg)[0] ** 2).backward()
 
         t0 = time.perf_counter()
-        fwd_bwd()
-        gsum = float(sum(p.grad.abs().sum()
-                         for p in scene.prim_params.values()))
+        _loss, grads = fwd_bwd()
+        gsum = float(sum(grads[f"prim_params/{k}"].abs().sum()
+                         for k in scene.prim_params))
         result["fwd_bwd_first_s"] = round(time.perf_counter() - t0, 4)
+        graph = step_graph(sum_sq, scene, camera, cfg)
+        result["fwd_bwd_capture_s"] = (graph.capture_s
+                                       if graph is not None else None)
         steps = 3 * args.repeats
         times = timed(fwd_bwd, sync, steps)
         result["fwd_bwd_time_s"] = statistics.median(times)
         result["fwd_bwd_time_min_s"] = min(times)
         result["fwd_bwd_over_fwd"] = result["fwd_bwd_time_s"] / fwd_s
         result["fwd_bwd_steps"] = steps
+        result["fwd_bwd_time_eager_s"] = statistics.median(
+            timed(fwd_bwd_eager, sync, steps))
+        result["fwd_bwd_time_sustained_s"] = chained(fwd_bwd, sync,
+                                                     SUSTAINED_STEPS)
+        result["fwd_bwd_method"] = (
+            f"median of {steps} render_value_and_grad steps, each "
+            "bracketed by a device synchronize; eager: the same of "
+            "render_grid + backward; sustained: "
+            f"{SUSTAINED_STEPS} steps chained between two synchronizes, "
+            "over their count")
         result["grad_abs_sum_prim_params"] = gsum
         # the backward launches no kernel of the port: one frame's worth a
         # step on top of the forward stage's counts
         result["kernel_launches"] = launch_counts()
         log(f"fwd+bwd {result['fwd_bwd_time_s'] * 1e3:.2f}ms "
-            f"({result['fwd_bwd_over_fwd']:.2f}x fwd, median of {steps})")
+            f"({result['fwd_bwd_over_fwd']:.2f}x fwd, median of {steps}), "
+            f"eager {result['fwd_bwd_time_eager_s'] * 1e3:.2f}ms, "
+            f"sustained {result['fwd_bwd_time_sustained_s'] * 1e3:.2f}ms")
         emit(result)
 
     if not args.no_spectral:

@@ -104,11 +104,21 @@ def cmd_spectral(args) -> int:
     return 0
 
 
+def _image_mse(img, target):
+    """The fit's loss: the mean squared difference to the target image."""
+    import torch
+    return torch.mean((img - target) ** 2)
+
+
 def cmd_fit(args) -> int:
     """Inverse rendering: perturb every geometry parameter (an explicit
     ``torch.Generator``), descend the image L2 back to the target by SGD
     on every floating scene leaf, with the checkpoint save/resume round
-    trip mid-run and a loss-curve + parameter-recovery report (JSON)."""
+    trip mid-run and a loss-curve + parameter-recovery report (JSON).
+    The loss and its gradient are ``render_value_and_grad``'s (JAX jits
+    ``value_and_grad`` and the update as one step): on the card one
+    captured CUDA graph a step; the SGD update is a few elementwise ops on
+    the leaves, outside it."""
     import dataclasses
     import json
 
@@ -139,15 +149,12 @@ def cmd_fit(args) -> int:
 
     def step(s):
         """One SGD step on every floating leaf → (new scene, loss)."""
-        s = s.with_tensors({f: v.detach().clone().requires_grad_(True)
-                            for f, v in s.tensors().items()})
-        loss = torch.mean((ft.render(s, camera, cfg) - target) ** 2)
-        loss.backward()
+        loss, grads = ft.render_value_and_grad(_image_mse, s, camera, cfg,
+                                               target)
         with torch.no_grad():
-            new = s.with_tensors({
-                f: v.detach() if v.grad is None else v - args.lr * v.grad
-                for f, v in s.tensors().items()})
-        return new, float(loss.detach())
+            new = s.with_tensors({f: v - args.lr * grads[f]
+                                  for f, v in s.tensors().items()})
+        return new, float(loss)
 
     err0 = param_err(scene)
     losses = []

@@ -1,18 +1,24 @@
 """Frames that read nothing on the host: the counterpart of the JAX
 package's ``lax.cond``s.
 
-``jax.jit`` compiles a frame into one device program, so its two
+``jax.jit`` compiles a frame into one device program, so its
 data-dependent branches are ``lax.cond``s on the device: the culled
 march's overflow fallback (``ops/pallas/march_kernel.py:1915-1919``, taken
-at ``:2048`` and ``:2095``) and ``resolve_material``'s repair tiers
-(``ops/shade.py:80-84``, ``:105-111``).  The port's eager frame reads a
-count on the host at each of them instead.  Inside :func:`deferring`,
-those sites read nothing: each ORs the condition of its branch into the
-frame's flag, a bool on the frame's device, and goes on as if the branch
-needed no repair.  Whoever ran the frame reads the flag once at its end
-and, where it is set, runs the frame again eagerly (``render.py``): that
-re-run takes the branches as the eager frame always has, so a flagged
-frame's result is exact.
+at ``:2048`` and ``:2095``), ``resolve_material``'s repair tiers
+(``ops/shade.py:80-84``, ``:105-111``) and, in a step's backward and the
+non-fused surface pass, the exactness certificate of ``point_eval``'s
+candidate lists (``ops/march.py:320``, ``ops/point_eval.py:399``).  The
+port's eager frame reads a count or the certificate on the host at each
+of them instead.  Inside :func:`deferring`, those sites read nothing:
+each ORs the condition of its branch into the frame's flag, a bool on the
+frame's device, and goes on as if the branch needed no repair.  Whoever
+ran the frame reads the flag once at its end and, where it is set, runs
+the frame (or the step) again eagerly (``render.py``): that re-run takes
+the branches as the eager frame always has, so a flagged result is exact.
+A step's backward runs in its forward's frame (``ops/march.py::_MarchFn``
+hands it over: autograd may run a backward on a thread of its own, where
+the context variable is unset), and so does a checkpointed region's
+recomputation (:func:`in_current`).
 
 A :class:`Frame` also keeps the scene's lowered kernel program for the
 frame's marches (``ops/cuda/march_kernel.py::lower_program``), so that the
@@ -65,6 +71,23 @@ def deferring(frame: Frame):
         yield frame
     finally:
         _current.reset(token)
+
+
+def in_current(fn):
+    """``fn`` bound to the frame :func:`deferring` runs now, if any: it
+    runs in that frame wherever it is called.  For functions that run
+    later on another thread, as a ``torch.utils.checkpoint`` region's
+    recomputation does on autograd's thread in the backward of CUDA
+    tensors, where the context variable is unset."""
+    frame = current()
+    if frame is None:
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with deferring(frame):
+            return fn(*args, **kwargs)
+    return run
 
 
 def device_constant(maxsize: int):

@@ -45,7 +45,7 @@ import torch
 
 from ..scene.flatten import FlatScene
 from ..types import MarchResult, Rays, dot, normalize
-from . import sdf
+from . import deferred, sdf
 
 Tensor = torch.Tensor
 
@@ -299,17 +299,21 @@ def _leaf_scene_d(scene: FlatScene, code: Tensor):
 def _culled_scene_d(scene: FlatScene, x0: Tensor, hit: Tensor,
                     cfg: MarchConfig):
     """Per-tile candidate lists around the hit points when culling is on
-    (``ops/point_eval.py``), dense otherwise.  The exactness certificate is
-    read on the host once: a batch with a tile that could rank the true
-    argmin out of its candidates takes the dense evaluation — the
+    (``ops/point_eval.py``), dense otherwise.  The exactness certificate
+    picks the branch (``point_eval.culled_branch``), as JAX's ``lax.cond``
+    on it does: the eager backward reads it on the host, and a batch with a
+    tile that could rank the true argmin out of its candidates takes the
+    dense evaluation; a deferred backward (``ops/deferred.py``) reads
+    nothing, takes the candidate lists and raises its frame's flag where
+    the certificate fails, so that the step runs again eagerly.  The
     gradient's fast path is never silently approximate."""
     if cfg.cull and cfg.backend == "cuda":
-        from .point_eval import build_culled_eval, read_certificate
+        from .point_eval import build_culled_eval, culled_branch
         built = build_culled_eval(scene, x0, hit, m=cfg.bwd_cull_m,
                                   threshold=cfg.cull_threshold,
                                   tile=cfg.bwd_point_tile,
                                   for_materials=False)
-        if built is not None and read_certificate(built[4]):
+        if built is not None and culled_branch(built[4]):
             dist_fn = built[0]
             tile = cfg.bwd_point_tile
 
@@ -433,13 +437,19 @@ class _MarchFn(torch.autograd.Function):
     the implicit-differentiation backward.  Tensor inputs: ``sign`` (or
     None), the flat rays' four fields, then one parameter matrix per kind.
     Outputs ``(t, hit, distance, steps)`` plus ``(normal, material, code)``
-    with ``surface``; only ``t`` and ``normal`` carry gradient."""
+    with ``surface``; only ``t`` and ``normal`` carry gradient.
+
+    The backward runs in the forward's deferred frame (``ops/deferred.py``),
+    if any: autograd runs the backward of CUDA tensors on a thread of its
+    own, where the context variable that names the frame is unset, so the
+    forward hands the frame over in ``ctx``."""
 
     @staticmethod
     def forward(ctx, scene, cfg, surface, sign, origin, direction, length,
                 epsilon, *params):
         rays = Rays(origin, direction, length, epsilon)
         ctx.scene, ctx.cfg, ctx.surface = scene, cfg, surface
+        ctx.frame = deferred.current()
         ctx.has_sign = sign is not None
         if surface:
             from .cuda.march_kernel import cuda_march_raw
@@ -463,6 +473,13 @@ class _MarchFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_t, _hit, _dist, _steps, ct_n=None, _m=None,
                  _code=None):
+        if ctx.frame is None:
+            return _MarchFn._backward(ctx, ct_t, ct_n)
+        with deferred.deferring(ctx.frame):
+            return _MarchFn._backward(ctx, ct_t, ct_n)
+
+    @staticmethod
+    def _backward(ctx, ct_t, ct_n):
         saved = list(ctx.saved_tensors)
         origin, direction, epsilon, t, hit = saved[:5]
         rest = saved[5:]

@@ -24,11 +24,16 @@ tile when, at every (hit) query point,
         <= B_m - cert_slack.
 
 :func:`build_culled_eval` returns the certificate as a 0-dim bool tensor
-``ok``.  Where JAX wraps the two routes in ``lax.cond``, callers here read
-``ok`` on the host once per call (``STATS["certificate_reads"]``) and run
-one route: the culled one, or the tiled dense evaluation when any tile
-fails.  Both routes rematerialize per chunk of tiles
-(``torch.utils.checkpoint``) when a graph is kept.
+``ok``.  Where JAX wraps the two routes in ``lax.cond``, callers here run
+one route, picked by :func:`culled_branch`: an eager call reads ``ok`` on
+the host once (``STATS["certificate_reads"]``) and takes the culled route,
+or the tiled dense evaluation when any tile fails; a deferred call
+(``ops/deferred.py``, the frame or step a CUDA graph captures) reads
+nothing, takes the culled route and raises its frame's flag where ``ok``
+is false, so that its caller runs it again eagerly.  Both routes
+rematerialize per chunk of tiles (``torch.utils.checkpoint``, the
+recomputation in the caller's deferred frame: ``deferred.in_current``)
+when a graph is kept.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..scene.flatten import FlatScene
 from ..types import norm, normalize
-from . import sdf
+from . import deferred, sdf
 from .cuda.cull import _build_groups, _cull_pairs
 
 Tensor = torch.Tensor
@@ -49,17 +54,31 @@ POINT_TILE = 1024
 CERT_SLACK = 0.05
 _BIG = 3.0e38
 
-# host reads of the certificate, and which route each call then took
+# host reads of the certificate by eager calls, and which route each took
+# (a deferred call reads nothing and counts nothing)
 STATS = {"certificate_reads": 0, "culled": 0, "dense": 0}
 
 
 def read_certificate(ok: Tensor) -> bool:
-    """The one host read of ``ok`` per call (a sync on a CUDA tensor);
+    """The eager call's one host read of ``ok`` (a sync on a CUDA tensor);
     counts the read and the route taken."""
     good = bool(ok)
     STATS["certificate_reads"] += 1
     STATS["culled" if good else "dense"] += 1
     return good
+
+
+def culled_branch(ok: Tensor) -> bool:
+    """True when a call takes the culled route.  Eagerly, the host reads
+    the certificate (:func:`read_certificate`); in a deferred frame
+    (``ops/deferred.py``) the call takes the culled route, reads nothing
+    and ORs ``~ok`` into the frame's flag: a failing tile sends the whole
+    frame to its eager re-run, which takes the dense route here."""
+    frame = deferred.current()
+    if frame is None:
+        return read_certificate(ok)
+    frame.raise_if(~ok)
+    return True
 
 
 def _chunk_elems(device: torch.device) -> int:
@@ -79,19 +98,19 @@ def _wants_graph(sc, *tensors: Tensor) -> bool:
         or any(v.requires_grad for v in _params_of(sc).values()))
 
 
-def _static_layout(scene: FlatScene, threshold: int):
+def _static_layout(plan, kind_counts, threshold: int):
     """Static layout: cull pairs, groups/tree, per-slot group ids, kind
     offsets and the dense rows per kind (rows no culled pair covers).
     Reuses the march kernels' plan analysis."""
-    pairs = _cull_pairs(scene.kind_counts, scene.plan, threshold)
-    groups, tree = _build_groups(scene.plan)
+    pairs = _cull_pairs(kind_counts, plan, threshold)
+    groups, tree = _build_groups(plan)
 
     culled_rows = {}
     for (_gid, kind, _ki, r0, r1) in pairs:
         culled_rows.setdefault(kind, []).append((r0, r1))
 
     offsets, off = {}, 0
-    for k, c in scene.kind_counts:
+    for k, c in kind_counts:
         offsets[k] = off
         off += c
     slot_gid = np.full(off, -1, np.int32)
@@ -99,7 +118,7 @@ def _static_layout(scene: FlatScene, threshold: int):
         slot_gid[list(g.slots)] = g.gid
 
     dense = []  # (kind, row_idx np[int64], global_slot np[int64])
-    for kind, cnt in scene.kind_counts:
+    for kind, cnt in kind_counts:
         mask = np.ones(cnt, bool)
         for lo, hi in culled_rows.get(kind, []):
             mask[lo:hi] = False
@@ -107,6 +126,37 @@ def _static_layout(scene: FlatScene, threshold: int):
         if rows.size:
             dense.append((kind, rows, offsets[kind] + rows))
     return pairs, groups, tree, slot_gid, offsets, dense
+
+
+@deferred.device_constant(maxsize=32)
+def _layout_on(plan, kind_counts, prim_material, threshold: int,
+               device: torch.device):
+    """The static layout's index tables on ``device``, copied there once
+    (a captured frame keeps what it reads): per cull pair the CSG-visible
+    material of each of its rows; the dense material slots ``(kind, rows,
+    materials)``; the dense rows per kind with, per owning group, the
+    columns of that group ``(kind, rows, [(gid, columns)])``."""
+    from ..scene.flatten import visible_materials
+    pairs, _g, _t, slot_gid, offsets, dense = _static_layout(
+        plan, kind_counts, threshold)
+    mat_vis = np.asarray(visible_materials(plan, prim_material), np.int64)
+    pair_mats = [torch.as_tensor(
+        mat_vis[offsets[kind] + lo:offsets[kind] + hi], device=device)
+        for (_gid, kind, _ki, lo, hi) in pairs]
+    dense_mat, dense_dev = [], []
+    for kind, rows, gslots in dense:
+        mats = mat_vis[gslots]
+        keep = mats >= 0
+        if keep.any():
+            dense_mat.append((kind, torch.as_tensor(rows[keep],
+                                                    device=device),
+                              torch.as_tensor(mats[keep], device=device)))
+        gids = slot_gid[gslots]
+        split = [(int(gid), torch.as_tensor(np.where(gids == gid)[0],
+                                            device=device))
+                 for gid in np.unique(gids)]
+        dense_dev.append((kind, torch.as_tensor(rows, device=device), split))
+    return pair_mats, dense_mat, dense_dev
 
 
 def _soa_eval(kind: str, params: Tensor, q: Tensor) -> Tensor:
@@ -170,10 +220,12 @@ def build_culled_eval(scene: FlatScene, pos: Tensor,
     """
     n = pos.shape[0]
     dev = pos.device
-    pairs, groups, tree, slot_gid, offsets, dense = _static_layout(
-        scene, threshold)
+    pairs, groups, tree, _slot_gid, offsets, _dense = _static_layout(
+        scene.plan, scene.kind_counts, threshold)
     if not pairs:
         return None
+    pair_mats, dense_mat, dense_dev = _layout_on(
+        scene.plan, scene.kind_counts, scene.prim_material, threshold, dev)
 
     pad = (-n) % tile
 
@@ -199,7 +251,8 @@ def build_culled_eval(scene: FlatScene, pos: Tensor,
             pos_sel = pos_t
             center = _tile_centers(pos_t, None)
 
-        for (gid, kind, _ki, row_lo, row_hi) in pairs:
+        for (gid, kind, _ki, row_lo, row_hi), mat_of_row in zip(pairs,
+                                                                pair_mats):
             # 'max' (intersect) groups: every member can bind the max, so
             # the nearest-by-bound truncation (a union-min argument) is
             # unsound — keep the full group
@@ -209,7 +262,6 @@ def build_culled_eval(scene: FlatScene, pos: Tensor,
             bounds = sdf._prim_bound_rows(kind, rows_params)
             idx, b_m = _candidates(bounds, center, mcap)  # [G, mcap], [G]
             mats_np = mat_vis[offsets[kind] + row_lo:offsets[kind] + row_hi]
-            mat_of_row = torch.as_tensor(mats_np, device=dev)
             pair_sel.append((gid, kind, row_lo, idx, mat_of_row))
             if mcap < full:
                 # certificate: the kept union min (and, for materials, the
@@ -236,22 +288,6 @@ def build_culled_eval(scene: FlatScene, pos: Tensor,
                         lane_ok = lane_ok | ~hit_t[s:s + step]
                     ok = ok & lane_ok.all()
 
-    # dense material slots (static)
-    dense_mat = []  # (kind, rows tensor, mats tensor)
-    for kind, rows, gslots in dense:
-        mats = mat_vis[gslots]
-        keep = mats >= 0
-        if keep.any():
-            dense_mat.append((kind, torch.as_tensor(rows[keep], device=dev),
-                              torch.as_tensor(mats[keep], device=dev)))
-    # (kind, rows, [(owning group, columns of that group)])
-    dense_dev = []
-    for kind, rows, gslots in dense:
-        gids = slot_gid[gslots]
-        split = [(int(gid), torch.as_tensor(np.where(gids == gid)[0],
-                                            device=dev))
-                 for gid in np.unique(gids)]
-        dense_dev.append((kind, torch.as_tensor(rows, device=dev), split))
     m_max = max(p[3].shape[1] for p in pair_sel)
     g_chunk = max(1, _chunk_elems(dev) // (tile * m_max))
 
@@ -317,7 +353,8 @@ def build_culled_eval(scene: FlatScene, pos: Tensor,
         outs = []
         for s in range(0, g, g_chunk):
             args = (params, q[s:s + g_chunk], g0 + s)
-            outs.append(checkpoint(fn, *args, use_reentrant=False)
+            outs.append(checkpoint(deferred.in_current(fn), *args,
+                                   use_reentrant=False)
                         if keep else fn(*args))
         return torch.cat(outs)
 
@@ -380,8 +417,8 @@ def dense_dist_tiled(scene: FlatScene, q: Tensor) -> Tensor:
     outs = []
     for s in range(0, flat.shape[0], rows):
         part = flat[s:s + rows]
-        outs.append(checkpoint(sdf.scene_distance, scene, part,
-                               use_reentrant=False)
+        outs.append(checkpoint(deferred.in_current(sdf.scene_distance),
+                               scene, part, use_reentrant=False)
                     if keep else sdf.scene_distance(scene, part))
     return torch.cat(outs).reshape(q.shape[:-1])
 
@@ -408,7 +445,8 @@ def _chunked_normals(fn, scene: FlatScene, q: Tensor, step: int) -> Tensor:
     for s in range(0, q.shape[0], step):
         part = q[s:s + step]
         if keep and q.shape[0] > step:
-            outs.append(checkpoint(one, scene, part, s, use_reentrant=False))
+            outs.append(checkpoint(deferred.in_current(one), scene, part, s,
+                                   use_reentrant=False))
         else:
             outs.append(one(scene, part, s))
     return torch.cat(outs)
@@ -423,13 +461,13 @@ def culled_surface_eval(scene: FlatScene, pos: Tensor,
     [N, 3]); ``None`` if the scene has no cull-eligible group.
     Differentiable w.r.t. the scene and ``pos``.  When any tile fails the
     exactness certificate the whole batch is evaluated densely instead
-    (one host read decides; never both)."""
+    (:func:`culled_branch` decides; never both)."""
     built = build_culled_eval(scene, pos, hit, m, threshold)
     if built is None:
         return None
     dist_fn, mat_fn, reshape, n, ok = built
     q = reshape(pos)
-    if read_certificate(ok):
+    if culled_branch(ok):
         normal = _chunked_normals(dist_fn, scene, q, dist_fn.g_chunk)
         midx = mat_fn(scene, q)
     else:

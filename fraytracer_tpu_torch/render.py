@@ -24,10 +24,17 @@ that autograd must see (a scene or camera tensor requires grad while grad
 is enabled), a frame on the CPU and a frame on the "torch" backend (whose
 plain march ends its loop on a host read) run eagerly; :func:`render_grid`
 is the eager frame of a ray grid.
+
+The JAX package's ``cli fit`` and bench jit ``jax.value_and_grad`` of a
+loss of the frame; :func:`render_value_and_grad` is its counterpart, a
+step (forward and backward) captured as one CUDA graph a
+:func:`step_key` by the same rule, the backward's host read (the
+certificate of ``point_eval``'s candidate lists) deferred to the flag too.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import torch
@@ -112,8 +119,8 @@ def _trace(scene: FlatScene, rays: Rays, march_cfg: MarchConfig,
     def tile(i):
         part = rays.map(lambda x: x[i:i + tile_rays])
         if keep:
-            return checkpoint(shade.trace_with_stats, scene, part, march_cfg,
-                              use_reentrant=False)
+            return checkpoint(deferred.in_current(shade.trace_with_stats),
+                              scene, part, march_cfg, use_reentrant=False)
         return shade.trace_with_stats(scene, part, march_cfg)
 
     colors, n_rays = [], 0
@@ -161,46 +168,89 @@ def _graph_frame(scene: FlatScene, camera: cam.Camera,
                      and any(x.requires_grad for x in xs)))
 
 
+def _graph_step(scene: FlatScene, camera: cam.Camera, cfg: RenderConfig,
+                args) -> bool:
+    """True when the step runs as a captured graph: the kernels, and every
+    tensor of the scene, the camera and ``args`` on a CUDA device."""
+    return cfg.march.backend == "cuda" and all(
+        x.is_cuda for x in _inputs(scene, camera) + list(args))
+
+
+def _step(loss_fn, scene: FlatScene, camera: cam.Camera, cfg: RenderConfig,
+          *args) -> tuple:
+    """The step on the scene's own leaves, which require grad: ``(loss,
+    *grads)``, the gradients in ``scene.tensors()`` order, zeros for a leaf
+    autograd did not reach (as ``jax.value_and_grad`` gives them)."""
+    leaves = list(scene.tensors().values())
+    with torch.enable_grad():
+        loss = loss_fn(_frame(scene, camera, cfg)[0], *args)
+        if loss.ndim != 0:
+            raise ValueError(f"loss_fn returned shape {tuple(loss.shape)}, "
+                             "want a scalar")
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return (loss.detach(),) + tuple(
+        torch.zeros_like(x) if g is None else g
+        for x, g in zip(leaves, grads))
+
+
+def _eager_step(loss_fn, scene: FlatScene, camera: cam.Camera,
+                cfg: RenderConfig, *args) -> tuple:
+    """:func:`_step` on leaves made from the scene's tensors."""
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in scene.tensors().items()}
+    return _step(loss_fn, scene.with_tensors(leaves), camera, cfg, *args)
+
+
 class _FrameGraph:
-    """One frame captured in a CUDA graph, the counterpart of a
-    ``jax.jit`` executable: copies of the scene's and the camera's tensors
-    as the graph's inputs, its outputs ``(image, n_rays)`` and the flag of
+    """A frame, or a step (a frame, a loss and its gradient), captured in a
+    CUDA graph: the counterpart of a ``jax.jit`` executable.  It holds
+    copies of the scene's, the camera's and ``args``' tensors as the
+    graph's inputs (the scene's requiring grad in a step: the leaves its
+    ``autograd.grad`` differentiates), the body's outputs and the flag of
     its deferred frame in the graph's memory, and the kernel launches
     recorded at its capture, which each replay adds to the counts (the
     Python wrappers do not run on a replay).  Its deferred frame also keeps
     the device constants the graph reads (``deferred.device_constant``).
 
-    Made by the first call of a key: the frame runs eagerly once, its host
-    reads deferred (``first``: its outputs, or ``None`` when it raised the
-    flag), then, unless it raised the flag, is captured (``graph``, else
-    ``None``: the key's frames run eagerly; ``capture_s``: both together,
-    the counterpart of JAX's compile time).  A failure in either raises."""
+    ``body(scene, camera, cfg, *args)`` returns a tuple of tensors:
+    :func:`_frame` (``grad`` false) or :func:`_step` over a loss function
+    (``grad`` true).  Made by the first call of a key: the body runs
+    eagerly once, its host reads deferred (``first``: its outputs, or
+    ``None`` when it raised the flag); that run also makes the device
+    constants, whose copies from host data cannot be captured, and sets up
+    autograd's worker thread for a step.  Then, unless it raised the flag,
+    the body is captured (``graph``, else ``None``: the key runs eagerly;
+    ``capture_s``: both together, the counterpart of JAX's compile time).
+    A failure in either raises."""
 
-    def __init__(self, scene: FlatScene, camera: cam.Camera,
-                 cfg: RenderConfig):
+    def __init__(self, body, scene: FlatScene, camera: cam.Camera,
+                 cfg: RenderConfig, args=(), grad: bool = False):
         t0 = time.perf_counter()
         self.device = scene.device
-        self.inputs = [x.detach().clone() for x in _inputs(scene, camera)]
-        leaves = dict(zip(scene.tensors(), self.inputs))
-        self.scene = scene.with_tensors(leaves)
-        self.camera = dataclasses.replace(
-            camera, position=self.inputs[-4], forward=self.inputs[-3],
-            up_scaled=self.inputs[-2], right_scaled=self.inputs[-1])
+        self.inputs = [x.detach().clone()
+                       for x in _inputs(scene, camera) + list(args)]
+        names = list(scene.tensors())
+        for x in self.inputs[:len(names) if grad else 0]:
+            x.requires_grad_(True)
+        graph_scene = scene.with_tensors(dict(zip(names, self.inputs)))
+        position, forward, up, right = self.inputs[len(names):len(names) + 4]
+        graph_camera = dataclasses.replace(
+            camera, position=position, forward=forward, up_scaled=up,
+            right_scaled=right)
+        graph_args = self.inputs[len(names) + 4:]
+        self.body = lambda: body(graph_scene, graph_camera, cfg, *graph_args)
         self.frame = deferred.Frame(self.device)
         self.graph, self.launches = None, {}
         with torch.no_grad(), on_device(self.device):
-            # the eager run: it makes the device constants (the lowering's
-            # static part, slot and row tables), whose copies to the device
-            # sync the host and cannot be captured
             with deferred.deferring(self.frame):
-                out = _frame(self.scene, self.camera, cfg)
+                out = self.body()
             self.first = None if bool(self.frame.flag) else out
             if self.first is not None:
-                self._capture(cfg)
+                self._capture()
         self.capture_s = time.perf_counter() - t0
 
-    def _capture(self, cfg: RenderConfig) -> None:
-        """Capture the frame into the device's graph memory pool."""
+    def _capture(self) -> None:
+        """Capture the body into the device's graph memory pool."""
         graph = torch.cuda.CUDAGraph()
         self.frame.programs.clear()
         index = self.device.index if self.device.index is not None \
@@ -213,7 +263,7 @@ class _FrameGraph:
                     torch.cuda.graph(graph, pool=_pools[index]), \
                     deferred.deferring(self.frame):
                 self.frame.flag.zero_()
-                self.outputs = _frame(self.scene, self.camera, cfg)
+                self.outputs = self.body()
         except BaseException:
             # a capture that fails leaves its pool bound to it: the
             # device's next capture takes a new pool
@@ -226,15 +276,17 @@ class _FrameGraph:
         self.graph = graph
         ops_cuda.GRAPH["captures"] += 1
 
-    def replay(self, scene: FlatScene, camera: cam.Camera):
-        """The frame of ``scene`` and ``camera`` (this graph's key): clones
-        of the outputs, or ``None`` when the replay raised the flag."""
+    def replay(self, scene: FlatScene, camera: cam.Camera, args=()):
+        """The body on ``scene``, ``camera`` and ``args`` (this graph's
+        key): clones of the outputs, or ``None`` when the replay raised the
+        flag."""
         with torch.no_grad(), on_device(self.device):
-            for dst, src in zip(self.inputs, _inputs(scene, camera)):
+            for dst, src in zip(self.inputs,
+                                _inputs(scene, camera) + list(args)):
                 dst.copy_(src)
             self.graph.replay()
             out = tuple(x.clone() for x in self.outputs)
-            flagged = bool(self.frame.flag)      # the frame's one host read
+            flagged = bool(self.frame.flag)      # the body's one host read
         ops_cuda.add_launch_counts(self.launches)
         ops_cuda.GRAPH["replays"] += 1
         return None if flagged else out
@@ -247,6 +299,29 @@ class _FrameGraph:
 # handed to another capture.
 _pools: dict = {}
 _graphs: "dict[tuple, _FrameGraph]" = {}
+
+
+def _run_graph(key, make, eager, replay_args):
+    """A call of ``key`` through its graph (module docstring): made by the
+    key's first call (``make()``), else replayed on ``replay_args``; the
+    eager body ``eager()`` where the key runs eagerly or the flag is set,
+    counted."""
+    fg = _graphs.get(key)
+    if fg is None:
+        fg = _graphs[key] = make()
+        out, fg.first = fg.first, None
+    elif fg.graph is None:
+        # the key's first run raised the flag: its calls run eagerly, as
+        # a replay that raised it would pay the graph, then the eager body
+        ops_cuda.GRAPH["eager_frames"] += 1
+        return eager()
+    else:
+        out = fg.replay(*replay_args)
+    if out is None:
+        # an overflowing table, a material repair or a failing certificate
+        ops_cuda.GRAPH["eager_reruns"] += 1
+        out = eager()
+    return out
 
 
 def frame_graph(scene: FlatScene, camera: cam.Camera,
@@ -267,23 +342,60 @@ def render_with_stats(scene: FlatScene, camera: cam.Camera,
     check_config(cfg.march)
     if not _graph_frame(scene, camera, cfg):
         return _frame(scene, camera, cfg)
-    key = frame_key(scene, camera, cfg)
-    fg = _graphs.get(key)
-    if fg is None:
-        fg = _graphs[key] = _FrameGraph(scene, camera, cfg)
-        out, fg.first = fg.first, None
-    elif fg.graph is None:
-        # the key's first run raised the flag: its frames run eagerly, as
-        # a replay that raised it would pay the graph frame, then the eager
-        ops_cuda.GRAPH["eager_frames"] += 1
-        return _frame(scene, camera, cfg)
+    return _run_graph(
+        frame_key(scene, camera, cfg),
+        lambda: _FrameGraph(_frame, scene, camera, cfg),
+        lambda: _frame(scene, camera, cfg), (scene, camera))
+
+
+def step_key(loss_fn, scene: FlatScene, camera: cam.Camera,
+             cfg: RenderConfig, *args):
+    """What a captured step is kept under: the frame's key, ``loss_fn``
+    and each tensor of ``args`` by shape, dtype and device."""
+    return ("step", frame_key(scene, camera, cfg), loss_fn,
+            tuple((tuple(x.shape), x.dtype, x.device) for x in args))
+
+
+def step_graph(loss_fn, scene: FlatScene, camera: cam.Camera,
+               cfg: RenderConfig, *args) -> _FrameGraph | None:
+    """:func:`frame_graph` of the step of :func:`render_value_and_grad`."""
+    return _graphs.get(step_key(loss_fn, scene, camera, cfg, *args))
+
+
+def render_value_and_grad(loss_fn, scene: FlatScene, camera: cam.Camera,
+                          cfg: RenderConfig = RenderConfig(), *args):
+    """``jax.value_and_grad`` of a loss of the frame, as the JAX package
+    jits it: ``loss_fn(image [H, W, 3], *args)`` returns a scalar; the
+    result is ``(loss, grads)``, ``grads`` keyed as ``scene.tensors()``
+    keys the leaves (the JAX gradient pytree's naming), every floating
+    leaf, zeros where the loss does not reach it.  ``args`` are tensors
+    (a target image, weights); the camera is held fixed.  ``loss_fn`` is
+    part of the key: pass the same function object every step.
+
+    On the kernels of a CUDA device the step is one captured CUDA graph a
+    :func:`step_key`, forward and backward, with no host read in either
+    (the module docstring's rule; the backward's certificate is the
+    frame's flag, ``ops/point_eval.py::culled_branch``): a later call
+    copies the scene's, the camera's and ``args``' tensors into the graph's
+    inputs, replays it, reads the flag once and returns clones of the loss
+    and the gradients; a flagged call runs the eager step again.  Steps
+    count as frames in ``ops.cuda.graph_counts()``.  On the CPU, or on the
+    "torch" backend, the step runs eagerly.  The scene's tensors are not
+    changed and gain no ``.grad``."""
+    check_config(cfg.march)
+    names = list(scene.tensors())
+
+    def eager():
+        return _eager_step(loss_fn, scene, camera, cfg, *args)
+    if _graph_step(scene, camera, cfg, args):
+        out = _run_graph(
+            step_key(loss_fn, scene, camera, cfg, *args),
+            lambda: _FrameGraph(functools.partial(_step, loss_fn), scene,
+                                camera, cfg, args, grad=True),
+            eager, (scene, camera, args))
     else:
-        out = fg.replay(scene, camera)
-    if out is None:
-        # an overflowing table or a material repair: the eager frame
-        ops_cuda.GRAPH["eager_reruns"] += 1
-        out = _frame(scene, camera, cfg)
-    return out
+        out = eager()
+    return out[0], dict(zip(names, out[1:]))
 
 
 def render_grid(scene: FlatScene, rays: Rays, cfg: RenderConfig):

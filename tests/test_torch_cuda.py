@@ -29,7 +29,12 @@ graded, as JAX's gate spares one the oracle did not).  The graph frame
 (``render.py``): bit for bit ``render_grid``'s frame, after a parameter
 edit too, a flagged replay run again eagerly, a key whose first frame
 flags kept eager, two keys' graphs in one pool, and a capture that fails
-raises."""
+raises.  The graph step (``render_value_and_grad``): its loss bit for bit
+the eager step's and its gradients within 2e-4 of each leaf's largest |g|
+(the backward's atomic adds sum in another order), after an edit too, a
+flagged replay run again eagerly, a failing certificate kept eager, a
+capture that fails raises, one pool with the frame graphs, the checkpoint
+sites captured."""
 import dataclasses
 
 import pytest
@@ -703,6 +708,213 @@ def test_graph_frames_of_two_keys_share_one_pool(dev):
 
 
 # ---------------------------------------------------------------------------
+# the graph step (render.py::render_value_and_grad)
+# ---------------------------------------------------------------------------
+
+# two steps of one key sum the backward's index_add_ in another order (its
+# atomic adds): the gradients are held within 2e-4 of each leaf's largest
+# |g|, as the sharded step is (chip_smoke.py GRAD_REL); the loss is exact
+STEP_GRAD_REL = 2e-4
+
+
+def _sum_sq(img):
+    return (img ** 2).sum()
+
+
+def _eager_step(scene, cam, cfg, loss_fn=_sum_sq, *args):
+    import sys
+    out = sys.modules["fraytracer_tpu_torch.render"]._eager_step(
+        loss_fn, scene, cam, cfg, *args)
+    return out[0], dict(zip(scene.tensors(), out[1:]))
+
+
+def _assert_step_close(got, want):
+    assert torch.equal(got[0], want[0])
+    assert got[1].keys() == want[1].keys()
+    for k, w in want[1].items():
+        scale = float(w.abs().max())
+        assert float((got[1][k] - w).abs().max()) <= STEP_GRAD_REL * scale, k
+    assert float(want[1]["prim_params/torus"].abs().sum()) > 0
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` loaded by path (it imports only torch at module
+    level)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_by_path", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _blend96(dev):
+    from fraytracer_tpu_torch.scene import nodes as N
+    base = torus_csg_scene(19, 96)
+    return ft.flatten(N.Scene(root=N.smooth_union(
+        0.25, base.root, N.sphere((0, 0, 0), 1.5,
+                                  material=N.solid(0.8, 0.7, 0.3))),
+        background=base.background, lights=base.lights), device=dev)
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_graph_step_is_the_eager_step(dev, cull):
+    """The first call captures the step, the second replays it: each the
+    eager step (loss bit for bit), with one frame's launches each."""
+    scene, cam, cfg, R = _graph_setup(dev, cull=cull)
+    want = _eager_step(scene, cam, cfg)
+    ops_cuda.reset_launch_counts()
+    for _ in range(2):
+        _assert_step_close(ft.render_value_and_grad(_sum_sq, scene, cam,
+                                                    cfg), want)
+    counts = {k: v for k, v in ops_cuda.launch_counts().items() if v}
+    sfx = "_culled" if cull else ""
+    assert counts == {"march" + sfx: 2, "surface" + sfx: 2,
+                      "occlusion" + sfx: 4}
+    assert ops_cuda.graph_counts() == {"captures": 1, "replays": 1,
+                                       "eager_reruns": 0, "eager_frames": 0}
+    assert R.step_graph(_sum_sq, scene, cam, cfg).graph is not None
+    # the scene's tensors gain no .grad
+    assert all(x.grad is None for x in scene.tensors().values())
+
+
+def test_graph_step_after_a_parameter_edit(dev):
+    """A parameter edited in place, and a target changed, between two
+    replays: the replay is the eager step of what it was given."""
+    scene, cam, cfg, R = _graph_setup(dev)
+
+    def mse(img, target):
+        return torch.mean((img - target) ** 2)
+    target = torch.full((cfg.height, cfg.width, 3), 0.25, device=dev)
+    ft.render_value_and_grad(mse, scene, cam, cfg, target)
+    with torch.no_grad():
+        scene.prim_params["torus"][:, 0:3] += 0.05
+        scene.light_color.mul_(0.5)
+    target = target * 0.5
+    _assert_step_close(ft.render_value_and_grad(mse, scene, cam, cfg,
+                                                target),
+                       _eager_step(scene, cam, cfg, mse, target))
+    assert ops_cuda.graph_counts()["replays"] == 1
+
+
+def test_graph_step_flagged_replay_reruns_eagerly(dev):
+    """A captured step (cull_m 64) whose replay overflows after the tori's
+    centres are pulled together in place: the eager step runs again, equal
+    to the edited scene's eager step, and counted."""
+    scene, cam, cfg, R = _graph_setup(dev, cull_m=64, cull_m_shadow=64)
+    first = ft.render_value_and_grad(_sum_sq, scene, cam, cfg)
+    assert R.step_graph(_sum_sq, scene, cam, cfg).graph is not None
+    tori = scene.prim_params["torus"]
+    old = tori.clone()
+    with torch.no_grad():
+        tori[:, 0:3] *= 0.05
+    _assert_step_close(ft.render_value_and_grad(_sum_sq, scene, cam, cfg),
+                       _eager_step(scene, cam, cfg))
+    assert ops_cuda.graph_counts() == {"captures": 1, "replays": 1,
+                                       "eager_reruns": 1, "eager_frames": 0}
+    with torch.no_grad():
+        tori.copy_(old)
+    assert torch.equal(ft.render_value_and_grad(_sum_sq, scene, cam, cfg)[0],
+                       first[0])
+
+
+def test_graph_step_failing_certificate_is_kept_eager(dev):
+    """The blended 96-torus step (the ``blend1000`` kind): its backward's
+    certificate fails on the overlapping tori, so the deferred first run
+    raises the flag; nothing is captured and the key's steps run the eager
+    step (the dense branch), counted."""
+    from fraytracer_tpu_torch.ops import point_eval
+    _s, cam, cfg, R = _graph_setup(dev)
+    scene = _blend96(dev)
+    want = _eager_step(scene, cam, cfg)
+    stats = dict(point_eval.STATS)
+    for _ in range(2):
+        _assert_step_close(ft.render_value_and_grad(_sum_sq, scene, cam,
+                                                    cfg), want)
+    assert R.step_graph(_sum_sq, scene, cam, cfg).graph is None
+    assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
+                                       "eager_reruns": 1, "eager_frames": 1}
+    # the two eager steps read the certificate, the deferred run did not
+    assert {k: point_eval.STATS[k] - stats[k] for k in stats} == {
+        "certificate_reads": 2, "culled": 0, "dense": 2}
+
+
+def test_graph_step_capture_failure_raises(dev, monkeypatch):
+    """A host read inside the backward cannot be captured: the call
+    raises, keeps no graph, and does not fall back to the eager step."""
+    from fraytracer_tpu_torch.ops import march as M
+    scene, cam, cfg, R = _graph_setup(dev)
+    real = M.implicit_vjp
+
+    def reads_the_host(scene_, rays, t, hit, *a, **k):
+        int(hit.sum())
+        return real(scene_, rays, t, hit, *a, **k)
+    monkeypatch.setattr(M, "implicit_vjp", reads_the_host)
+    with pytest.raises(RuntimeError):
+        ft.render_value_and_grad(_sum_sq, scene, cam, cfg)
+    assert not R._graphs
+    assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
+                                       "eager_reruns": 0, "eager_frames": 0}
+    monkeypatch.setattr(M, "implicit_vjp", real)
+    for _ in range(2):
+        _assert_step_close(ft.render_value_and_grad(_sum_sq, scene, cam,
+                                                    cfg),
+                           _eager_step(scene, cam, cfg))
+    assert ops_cuda.graph_counts()["replays"] == 1
+
+
+def test_graph_step_shares_the_frame_graphs_pool(dev):
+    """A frame graph and a step graph of one scene in one memory pool,
+    replayed in turns: each its eager counterpart."""
+    scene, cam, cfg, R = _graph_setup(dev)
+    frame = _eager(scene, cam, cfg)
+    step = _eager_step(scene, cam, cfg)
+    for _ in range(3):
+        img, n = ft.render_with_stats(scene, cam, cfg)
+        assert torch.equal(img, frame[0]) and int(n) == int(frame[1])
+        _assert_step_close(ft.render_value_and_grad(_sum_sq, scene, cam,
+                                                    cfg), step)
+    assert ops_cuda.graph_counts()["captures"] == 2
+    assert R.frame_graph(scene, cam, cfg).graph.pool() == \
+        R.step_graph(_sum_sq, scene, cam, cfg).graph.pool()
+
+
+@pytest.mark.parametrize("site", ["point_eval", "render"])
+def test_graph_step_captures_checkpointed_chunks(dev, monkeypatch, site):
+    """The ``torch.utils.checkpoint`` sites a step reaches, captured with
+    their default ``preserve_rng_state``: ``point_eval``'s chunked normals
+    (the non-fused culled step on the separated lattice, 256²) and
+    ``render._trace``'s ray tiles (``tile_rays_pallas``)."""
+    from fraytracer_tpu_torch.ops import point_eval
+    _s, _c, cfg, R = _graph_setup(dev, size=256)
+    mod = point_eval if site == "point_eval" else R
+    real, calls = mod.checkpoint, []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(mod, "checkpoint", counted)
+    if site == "point_eval":
+        scene = _chip_smoke().lattice_scene(dev)
+        cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=20.0,
+                         device=dev)
+        cfg = dataclasses.replace(cfg, march=dataclasses.replace(
+            cfg.march, fuse_surface=False))
+    else:
+        scene = ft.flatten(torus_csg_scene(19, 96), device=dev)
+        cam = ft.look_at((0, 0, -10), (0, 0, 0), device=dev)
+        cfg = dataclasses.replace(cfg, tile_rays_pallas=16384)
+    want = _eager_step(scene, cam, cfg)
+    calls.clear()
+    for _ in range(2):
+        _assert_step_close(ft.render_value_and_grad(_sum_sq, scene, cam,
+                                                    cfg), want)
+    assert calls, "no checkpoint in the step"
+    assert ops_cuda.graph_counts()["replays"] == 1
+
+
+# ---------------------------------------------------------------------------
 # the gradient path and the probes
 # ---------------------------------------------------------------------------
 
@@ -840,14 +1052,9 @@ def oracle64():
     """``chip_smoke.py`` loaded by path (its gate function; it imports
     only torch at module level) and the port's float64 oracle over the 64²
     frame of tests/test_benchmark_oracle.py, in this process."""
-    import importlib.util
-    from pathlib import Path
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke_by_path", path)
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = _chip_smoke()
     oracle = cs.oracle_sample(torus_csg_scene(19, 1000), (0.0, 0.0, -10.0),
                               64, 64, range(64 * 64), workers=1)
     return cs, oracle
