@@ -88,7 +88,21 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    ``index_select``, with device times and bound; (a') one bounce round
    on 32 tiles of (b)'s round-1 queue, each K1/K2/K3 call against its
    plain version on the same inputs and tables (m 1000, sign -1 lanes, the
-   point light's converging cone).
+   point light's converging cone); (e) the graph spectral frame:
+   ``render_spectral_with_stats`` at the same size as one captured CUDA
+   graph (``render.py``), the culled march calls whose tables overflowed
+   in the key's first run promoted to full-group tables — the promoted
+   sites by round and call (round 0's point light expected), the first
+   call's launches (two deferred runs) and a replay's (``SPECTRAL_LAUNCHES``
+   exactly, also by name from a profiled replay), the replay against the
+   eager frame (max |d| <= 1e-5, two eager frames' own |d| beside it,
+   n_rays equal), 0 syncs in a replay and in the deferred frame under sync
+   debug mode "error", every torus moved in place between two replays
+   against the edited scene's eager frame, ``capture_s``, graph and eager
+   paired (medians of 9), 8 chained frames of each, a profiled replay's
+   ops and idle share, the growth of the graphs' memory pool.  (a), (b)
+   and (a') spy or patch kernels: they run the eager body
+   (``ops/wavefront.py::_spectral_frame``), which a replay would not.
 9. probe   — W (the bench warm-up kernel) and P1-P4 (the feature probes,
    csrc/probe.cu): the probe program itself with the launch counts read
    around it, then each kernel against its plain version on the TPU
@@ -135,7 +149,8 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    process of its own; its five JSON lines parsed (forward, fwd+bwd,
    spectral, ``tori_10k``, scaling, each a superset of the last), the last
    echoed, W launched once in each of its three processes, the spectral
-   stage's launches 9 × the spectral phase's frame, the 10k frame's
+   stage's launches the graph spectral frame's first call, 8 replays and
+   8 eager frames as the spectral phase read them, the 10k frame's
    launches one frame's, the scaling report one NCCL rank on one card.
 15. oracle — the kernels' frames (the default "cuda" route) against the
    port's float64 oracle (``fraytracer_tpu_torch/oracle/cpu_ref.py``)
@@ -2696,6 +2711,216 @@ def spectral_path_kernels(scene, q, cfg, tiles=32):
     torch.cuda.synchronize()
 
 
+# (e)'s bound, the graph spectral frame against the eager frame: each sums
+# its image with index_add_, whose atomic adds land in another order from
+# run to run, so two eager frames differ in the last bits too (printed)
+SPECTRAL_GRAPH_MAX = 1e-5
+SPECTRAL_CHAIN = 8    # chained spectral frames of the sustained time
+
+
+def spectral_sites(scene, sites):
+    """Name a spectral frame's culled march calls (its sites, numbered in
+    call order): each round's march, then its shadow march of each
+    light."""
+    per = 1 + scene.num_lights
+    return [f"round {i // per} "
+            + ("march" if i % per == 0 else f"light {i % per - 1}")
+            for i in sorted(sites)]
+
+
+def spectral_graph_case(dev, scene, cam, cfg, build_dir, eager_peak,
+                        eager_prof):
+    """(e) the graph spectral frame: ``render_spectral_with_stats`` at the
+    full width, one captured CUDA graph (``render.py``; the sites whose
+    tables overflowed in the key's first run promoted to full-group
+    tables): the promoted sites by round and call; the first call's
+    launches (two deferred runs) and a replay's, counted by the wrappers
+    and read by name from a profiled replay (``SPECTRAL_LAUNCHES``); the
+    replay against the eager frame within ``SPECTRAL_GRAPH_MAX``, two eager
+    frames' own difference beside it, ``n_rays`` equal; 0 syncs in a replay
+    and in the deferred frame under sync debug mode "error"; every torus
+    moved in place between two replays against the edited scene's eager
+    frame; ``capture_s``, graph and eager frames paired (median of
+    ``GRAPH_REPS``), ``SPECTRAL_CHAIN`` chained frames of each, a profile of
+    a replay and the growth of the graphs' memory pool."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred
+    from fraytracer_tpu_torch.ops import wavefront as tw
+    from fraytracer_tpu_torch.scene.nodes import LIGHT_POINT
+    R = render_module()
+    S = SPECTRAL_SIZE
+    graph = lambda: ft.render_spectral_with_stats(scene, cam, S, S, cfg)
+    eager = lambda: tw._spectral_frame(scene, cam, S, S, cfg)
+
+    def pool_now():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pool = R._pools.get(dev.index)
+        return 0.0 if pool is None else pool_mib(pool)
+    pool0 = pool_now()
+    ops_cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = graph()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    capture_peak = torch.cuda.max_memory_allocated()
+    sg = R.spectral_graph(scene, cam, S, S, cfg)
+    gc = ops_cuda.graph_counts()
+    check(sg is not None and sg.graph is not None
+          and gc == dict(NO_GRAPH, captures=1),
+          f"(e) the spectral key's first call: {gc}, graph "
+          f"{None if sg is None else sg.graph}")
+    first_counts = launched(ops_cuda.launch_counts())
+    promoted = sorted(sg.frame.promoted)
+    per = 1 + scene.num_lights
+    point = 1 + scene.light_kind.index(LIGHT_POINT)
+    log(f"  (e) promoted sites (culled march calls in call order, {per} a "
+        f"round): {promoted} = {spectral_sites(scene, promoted)}")
+    check(point in promoted and max(promoted) < per,
+          f"(e) promoted sites {promoted}: want round 0's point light "
+          f"(site {point}), none in a bounce round")
+    runs = 1 + bool(promoted)
+    want_first = {k: runs * v for k, v in SPECTRAL_LAUNCHES.items()}
+    check(first_counts == want_first,
+          f"(e) the first call's launches {first_counts}, want {want_first} "
+          f"({runs} deferred runs)")
+    del first
+    pool_growth = pool_now() - pool0
+
+    ops_cuda.reset_launch_counts()
+    img, n_rays = graph()
+    replay = launched(ops_cuda.launch_counts())
+    gc = ops_cuda.graph_counts()
+    check(gc == dict(NO_GRAPH, replays=1), f"(e) replay {gc}")
+    check(replay == launched(sg.launches) == SPECTRAL_LAUNCHES,
+          f"(e) launches per replay {replay}, recorded "
+          f"{launched(sg.launches)}, want {SPECTRAL_LAUNCHES}")
+    e1, en1 = eager()
+    e2, en2 = eager()
+    d = (img - e1).abs().max().item()
+    d_eager = (e2 - e1).abs().max().item()
+    log(f"  (e) graph frame vs eager frame: max |d| {d:.3e} (two eager "
+        f"frames: {d_eager:.3e}; bound {SPECTRAL_GRAPH_MAX}), n_rays "
+        f"{int(n_rays)} vs {int(en1)} / {int(en2)}; launches per replay "
+        f"{replay}; first call (two deferred runs, the capture) "
+        f"{first_s * 1e3:.1f} ms, capture_s {sg.capture_s * 1e3:.1f} ms, "
+        f"launches {first_counts}")
+    check(img.shape == (S, S, 3) and bool(torch.isfinite(img).all()),
+          "(e) graph spectral image")
+    check(d <= SPECTRAL_GRAPH_MAX and int(n_rays) == int(en1) == int(en2),
+          f"(e) the graph spectral frame against the eager frame: {d}, "
+          f"n_rays {int(n_rays)} / {int(en1)} / {int(en2)}")
+
+    # 0 syncs inside a replay and in the deferred frame (promoted sites)
+    with torch.no_grad():
+        for dst, src in zip(sg.inputs, R._inputs(scene, cam)):
+            dst.copy_(src)
+    torch.cuda.synchronize()
+    frame = deferred.Frame(dev)
+    frame.promoted = sg.frame.promoted
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sg.graph.replay()
+        with deferred.deferring(frame):
+            dimg, dn = tw._spectral_frame(scene, cam, S, S, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    dd = (dimg - e1).abs().max().item()
+    check(not bool(frame.flag) and dd <= SPECTRAL_GRAPH_MAX
+          and int(dn) == int(en1), f"(e) the deferred frame: flag "
+          f"{bool(frame.flag)}, max |d| {dd}")
+    log("  (e) a replay and the deferred frame (sites promoted) under sync "
+        f"debug mode \"error\": 0 syncs; the deferred frame's flag clear, "
+        f"max |d| {dd:.3e} against the eager frame")
+
+    # every torus moved in place between two replays
+    tori = scene.prim_params["torus"]
+    old = tori.clone()
+    with torch.no_grad():
+        tori[:, 0:3] += 0.05
+    try:
+        ops_cuda.reset_launch_counts()
+        mimg, mn = graph()
+        mcounts, mgc = launched(ops_cuda.launch_counts()), \
+            ops_cuda.graph_counts()
+        wimg, wn = eager()
+    finally:
+        with torch.no_grad():
+            tori.copy_(old)
+    dm = (mimg - wimg).abs().max().item()
+    changed = int(((mimg - img).abs().amax(-1) > 1e-3).sum())
+    log(f"  (e) every torus moved by (0.05, 0.05, 0.05) in place between "
+        f"two replays: {changed} pixels changed; {mgc} (flag "
+        f"{'set: eager re-run' if mgc['eager_reruns'] else 'clear'}), "
+        f"launches {mcounts}; max |d| {dm:.3e} against the edited scene's "
+        f"eager frame, n_rays {int(mn)} vs {int(wn)}")
+    check(dm <= SPECTRAL_GRAPH_MAX and int(mn) == int(wn) and changed > 0,
+          f"(e) the replay after an edit: {dm}, {changed} pixels changed")
+    again = graph()[0]
+    check((again - e1).abs().max().item() <= SPECTRAL_GRAPH_MAX,
+          "(e) the replay after the edit was undone")
+
+    g_ms, e_ms = paired_ms((graph, eager))
+    chain = {}
+    for name, fn in (("graph", graph), ("eager", eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SPECTRAL_CHAIN):
+            fn()
+        torch.cuda.synchronize()
+        chain[name] = 1e3 * (time.perf_counter() - t0) / SPECTRAL_CHAIN
+    rec = {}
+    profile_frame(scene, cam, None,
+                  build_dir / "chip_smoke_spectral_graph_trace.json",
+                  fn=graph, ops=8, record=rec)
+    want = collections.Counter()
+    for k, v in SPECTRAL_LAUNCHES.items():
+        want[TRACE_NAMES[k]] += v
+    traced = traced_launches(rec)
+    log(f"  (e) the port's kernels in the profiled replay {dict(traced)}, "
+        f"want {dict(want)}")
+    check(traced == want, f"(e) traced launches {dict(traced)}, want "
+          f"{dict(want)}")
+    res = {"promoted": spectral_sites(scene, promoted), "launches": replay,
+           "first_launches": first_counts, "max_abs_diff": d,
+           "eager_max_abs_diff": d_eager, "edit_max_abs_diff": dm,
+           "edit_graph_counts": mgc, "capture_ms": 1e3 * sg.capture_s,
+           "first_call_ms": 1e3 * first_s, "graph_ms": statistics.median(g_ms),
+           "eager_ms": statistics.median(e_ms), "graph_times_ms": g_ms,
+           "eager_times_ms": e_ms, "paired_diff_ms": statistics.median(
+               [a - b for a, b in zip(g_ms, e_ms)]),
+           "sustained_graph_ms": chain["graph"],
+           "sustained_eager_ms": chain["eager"], "pool_growth_mib":
+           pool_growth, "pool_mib": pool0 + pool_growth,
+           "capture_peak_mib": capture_peak / 2**20,
+           "eager_peak_mib": eager_peak / 2**20,
+           **{f"graph_{k}": v for k, v in rec.items() if k != "kernels"},
+           **{f"eager_{k}": v for k, v in eager_prof.items()
+              if k != "kernels"}}
+    idle = {name: 1 - p["busy_ms"] / p["span_ms"] if "busy_ms" in p
+            else None for name, p in (("graph", rec), ("eager", eager_prof))}
+    res.update(graph_idle=idle["graph"], eager_idle=idle["eager"])
+    log(f"  (e) graph {res['graph_ms']:.3f} ms ({min(g_ms):.3f}–"
+        f"{max(g_ms):.3f}) / eager {res['eager_ms']:.3f} ms "
+        f"({min(e_ms):.3f}–{max(e_ms):.3f}) (medians of {GRAPH_REPS}, "
+        f"paired; median paired difference {res['paired_diff_ms']:.3f} ms), "
+        f"sustained over {SPECTRAL_CHAIN} chained frames: graph "
+        f"{chain['graph']:.3f} ms, eager {chain['eager']:.3f} ms; profile: "
+        f"graph {rec.get('ops')} device ops, busy "
+        f"{rec.get('busy_ms', float('nan')):.3f} of "
+        f"{rec.get('span_ms', float('nan')):.3f} ms (idle {idle['graph']}), "
+        f"eager {eager_prof.get('ops')} ops, busy "
+        f"{eager_prof.get('busy_ms', float('nan')):.3f} of "
+        f"{eager_prof.get('span_ms', float('nan')):.3f} ms (idle "
+        f"{idle['eager']}); the pool grew {pool_growth:.1f} MiB to "
+        f"{pool0 + pool_growth:.1f} MiB (peak during the first call "
+        f"{capture_peak / 2**20:.1f} MiB, the eager frame's "
+        f"{eager_peak / 2**20:.1f}; {nvidia_smi()})")
+    return res
+
+
 def phase_spectral(dev, build_dir, reps=5):
     """(a) the 64² × 8-bin, depth-3 frame on ``spectral_csg_scene(19,
     1000)`` through the kernels against the plain route (its bounce rounds
@@ -2706,21 +2931,26 @@ def phase_spectral(dev, build_dir, reps=5):
     active lanes and candidates per tile round by round, the median of
     ``reps``, peak memory, a profiled frame; (c) K4 at the path's shapes;
     (a') K1/K2/K3 against their plain versions on tiles of (b)'s round-1
-    queue."""
+    queue; (e) the graph spectral frame (:func:`spectral_graph_case`).
+    (a), (b) and (a') run the eager body, ``_spectral_frame``: their spies
+    and patched kernels would not run in a replay."""
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.image.io import save_image
     from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    from fraytracer_tpu_torch.ops import wavefront as tw
     from fraytracer_tpu_torch.scene.generators import spectral_csg_scene
     cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
 
     scene = ft.flatten(spectral_csg_scene(19, BENCH_N_TORI), device=dev)
     scfg = spectral_config(depth=3)
+    # the eager body: a replay would run neither the spies nor the plain
+    # route's kernels
     ops_cuda.reset_launch_counts()
     with spectral_spies() as srec:
-        ik, nk = ft.render_spectral_with_stats(scene, cam, 64, 64, scfg)
+        ik, nk = tw._spectral_frame(scene, cam, 64, 64, scfg)
     small_counts = ops_cuda.launch_counts()
     with plain_route():
-        ip, np_ = ft.render_spectral_with_stats(scene, cam, 64, 64, scfg)
+        ip, np_ = tw._spectral_frame(scene, cam, 64, 64, scfg)
     check(ops_cuda.launch_counts() == small_counts,
           "the plain route launched a kernel")
     d = (ik - ip).abs()
@@ -2743,8 +2973,9 @@ def phase_spectral(dev, build_dir, reps=5):
           f"(a) bounce tables of m {bounce_m}, inside lanes {inside}")
 
     cfg = spectral_config()
-    render = lambda: ft.render_spectral_with_stats(
-        scene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, cfg)
+    # (b) times the eager frame (spied and counted); (e) the graph frame
+    render = lambda: tw._spectral_frame(scene, cam, SPECTRAL_SIZE,
+                                        SPECTRAL_SIZE, cfg)
     ops_cuda.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2791,18 +3022,21 @@ def phase_spectral(dev, build_dir, reps=5):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     log(f"  (b) spectral frame peak device memory {peak / 2**20:.1f} MiB")
+    eager_prof = {}
     idle = profile_frame(scene, cam, None,
                          build_dir / "chip_smoke_spectral_frame_trace.json",
-                         fn=render, ops=16)
+                         fn=render, ops=16, record=eager_prof)
     gen = torch.Generator(device=dev).manual_seed(19)
     png = build_dir / "chip_smoke_spectral_frame.png"
     save_image(str(png), ft.tonemap(img, gen, 2.2).cpu().numpy())
     log(f"  wrote {png}")
     k4 = spectral_k4_times(rec)
     spectral_path_kernels(scene, rec["queue1"], cfg)
+    graph = spectral_graph_case(dev, scene, cam, cfg, build_dir, peak,
+                                eager_prof)
     return dict(counts=counts, want=want, reruns=reruns, rounds=rounds,
                 n_rays=int(n_rays), first_s=first_s, med=med, peak=peak,
-                idle=idle, k4=k4, small_err=d.max().item())
+                idle=idle, k4=k4, small_err=d.max().item(), graph=graph)
 
 
 # ---------------------------------------------------------------------------
@@ -3929,14 +4163,14 @@ def phase_periphery(dev, scene, build_dir):
 # phase 14: the bench entry point
 # ---------------------------------------------------------------------------
 
-def phase_bench(spectral_counts):
+def phase_bench(spectral):
     """``python -m fraytracer_tpu_torch.bench`` at its defaults (the full
     width: 1024², 1000 tori, forward, forward + backward, the 512² spectral
     frame, the 10,000-torus frame, the scaling report) in a process of its
     own (its warm-up is a process's first launch); every JSON line parsed,
-    the last one echoed.  ``spectral_counts``: one spectral frame's
-    launches in the spectral phase, the same frame the bench runs 9
-    times."""
+    the last one echoed.  ``spectral``: the spectral phase's readings of
+    the frame the bench runs — the graph frame's first call and a replay
+    ((e)), the eager frame ((b))."""
     cmd = [sys.executable, "-m", "fraytracer_tpu_torch.bench"]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
                           cwd=str(Path(__file__).resolve().parent))
@@ -3961,7 +4195,9 @@ def phase_bench(spectral_counts):
               "fwd_bwd_time_s", "fwd_bwd_over_fwd", "fwd_bwd_capture_s",
               "fwd_bwd_time_eager_s", "fwd_bwd_time_sustained_s", "device",
               "kernel_launches", "spectral_time_s", "spectral_size",
-              "spectral_rays_marched", "spectral_rays_per_sec"):
+              "spectral_rays_marched", "spectral_rays_per_sec",
+              "spectral_time_eager_s", "spectral_capture_s",
+              "spectral_method"):
         check(k in last, f"bench line lacks {k}")
     check(not any("compile" in k for k in last)
           and not any("compile" in k for k in last["tori_10k"]),
@@ -3972,7 +4208,9 @@ def phase_bench(spectral_counts):
           "bench ray counts")
     check(last["spectral_size"] == SPECTRAL_SIZE
           and last["spectral_rays_marched"] > SPECTRAL_SIZE ** 2
-          and last["spectral_time_s"] > 0, "bench spectral fields")
+          and last["spectral_time_s"] > 0
+          and last["spectral_time_eager_s"] > 0
+          and last["spectral_capture_s"] > 0, "bench spectral fields")
     # the forward stage's counts: W once, then the 1 + 15 culled frames
     # of fwd_time_s and 32 + 32 chained ones (the graph frame's and the
     # eager frame's sustained times)
@@ -4000,9 +4238,12 @@ def phase_bench(spectral_counts):
            kl["occlusion_culled"], kl["block_gather"])
           == (1, frames, frames, 2 * frames, 0),
           f"bench launches after fwd+bwd {kl}")
-    # then 1 + 8 spectral frames, each the spectral phase's frame
+    # then the graph spectral frame's first call (its deferred runs), 8
+    # replays and 8 eager frames, each as the spectral phase read them
     spec = {k: v - kl[k] for k, v in third["kernel_launches"].items()}
-    want = {k: 9 * v for k, v in spectral_counts.items()}
+    g = spectral["graph"]
+    want = {k: g["first_launches"].get(k, 0) + 8 * g["launches"].get(k, 0)
+            + 8 * v for k, v in spectral["counts"].items()}
     check(spec == want, f"bench spectral launches {spec}, want {want}")
     # the 10k frame's process: W once, its first frame one culled frame
     t = last["tori_10k"]
@@ -4821,7 +5062,8 @@ def main() -> int:
     oracle = phase_oracle(dev, scene, blend)
 
     log(f"[spectral] the spectral wavefront: kernels vs plain route at 64^2, "
-        f"the {SPECTRAL_SIZE}^2 x 8-bin depth-4 frame, K4 at its shapes")
+        f"the {SPECTRAL_SIZE}^2 x 8-bin depth-4 frame, K4 at its shapes, "
+        "the graph spectral frame")
     spectral = phase_spectral(dev, build.BUILD_DIR)
 
     log("[probe] W and P1-P4: the probe program, kernel vs plain, times")
@@ -4843,7 +5085,7 @@ def main() -> int:
     log("[periphery] validate_scene, nan_guard, march_stats, trace")
     phase_periphery(dev, scene, build.BUILD_DIR)
     log("[bench] the bench entry point in a process of its own")
-    bench = phase_bench(spectral["counts"])
+    bench = phase_bench(spectral)
 
     mk = f"{TPU}/march_kernel.py"
     rows = [("march", f"{SRC}/march.cu", f"{mk}:1637", dense),
@@ -4946,6 +5188,10 @@ def main() -> int:
     for row in kernels:
         name = row["name"]
         row["spectral_frame_launches"] = spectral["counts"][name]
+        # a replay of the graph spectral frame ((e): its promoted site
+        # re-runs nothing)
+        row["spectral_graph_replay_launches"] = \
+            spectral["graph"]["launches"].get(name, 0)
         row["tori10k_frame_launches"] = tenk["counts"][name]
         row["sharded_frame_launches"] = multi["counts"][name]
         row["sharded_frame_launches_per_gloo_rank"] = [
@@ -4979,6 +5225,19 @@ def main() -> int:
         f", launches {spectral['want']} (re-runs {spectral['reruns']}), "
         f"active lanes by round "
         f"{[r['active'] for r in spectral['rounds']]}")
+    g = spectral["graph"]
+    log(f"[summary] graph spectral frame: {g['graph_ms']:.3f} ms against "
+        f"eager {g['eager_ms']:.3f} ms (paired medians of {GRAPH_REPS}), "
+        f"sustained {g['sustained_graph_ms']:.3f} / "
+        f"{g['sustained_eager_ms']:.3f} ms, capture {g['capture_ms']:.1f} ms"
+        f", promoted {g['promoted']}, launches per replay {g['launches']}, "
+        f"idle share graph {g['graph_idle']} / eager {g['eager_idle']}, "
+        f"the pool grew {g['pool_growth_mib']:.1f} MiB to "
+        f"{g['pool_mib']:.1f} MiB; max |d| against eager "
+        f"{g['max_abs_diff']:.3e} (eager twice {g['eager_max_abs_diff']:.3e})"
+        f"; bench spectral {bench['spectral_time_s'] * 1e3:.2f} ms, eager "
+        f"{bench['spectral_time_eager_s'] * 1e3:.2f} ms, capture "
+        f"{bench['spectral_capture_s']:.3f} s")
     log(f"[summary] sharded paths: one NCCL rank frame median "
         f"{multi['frame_ms']:.2f} ms against render's "
         f"{multi['single_ms']:.2f} ms, train step (4 chunks) "

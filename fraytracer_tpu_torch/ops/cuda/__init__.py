@@ -10,7 +10,8 @@ so the counts still mean kernels launched on the card.  ``GRAPH`` counts
 the frames captured, the replays, the eager re-runs of frames that raised
 their flag, and the frames of keys run eagerly because their first frame
 raised it; a step of ``render_value_and_grad`` (a frame and its backward
-in one graph) counts as a frame under the same keys.
+in one graph) and a spectral frame of ``render_spectral_with_stats`` count
+as frames under the same keys.
 """
 from . import gather, march_kernel
 
@@ -39,7 +40,8 @@ def add_launch_counts(delta: dict) -> None:
 
 def graph_counts() -> dict:
     """Graph frames captured, replayed, run again eagerly, and run eagerly
-    for their key, since the last reset (graph steps counted as frames)."""
+    for their key, since the last reset (graph steps and spectral frames
+    counted as frames)."""
     return dict(GRAPH)
 
 

@@ -1135,10 +1135,15 @@ def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
     origin = rays.origin.contiguous()
     direction = rays.direction.contiguous()
     epsilon = rays.epsilon.contiguous()
+    frame = deferred.current()
+    # a deferred frame's culled call is a site; a promoted site builds the
+    # full-group tables at once (ops/deferred.py)
+    site = frame is not None and bool(cull_pairs_for(scene, cfg))
+    if site and frame.next_site_promoted():
+        cfg = _full_tables(cfg, cull_pairs_for(scene, cfg))
     t0, miss0, length, cull = march_tables(scene, rays, cfg, cone_apex,
                                            sign)
     pairs = cull.pairs if cull is not None else ()
-    frame = deferred.current()
     overflowed = _overflow_on_host(cull) if frame is None else None
     kw = dict(max_steps=cfg.max_steps, omega=cfg.relax_omega, cull=cull,
               sign=sign)
@@ -1156,19 +1161,25 @@ def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
                                                 epsilon, hit_k, cull=cull)
             out = (out, normal, torch.where(hit, midx, -1), code)
     # a tile's candidate count exceeded its table, so its windows were
-    # unsound.  A deferred frame (ops/deferred.py) raises its flag and is
-    # run again eagerly; the eager call reads the flag on the host (its one
-    # host sync) and runs the same path again with full-group tables
-    # (m >= every group: cannot overflow, march_kernel.py:2018-2043,
-    # :2092-2096); the re-run's launches count too
+    # unsound.  A deferred frame (ops/deferred.py) records the site's
+    # overflow, raises its flag on it and is run again eagerly (or, for a
+    # site it then promotes, again deferred); the eager call reads the
+    # flag on the host (its one host sync) and runs the same path again
+    # with full-group tables (m >= every group: cannot overflow,
+    # march_kernel.py:2018-2043, :2092-2096); the re-run's launches count
+    # too
     if frame is not None:
-        if cull is not None and cull.overflow is not None:
-            frame.raise_if(cull.overflow)
+        if site:
+            frame.add_site(cull.overflow)
         return out
     if overflowed():
-        big = max(r1 - r0 for (_g, _k, _ki, r0, r1) in pairs)
-        return cuda_march_raw(
-            scene, rays, dataclasses.replace(cfg, cull_m=big,
-                                             cull_m_shadow=big),
-            want_surface, occlusion, cone_apex, sign)
+        return cuda_march_raw(scene, rays, _full_tables(cfg, pairs),
+                              want_surface, occlusion, cone_apex, sign)
     return out
+
+
+def _full_tables(cfg: MarchConfig, pairs) -> MarchConfig:
+    """``cfg`` with candidate tables of the largest culled group: no
+    tile's count can exceed them."""
+    big = max(r1 - r0 for (_g, _k, _ki, r0, r1) in pairs)
+    return dataclasses.replace(cfg, cull_m=big, cull_m_shadow=big)

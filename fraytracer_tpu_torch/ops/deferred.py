@@ -20,6 +20,15 @@ hands it over: autograd may run a backward on a thread of its own, where
 the context variable is unset), and so does a checkpointed region's
 recomputation (:func:`in_current`).
 
+The culled march calls of a frame come in a fixed order under its key (its
+Python control flow is static), so a :class:`Frame` numbers them: each is
+a *site*, and the frame keeps each site's overflow bool (``None`` where
+its tables cannot overflow).  A site may be *promoted*: it then builds its
+tables on the full group at once, the tables the eager re-run and JAX's
+fallback march on, and cannot overflow — the counterpart of a ``lax.cond``
+taken per call site (``render.py``'s spectral graph promotes the sites its
+first run saw overflow).
+
 A :class:`Frame` also keeps the scene's lowered kernel program for the
 frame's marches (``ops/cuda/march_kernel.py::lower_program``), so that the
 lowering of the parameter values runs inside the frame, once, and never
@@ -41,16 +50,43 @@ class Frame:
     """A deferred frame's state: ``flag`` (bool ``[]`` on ``device``) is
     set where a branch needs the eager re-run; ``programs`` holds the
     lowered programs of the frame's marches, ``constants`` the device
-    constants it read."""
+    constants it read; ``overflows`` the overflow bool of each culled
+    march call (site) of the current run in call order (``None`` where
+    the call cannot overflow), ``promoted`` the sites that build
+    full-group tables."""
 
     def __init__(self, device):
         self.flag = torch.zeros((), dtype=torch.bool, device=device)
         self.programs = {}
         self.constants = {}
+        self.overflows = []
+        self.promoted = frozenset()
 
     def raise_if(self, cond: torch.Tensor) -> None:
         """OR a bool scalar tensor into the flag, on the device."""
         self.flag.logical_or_(cond)
+
+    def next_site_promoted(self) -> bool:
+        """Whether the culled march call about to build its tables (the
+        next site) is promoted."""
+        return len(self.overflows) in self.promoted
+
+    def add_site(self, overflow: torch.Tensor | None) -> None:
+        """Record the next site's overflow bool, and raise the flag on
+        it."""
+        self.overflows.append(overflow)
+        if overflow is not None:
+            self.raise_if(overflow)
+
+    def overflowed_sites(self) -> frozenset:
+        """The sites of the last run whose tables overflowed: the stacked
+        bools read on the host, once."""
+        armed = [(i, o) for i, o in enumerate(self.overflows)
+                 if o is not None]
+        if not armed:
+            return frozenset()
+        hit = torch.stack([o.reshape(()) for _i, o in armed]).tolist()
+        return frozenset(i for (i, _o), h in zip(armed, hit) if h)
 
 
 _current: contextvars.ContextVar = contextvars.ContextVar(

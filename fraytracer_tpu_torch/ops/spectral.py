@@ -13,12 +13,11 @@ match it bit for bit; a function takes them on its inputs' device.
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from ..types import dot
+from . import deferred
 
 Tensor = torch.Tensor
 
@@ -56,10 +55,11 @@ _TABLES = {"bin_rgb": BIN_RGB, "wavelengths_um": WAVELENGTHS_UM,
            "bin_rgb_sum": BIN_RGB.sum(axis=0)}
 
 
-@functools.lru_cache(maxsize=8)
+@deferred.device_constant(maxsize=8)
 def table(name: str, device: torch.device) -> Tensor:
     """The numpy table ``name`` on ``device``, copied there once per device:
-    a copy from host memory waits for the device's queue to drain."""
+    a copy from host memory waits for the device's queue to drain (and a
+    captured frame reads it by address: ``deferred.device_constant``)."""
     return torch.from_numpy(_TABLES[name]).to(device)
 
 

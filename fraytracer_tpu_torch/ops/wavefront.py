@@ -19,10 +19,12 @@ recursion of ``SdfLight.fs:10-21``) as an iterative wavefront:
 * per-ray wavelength bins drive dispersive refraction; contributions
   accumulate into the RGB image through the bins' response filters.
 
-Host syncs: none beyond those of ``resolve_material``'s tiers and of the
-culled marches' overflow check.  Every round marches (and launches its
-kernels) even when its queue is empty, and whether a scene has specular
-materials is read from ``scene.mat_kind``, not from the device.  The
+Host syncs of the eager frame: none beyond those of ``resolve_material``'s
+tiers and of the culled marches' overflow check; the frame a CUDA graph
+captures (``render_spectral_with_stats`` on the card) defers both to one
+device flag.  Every round marches (and launches its kernels) even when its
+queue is empty, and whether a scene has specular materials is read from
+``scene.mat_kind``, not from the device.  The
 integrator is forward only (it runs without autograd): the block gather
 has no backward, as the JAX package's Pallas gather has none.
 """
@@ -272,12 +274,55 @@ def _bounce(scene: FlatScene, q: RayQueue, image: Tensor,
     return _compact(both, C, cfg), image, n_marched
 
 
+def _graph_spectral(scene: FlatScene, camera, cfg: WavefrontConfig) -> bool:
+    """True when the spectral frame runs as a captured graph: the kernels,
+    and every tensor of the scene and the camera on a CUDA device."""
+    from ..render import _inputs
+    return cfg.march.backend == "cuda" and all(
+        x.is_cuda for x in _inputs(scene, camera))
+
+
 @torch.no_grad()
 def render_spectral_with_stats(scene: FlatScene, camera, width: int,
                                height: int,
                                cfg: WavefrontConfig = WavefrontConfig()):
     """Spectral wavefront render → ``(linear RGB [H, W, 3], rays marched)``
-    (an int64 scalar tensor: primary, bounce and facing shadow lanes).
+    (an int64 scalar tensor: primary, bounce and facing shadow lanes); the
+    frame is :func:`_spectral_frame`.
+
+    The JAX package jits this function (static ``width``, ``height`` and
+    ``cfg``): its culled marches' overflow fallbacks are ``lax.cond``s on
+    the device.  On the kernels of a CUDA device the frame is one captured
+    CUDA graph a :func:`render.spectral_key` (``render.py``'s graph frame):
+    the key's first call runs the frame with its host reads deferred; where
+    that run's culled march calls (its sites, in their fixed order)
+    overflowed their tables, those sites are promoted to full-group tables
+    (the tables JAX's fallback and the eager re-run march on) and the frame
+    runs once more, deferred, then is captured.  A replay reads one device
+    flag, set where another site overflows or a material repair is needed,
+    and on it runs the eager frame again; a key whose promoted run still
+    raises it runs eagerly.  Spectral frames count as frames in
+    ``ops.cuda.graph_counts()`` (no keys of their own).  On the CPU, or on
+    the "torch" backend, the frame runs eagerly.  The outputs are the
+    caller's own."""
+    if not _graph_spectral(scene, camera, cfg):
+        return _spectral_frame(scene, camera, width, height, cfg)
+    from ..render import _FrameGraph, _run_graph, spectral_key
+
+    def body(s, c, w):
+        return _spectral_frame(s, c, width, height, w)
+    return _run_graph(
+        spectral_key(scene, camera, width, height, cfg),
+        lambda: _FrameGraph(body, scene, camera, cfg, promote=True),
+        lambda: _spectral_frame(scene, camera, width, height, cfg),
+        (scene, camera))
+
+
+@torch.no_grad()
+def _spectral_frame(scene: FlatScene, camera, width: int, height: int,
+                    cfg: WavefrontConfig):
+    """The eager spectral frame (what :func:`render_spectral_with_stats`
+    captures, and runs again where a replay raises its flag).
 
     **Shared primary round**: camera rays are the same for every bin
     (dispersion starts at the first specular surface), so round 0 marches

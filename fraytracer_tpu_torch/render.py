@@ -30,6 +30,14 @@ loss of the frame; :func:`render_value_and_grad` is its counterpart, a
 step (forward and backward) captured as one CUDA graph a
 :func:`step_key` by the same rule, the backward's host read (the
 certificate of ``point_eval``'s candidate lists) deferred to the flag too.
+
+The spectral frame (``ops/wavefront.py::render_spectral_with_stats``) is
+captured a :func:`spectral_key` by one more rule, for its culled marches'
+overflow fallbacks: where the key's first run raised the flag and its
+culled march calls (sites, numbered in their fixed order) overflowed, those
+sites are promoted to full-group tables, the frame runs once more deferred
+and, unless that run raises the flag too, is captured.  Frame and step keys
+keep the rule above.
 """
 from __future__ import annotations
 
@@ -158,6 +166,14 @@ def frame_key(scene: FlatScene, camera: cam.Camera, cfg: RenderConfig):
             tuple(scene.prim_params), leaves, cfg)
 
 
+def spectral_key(scene: FlatScene, camera: cam.Camera, width: int,
+                 height: int, cfg):
+    """What a captured spectral frame (``ops/wavefront.py``) is kept under,
+    as ``jax.jit`` keys it (static ``width``, ``height`` and ``cfg``): the
+    frame's key over the ``WavefrontConfig`` and the image size."""
+    return ("spectral", frame_key(scene, camera, (width, height, cfg)))
+
+
 def _graph_frame(scene: FlatScene, camera: cam.Camera,
                  cfg: RenderConfig) -> bool:
     """True when the frame runs as a captured graph: the kernels, every
@@ -213,18 +229,22 @@ class _FrameGraph:
     the device constants the graph reads (``deferred.device_constant``).
 
     ``body(scene, camera, cfg, *args)`` returns a tuple of tensors:
-    :func:`_frame` (``grad`` false) or :func:`_step` over a loss function
-    (``grad`` true).  Made by the first call of a key: the body runs
-    eagerly once, its host reads deferred (``first``: its outputs, or
-    ``None`` when it raised the flag); that run also makes the device
-    constants, whose copies from host data cannot be captured, and sets up
-    autograd's worker thread for a step.  Then, unless it raised the flag,
-    the body is captured (``graph``, else ``None``: the key runs eagerly;
-    ``capture_s``: both together, the counterpart of JAX's compile time).
-    A failure in either raises."""
+    :func:`_frame` (``grad`` false), :func:`_step` over a loss function
+    (``grad`` true) or the spectral frame.  Made by the first call of a
+    key: the body runs eagerly once, its host reads deferred (``first``:
+    its outputs, or ``None`` when it raised the flag); that run also makes
+    the device constants, whose copies from host data cannot be captured,
+    and sets up autograd's worker thread for a step.  With ``promote``,
+    a first run that raised the flag and saw sites overflow (its stacked
+    overflow bools read once) promotes those sites and runs once more,
+    deferred: the counterpart of JAX's ``lax.cond`` fallback taken per
+    call site.  Then, unless the last run raised the flag, the body is
+    captured (``graph``, else ``None``: the key runs eagerly;
+    ``capture_s``: the runs and the capture together, the counterpart of
+    JAX's compile time).  A failure in any raises."""
 
     def __init__(self, body, scene: FlatScene, camera: cam.Camera,
-                 cfg: RenderConfig, args=(), grad: bool = False):
+                 cfg, args=(), grad: bool = False, promote: bool = False):
         t0 = time.perf_counter()
         self.device = scene.device
         self.inputs = [x.detach().clone()
@@ -242,12 +262,26 @@ class _FrameGraph:
         self.frame = deferred.Frame(self.device)
         self.graph, self.launches = None, {}
         with torch.no_grad(), on_device(self.device):
-            with deferred.deferring(self.frame):
-                out = self.body()
-            self.first = None if bool(self.frame.flag) else out
+            out = self._deferred_run()
+            flagged = bool(self.frame.flag)
+            if flagged and promote:
+                sites = self.frame.overflowed_sites()
+                if sites:
+                    self.frame.promoted = sites
+                    self.frame.flag.zero_()
+                    out = self._deferred_run()
+                    flagged = bool(self.frame.flag)
+            self.first = None if flagged else out
             if self.first is not None:
                 self._capture()
         self.capture_s = time.perf_counter() - t0
+
+    def _deferred_run(self):
+        """The body run eagerly with its host reads deferred to the
+        frame, its sites numbered from 0."""
+        self.frame.overflows.clear()
+        with deferred.deferring(self.frame):
+            return self.body()
 
     def _capture(self) -> None:
         """Capture the body into the device's graph memory pool."""
@@ -258,6 +292,7 @@ class _FrameGraph:
         if index not in _pools:
             _pools[index] = torch.cuda.graph_pool_handle()
         before = ops_cuda.launch_counts()
+        self.frame.overflows.clear()
         try:
             with torch.no_grad(), on_device(self.device), \
                     torch.cuda.graph(graph, pool=_pools[index]), \
@@ -346,6 +381,14 @@ def render_with_stats(scene: FlatScene, camera: cam.Camera,
         frame_key(scene, camera, cfg),
         lambda: _FrameGraph(_frame, scene, camera, cfg),
         lambda: _frame(scene, camera, cfg), (scene, camera))
+
+
+def spectral_graph(scene: FlatScene, camera: cam.Camera, width: int,
+                   height: int, cfg) -> _FrameGraph | None:
+    """:func:`frame_graph` of the spectral frame
+    (``ops/wavefront.py::render_spectral_with_stats``): also its
+    ``frame.promoted``, the sites that build full-group tables."""
+    return _graphs.get(spectral_key(scene, camera, width, height, cfg))
 
 
 def step_key(loss_fn, scene: FlatScene, camera: cam.Camera,

@@ -34,7 +34,12 @@ the eager step's and its gradients within 2e-4 of each leaf's largest |g|
 (the backward's atomic adds sum in another order), after an edit too, a
 flagged replay run again eagerly, a failing certificate kept eager, a
 capture that fails raises, one pool with the frame graphs, the checkpoint
-sites captured."""
+sites captured.  The graph spectral frame (``render_spectral_with_stats``):
+within 1e-5 of the eager frame (``index_add_``'s atomic order) with
+``n_rays`` equal, one capture with its overflowing sites promoted and no
+eager re-run, after an edit too; K1/K2/K3 on unfilled tables of m 512
+bit for bit the full group's; a capture that fails raises; one pool with
+the frame graphs."""
 import dataclasses
 
 import pytest
@@ -994,7 +999,9 @@ def test_spectral_frame_kernels_match_plain_route(dev):
     their plain versions differ by ulps; the order of ``index_add_``'s
     atomic sums varies), rays marched within 0.5%; the kernel route
     launches each culled kernel a round and K4 for the block-tier
-    compaction."""
+    compaction.  Both run the eager frame (``_spectral_frame``): the graph
+    frame's second call would replay the first call's kernels."""
+    from fraytracer_tpu_torch.ops.wavefront import _spectral_frame
     from fraytracer_tpu_torch.scene.generators import spectral_csg_scene
     scene = ft.flatten(spectral_csg_scene(19, 1000), device=dev)
     cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
@@ -1008,7 +1015,7 @@ def test_spectral_frame_kernels_match_plain_route(dev):
             gather._gather_blocks = gather.block_gather_plain
         try:
             ops_cuda.reset_launch_counts()
-            img, n = ft.render_spectral_with_stats(scene, cam, 64, 64, cfg)
+            img, n = _spectral_frame(scene, cam, 64, 64, cfg)
             torch.cuda.synchronize()
             return img, int(n), ops_cuda.launch_counts()
         finally:
@@ -1025,6 +1032,180 @@ def test_spectral_frame_kernels_match_plain_route(dev):
     assert counts["occlusion_culled"] >= 6
     assert counts["block_gather"] >= 16        # 8 fields × 2 compactions
     assert counts["march"] == counts["surface"] == counts["occlusion"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the graph spectral frame (ops/wavefront.py::render_spectral_with_stats)
+# ---------------------------------------------------------------------------
+
+# the graph spectral frame against the eager frame: each sums the image
+# with index_add_, whose atomic adds land in another order run to run
+SPECTRAL_GRAPH_MAX = 1e-5
+SPECTRAL_REPLAY = {"march_culled": 4, "surface_culled": 4,
+                   "occlusion_culled": 8, "block_gather": 24}
+
+
+def _spectral_setup(dev, size=128):
+    """``spectral_csg_scene(19, 1000)`` at ``size``², 8 bins, depth 4, the
+    bench's march configuration; no graph kept, counts at 0."""
+    import sys
+    from fraytracer_tpu_torch.ops.wavefront import _spectral_frame
+    from fraytracer_tpu_torch.scene.generators import spectral_csg_scene
+    scene = ft.flatten(spectral_csg_scene(19, 1000), device=dev)
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    cfg = ft.WavefrontConfig(depth=4, epsilon=0.01, length=30.0,
+                             march=ft.MarchConfig(max_steps=192,
+                                                  bound_skip=True,
+                                                  relax_omega=1.4))
+    R = sys.modules["fraytracer_tpu_torch.render"]
+    R._graphs.clear()
+    ops_cuda.reset_launch_counts()
+    return (scene, cam, cfg, R,
+            lambda s=scene: _spectral_frame(s, cam, size, size, cfg),
+            lambda s=scene: ft.render_spectral_with_stats(s, cam, size,
+                                                          size, cfg))
+
+
+def _assert_spectral_close(got, want):
+    assert float((got[0] - want[0]).abs().max()) <= SPECTRAL_GRAPH_MAX
+    assert int(got[1]) == int(want[1])
+
+
+def test_graph_spectral_frame_is_the_eager_frame(dev):
+    """The key's first call promotes the sites whose tables overflowed
+    (round 0's shadow marches at least) and captures; later calls replay
+    with no eager re-run, each within 1e-5 of the eager frame with
+    ``n_rays`` equal, launching 4 / 4 / 8 / 24 a replay (a promoted site
+    runs once, on full-group tables)."""
+    scene, cam, cfg, R, eager, graph = _spectral_setup(dev)
+    want = eager()
+    ops_cuda.reset_launch_counts()
+    _assert_spectral_close(graph(), want)
+    assert ops_cuda.graph_counts() == {"captures": 1, "replays": 0,
+                                       "eager_reruns": 0, "eager_frames": 0}
+    sg = R.spectral_graph(scene, cam, 128, 128, cfg)
+    assert sg.graph is not None and sg.frame.promoted
+    assert max(sg.frame.promoted) < 1 + scene.num_lights
+    assert {k: v for k, v in sg.launches.items() if v} == SPECTRAL_REPLAY
+    ops_cuda.reset_launch_counts()
+    for _ in range(2):
+        _assert_spectral_close(graph(), want)
+    assert {k: v for k, v in ops_cuda.launch_counts().items() if v} == {
+        k: 2 * v for k, v in SPECTRAL_REPLAY.items()}
+    assert ops_cuda.graph_counts() == {"captures": 0, "replays": 2,
+                                       "eager_reruns": 0, "eager_frames": 0}
+
+
+def test_graph_spectral_frame_after_a_parameter_edit(dev):
+    """Every torus moved in place, and a new scene object of the same
+    structure, between two replays: each call is its scene's eager frame
+    within the bound, whether or not its flag was raised."""
+    scene, cam, cfg, R, eager, graph = _spectral_setup(dev)
+    graph()
+    with torch.no_grad():
+        scene.prim_params["torus"][:, 0:3] += 0.05
+        scene.light_color.mul_(0.5)
+    _assert_spectral_close(graph(), eager())
+    other = scene.with_tensors({k: v * 1.01
+                                for k, v in scene.tensors().items()})
+    _assert_spectral_close(graph(other), eager(other))
+    assert len(R._graphs) == 1
+    assert ops_cuda.graph_counts()["captures"] == 1
+
+
+def test_spectral_promotion_is_exact_on_the_kernels(dev):
+    """The condition that makes a promoted site exact: K1, K3 and K2 of
+    both lights (the point light with its converging cone) on tables of m
+    512 that no tile fills give the outputs of the full group's tables (m
+    1000), bit for bit, each launch with its own shared-memory plan
+    (1024² primary lanes of ``spectral_csg_scene(19, 1000)``)."""
+    from fraytracer_tpu_torch.ops.march import MarchConfig
+    from fraytracer_tpu_torch.ops.shade import light_dir_and_dist
+    from fraytracer_tpu_torch.scene.generators import spectral_csg_scene
+    from fraytracer_tpu_torch.types import Rays
+    import sys
+    R = sys.modules["fraytracer_tpu_torch.render"]
+    scene = ft.flatten(spectral_csg_scene(19, 1000), device=dev)
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    flat = ft.camera_rays(cam, 1024, 1024, 0.01, 30.0).map(
+        lambda x: R._to_blocks(x, 1024, 1024, 32))
+    own, full = (MarchConfig(max_steps=192, bound_skip=True,
+                             relax_omega=1.4, cull_m=m, cull_m_shadow=m)
+                 for m in (512, 1000))
+    res, nrm, midx, code = mk.cuda_march_raw(scene, flat, full,
+                                             want_surface=True)
+    cases = [(flat, {}, "march")]
+    pos = flat.at(res.t - flat.epsilon)
+    for i in range(scene.num_lights):
+        ldir, budget, _s = light_dir_and_dist(scene, i, pos)
+        facing = res.hit & ((nrm * ldir).sum(-1) > 0.0)
+        apex = scene.light_vec[i] if scene.light_kind[i] == 1 else None
+        cases.append((Rays(origin=pos, direction=ldir,
+                           length=torch.where(facing, budget, 0.0),
+                           epsilon=flat.epsilon),
+                      dict(occlusion=True, cone_apex=apex), f"light {i}"))
+    for rays, kw, label in cases:
+        tabs = [mk.march_tables(scene, rays, c, kw.get("cone_apex"))[3]
+                for c in (own, full)]
+        assert [[q.m for q in t.tables] for t in tabs] == [[512], [1000]]
+        assert not bool(tabs[0].overflow), label
+        plans = [mk.march_stage_plan(mk.lower_program(scene, dev, t.pairs),
+                                     t).bytes for t in tabs]
+        assert plans[0] != plans[1], label
+        if kw:
+            a = mk.cuda_march_raw(scene, rays, own, **kw)
+            b = mk.cuda_march_raw(scene, rays, full, **kw)
+            assert bool(a.any()) and torch.equal(a, b), label
+        else:
+            a = mk.cuda_march_raw(scene, rays, own, want_surface=True)
+            b = (res, nrm, midx, code)
+            for f in ("hit", "t", "distance", "steps"):
+                assert torch.equal(getattr(a[0], f), getattr(b[0], f)), f
+            for x, y in zip(a[1:], b[1:]):
+                assert torch.equal(x, y)
+
+
+def test_graph_spectral_capture_failure_raises(dev, monkeypatch):
+    """A host read inside the spectral frame cannot be captured: the call
+    raises, keeps no graph, and does not fall back to the eager frame; the
+    next capture takes a new pool and replays."""
+    from fraytracer_tpu_torch.ops import wavefront as tw
+    scene, cam, cfg, R, eager, graph = _spectral_setup(dev, size=64)
+    real = tw.resolve_material
+
+    def reads_the_host(scene_, pos, hit, midx, backend="cuda"):
+        int(hit.sum())
+        return real(scene_, pos, hit, midx, backend=backend)
+    monkeypatch.setattr(tw, "resolve_material", reads_the_host)
+    with pytest.raises(RuntimeError):
+        graph()
+    assert not R._graphs
+    assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
+                                       "eager_reruns": 0, "eager_frames": 0}
+    monkeypatch.setattr(tw, "resolve_material", real)
+    want = eager()
+    for _ in range(2):
+        _assert_spectral_close(graph(), want)
+    assert ops_cuda.graph_counts()["replays"] == 1
+
+
+def test_graph_spectral_frame_shares_the_frame_graphs_pool(dev):
+    """A forward frame's graph and the spectral frame's in one memory pool,
+    replayed in turns: each its eager counterpart."""
+    scene, cam, cfg, R, eager, graph = _spectral_setup(dev)
+    # tables of the whole group: a 128² tile's candidates would overflow
+    # the default tables, and the forward key would then run eagerly
+    rcfg = ft.RenderConfig(width=128, height=128, march=dataclasses.replace(
+        cfg.march, cull_m=1000, cull_m_shadow=1000))
+    frame = _eager(scene, cam, rcfg)
+    want = eager()
+    for _ in range(3):
+        img, n = ft.render_with_stats(scene, cam, rcfg)
+        assert torch.equal(img, frame[0]) and int(n) == int(frame[1])
+        _assert_spectral_close(graph(), want)
+    assert ops_cuda.graph_counts()["captures"] == 2
+    assert R.frame_graph(scene, cam, rcfg).graph.pool() == \
+        R.spectral_graph(scene, cam, 128, 128, cfg).graph.pool()
 
 
 def test_probe_kernels_match_plain(dev):
