@@ -121,18 +121,27 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    material lookup read three ways; (d) one step of the
    blended frame (the point_eval route: certificate, branch, time, peak
    memory); (e) 10 ``fit`` steps at 256² / 100 tori: the loss decreases.
-11. multi  — the sharded paths (``parallel/``) on the one card: (a) one
-   NCCL rank in this process — ``render_sharded`` of the 1024² frame bit
-   for bit ``render``'s with its launches (1 / 1 / 2), the exposure max,
-   the training step at 4 chunks and at 1 against the one-process step
-   (loss rtol 1e-4, gradients within 2e-4 of each leaf's largest), the
-   rebalanced sharded 512² × 8-bin depth-4 spectral frame against
-   ``render_spectral`` (mean |d| < 2e-3), each beside the one-process
-   time; (b) two gloo ranks spawned on the card (NCCL takes one rank a
-   device): the gathered frame bit for bit, each rank's launches, the
-   step (the ranks' scenes equal bit for bit), the rebalanced spectral
-   frame with each rank's live lanes a round, times beside backend, ranks
-   and cards.
+11. multi  — the sharded paths (``parallel/``) on the one card, each one
+   captured CUDA graph a key and rank: (a) one NCCL rank in this process
+   (every collective inside the graphs) — ``render_sharded`` of the 1024²
+   frame bit for bit ``render``'s with a replay's launches (1 / 1 / 2), the
+   exposure max, the training step at 4 chunks and at 1 against the
+   one-process step (loss rtol 1e-4, gradients within 2e-4 of each leaf's
+   largest) at its capture and a replay, the rebalanced sharded 512² ×
+   8-bin depth-4 spectral frame against ``render_spectral`` (mean |d| <
+   2e-3) and a replay within 1e-6 of its eager frame (launches 4 / 4 / 8
+   / 24), each path's graph counts (captured, then replayed), 0 syncs in a
+   replay, graph and eager paired (medians of 9), a profiled replay and
+   eager call (ops, idle share, where the NCCL kernels sit), the pool,
+   beside the one-process time; (b) two gloo ranks spawned on the card
+   (NCCL takes one rank a device; gloo's collectives follow the replays):
+   the gathered frame bit for bit, each rank's launches and graph counts,
+   a flag forced on rank 0 alone at a replay (both ranks run the eager
+   frame again, still bit for bit) and at a key's first call (no rank
+   captures), the step (the ranks' scenes equal bit for bit at its
+   capture and a replay), the rebalanced spectral frame (eager on gloo,
+   counted as eager frames) with each rank's live lanes a round, each
+   rank's pool, times beside backend, ranks and cards.
 12. tori10k — 10,000 tori at 1024² (``bench_10k.py``): the tables sized
    from the scene's candidate counts, the frame's launches (no overflow
    re-run), median of 5, the primary table build alone, peak memory, a
@@ -1535,13 +1544,15 @@ def forced_repair(scene, cam, cfg):
     return counts
 
 
-def profile_frame(scene, cam, cfg, trace_path, fn=None, ops=0, record=None):
+def profile_frame(scene, cam, cfg, trace_path, fn=None, ops=0, record=None,
+                  events=False):
     """One frame (or one call of ``fn``) under torch.profiler: device time
     by kernel and the device's idle share between the first and last
     kernel; with ``ops`` the ``ops`` host operators whose kernels took the
     most device time, with their call counts.  The Chrome trace goes to
     ``trace_path``; ``record`` (a dict) gets the port's kernels in launch
-    order with their device ms under ``"kernels"``."""
+    order with their device ms under ``"kernels"``, and with ``events``
+    every device op as ``(name, start µs, end µs)`` under ``"events"``."""
     import fraytracer_tpu_torch as ft
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1591,6 +1602,10 @@ def profile_frame(scene, cam, cfg, trace_path, fn=None, ops=0, record=None):
     if record is not None:
         record["kernels"] = [(e.name.split("(")[0].replace("void ", ""),
                               e.time_range.elapsed_us() / 1e3) for e in ours]
+        if events:
+            record["events"] = sorted(
+                ((e.name, e.time_range.start, e.time_range.end)
+                 for e in evs), key=lambda x: x[1])
         record.update(busy_ms=busy / 1e3, span_ms=span / 1e3, ops=len(evs),
                       host_ms=wall_us / 1e3)
     if ops:
@@ -1733,16 +1748,21 @@ def traced_launches(record):
                                for name, _ms in record.get("kernels", ()))
 
 
-def paired_ms(fns, reps=GRAPH_REPS):
-    """``reps`` synchronized calls of each function in turns: the times in
-    ms, one list a function."""
+def paired_ms(fns, reps=GRAPH_REPS, barrier=None):
+    """``reps`` synchronized calls of each function in turns (each between
+    barriers of the ranks, when given): the times in ms, one list a
+    function."""
     out = [[] for _ in fns]
     for _ in range(reps):
         for fn, ms in zip(fns, out):
             torch.cuda.synchronize()
+            if barrier:
+                barrier()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
+            if barrier:
+                barrier()
             ms.append(1e3 * (time.perf_counter() - t0))
     return out
 
@@ -3705,17 +3725,24 @@ def compare_grads(got, want, label):
     return worst[0]
 
 
-def phase_multi_world1(dev, scene, sscene):
-    """(a) NCCL at world size 1, in this process: the sharded 1024² frame
-    against ``render`` bit for bit, with its launches; the exposure max;
-    the sharded training step at 4 chunks and at 1 against the
-    one-process step; the rebalanced sharded spectral frame (512² × 8
-    bins, depth 4) against ``render_spectral``; each beside the
-    one-process time."""
+def phase_multi_world1(dev, scene, sscene, build_dir):
+    """(a) NCCL at world size 1, in this process, each sharded function one
+    captured CUDA graph a key and rank (every collective inside): the
+    sharded 1024² frame against ``render`` bit for bit, with a replay's
+    launches; the exposure max; the sharded training step at 4 chunks and
+    at 1 against the one-process step; the rebalanced sharded spectral
+    frame (512² × 8 bins, depth 4) against ``render_spectral`` and its
+    eager frame.  Each path: ``graph_counts()`` at the capture and at a
+    replay (a replay, never an eager frame), 0 syncs in a replay under sync
+    debug mode "error", graph and eager paired (:func:`multi_paths`), a
+    profiled replay and eager call (ops, idle share, where the NCCL
+    kernels sit), the growth of the graphs' pool; beside the one-process
+    time."""
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.ops import cuda as ops_cuda
     from fraytracer_tpu_torch.parallel import mesh as pm
     from fraytracer_tpu_torch.parallel import multihost
+    R = render_module()
     multihost.initialize()
     mesh = pm.make_mesh()
     check((mesh.size, mesh.backend, mesh.device) == (1, "nccl", dev),
@@ -3724,84 +3751,304 @@ def phase_multi_world1(dev, scene, sscene):
     cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
     cfg = bench_config(SIZE)
     single = ft.render(scene, cam, cfg)
-    pm.render_sharded(scene, cam, cfg, mesh)
-    torch.cuda.synchronize()
-    ops_cuda.reset_launch_counts()
-    rows = pm.render_sharded(scene, cam, cfg, mesh)
-    torch.cuda.synchronize()
-    counts = ops_cuda.launch_counts()
+    paths = multi_paths(mesh, scene, sscene, cam, cfg)
+    out = {"cam": cam, "single": single, "pool0_mib": graph_pool_mib(dev)}
+
+    frame = paths["frame"]
+    counts, rows, fg = capture_and_replay(frame, "[multi] a frame",
+                                          lambda: R._graphs[frame["key"]])
     check_frame_launches(counts, "[multi] a sharded frame")
     check(torch.equal(rows, single), "[multi] a: the sharded frame is not "
           "render's bit for bit")
-    sh_med, sh_t = median_ms(lambda: pm.render_sharded(scene, cam, cfg,
-                                                       mesh), 5)
+    sync_free_replay(fg, "[multi] a frame")
+    check(torch.equal(fg.outputs[0], single), "[multi] a: the replay under "
+          "sync debug mode")
+    out["frame"] = graph_and_eager(frame, f"sharded {SIZE}^2 frame [{tag}]",
+                                   build_dir / "chip_smoke_multi_frame")
+    out["frame"]["pool_mib"] = graph_pool_mib(dev)
     one_med, one_t = median_ms(lambda: ft.render(scene, cam, cfg), 5)
     log(f"  sharded {SIZE}^2 frame [{tag}]: bit for bit render's, launches "
-        f"{ {k: counts[k] for k in FRAME_LAUNCHES} }, median "
-        f"{sh_med:.2f} ms ({[round(t, 2) for t in sh_t]}) against "
-        f"render's {one_med:.2f} ms ({[round(t, 2) for t in one_t]})")
+        f"a replay { {k: counts[k] for k in FRAME_LAUNCHES} }, graph median "
+        f"{out['frame']['graph_ms']:.3f} ms against render's {one_med:.3f} "
+        f"ms ({[round(t, 3) for t in one_t]})")
     emax = float(pm.exposure_max_sharded(rows, mesh))
     check(emax == float(single.amax()), f"exposure max {emax}")
+    out.update(frame_ms=out["frame"]["graph_ms"], single_ms=one_med,
+               counts=counts)
 
-    target = torch.full((SIZE, SIZE, 3), 0.05, device=dev)
+    target = paths["target"]
     loss1, want = one_process_step(scene, cam, cfg, target)
-    out = {"frame_ms": sh_med, "single_ms": one_med, "counts": counts,
-           "single": single, "cam": cam, "target": target,
-           "step_grads": want, "step_loss": loss1}
+    out.update(target=target, step_grads=want, step_loss=loss1,
+               step_counts={})
     for chunks in (4, 1):
-        step = pm.make_train_step(cfg, mesh, lr=GRAD_LR, grad_chunks=chunks)
-        s1, loss = step(scene, cam, target)
-        check(abs(loss.item() - loss1) <= 1e-4 * abs(loss1),
-              f"[multi] a step loss {loss.item()} against {loss1}")
-        err = compare_grads(leaf_grads(scene, s1), want,
-                            f"train step, {chunks} chunk(s) [{tag}]")
-        med, _t = median_ms(lambda: step(scene, cam, target), 3)
-        out[f"step{chunks}_ms"], out[f"step{chunks}_err"] = med, err
+        path = paths[f"step{chunks}"]
+        step = path["step"]
+        launches = {k: chunks * v for k, v in FRAME_LAUNCHES.items()}
+        for call in ("capture", "replay"):
+            ops_cuda.reset_launch_counts()
+            s1, loss = step(scene, cam, target)
+            torch.cuda.synchronize()
+            got = ops_cuda.graph_counts()
+            check(got == dict(NO_GRAPH, **{call + "s": 1}),
+                  f"[multi] a step {chunks} {call}: {got}")
+            check(abs(loss.item() - loss1) <= 1e-4 * abs(loss1),
+                  f"[multi] a step loss {loss.item()} against {loss1}")
+            err = compare_grads(leaf_grads(scene, s1), want,
+                                f"train step, {chunks} chunk(s), {call} "
+                                f"[{tag}]")
+        counts_s = launched(ops_cuda.launch_counts())
+        check({k: counts_s.get(k, 0) for k in launches} == launches
+              and sum(counts_s.values()) == sum(launches.values()),
+              f"[multi] a step {chunks}: launches a replay {counts_s}")
+        out["step_counts"][chunks] = ops_cuda.launch_counts()
+        sync_free_replay(next(iter(step.graphs.values())),
+                         f"[multi] a step {chunks}")
+        res = graph_and_eager(path, f"train step, {chunks} chunk(s) [{tag}]",
+                              build_dir / f"chip_smoke_multi_step{chunks}",
+                              reps=STEP_REPS)
+        res["grad_err"] = err
+        out[f"step{chunks}"] = res
+        out[f"step{chunks}_ms"], out[f"step{chunks}_err"] = \
+            res["graph_ms"], err
+    out["step_pool_mib"] = graph_pool_mib(dev)
     sone, _t = median_ms(lambda: one_process_step(scene, cam, cfg, target),
                          3)
-    log(f"  train step median: 4 chunks {out['step4_ms']:.2f} ms, 1 chunk "
-        f"{out['step1_ms']:.2f} ms, one-process fwd+bwd {sone:.2f} ms "
-        f"[{tag}]")
+    log(f"  train step graph medians: 4 chunks {out['step4_ms']:.3f} ms, 1 "
+        f"chunk {out['step1_ms']:.3f} ms, one-process fwd+bwd (eager) "
+        f"{sone:.3f} ms [{tag}]")
     out["single_step_ms"] = sone
 
-    wcfg = spectral_config()
+    path = paths["spectral"]
+    wcfg = path["wcfg"]
     want_s = ft.render_spectral(sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE,
                                 wcfg)
     torch.cuda.synchronize()
     ops_cuda.reset_launch_counts()
-    img, scounts = pm.render_spectral_sharded(
-        sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, wcfg, mesh, rebalance=True)
+    path["graph"]()
+    torch.cuda.synchronize()
+    first = ops_cuda.launch_counts()
+    check(ops_cuda.graph_counts() == dict(NO_GRAPH, captures=1),
+          f"[multi] a spectral capture {ops_cuda.graph_counts()}")
+    check(first["march_culled"] >= 4 and first["surface_culled"] >= 4
+          and first["occlusion_culled"] >= 8 and first["block_gather"] >= 24,
+          f"[multi] a spectral launches {first}")
+    sg = R._graphs[path["key"]]
+    ops_cuda.reset_launch_counts()
+    img, scounts = path["graph"]()
     torch.cuda.synchronize()
     spec = ops_cuda.launch_counts()
+    check(ops_cuda.graph_counts() == dict(NO_GRAPH, replays=1)
+          and launched(spec) == SPECTRAL_LAUNCHES,
+          f"[multi] a spectral replay {ops_cuda.graph_counts()} launches "
+          f"{launched(spec)}, want {SPECTRAL_LAUNCHES}")
+    eimg, ecounts = path["eager"]()
+    d_eager = float((img - eimg).abs().max())
     d = (img - want_s).abs()
+    promoted = spectral_sites(sscene, sg.frame.promoted)
     log(f"  rebalanced sharded spectral frame {SPECTRAL_SIZE}^2 x 8 bins, "
-        f"depth 4 [{tag}]: against render_spectral mean |d| "
-        f"{d.mean().item():.3e}, max {d.max().item():.3e}; live lanes by "
-        f"round {scounts.tolist()}; launches {spec}")
+        f"depth 4 [{tag}]: a replay against render_spectral mean |d| "
+        f"{d.mean().item():.3e}, max {d.max().item():.3e}; against its eager "
+        f"frame max |d| {d_eager:.3e}; live lanes by round "
+        f"{scounts.tolist()}; promoted sites {promoted}; launches, first "
+        f"call {launched(first)}, a replay {launched(spec)}")
     check(bool(torch.isfinite(img).all()) and d.mean().item()
           < SHARDED_SPECTRAL_MEAN, "[multi] a sharded spectral frame")
+    check(d_eager <= SHARDED_GRAPH_MAX and torch.equal(scounts, ecounts),
+          f"[multi] a: the spectral replay against its eager frame "
+          f"{d_eager}")
     check(tuple(scounts.shape) == (1, 4) and int(scounts[0, 0])
           == SPECTRAL_SIZE ** 2 * 8, f"spectral counts {scounts}")
-    check(spec["march_culled"] >= 4 and spec["surface_culled"] >= 4
-          and spec["occlusion_culled"] >= 8 and spec["block_gather"] >= 24,
-          f"[multi] a spectral launches {spec}")
-    smed, _t = median_ms(lambda: pm.render_spectral_sharded(
-        sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, wcfg, mesh,
-        rebalance=True), 3)
+    sync_free_replay(sg, "[multi] a spectral frame")
+    res = graph_and_eager(path, f"rebalanced sharded spectral frame "
+                          f"[{tag}]", build_dir / "chip_smoke_multi_spectral")
     one_s, _t = median_ms(lambda: ft.render_spectral(
         sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, wcfg), 3)
-    log(f"  sharded spectral frame median {smed:.2f} ms against "
-        f"render_spectral's {one_s:.2f} ms [{tag}]")
-    out.update(spectral_counts=spec, spectral_ms=smed, single_spectral_ms=
-               one_s, want_spectral=want_s)
+    log(f"  sharded spectral graph median {res['graph_ms']:.3f} ms against "
+        f"render_spectral's {one_s:.3f} ms [{tag}]")
+    res.update(promoted=promoted, max_abs_diff=d_eager,
+               first_launches=launched(first))
+    out.update(spectral=res, spectral_counts=spec, spectral_ms=
+               res["graph_ms"], single_spectral_ms=one_s,
+               want_spectral=want_s, pool_mib=graph_pool_mib(dev))
+    log(f"  the graphs' pool [{tag}]: {out['pool0_mib']:.1f} MiB before "
+        f"[multi], {out['frame']['pool_mib']:.1f} after the frame's capture, "
+        f"{out['step_pool_mib']:.1f} after the steps', {out['pool_mib']:.1f} "
+        "after the spectral frame's")
     return out
 
 
+# paired graph / eager calls of a sharded path, median of each
+MULTI_REPS = 9
+# a sharded graph's replay against its eager form: the frame and the step's
+# loss are equal bit for bit; the spectral frame's index_add_ sums in
+# another atomic order (two eager spectral frames read 1.192e-7 apart on
+# the H100)
+SHARDED_GRAPH_MAX = 1e-6
+
+
+def multi_paths(mesh, scene, sscene, cam, cfg):
+    """The three sharded paths of one mesh, each as ``{"graph": the call a
+    user makes (a replay once captured), "eager": its eager form, "key":
+    its graph's key}``: the frame, the steps (4 chunks and 1) at
+    ``GRAD_LR`` on the bench's target, the rebalanced spectral frame."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.parallel import mesh as pm
+    R = render_module()
+    S = SPECTRAL_SIZE
+    target = torch.full((SIZE, SIZE, 3), 0.05, device=mesh.device)
+    wcfg = spectral_config()
+    paths = {"target": target, "frame": {
+        "graph": lambda: pm.render_sharded(scene, cam, cfg, mesh),
+        "eager": lambda: pm._band_frame(mesh, scene, cam, cfg),
+        "key": ("sharded", R.frame_key(scene, cam, cfg), mesh.rank,
+                mesh.size)}}
+    for chunks in (4, 1):
+        step = pm.make_train_step(cfg, mesh, lr=GRAD_LR, grad_chunks=chunks)
+
+        def eager(chunks=chunks):
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in scene.tensors().items()}
+            return pm._step_overlapped(mesh, GRAD_LR, chunks,
+                                       scene.with_tensors(leaves), cam, cfg,
+                                       target)
+        paths[f"step{chunks}"] = {
+            "step": step, "eager": eager,
+            "graph": lambda step=step: step(scene, cam, target)}
+    paths["spectral"] = {
+        "wcfg": wcfg,
+        "graph": lambda: pm.render_spectral_sharded(
+            sscene, cam, S, S, wcfg, mesh, rebalance=True),
+        "eager": lambda: pm._spectral_band(mesh, S, S, True, sscene, cam,
+                                           wcfg),
+        "key": ("sharded", R.spectral_key(sscene, cam, S, S, wcfg),
+                mesh.rank, mesh.size, True)}
+    return paths
+
+
+def graph_pool_mib(dev):
+    """Device memory the graphs' pool of ``dev`` holds (MiB; 0 before the
+    device's first capture)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool = render_module()._pools.get(dev.index)
+    return 0.0 if pool is None else pool_mib(pool)
+
+
+def capture_and_replay(path, label, graph_of):
+    """A path's first call (the capture) and a replay, the counts set to 0
+    before each: ``(launches of the replay, its first output, the
+    graph)``."""
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    for call in ("captures", "replays"):
+        ops_cuda.reset_launch_counts()
+        out = path["graph"]()
+        torch.cuda.synchronize()
+        check(ops_cuda.graph_counts() == dict(NO_GRAPH, **{call: 1}),
+              f"{label}: {call} {ops_cuda.graph_counts()}")
+    fg = graph_of()
+    check(fg is not None and fg.graph is not None, f"{label}: no graph")
+    return ops_cuda.launch_counts(), out, fg
+
+
+def sync_free_replay(fg, label):
+    """One replay of a captured graph (on the inputs its last call copied
+    in) under sync debug mode "error", which raises at a host sync."""
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fg.graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    check(not bool(fg.frame.flag), f"{label}: the replay raised its flag")
+    log(f"  {label}: a replay under sync debug mode \"error\": 0 syncs, "
+        "flag clear")
+
+
+def nccl_placement(events):
+    """Where a profiled call's NCCL ops sit (device ops whose name says
+    NCCL): for each, its start and end in ms from the first device op, the
+    march kernels (K1 and K2: three a frame or a step's chunk, three a
+    spectral round) that started before it, and the ms of it during which
+    other device ops ran beside it."""
+    if not events:
+        return []
+    t0 = events[0][1]
+    others = [(a, b) for name, a, b in events if "nccl" not in name.lower()]
+    out = []
+    for name, a, b in events:
+        if "nccl" not in name.lower():
+            continue
+        marches = sum(1 for n, s, _e in events if s < a and n.split(
+            "(")[0].split("<")[0].endswith(" march_kernel"))
+        beside = sum(max(0.0, min(b, y) - max(a, x)) for x, y in others)
+        out.append({"name": name.split("(")[0][:48],
+                    "start_ms": (a - t0) / 1e3, "end_ms": (b - t0) / 1e3,
+                    "after_marches": marches, "beside_ms": beside / 1e3})
+    return out
+
+
+def graph_and_eager(path, label, trace_prefix, reps=MULTI_REPS, barrier=None):
+    """A path's graph and eager calls paired (``reps`` each, median and
+    spread, the median paired difference, between barriers when given),
+    then, with a ``trace_prefix``, one profiled call of each (device ops,
+    busy / span → idle, the NCCL kernels' places)."""
+    g_ms, e_ms = paired_ms((path["graph"], path["eager"]), reps=reps,
+                           barrier=barrier)
+    res = {"graph_ms": statistics.median(g_ms),
+           "eager_ms": statistics.median(e_ms), "graph_times_ms": g_ms,
+           "eager_times_ms": e_ms, "paired_diff_ms": statistics.median(
+               [a - b for a, b in zip(g_ms, e_ms)])}
+    for name in ("graph", "eager") if trace_prefix else ():
+        rec = {}
+        profile_frame(None, None, None, f"{trace_prefix}_{name}_trace.json",
+                      fn=path[name], record=rec, events=True)
+        if "busy_ms" in rec:
+            res[f"{name}_ops"] = rec["ops"]
+            res[f"{name}_idle"] = 1 - rec["busy_ms"] / rec["span_ms"]
+            res[f"{name}_nccl"] = nccl_placement(rec["events"])
+    log(f"  {label}: graph {res['graph_ms']:.3f} ms ({min(g_ms):.3f}–"
+        f"{max(g_ms):.3f}) / eager {res['eager_ms']:.3f} ms ({min(e_ms):.3f}"
+        f"–{max(e_ms):.3f}) (medians of {reps}, paired; median paired "
+        f"difference {res['paired_diff_ms']:.3f} ms); profile: graph "
+        f"{res.get('graph_ops')} ops, idle {res.get('graph_idle')}, eager "
+        f"{res.get('eager_ops')} ops, idle {res.get('eager_idle')}")
+    for name in ("graph", "eager"):
+        if f"{name}_nccl" in res:
+            log(f"    {name}: {len(res[name + '_nccl'])} device ops named "
+                "NCCL")
+        for k in res.get(f"{name}_nccl", []):
+            log(f"    {name} NCCL op {k['name']} at {k['start_ms']:.3f}–"
+                f"{k['end_ms']:.3f} ms, after {k['after_marches']} march "
+                f"kernels, {k['beside_ms']:.3f} ms of it beside other "
+                "device ops")
+    return res
+
+
+class ForcedFlag:
+    """A captured graph whose replay raises its frame's flag after it (the
+    flag a rank's replay would raise on an overflow): a test double around
+    the real graph."""
+
+    def __init__(self, graph, frame):
+        self.graph, self.frame = graph, frame
+
+    def replay(self):
+        self.graph.replay()
+        self.frame.flag.fill_(True)
+
+
 def _multi_rank():
-    """One of the gloo ranks sharing the card: its rows of the 1024²
-    frame with the launches around them, a training step (at GRAD_LR: the
-    summed gradients), the rebalanced spectral frame with its live lanes
-    per round; each timed between barriers."""
+    """One of the gloo ranks sharing the card, each path one captured CUDA
+    graph a key and rank (gloo's collectives after the replay): its rows
+    of the 1024² frame with a replay's launches, a forced flag on rank 0
+    alone at a 256² key's first call (no rank captures) and at a replay of
+    the 1024² key (every rank runs the eager frame again), a training step
+    (at GRAD_LR: the summed gradients) at its capture and a replay, the
+    rebalanced spectral frame (eager on gloo, counted as eager frames)
+    with its live lanes per round; graph and eager paired between
+    barriers, the graph counts of each path, the rank's pool."""
     import torch.distributed as dist
 
     import fraytracer_tpu_torch as ft
@@ -3809,56 +4056,102 @@ def _multi_rank():
     from fraytracer_tpu_torch.parallel import mesh as pm
     from fraytracer_tpu_torch.scene.generators import (spectral_csg_scene,
                                                        torus_csg_scene)
+    R = render_module()
     mesh = pm.make_mesh()
     dev = mesh.device
 
     def barrier():
         dist.barrier(group=mesh.group)
     scene = ft.flatten(torus_csg_scene(19, BENCH_N_TORI), device=dev)
+    sscene = ft.flatten(spectral_csg_scene(19, BENCH_N_TORI), device=dev)
     cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
     cfg = bench_config(SIZE)
-    pm.render_sharded(scene, cam, cfg, mesh)
+    paths = multi_paths(mesh, scene, sscene, cam, cfg)
+    out = {"rank": mesh.rank, "backend": mesh.backend, "device": str(dev)}
+    barrier()
+    counts, rows, fg = capture_and_replay(paths["frame"], "[multi] b frame",
+                                          lambda: R._graphs[
+                                              paths["frame"]["key"]])
+    out.update(rows=rows.cpu(), counts=counts)
+    out["frame"] = graph_and_eager(paths["frame"], f"rank {mesh.rank} "
+                                   "frame", None, barrier=barrier)
+    out["frame_ms"] = (out["frame"]["graph_ms"],
+                       out["frame"]["graph_times_ms"])
+    # a flag forced on rank 0 alone after a real replay: every rank runs
+    # the eager frame again
+    real = fg.graph
+    if mesh.rank == 0:
+        fg.graph = ForcedFlag(real, fg.frame)
+    ops_cuda.reset_launch_counts()
+    try:
+        forced = paths["frame"]["graph"]()
+        torch.cuda.synchronize()
+    finally:
+        fg.graph = real
+    out["forced_replay"] = (forced.cpu(), ops_cuda.graph_counts())
+    # a flag forced on rank 0 alone at a key's first call
+    small = bench_config(256)
+    want_small = pm._band_frame(mesh, scene, cam, small)[0]
+    with forced_repair_frames() if mesh.rank == 0 else \
+            contextlib.nullcontext():
+        forced_small = pm._band_frame(mesh, scene, cam, small)[0]
+    ops_cuda.reset_launch_counts()
+    with forced_repair_frames() if mesh.rank == 0 else \
+            contextlib.nullcontext():
+        first = pm.render_sharded(scene, cam, small, mesh)
+    later = pm.render_sharded(scene, cam, small, mesh)
+    out["forced_first"] = (
+        torch.equal(first, forced_small) and torch.equal(later, want_small),
+        ops_cuda.graph_counts(), R._graphs[(
+            "sharded", R.frame_key(scene, cam, small), mesh.rank,
+            mesh.size)].graph is None)
+
+    path = paths["step4"]
+    barrier()
+    steps = {}
+    for call in ("capture", "replay"):
+        ops_cuda.reset_launch_counts()
+        s1, loss = path["graph"]()
+        torch.cuda.synchronize()
+        steps[call] = (loss.item(), leaf_grads(scene, s1),
+                       {k: v.cpu() for k, v in s1.tensors().items()},
+                       ops_cuda.graph_counts())
+    out["step_counts"] = ops_cuda.launch_counts()
+    out.update(loss=steps["capture"][0], grads=steps["capture"][1],
+               leaves=steps["capture"][2], steps=steps)
+    out["step"] = graph_and_eager(path, f"rank {mesh.rank} train step, 4 "
+                                  "chunks", None, reps=3, barrier=barrier)
+    out["step_ms"] = (out["step"]["graph_ms"], out["step"]["graph_times_ms"])
+    out["pool_mib"] = graph_pool_mib(dev)
+
+    # gloo's rebalanced spectral frame (a collective in every round):
+    # eager, counted as an eager frame
+    path = paths["spectral"]
     torch.cuda.synchronize()
     barrier()
     ops_cuda.reset_launch_counts()
-    rows = pm.render_sharded(scene, cam, cfg, mesh)
-    torch.cuda.synchronize()
-    counts = ops_cuda.launch_counts()
-    frame_ms = median_ms(lambda: pm.render_sharded(scene, cam, cfg, mesh),
-                         5, barrier)
-    target = torch.full((SIZE, SIZE, 3), 0.05, device=dev)
-    step = pm.make_train_step(cfg, mesh, lr=GRAD_LR)
-    s1, loss = step(scene, cam, target)
-    step_ms = median_ms(lambda: step(scene, cam, target), 3, barrier)
-    sscene = ft.flatten(spectral_csg_scene(19, BENCH_N_TORI), device=dev)
-    wcfg = spectral_config()
-    torch.cuda.synchronize()
-    barrier()
-    ops_cuda.reset_launch_counts()
-    img, scounts = pm.render_spectral_sharded(
-        sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, wcfg, mesh, rebalance=True)
+    img, scounts = path["graph"]()
     torch.cuda.synchronize()
     spec = ops_cuda.launch_counts()
-    spec_ms = median_ms(lambda: pm.render_spectral_sharded(
-        sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, wcfg, mesh,
-        rebalance=True), 3, barrier)
-    return {"rank": mesh.rank, "backend": mesh.backend,
-            "device": str(dev), "rows": rows.cpu(), "counts": counts,
-            "frame_ms": frame_ms, "loss": loss.item(),
-            "grads": leaf_grads(scene, s1),
-            "leaves": {k: v.cpu() for k, v in s1.tensors().items()},
-            "step_ms": step_ms, "spectral": img.cpu(),
-            "spectral_counts": scounts.cpu(), "spectral_launches": spec,
-            "spectral_ms": spec_ms}
+    spec_graph_counts = ops_cuda.graph_counts()
+    spec_ms = median_ms(path["graph"], 3, barrier)
+    out.update(spectral=img.cpu(), spectral_counts=scounts.cpu(),
+               spectral_launches=spec, spectral_ms=spec_ms,
+               spectral_graph_counts=spec_graph_counts)
+    return out
 
 
 def phase_multi_gloo(world1):
     """(b) two gloo ranks spawned on the one card (NCCL refuses two ranks
-    on a device): the gathered 1024² frame equal to ``render``'s (its
-    512-row bands are whole block rows), each rank's launches, the
-    training step (replicated bit for bit, against the one-process
-    step), the rebalanced spectral frame with each rank's live lanes per
-    round.  The gloo collectives take the CUDA tensors as they are."""
+    on a device), each path one captured CUDA graph a key and rank on each
+    rank: the gathered 1024² frame equal to ``render``'s (its 512-row bands
+    are whole block rows), each rank's launches and graph counts; a flag
+    forced on one rank at a replay (both run the eager frame again, still
+    ``render``'s bit for bit) and at a key's first call (no rank captures);
+    the training step (replicated bit for bit at its capture and at a
+    replay, against the one-process step); the rebalanced spectral frame
+    (eager on gloo) with each rank's live lanes per round; each rank's
+    pool.  The gloo collectives take the CUDA tensors as they are."""
     from fraytracer_tpu_torch.parallel.multihost import run_ranks
     t0 = time.perf_counter()
     ranks = run_ranks(_multi_rank, MULTI_RANKS, device="cuda",
@@ -3869,27 +4162,62 @@ def phase_multi_gloo(world1):
     check({r["backend"] for r in ranks} == {"gloo"}
           and {r["device"] for r in ranks} == {"cuda:0"},
           f"[multi] b ranks {[(r['backend'], r['device']) for r in ranks]}")
+    single = world1["single"].cpu()
     full = torch.cat([r["rows"] for r in ranks])
-    check(torch.equal(full, world1["single"].cpu()),
+    check(torch.equal(full, single),
           "[multi] b: the gathered frame is not render's bit for bit")
+    forced = torch.cat([r["forced_replay"][0] for r in ranks])
+    rerun = dict(NO_GRAPH, replays=1, eager_reruns=1)
+    check(torch.equal(forced, single) and all(
+        r["forced_replay"][1] == rerun for r in ranks),
+          f"[multi] b: a flag forced on rank 0 at a replay: "
+          f"{[r['forced_replay'][1] for r in ranks]}, frame "
+          f"{torch.equal(forced, single)}")
+    kept = dict(NO_GRAPH, eager_reruns=1, eager_frames=1)
+    check(all(r["forced_first"] == (True, kept, True) for r in ranks),
+          f"[multi] b: a flag forced on rank 0 at a key's first call: "
+          f"{[r['forced_first'] for r in ranks]}")
+    log(f"  a flag forced on rank 0 alone [{tag}]: at a replay of the "
+        f"{SIZE}^2 key both ranks ran the eager frame again (counts "
+        f"{[r['forced_replay'][1] for r in ranks]}), the gathered frame "
+        f"still render's bit for bit; at the 256^2 key's first call no rank "
+        f"captured and both ran the eager frame at it and the next (counts "
+        f"{[r['forced_first'][1] for r in ranks]})")
     for r in ranks:
         check_frame_launches(r["counts"], f"[multi] b rank {r['rank']}")
-        log(f"  rank {r['rank']} [{tag}]: launches "
+        cap, rep = (r["steps"][c][3] for c in ("capture", "replay"))
+        check(cap == dict(NO_GRAPH, captures=1)
+              and rep == dict(NO_GRAPH, replays=1),
+              f"[multi] b rank {r['rank']} step counts {cap}, {rep}")
+        step_launches = {k: 4 * v for k, v in FRAME_LAUNCHES.items()}
+        check({k: r["step_counts"][k] for k in step_launches}
+              == step_launches, f"[multi] b rank {r['rank']} step launches "
+              f"{launched(r['step_counts'])}")
+        check(r["spectral_graph_counts"] == dict(NO_GRAPH, eager_frames=1),
+              f"[multi] b rank {r['rank']}: the rebalanced spectral frame "
+              f"on gloo {r['spectral_graph_counts']}")
+        log(f"  rank {r['rank']} [{tag}]: launches a replay "
             f"{ {k: r['counts'][k] for k in FRAME_LAUNCHES} }, band of "
-            f"{r['rows'].shape[0]} rows, frame median {r['frame_ms'][0]:.2f}"
-            f" ms ({[round(t, 2) for t in r['frame_ms'][1]]}), train step "
-            f"median {r['step_ms'][0]:.2f} ms, spectral frame median "
-            f"{r['spectral_ms'][0]:.2f} ms, spectral live lanes by round "
-            f"{r['spectral_counts'][r['rank']].tolist()}, spectral "
-            f"launches {r['spectral_launches']}")
+            f"{r['rows'].shape[0]} rows, frame graph median "
+            f"{r['frame']['graph_ms']:.3f} ms against eager "
+            f"{r['frame']['eager_ms']:.3f} (paired), train step graph "
+            f"median {r['step']['graph_ms']:.3f} ms against eager "
+            f"{r['step']['eager_ms']:.3f}, step launches a replay "
+            f"{launched(r['step_counts'])}, pool {r['pool_mib']:.1f} MiB; "
+            f"spectral frame (eager) median {r['spectral_ms'][0]:.2f} ms, "
+            f"graph counts {r['spectral_graph_counts']}, spectral live "
+            f"lanes by round {r['spectral_counts'][r['rank']].tolist()}, "
+            f"spectral launches {launched(r['spectral_launches'])}")
     r0, r1 = ranks
-    check(r0["loss"] == r1["loss"] and all(
-        torch.equal(r0["leaves"][k], r1["leaves"][k]) for k in r0["leaves"]),
-        "[multi] b: the ranks' scenes differ after the step")
-    check(abs(r0["loss"] - world1["step_loss"])
-          <= 1e-4 * abs(world1["step_loss"]), f"[multi] b loss {r0['loss']}")
-    err = compare_grads(r0["grads"], world1["step_grads"],
-                        f"train step over {tag}")
+    for call in ("capture", "replay"):
+        a, b = r0["steps"][call], r1["steps"][call]
+        check(a[0] == b[0] and all(torch.equal(a[2][k], b[2][k])
+                                   for k in a[2]),
+              f"[multi] b: the ranks' scenes differ after the step's {call}")
+        check(abs(a[0] - world1["step_loss"])
+              <= 1e-4 * abs(world1["step_loss"]), f"[multi] b loss {a[0]}")
+        err = compare_grads(a[1], world1["step_grads"],
+                            f"train step ({call}) over {tag}")
     img = torch.cat([r["spectral"] for r in ranks])
     d = (img - world1["want_spectral"].cpu()).abs()
     counts = r0["spectral_counts"]
@@ -5077,7 +5405,7 @@ def main() -> int:
         f"spectral frame)")
     from fraytracer_tpu_torch.scene.generators import spectral_csg_scene
     sscene = ft.flatten(spectral_csg_scene(19, BENCH_N_TORI), device=dev)
-    multi = phase_multi_world1(dev, scene, sscene)
+    multi = phase_multi_world1(dev, scene, sscene, build.BUILD_DIR)
     log(f"[multi] b: {MULTI_RANKS} gloo ranks spawned on the one card")
     multi_b = phase_multi_gloo(multi)
     log(f"[tori10k] {TORI_10K} tori at {SIZE}^2")
@@ -5193,9 +5521,17 @@ def main() -> int:
         row["spectral_graph_replay_launches"] = \
             spectral["graph"]["launches"].get(name, 0)
         row["tori10k_frame_launches"] = tenk["counts"][name]
+        # a replay of each sharded graph (counts set to 0 just before it):
+        # the frame (one NCCL rank; each of two gloo ranks), the step at 4
+        # and 1 chunks (NCCL) and at 4 (each gloo rank), the rebalanced
+        # spectral frame (NCCL)
         row["sharded_frame_launches"] = multi["counts"][name]
         row["sharded_frame_launches_per_gloo_rank"] = [
             r["counts"][name] for r in multi_b["ranks"]]
+        row["sharded_step_replay_launches"] = {
+            str(c): multi["step_counts"][c][name] for c in (4, 1)}
+        row["sharded_step_replay_launches_per_gloo_rank"] = [
+            r["step_counts"][name] for r in multi_b["ranks"]]
         row["sharded_spectral_frame_launches"] = \
             multi["spectral_counts"][name]
         # launches per replay of the captured culled and dense 1024² steps
@@ -5249,6 +5585,21 @@ def main() -> int:
         f"{[round(r['frame_ms'][0], 2) for r in multi_b['ranks']]} ms, step "
         f"{[round(r['step_ms'][0], 2) for r in multi_b['ranks']]} ms, "
         f"spectral {[round(r['spectral_ms'][0], 2) for r in multi_b['ranks']]}"
+        f" ms ({nvidia_smi()})")
+    for name in ("frame", "step4", "step1", "spectral"):
+        g = multi[name]
+        log(f"[summary] sharded graph, one NCCL rank, {name}: "
+            f"{g['graph_ms']:.3f} ms against eager {g['eager_ms']:.3f} ms "
+            f"(paired medians of {len(g['graph_times_ms'])}), idle share "
+            f"graph {g.get('graph_idle')} / eager {g.get('eager_idle')}, "
+            f"device ops {g.get('graph_ops')} / {g.get('eager_ops')}")
+    log(f"[summary] sharded graphs' pool: {multi['pool0_mib']:.1f} MiB "
+        f"before [multi] a, {multi['pool_mib']:.1f} after it (one NCCL "
+        f"rank); each gloo rank's pool "
+        f"{[round(r['pool_mib'], 1) for r in multi_b['ranks']]} MiB; gloo "
+        f"graph / eager medians: frame "
+        f"{[(round(r['frame']['graph_ms'], 3), round(r['frame']['eager_ms'], 3)) for r in multi_b['ranks']]}"
+        f" ms, step {[(round(r['step']['graph_ms'], 3), round(r['step']['eager_ms'], 3)) for r in multi_b['ranks']]}"
         f" ms ({nvidia_smi()})")
     log(f"[summary] 10k frame: tables {tenk['sizes']}, median "
         f"{tenk['med']:.2f} ms, first {tenk['first_s'] * 1e3:.1f} ms, peak "

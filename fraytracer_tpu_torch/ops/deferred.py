@@ -36,6 +36,13 @@ comes from a memo made outside it: a captured frame then recomputes it on
 every replay.  And it keeps the device constants the frame reads
 (:func:`device_constant`), so that they live as long as a graph captured
 from it, whatever their caches evict.
+
+A frame that ranks of a process group run together (``parallel/mesh.py``)
+carries the group: its flag decides which collectives the ranks issue next
+(an eager re-run, a capture, a promoted run), so every rank must read the
+same flag.  :meth:`Frame.agree` ORs the flags over the group, one
+``all_reduce(MAX)``; inside a graph captured on NCCL that is one more
+captured collective, on gloo it runs eagerly after the replay.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import contextvars
 import functools
 
 import torch
+import torch.distributed as dist
 
 
 class Frame:
@@ -53,10 +61,12 @@ class Frame:
     constants it read; ``overflows`` the overflow bool of each culled
     march call (site) of the current run in call order (``None`` where
     the call cannot overflow), ``promoted`` the sites that build
-    full-group tables."""
+    full-group tables; ``group`` the process group whose ranks run the
+    frame together (``None``: this process alone)."""
 
-    def __init__(self, device):
+    def __init__(self, device, group=None):
         self.flag = torch.zeros((), dtype=torch.bool, device=device)
+        self.group = group
         self.programs = {}
         self.constants = {}
         self.overflows = []
@@ -65,6 +75,16 @@ class Frame:
     def raise_if(self, cond: torch.Tensor) -> None:
         """OR a bool scalar tensor into the flag, on the device."""
         self.flag.logical_or_(cond)
+
+    def agree(self) -> None:
+        """OR the flag over the frame's group, on the device: one
+        ``all_reduce(MAX)`` of it as an int32, which every rank of the
+        group issues at the same point; nothing without a group."""
+        if self.group is None:
+            return
+        flag = self.flag.to(torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        self.flag.copy_(flag != 0)
 
     def next_site_promoted(self) -> bool:
         """Whether the culled march call about to build its tables (the

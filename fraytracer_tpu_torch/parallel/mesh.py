@@ -12,17 +12,49 @@ the mesh's group:
   and one of the chunk losses;
 * in the rebalanced spectral frame, an ``all_gather`` of the active counts
   and an ``all_to_all_single`` of ray lanes a round, one ``all_reduce(SUM)``
-  of the frame and an ``all_gather`` of the counts.
+  of the frame and an ``all_gather`` of the counts;
+* on a card, one ``all_reduce(MAX)`` of the graph's flag a call
+  (**Compiled**, below).
 
 The gloo backend takes all of these on CUDA tensors as well as on CPU
 tensors (torch 2.11, two ranks on one H100), so no collective is staged
 through host memory here.  Multi-host runs call
 ``parallel.multihost.initialize`` first; these functions then see every
 rank of every host.
+
+**Compiled.**  The JAX package jits each sharded function as one device
+program a rank, collectives inside (``jax.jit(shard_map(...))``).  Here, on
+the kernels of a CUDA device, each is one captured CUDA graph a key and
+rank (``render.py::_FrameGraph``), its host reads deferred to one device
+flag as in the one-process graphs; the flag is ORed over the mesh's group
+(``deferred.Frame.agree``) before any decision is taken on it, so that the
+ranks capture, run again after a promotion, or re-run eagerly all alike
+and always issue the same collectives.
+
+* On NCCL every collective of the body is captured with it: the frame's
+  flag reduction; the step's async gradient ``all_reduce`` of each chunk
+  (each still overlapping the next chunk's backward: the graph keeps the
+  fork onto NCCL's stream and the join at the wait), the losses', then the
+  SGD update and the flag's reduction; the spectral frame's ``all_gather`` and
+  ``all_to_all_single`` of every rebalanced round, its ``all_reduce`` of
+  the frame, the counts' ``all_gather`` and the flag's.
+* gloo's collectives run on host threads and cannot be captured, so on
+  gloo a graph holds the rank's local work and the collectives follow the
+  replay, eagerly: the frame's flag reduction; for the step, the graph
+  sums the chunks' gradients and stacks the chunk losses into one buffer,
+  then come the flag's ``all_reduce(MAX)``, the buffer's ``all_reduce``
+  (one, not one a chunk: gloo loses the overlap) and the update; for the
+  spectral frame without rebalancing, the flag's reduction and the counts'
+  ``all_gather``.  The rebalanced spectral frame has a collective inside
+  every round and runs eagerly on gloo, counted as an eager frame.
+
+On the CPU, on the "torch" backend, and for a frame autograd must see, the
+functions run eagerly, as the one-process frame does.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional, Union
 
@@ -30,8 +62,10 @@ import torch
 import torch.distributed as dist
 
 from .. import camera as cam
-from ..render import (BLOCK_EDGE, RenderConfig, _from_blocks, _to_blocks,
-                      render_grid)
+from ..ops import cuda as ops_cuda
+from ..render import (BLOCK_EDGE, RenderConfig, _FrameGraph, _from_blocks,
+                      _graph_frame, _graph_step, _run_graph, _to_blocks,
+                      frame_key, render_grid, spectral_key)
 from ..ops.march import check_config
 from ..scene.flatten import FlatScene
 
@@ -111,6 +145,16 @@ def all_gather(x: Tensor, mesh: Mesh) -> Tensor:
     return out.reshape((mesh.size,) + tuple(x.shape))
 
 
+def _band_frame(mesh: Mesh, scene: FlatScene, camera: cam.Camera,
+                cfg: RenderConfig):
+    """The band's frame: this rank's rows of the camera's rays through
+    ``render_grid``; ``(image, n_rays)``.  No collective."""
+    rows = _shard_rows(mesh, cfg.height)
+    rays = cam.camera_rays(camera, cfg.width, cfg.height, cfg.epsilon,
+                           cfg.length)
+    return render_grid(scene, rays.map(lambda x: _band(x, mesh, rows)), cfg)
+
+
 def render_sharded(scene: FlatScene, camera: cam.Camera, cfg: RenderConfig,
                    mesh: Mesh) -> Tensor:
     """This rank's rows of the full frame, linear RGB ``[H/n, W, 3]`` (no
@@ -120,13 +164,21 @@ def render_sharded(scene: FlatScene, camera: cam.Camera, cfg: RenderConfig,
     candidate tables and windows of the one-process frame, and its pixels
     are that frame's bit for bit.  A band that is not blocked is traced in
     row order; on the culled path its tiles differ, and so may its hits
-    inside the ε shell."""
+    inside the ε shell.
+
+    On the kernels of a CUDA device a frame autograd need not see replays
+    one captured CUDA graph a ``("sharded", frame key, rank, size)`` (the
+    band's rows are baked into it), with the graph frame's rule and its
+    flag agreed over the mesh (module docstring)."""
     check_config(cfg.march)
-    rows = _shard_rows(mesh, cfg.height)
-    rays = cam.camera_rays(camera, cfg.width, cfg.height, cfg.epsilon,
-                           cfg.length)
-    return render_grid(scene, rays.map(lambda x: _band(x, mesh, rows)),
-                       cfg)[0]
+    _shard_rows(mesh, cfg.height)
+    body = functools.partial(_band_frame, mesh)
+    if not _graph_frame(scene, camera, cfg):
+        return body(scene, camera, cfg)[0]
+    return _run_graph(
+        ("sharded", frame_key(scene, camera, cfg), mesh.rank, mesh.size),
+        lambda: _FrameGraph(body, scene, camera, cfg, group=mesh.group),
+        lambda: body(scene, camera, cfg), (scene, camera))[0]
 
 
 def exposure_max_sharded(image: Tensor, mesh: Mesh) -> Tensor:
@@ -213,25 +265,11 @@ def _rebalance_exchange(q, k: int, n_dev: int, C: int, tmin: float,
     return both.map(lambda x: x[take])
 
 
-@torch.no_grad()
-def render_spectral_sharded(scene: FlatScene, camera: cam.Camera, width: int,
-                            height: int, wcfg, mesh: Mesh,
-                            rebalance: bool = False):
-    """Spectral wavefront frame with image rows sharded over the mesh.
-
-    Each rank runs its band's queue — ``B`` lanes a pixel, pixel-major, in
-    the band's 32×32 block order on the "cuda" backend — through every
-    round of ``ops/wavefront.py::_bounce`` (the JAX sharded frame has no
-    shared primary round either).  ``rebalance=False``: queues stay with
-    their rank.  ``rebalance=True``: before each round after the first,
-    live lanes are spread evenly over the ranks (:func:`_rebalance_exchange`);
-    lanes carry global pixel ids, every rank accumulates into a full-frame
-    buffer, and one ``all_reduce(SUM)`` assembles the frame, of which each
-    rank keeps its band.
-
-    Returns ``(rows [H/n, W, 3], counts [n, depth])``: this rank's linear
-    RGB rows, and the live lanes entering each round on every rank (after
-    the exchange), gathered to every rank."""
+def _spectral_rounds(mesh: Mesh, width: int, height: int, rebalance: bool,
+                     scene: FlatScene, camera: cam.Camera, wcfg):
+    """This rank's rounds of :func:`render_spectral_sharded` (with
+    ``rebalance`` the exchanges and the frame's ``all_reduce``): ``(rows,
+    live lanes entering each round [depth])``."""
     from ..ops.wavefront import RayQueue, _bounce, _repeat
     rows = _shard_rows(mesh, height)
     n, k = mesh.size, mesh.rank
@@ -273,12 +311,171 @@ def render_spectral_sharded(scene: FlatScene, camera: cam.Camera, width: int,
         image = image[k * npix:(k + 1) * npix]
     image = _from_blocks(image, rows, width, BLOCK_EDGE) if blocked \
         else image.reshape(rows, width, 3)
-    return image, all_gather(torch.stack(counts), mesh)
+    return image, torch.stack(counts)
+
+
+def _gathered_counts(mesh: Mesh, _scene, out):
+    """``(rows, every rank's counts [n, depth])`` from a rank's rounds."""
+    image, counts = out
+    return image, all_gather(counts, mesh)
+
+
+def _spectral_band(mesh: Mesh, width: int, height: int, rebalance: bool,
+                   scene: FlatScene, camera: cam.Camera, wcfg):
+    """The sharded spectral frame: this rank's rounds, then the counts'
+    ``all_gather``."""
+    return _gathered_counts(mesh, scene, _spectral_rounds(
+        mesh, width, height, rebalance, scene, camera, wcfg))
+
+
+@torch.no_grad()
+def render_spectral_sharded(scene: FlatScene, camera: cam.Camera, width: int,
+                            height: int, wcfg, mesh: Mesh,
+                            rebalance: bool = False):
+    """Spectral wavefront frame with image rows sharded over the mesh.
+
+    Each rank runs its band's queue — ``B`` lanes a pixel, pixel-major, in
+    the band's 32×32 block order on the "cuda" backend — through every
+    round of ``ops/wavefront.py::_bounce`` (the JAX sharded frame has no
+    shared primary round either).  ``rebalance=False``: queues stay with
+    their rank.  ``rebalance=True``: before each round after the first,
+    live lanes are spread evenly over the ranks (:func:`_rebalance_exchange`);
+    lanes carry global pixel ids, every rank accumulates into a full-frame
+    buffer, and one ``all_reduce(SUM)`` assembles the frame, of which each
+    rank keeps its band.
+
+    Returns ``(rows [H/n, W, 3], counts [n, depth])``: this rank's linear
+    RGB rows, and the live lanes entering each round on every rank (after
+    the exchange), gathered to every rank.
+
+    On the kernels of a CUDA device the frame is one captured CUDA graph a
+    ``("sharded", spectral key, rank, size, rebalance)``, with the
+    one-process spectral graph's rule (the sites that overflow in the
+    key's first run promoted) and its flag agreed over the mesh: on NCCL
+    every collective inside; on gloo the graph holds the rank's rounds and
+    the counts' ``all_gather`` follows the replay, and a rebalanced frame
+    (a collective in every round) runs eagerly, counted as an eager frame
+    (module docstring)."""
+    from ..ops.wavefront import _graph_spectral
+    _shard_rows(mesh, height)
+    full = functools.partial(_spectral_band, mesh, width, height, rebalance)
+
+    def eager():
+        return full(scene, camera, wcfg)
+    if not _graph_spectral(scene, camera, wcfg):
+        return eager()
+    if mesh.backend == "nccl":
+        def make():
+            return _FrameGraph(full, scene, camera, wcfg, promote=True,
+                               group=mesh.group)
+    elif rebalance:
+        ops_cuda.GRAPH["eager_frames"] += 1
+        return eager()
+    else:
+        def make():
+            return _FrameGraph(
+                functools.partial(_spectral_rounds, mesh, width, height,
+                                  False),
+                scene, camera, wcfg, promote=True, group=mesh.group,
+                finish=functools.partial(_gathered_counts, mesh))
+    return _run_graph(
+        ("sharded", spectral_key(scene, camera, width, height, wcfg),
+         mesh.rank, mesh.size, rebalance), make, eager, (scene, camera))
 
 
 # ---------------------------------------------------------------------------
 # The sharded training step
 # ---------------------------------------------------------------------------
+
+def _chunk_grads(mesh: Mesh, grad_chunks: int, scene: FlatScene,
+                 camera: cam.Camera, cfg: RenderConfig, target: Tensor,
+                 issue=None):
+    """Each chunk of this rank's rows (``grad_chunks`` of them, one when
+    the rows do not divide): its forward, its L2 loss against the target's
+    rows and the loss's gradients w.r.t. the scene's tensors (which require
+    grad), flattened into one buffer (zeros for a leaf the loss does not
+    reach); ``issue(buffer)`` as soon as a chunk's exists.  Returns
+    ``(buffers, losses [chunks], what issue returned)``."""
+    rows = _shard_rows(mesh, cfg.height)
+    rays = cam.camera_rays(camera, cfg.width, cfg.height, cfg.epsilon,
+                           cfg.length).map(lambda x: _band(x, mesh, rows))
+    tgt = _band(target, mesh, rows)
+    nc = grad_chunks if grad_chunks > 0 and rows % grad_chunks == 0 else 1
+    hc = rows // nc
+    params = list(scene.tensors().values())
+    flats, losses, issued = [], [], []
+    with torch.enable_grad():
+        for i in range(nc):
+            chunk = rays.map(lambda x: x[i * hc:(i + 1) * hc])
+            img, _n = render_grid(scene, chunk, cfg)
+            loss = torch.sum((img - tgt[i * hc:(i + 1) * hc]) ** 2)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            flat = torch.cat([
+                (torch.zeros_like(p) if g is None else g).reshape(-1)
+                for g, p in zip(grads, params)])
+            flats.append(flat)
+            if issue is not None:
+                issued.append(issue(flat))
+            losses.append(loss.detach())
+    return flats, torch.stack(losses), issued
+
+
+def _summed(flats: list) -> Tensor:
+    """The chunks' gradient buffers summed in chunk order."""
+    total = flats[0]
+    for flat in flats[1:]:
+        total = total + flat
+    return total
+
+
+@torch.no_grad()
+def _sgd(scene: FlatScene, total: Tensor, lr: float) -> tuple:
+    """Every leaf of the scene moved by ``-lr`` times its stretch of the
+    flattened gradient ``total``: new tensors, which need no grad."""
+    new, at = [], 0
+    for p in scene.tensors().values():
+        new.append(p.detach() - lr * total[at:at + p.numel()].view_as(p))
+        at += p.numel()
+    return tuple(new)
+
+
+def _step_overlapped(mesh: Mesh, lr: float, grad_chunks: int,
+                     scene: FlatScene, camera: cam.Camera,
+                     cfg: RenderConfig, target: Tensor) -> tuple:
+    """The step, ``(loss, *new leaves)``: each chunk's gradients
+    all-reduced asynchronously as soon as they exist, so that the
+    reduction runs during the next chunk's backward; the chunk losses'
+    ``all_reduce``; the waits; the update.  The eager step, and the body
+    captured on NCCL."""
+    flats, losses, handles = _chunk_grads(
+        mesh, grad_chunks, scene, camera, cfg, target,
+        issue=lambda flat: dist.all_reduce(flat, group=mesh.group,
+                                           async_op=True))
+    dist.all_reduce(losses, group=mesh.group)
+    for handle in handles:
+        handle.wait()
+    return (losses.sum(),) + _sgd(scene, _summed(flats), lr)
+
+
+def _step_local(mesh: Mesh, grad_chunks: int, scene: FlatScene,
+                camera: cam.Camera, cfg: RenderConfig,
+                target: Tensor) -> tuple:
+    """The rank's part of the step, the body captured on gloo:
+    ``(buffer,)``, the gradients summed over the chunks, then the chunk
+    losses."""
+    flats, losses, _none = _chunk_grads(mesh, grad_chunks, scene, camera,
+                                        cfg, target)
+    return (torch.cat([_summed(flats), losses]),)
+
+
+def _step_reduced(mesh: Mesh, lr: float, scene: FlatScene, out) -> tuple:
+    """What follows a gloo replay whose flag is clear: the buffer's
+    ``all_reduce``, then the update; ``(loss, *new leaves)``."""
+    buf, = out
+    dist.all_reduce(buf, group=mesh.group)
+    n = sum(p.numel() for p in scene.tensors().values())
+    return (buf[n:].sum(),) + _sgd(scene, buf[:n], lr)
+
 
 def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
                     grad_chunks: int = 4):
@@ -296,45 +493,52 @@ def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
     an ``all_reduce(SUM, async_op=True)`` of its gradients, flattened into
     one buffer — which runs while the next chunk computes.  The handles
     are waited on before the update.  The sum over chunks and ranks equals
-    the monolithic step's up to float32 reassociation."""
+    the monolithic step's up to float32 reassociation.
+
+    **Compiled** (the counterpart of ``@jax.jit`` on JAX's step): on the
+    kernels of a CUDA device the step replays one captured CUDA graph a
+    frame key, target shape and dtype, rank and size, kept by ``step``
+    (``step.graphs``; ``lr`` and ``grad_chunks`` are the closure's), with
+    the graph frame's rule and its flag agreed over the mesh.  On NCCL the
+    graph is the whole step above, collectives, waits and update inside.
+    On gloo it is the rank's chunks, their gradients summed over the
+    chunks before the sum over the ranks (within float32 reassociation of
+    the eager step), and one ``all_reduce`` of them with the losses
+    follows the replay, then the update: gloo's collectives cannot be
+    captured, and the overlap is lost.  A flagged replay runs the eager
+    step on every rank."""
+    graphs = {}
+
     def step(scene: FlatScene, camera: cam.Camera, target: Tensor):
         check_config(cfg.march)
-        rows = _shard_rows(mesh, cfg.height)
-        rays = cam.camera_rays(camera, cfg.width, cfg.height, cfg.epsilon,
-                               cfg.length).map(lambda x: _band(x, mesh, rows))
-        tgt = _band(target, mesh, rows)
-        nc = grad_chunks if grad_chunks > 0 and rows % grad_chunks == 0 \
-            else 1
-        hc = rows // nc
-        names = list(scene.tensors())
-        leaves = {name: x.detach().requires_grad_(True)
-                  for name, x in scene.tensors().items()}
-        live = scene.with_tensors(leaves)
-        params = [leaves[name] for name in names]
-        pending, losses = [], []
-        for i in range(nc):
-            chunk = rays.map(lambda x: x[i * hc:(i + 1) * hc])
-            img, _n = render_grid(live, chunk, cfg)
-            loss = torch.sum((img - tgt[i * hc:(i + 1) * hc]) ** 2)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            flat = torch.cat([
-                (torch.zeros_like(p) if g is None else g).reshape(-1)
-                for g, p in zip(grads, params)])
-            pending.append((flat, dist.all_reduce(
-                flat, group=mesh.group, async_op=True)))
-            losses.append(loss.detach())
-        loss = torch.stack(losses)
-        dist.all_reduce(loss, group=mesh.group)
-        total = None
-        for flat, handle in pending:
-            handle.wait()
-            total = flat if total is None else total + flat
-        new, at = {}, 0
-        with torch.no_grad():
-            for name, p in zip(names, params):
-                g = total[at:at + p.numel()].view_as(p)
-                at += p.numel()
-                new[name] = p.detach() - lr * g
-        return scene.with_tensors(new), loss.sum()
+        _shard_rows(mesh, cfg.height)
+        full = functools.partial(_step_overlapped, mesh, lr, grad_chunks)
 
+        def eager():
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in scene.tensors().items()}
+            return full(scene.with_tensors(leaves), camera, cfg, target)
+        if not _graph_step(scene, camera, cfg, (target,)):
+            out = eager()
+        else:
+            if mesh.backend == "nccl":
+                def make():
+                    return _FrameGraph(full, scene, camera, cfg, (target,),
+                                       grad=True, group=mesh.group)
+            else:
+                def make():
+                    return _FrameGraph(
+                        functools.partial(_step_local, mesh, grad_chunks),
+                        scene, camera, cfg, (target,), grad=True,
+                        group=mesh.group,
+                        finish=functools.partial(_step_reduced, mesh, lr))
+            key = ("sharded_step", frame_key(scene, camera, cfg),
+                   (tuple(target.shape), target.dtype, target.device),
+                   mesh.rank, mesh.size)
+            out = _run_graph(key, make, eager, (scene, camera, (target,)),
+                             graphs)
+        return scene.with_tensors(dict(zip(scene.tensors(), out[1:]))), \
+            out[0]
+
+    step.graphs = graphs
     return step

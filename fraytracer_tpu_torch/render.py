@@ -38,6 +38,13 @@ culled march calls (sites, numbered in their fixed order) overflowed, those
 sites are promoted to full-group tables, the frame runs once more deferred
 and, unless that run raises the flag too, is captured.  Frame and step keys
 keep the rule above.
+
+The sharded frame, step and spectral frame (``parallel/mesh.py``) are
+graphs of the same kind a key and rank, whose ranks run their bodies
+together: each decision on the flag (capture or not, promote and run
+again, replay or re-run eagerly) is taken on the flag ORed over the mesh's
+group (``deferred.Frame.agree``), so that every rank issues the same
+collectives.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ import functools
 import time
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from . import camera as cam
@@ -241,10 +249,26 @@ class _FrameGraph:
     call site.  Then, unless the last run raised the flag, the body is
     captured (``graph``, else ``None``: the key runs eagerly;
     ``capture_s``: the runs and the capture together, the counterpart of
-    JAX's compile time).  A failure in any raises."""
+    JAX's compile time).  A failure in any raises.
+
+    ``group``: the process group whose ranks make and replay this key's
+    graph together (``parallel/mesh.py``).  Every run of the body ends with
+    the flag ORed over the group, so that every rank takes each decision
+    alike: with a flag set anywhere no rank captures; a promoting first run
+    is run again on every rank (each promoting its own overflowed sites:
+    promotion changes a rank's tables, not its collectives); a replay's
+    outputs stand on every rank or none.  On NCCL that reduction is the
+    captured body's last collective; gloo's collectives run on host
+    threads and cannot be captured, so on gloo it runs after the replay.
+    The deferred first run issues the body's collectives eagerly, so no
+    collective is the first of its communicator inside a capture.
+    ``finish(scene, outputs)``: the work that follows a replay whose flag
+    is clear, and the first run (a gloo body's collectives, eagerly); the
+    call's result is what it returns."""
 
     def __init__(self, body, scene: FlatScene, camera: cam.Camera,
-                 cfg, args=(), grad: bool = False, promote: bool = False):
+                 cfg, args=(), grad: bool = False, promote: bool = False,
+                 group=None, finish=None):
         t0 = time.perf_counter()
         self.device = scene.device
         self.inputs = [x.detach().clone()
@@ -259,29 +283,40 @@ class _FrameGraph:
             right_scaled=right)
         graph_args = self.inputs[len(names) + 4:]
         self.body = lambda: body(graph_scene, graph_camera, cfg, *graph_args)
-        self.frame = deferred.Frame(self.device)
+        self.frame = deferred.Frame(self.device, group)
+        self.agree_in_graph = (group is not None
+                               and dist.get_backend(group) == "nccl")
+        self.finish = finish
         self.graph, self.launches = None, {}
         with torch.no_grad(), on_device(self.device):
-            out = self._deferred_run()
+            out = self._run(agree=True)
             flagged = bool(self.frame.flag)
             if flagged and promote:
                 sites = self.frame.overflowed_sites()
-                if sites:
+                # with a group the flag was set on some rank: every rank
+                # runs again, as the collectives of the run need
+                if sites or group is not None:
                     self.frame.promoted = sites
-                    self.frame.flag.zero_()
-                    out = self._deferred_run()
+                    out = self._run(agree=True)
                     flagged = bool(self.frame.flag)
             self.first = None if flagged else out
             if self.first is not None:
+                if finish is not None:
+                    self.first = finish(scene, out)
                 self._capture()
         self.capture_s = time.perf_counter() - t0
 
-    def _deferred_run(self):
-        """The body run eagerly with its host reads deferred to the
-        frame, its sites numbered from 0."""
+    def _run(self, agree: bool):
+        """The body with its host reads deferred to the frame, its sites
+        numbered from 0, the flag cleared first and, with ``agree``, ORed
+        over the group last: what the capture records."""
         self.frame.overflows.clear()
         with deferred.deferring(self.frame):
-            return self.body()
+            self.frame.flag.zero_()
+            out = self.body()
+        if agree:
+            self.frame.agree()
+        return out
 
     def _capture(self) -> None:
         """Capture the body into the device's graph memory pool."""
@@ -292,13 +327,15 @@ class _FrameGraph:
         if index not in _pools:
             _pools[index] = torch.cuda.graph_pool_handle()
         before = ops_cuda.launch_counts()
-        self.frame.overflows.clear()
+        # a group's NCCL watchdog thread may query the events of earlier
+        # eager collectives while the capture runs; in the global mode
+        # such a call from another thread would invalidate the capture
+        mode = "global" if self.frame.group is None else "thread_local"
         try:
             with torch.no_grad(), on_device(self.device), \
-                    torch.cuda.graph(graph, pool=_pools[index]), \
-                    deferred.deferring(self.frame):
-                self.frame.flag.zero_()
-                self.outputs = self.body()
+                    torch.cuda.graph(graph, pool=_pools[index],
+                                     capture_error_mode=mode):
+                self.outputs = self._run(agree=self.agree_in_graph)
         except BaseException:
             # a capture that fails leaves its pool bound to it: the
             # device's next capture takes a new pool
@@ -320,8 +357,12 @@ class _FrameGraph:
                                 _inputs(scene, camera) + list(args)):
                 dst.copy_(src)
             self.graph.replay()
+            if not self.agree_in_graph:
+                self.frame.agree()
             out = tuple(x.clone() for x in self.outputs)
             flagged = bool(self.frame.flag)      # the body's one host read
+            if not flagged and self.finish is not None:
+                out = self.finish(scene, out)
         ops_cuda.add_launch_counts(self.launches)
         ops_cuda.GRAPH["replays"] += 1
         return None if flagged else out
@@ -336,14 +377,16 @@ _pools: dict = {}
 _graphs: "dict[tuple, _FrameGraph]" = {}
 
 
-def _run_graph(key, make, eager, replay_args):
+def _run_graph(key, make, eager, replay_args, graphs=None):
     """A call of ``key`` through its graph (module docstring): made by the
     key's first call (``make()``), else replayed on ``replay_args``; the
     eager body ``eager()`` where the key runs eagerly or the flag is set,
-    counted."""
-    fg = _graphs.get(key)
+    counted.  ``graphs``: where the key's graph is kept (this module's
+    ``_graphs`` by default)."""
+    graphs = _graphs if graphs is None else graphs
+    fg = graphs.get(key)
     if fg is None:
-        fg = _graphs[key] = make()
+        fg = graphs[key] = make()
         out, fg.first = fg.first, None
     elif fg.graph is None:
         # the key's first run raised the flag: its calls run eagerly, as

@@ -39,7 +39,9 @@ within 1e-5 of the eager frame (``index_add_``'s atomic order) with
 ``n_rays`` equal, one capture with its overflowing sites promoted and no
 eager re-run, after an edit too; K1/K2/K3 on unfilled tables of m 512
 bit for bit the full group's; a capture that fails raises; one pool with
-the frame graphs."""
+the frame graphs.  The sharded graph frame (``parallel/mesh.py``) on one
+NCCL rank: the replay ``render_grid``'s frame bit for bit, 0 syncs in a
+replay."""
 import dataclasses
 
 import pytest
@@ -1206,6 +1208,50 @@ def test_graph_spectral_frame_shares_the_frame_graphs_pool(dev):
     assert ops_cuda.graph_counts()["captures"] == 2
     assert R.frame_graph(scene, cam, rcfg).graph.pool() == \
         R.spectral_graph(scene, cam, 128, 128, cfg).graph.pool()
+
+
+# ---------------------------------------------------------------------------
+# the sharded graph frame (parallel/mesh.py) on a world of one NCCL rank
+# ---------------------------------------------------------------------------
+
+def test_graph_sharded_frame_on_one_nccl_rank(dev):
+    """``render_sharded`` on the in-memory world of one NCCL rank
+    (``multihost.initialize()``): the first call captures the band's frame
+    and the flag's ``all_reduce``, the replay is ``render_grid``'s frame
+    bit for bit with one frame's launches, and a replay makes no host
+    sync.  The group is torn down at the end."""
+    import torch.distributed as dist
+    from fraytracer_tpu_torch.parallel import mesh as pm, multihost
+    scene, cam, cfg, R = _graph_setup(dev)
+    want = _eager(scene, cam, cfg)[0]
+    assert not dist.is_initialized()
+    multihost.initialize(backend="nccl")
+    try:
+        mesh = pm.make_mesh()
+        assert (mesh.size, mesh.backend) == (1, "nccl")
+        ops_cuda.reset_launch_counts()
+        for _ in range(2):
+            assert torch.equal(pm.render_sharded(scene, cam, cfg, mesh),
+                               want)
+        assert {k: v for k, v in ops_cuda.launch_counts().items() if v} == {
+            "march_culled": 2, "surface_culled": 2, "occlusion_culled": 4}
+        assert ops_cuda.graph_counts() == {"captures": 1, "replays": 1,
+                                           "eager_reruns": 0,
+                                           "eager_frames": 0}
+        fg = R._graphs[("sharded", R.frame_key(scene, cam, cfg), 0, 1)]
+        assert fg.agree_in_graph
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fg.graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize()
+        assert torch.equal(fg.outputs[0], want)
+        assert not bool(fg.frame.flag)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_probe_kernels_match_plain(dev):

@@ -32,8 +32,6 @@ import importlib
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import (TorchDispatchMode,
-                                          _disable_current_modes)
 
 import fraytracer_tpu as jft
 import fraytracer_tpu_torch as tft
@@ -44,45 +42,24 @@ from fraytracer_tpu_torch.ops.cuda import gather, march_kernel as mk
 from fraytracer_tpu_torch.ops.march import MarchConfig as TMC
 from test_torch_render import jax_masks, port_camera, port_masks
 from test_torch_scene import scene_pair, smooth_materials
+from torch_deferred import PLAIN_VERSIONS, NoHostRead, suspended
 from fraytracer_tpu.scene import generators as JG, nodes as JN
 from fraytracer_tpu_torch.scene import generators as TG, nodes as TN
 
 # the module (the package's ``render`` is the function)
 trender = importlib.import_module("fraytracer_tpu_torch.render")
-_aten = torch.ops.aten
-HOST_READS = {_aten._local_scalar_dense, _aten.nonzero, _aten.masked_select,
-              _aten.unique_consecutive, _aten._unique, _aten._unique2,
-              _aten.unique_dim, _aten.unique_dim_consecutive}
 SIZE = 64
 CULL = dict(cull=True, cull_threshold=64, cull_m=128, cull_m_shadow=128,
             relax_omega=1.4)
 
 
-class NoHostRead(TorchDispatchMode):
-    """Raise at an op that reads the device on the host, or at a tensor of
-    more than one element made from host data."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        assert func.overloadpacket not in HOST_READS, f"host read {func}"
-        assert not (func.overloadpacket is _aten.lift_fresh
-                    and args[0].numel() > 1), "host data in the frame"
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.fixture
 def no_host_read(monkeypatch):
-    """The mode, taken off inside the kernels' plain versions."""
-    mode = NoHostRead()
-
-    def suspend(real):
-        def plain(*a, **k):
-            with _disable_current_modes():
-                return real(*a, **k)
-        return plain
-    for mod, name in ((mk, "march_plain"), (mk, "surface_plain"),
-                      (gather, "block_gather_plain")):
-        monkeypatch.setattr(mod, name, suspend(getattr(mod, name)))
-    return mode
+    """The mode (``torch_deferred.NoHostRead``), taken off inside the
+    kernels' plain versions."""
+    for mod, name in PLAIN_VERSIONS:
+        monkeypatch.setattr(mod, name, suspended(getattr(mod, name)))
+    return NoHostRead()
 
 
 def deferred_frame(scene, cfg, camera):

@@ -12,7 +12,16 @@ and 4 ranks (16-row bands), started once each for the file.
   devices), the scene carried across from JAX's arrays, with the
   cross-framework frame bounds: outcome flips ≤ 0.5% of pixels, max |Δ|
   < 2e-3 off them, median < 1e-5;
-* the rows-must-divide error, the exposure max (rtol 1e-6).
+* the rows-must-divide error, the exposure max (rtol 1e-6);
+* the graph frame's glue on the 2 ranks (``render_sharded`` is one captured
+  CUDA graph a key and rank on the card): (a) the band's frame run
+  deferred under ``torch_deferred.NoHostRead``, culled and dense, reads
+  nothing on the host and is its eager form bit for bit, flag clear;
+  routed as on the card (``torch_deferred.graph_route``) at 32², a flag
+  forced on rank 0 alone (a material repair) (b) at the key's first call: no rank
+  captures, both run the eager frame at that call and the next, (c) at a
+  later replay: both run the eager frame again; each call is its eager
+  frame bit for bit and the graph counts agree on both ranks.
 
 The ranks import this module; JAX is imported only in the test process.
 """
@@ -28,11 +37,11 @@ SIZE = 64
 CAM = ((0.0, 0.0, -10.0), (0.0, 0.0, 0.0))
 
 
-def config(backend, height=SIZE):
-    return tft.RenderConfig(width=SIZE, height=height, epsilon=0.01,
+def config(backend, height=SIZE, width=SIZE, **march):
+    return tft.RenderConfig(width=width, height=height, epsilon=0.01,
                             length=30.0,
                             march=tft.MarchConfig(backend=backend,
-                                                  relax_omega=1.4))
+                                                  relax_omega=1.4, **march))
 
 
 def camera():
@@ -55,6 +64,44 @@ def _render_rank(scene):
                              mesh)
     except ValueError as e:
         out["divide_error"] = str(e)
+    if mesh.size == 2:
+        out.update(_graph_cases(scene, mesh))
+    return out
+
+
+def _graph_cases(scene, mesh):
+    """One of 2 ranks: (a), (b) and (c) of the module docstring."""
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred
+    from torch_deferred import (forced_repair, graph_route, no_host_read,
+                                trender)
+    cam = camera()
+    out = {}
+    for name, march in (("culled", {}), ("dense", {"cull": False})):
+        cfg = config("cuda", **march)
+        want, wn = tmesh._band_frame(mesh, scene, cam, cfg)
+        frame = deferred.Frame("cpu", mesh.group)
+        with no_host_read(), deferred.deferring(frame):
+            img, n = tmesh._band_frame(mesh, scene, cam, cfg)
+        frame.agree()
+        out[f"deferred_{name}"] = (torch.equal(img, want)
+                                   and int(n) == int(wn), bool(frame.flag))
+    cfg = config("cuda", 32, 32)
+    want = tmesh.render_sharded(scene, cam, cfg, mesh)
+    with forced_repair(mesh.rank == 0):
+        forced = tmesh.render_sharded(scene, cam, cfg, mesh)
+
+    def call(want, force=False):
+        with forced_repair(force and mesh.rank == 0):
+            return torch.equal(tmesh.render_sharded(scene, cam, cfg, mesh),
+                               want)
+    with graph_route():
+        same = [call(forced, force=True), call(want)]
+        out["capture"] = (same, ops_cuda.graph_counts(), [
+            fg.graph is None for fg in trender._graphs.values()])
+    with graph_route():
+        same = [call(want), call(want), call(forced, force=True),
+                call(want)]
+        out["replay"] = (same, ops_cuda.graph_counts())
     return out
 
 
@@ -141,6 +188,28 @@ def test_exposure_allreduce_max(ranks):
         want = gathered(reports, "cuda").max()
         for r in reports:
             np.testing.assert_allclose(r["max"], want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("route", ["culled", "dense"])
+def test_deferred_band_frame_reads_nothing_on_the_host(ranks, route):
+    for r in ranks[2]:
+        assert r[f"deferred_{route}"] == (True, False)
+
+
+def test_flag_on_one_rank_at_the_first_call_keeps_every_rank_eager(ranks):
+    for r in ranks[2]:
+        same, counts, eager_key = r["capture"]
+        assert same == [True, True] and eager_key == [True]
+        assert counts == {"captures": 0, "replays": 0, "eager_reruns": 1,
+                          "eager_frames": 1}
+
+
+def test_flag_on_one_rank_at_a_replay_reruns_every_rank(ranks):
+    for r in ranks[2]:
+        same, counts = r["replay"]
+        assert same == [True] * 4
+        assert counts == {"captures": 1, "replays": 3, "eager_reruns": 1,
+                          "eager_frames": 0}
 
 
 def test_make_mesh_needs_a_process_group():

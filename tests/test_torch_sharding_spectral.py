@@ -16,10 +16,22 @@ file:
   the rebalanced frame equals the local one within 1e-5 on both routes,
   its live lanes are spread more evenly (imbalance < 1.5 and no worse than
   with local queues), and the per-rank counts on the "torch" route are
-  within 0.5% of JAX's on a 4-device mesh.
+  within 0.5% of JAX's on a 4-device mesh;
+* the graph spectral frame's glue on the 2 ranks (one captured CUDA graph a
+  key and rank on the card): (a) the rank's rounds (the body captured on
+  gloo) and the whole rebalanced frame (captured on NCCL, its exchanges
+  inside), run deferred under ``torch_deferred.NoHostRead`` on the culled
+  scene at 16² (depth 3), read nothing on the host and are their eager forms bit for bit,
+  flag clear; routed as on the card (``torch_deferred.graph_route``), (b) a
+  flag forced on rank 0 alone (a material repair) at the key's first call:
+  both ranks run the promoted second run (two deferred runs each), no rank
+  captures, both run the eager frame at that call and the next; (c) a
+  capture and a replay (the counts' ``all_gather`` after it) give the
+  eager frame bit for bit; the graph counts agree on both ranks.
 """
 import numpy as np
 import pytest
+import torch
 
 import fraytracer_tpu_torch as tft
 from fraytracer_tpu_torch.parallel import mesh as tmesh
@@ -30,6 +42,8 @@ CAM = ((0.0, 0.0, -10.0), (0.0, 0.0, 0.0))
 TORUS = dict(width=16, height=32, depth=2, epsilon=0.02, max_steps=48)
 CULLED = dict(width=32, height=64, depth=3, epsilon=0.01, max_steps=192)
 ASYM = dict(width=16, height=32, depth=3, epsilon=1e-3, max_steps=96)
+# the graph glue's frames: the culled scene, 8-row bands (not blocked)
+GLUE = dict(width=16, height=16, depth=3, epsilon=0.01, max_steps=96)
 
 
 def wcfg(route, case):
@@ -73,6 +87,52 @@ def _spectral_rank(runs):
             sc[scene_name], camera(), case["width"], case["height"],
             wcfg(route, case), mesh, rebalance=rebalance)
         out[name] = (img.numpy(), counts.numpy())
+    if any(run[0] == "cuda" for run in runs):
+        out.update(_graph_cases(sc["culled"]))
+    return out
+
+
+def _graph_cases(scene):
+    """(a), (b) and (c) of the module docstring, on one of 2 ranks."""
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred
+    from torch_deferred import (forced_repair, graph_route, no_host_read,
+                                patched, trender)
+    mesh = tmesh.make_mesh(devices="cpu")
+    cam, w, h, cfg = camera(), GLUE["width"], GLUE["height"], \
+        wcfg("cuda", GLUE)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    out = {}
+    for body, rebalance in ((tmesh._spectral_rounds, False),
+                            (tmesh._spectral_band, True)):
+        want = body(mesh, w, h, rebalance, scene, cam, cfg)
+        frame = deferred.Frame("cpu", mesh.group)
+        with no_host_read(), deferred.deferring(frame):
+            got = body(mesh, w, h, rebalance, scene, cam, cfg)
+        frame.agree()
+        out[f"deferred_{body.__name__}"] = (same(got, want), bool(frame.flag))
+    want = tmesh.render_spectral_sharded(scene, cam, w, h, cfg, mesh)
+    with forced_repair(mesh.rank == 0):
+        forced = tmesh.render_spectral_sharded(scene, cam, w, h, cfg, mesh)
+    runs = []
+    real_run = trender._FrameGraph._run
+
+    def counted(self, agree):
+        runs.append(agree)
+        return real_run(self, agree)
+
+    def call(want, force=False):
+        with forced_repair(force and mesh.rank == 0):
+            return same(tmesh.render_spectral_sharded(scene, cam, w, h, cfg,
+                                                      mesh), want)
+    with graph_route(), patched([(trender._FrameGraph, "_run", counted)]):
+        calls = [call(forced, force=True), call(want)]
+        out["capture"] = (calls, ops_cuda.graph_counts(), len(runs), [
+            fg.graph is None for fg in trender._graphs.values()])
+    with graph_route():
+        calls = [call(want), call(want)]
+        out["replay"] = (calls, ops_cuda.graph_counts())
     return out
 
 
@@ -106,6 +166,29 @@ def test_spectral_sharded_matches_single_torch_route(ranks):
     assert (counts[:, 0] == 8 * 16 * TORUS["width"]).all()
     for r in ranks[2]:
         np.testing.assert_array_equal(r["torch"][1], counts)
+
+
+@pytest.mark.parametrize("body", ["_spectral_rounds", "_spectral_band"])
+def test_deferred_sharded_spectral_reads_nothing_on_the_host(ranks, body):
+    for r in ranks[2]:
+        assert r[f"deferred_{body}"] == (True, False)
+
+
+def test_flag_on_one_rank_promotes_and_keeps_every_rank_eager(ranks):
+    for r in ranks[2]:
+        calls, counts, runs, eager_key = r["capture"]
+        assert calls == [True, True] and eager_key == [True]
+        assert runs == 2, "the promoted run is not collective"
+        assert counts == {"captures": 0, "replays": 0, "eager_reruns": 1,
+                          "eager_frames": 1}
+
+
+def test_sharded_spectral_replay_is_the_eager_frame(ranks):
+    for r in ranks[2]:
+        calls, counts = r["replay"]
+        assert calls == [True, True]
+        assert counts == {"captures": 1, "replays": 1, "eager_reruns": 0,
+                          "eager_frames": 0}
 
 
 def test_spectral_sharded_culled_route(ranks):

@@ -18,6 +18,19 @@ shapes: 16×32, 24 tori, ε 0.02, 64 steps):
 
 Both routes run: "torch" (the dense plain march) and "cuda" (the kernels'
 plain versions; 24 tori stay under the culling threshold).
+
+The graph step's glue (``make_train_step`` is one captured CUDA graph a key
+and rank on the card): (a) the step's bodies run deferred under
+``torch_deferred.NoHostRead`` — the whole step, captured on NCCL, and the
+rank's part, captured on gloo — on the culled (threshold 16) and the dense
+"cuda" route read nothing on the host and are their eager forms bit for
+bit, flag clear; routed as on the card (``torch_deferred.graph_route``),
+(b) a flag forced on rank 0 alone (a material repair) at the key's first
+call: no rank captures, both run the eager step at that call and the next;
+(c) replays give the gloo graph's step (the rank's part, then one
+``all_reduce``, then the update) bit for bit, within the chunked bound of
+the eager step, and a flag forced on rank 0 at a later replay makes both
+ranks run the eager step; the graph counts agree on both ranks.
 """
 import numpy as np
 import pytest
@@ -36,10 +49,10 @@ CAM = ((0.0, 0.0, -10.0), (0.0, 0.0, 0.0))
 ROUTES = ("torch", "cuda")
 
 
-def config(route):
+def config(route, **march):
     return tft.RenderConfig(width=W, height=H, epsilon=0.02, length=30.0,
                             march=tft.MarchConfig(max_steps=64,
-                                                  backend=route))
+                                                  backend=route, **march))
 
 
 def camera():
@@ -48,6 +61,70 @@ def camera():
 
 def leaves(scene):
     return {k: v.detach().numpy().copy() for k, v in scene.tensors().items()}
+
+
+def live(scene):
+    """The scene on new leaves that require grad (a step body's input)."""
+    return scene.with_tensors({k: v.detach().requires_grad_(True)
+                               for k, v in scene.tensors().items()})
+
+
+def _graph_cases(scene, target, mesh):
+    """(a), (b) and (c) of the module docstring, on one rank."""
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred
+    from torch_deferred import (forced_repair, graph_route, no_host_read,
+                                trender)
+    cam = camera()
+    out = {}
+    for name, march in (("culled", {"cull_threshold": 16}),
+                        ("dense", {"cull": False})):
+        cfg = config("cuda", **march)
+        for body in ("_step_overlapped", "_step_local"):
+            def run():
+                if body == "_step_local":
+                    return tmesh._step_local(mesh, 4, live(scene), cam, cfg,
+                                             target)
+                return tmesh._step_overlapped(mesh, LR, 4, live(scene), cam,
+                                              cfg, target)
+            want = run()
+            frame = deferred.Frame("cpu", mesh.group)
+            with no_host_read(), deferred.deferring(frame):
+                got = run()
+            frame.agree()
+            out[f"deferred_{name}{body}"] = (
+                all(torch.equal(a, b) for a, b in zip(got, want))
+                and len(got) == len(want), bool(frame.flag))
+    cfg = config("cuda")
+    step = tmesh.make_train_step(cfg, mesh, lr=LR)
+    want = step(scene, cam, target)
+    with forced_repair(mesh.rank == 0):
+        forced = step(scene, cam, target)
+    reduced = tmesh._step_reduced(mesh, LR, scene, tmesh._step_local(
+        mesh, 4, live(scene), cam, cfg, target))
+    graph = (scene.with_tensors(dict(zip(scene.tensors(), reduced[1:]))),
+             reduced[0])
+
+    def same(a, b):
+        return torch.equal(a[1], b[1]) and all(
+            torch.equal(x, y) for x, y in zip(a[0].tensors().values(),
+                                              b[0].tensors().values()))
+
+    def call(step, want, force=False):
+        with forced_repair(force and mesh.rank == 0):
+            return same(step(scene, cam, target), want)
+    with graph_route():
+        step = tmesh.make_train_step(cfg, mesh, lr=LR)
+        calls = [call(step, forced, force=True), call(step, want)]
+        out["capture"] = (calls, ops_cuda.graph_counts(), [
+            fg.graph is None for fg in step.graphs.values()], trender._graphs)
+    with graph_route():
+        step = tmesh.make_train_step(cfg, mesh, lr=LR)
+        calls = [call(step, graph), call(step, graph),
+                 call(step, forced, force=True), call(step, graph)]
+        out["replay"] = (calls, ops_cuda.graph_counts())
+    out["graph_step"] = (float(graph[1]), leaves(graph[0]),
+                         float(want[1]), leaves(want[0]))
+    return out
 
 
 def _train_rank(scene, target):
@@ -69,6 +146,7 @@ def _train_rank(scene, target):
                                 for k, v in leaves(g1).items()},
                           requires_grad=any(
                               x.requires_grad for x in s1.tensors().values()))
+    out.update(_graph_cases(scene, target, mesh))
     return out
 
 
@@ -150,3 +228,39 @@ def test_train_step_matches_jax(ranks, jax_scene, target):
         assert_leaves_close(got, want, 5e-5)
     np.testing.assert_allclose(ranks[0]["torch"]["loss"][0], float(loss),
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("body", ["_step_overlapped", "_step_local"])
+@pytest.mark.parametrize("route", ["culled", "dense"])
+def test_deferred_step_reads_nothing_on_the_host(ranks, scene, route, body):
+    from fraytracer_tpu_torch.ops.cuda import cull
+    assert cull._cull_pairs(scene.kind_counts, scene.plan, 16)
+    for r in ranks:
+        assert r[f"deferred_{route}{body}"] == (True, False)
+
+
+def test_flag_on_one_rank_at_the_first_step_keeps_every_rank_eager(ranks):
+    for r in ranks:
+        calls, counts, eager_key, module_graphs = r["capture"]
+        assert calls == [True, True] and eager_key == [True]
+        # the step keeps its graphs: none in render.py's
+        assert module_graphs == {}
+        assert counts == {"captures": 0, "replays": 0, "eager_reruns": 1,
+                          "eager_frames": 1}
+
+
+def test_flag_on_one_rank_at_a_replay_reruns_every_rank(ranks):
+    for r in ranks:
+        calls, counts = r["replay"]
+        assert calls == [True] * 4
+        assert counts == {"captures": 1, "replays": 3, "eager_reruns": 1,
+                          "eager_frames": 0}
+    # the gloo graph's step: the ranks agree, and it is the eager step's
+    # within float32 reassociation (chunks summed before ranks)
+    a, b = (r["graph_step"] for r in ranks)
+    assert a[0] == b[0]
+    np.testing.assert_allclose(a[0], a[2], rtol=1e-5)
+    for k in a[1]:
+        np.testing.assert_array_equal(a[1][k], b[1][k], err_msg=k)
+        np.testing.assert_allclose(a[1][k], a[3][k], atol=1e-6, rtol=1e-5,
+                                   err_msg=k)
