@@ -70,6 +70,9 @@ SIGNATURES = {
     "ft_probe_dyn_loop": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # table, x, out, trips, g, m, p, use_smem, stream
     "ft_probe_while": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # host only (csrc/capture.cu): stream under capture, kinds (char
+    # [cap] or null), cap, out n_ops (int64 [1])
+    "ft_capture_ops": [_P, _P, _I, _P],
 }
 # cudaGetErrorString for a code returned above
 ERROR_STRING = "ft_error_string"

@@ -36,6 +36,7 @@ import torch
 
 from ...scene.flatten import FlatScene, Plan, visible_materials
 from ...types import normalize
+from ...utils.profiling import span
 from .. import deferred
 from ..sdf import _prim_bound_rows
 
@@ -577,6 +578,7 @@ def kind_offset(scene: FlatScene, kind: str) -> int:
     raise KeyError(kind)
 
 
+@span("cull")
 @torch.no_grad()
 def build_pair_tables(scene: FlatScene, origin: Tensor, direction: Tensor,
                       t0: Tensor, length: Tensor, epsilon: Tensor,

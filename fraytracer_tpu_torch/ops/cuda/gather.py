@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from ...utils.profiling import anchor
 from .build import check, library, on_device
 
 BLOCK_SUB = 8            # sublanes per gathered block (the TPU block shape)
@@ -64,6 +65,8 @@ def _gather_blocks(x: torch.Tensor, block_idx: torch.Tensor) -> torch.Tensor:
             block_bytes // 16, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     check(err, "ft_block_gather")
+    if bo and block_bytes // 16:
+        anchor("block_gather_kernel")
     LAUNCHES["block_gather"] += 1
     return out
 

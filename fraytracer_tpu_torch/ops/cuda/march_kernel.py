@@ -49,6 +49,7 @@ import torch
 from ...scene.flatten import FlatScene, Plan, PARAM_WIDTH, KINDS, \
     visible_materials
 from ...types import MarchResult, Rays, normalize
+from ...utils.profiling import anchor, span
 from .. import deferred, sdf
 from ..march import (MarchConfig, bound_skip_start, check_config, chunked,
                      _chunk_elems, sphere_trace)
@@ -840,6 +841,8 @@ def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
             None if occlusion else d.data_ptr(), steps.data_ptr(), *extra,
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, entry)
+    if n:
+        anchor("march_kernel" if cull is not None else "march_dense_kernel")
     return t, hit, d, steps
 
 
@@ -1049,6 +1052,8 @@ def surface_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
             midx.data_ptr(), code.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, entry)
+    if n:
+        anchor(entry[len("ft_"):] + "_kernel")
     name = "surface_ad" if ad else "surface"
     LAUNCHES[name if cull is None else name + "_culled"] += 1
     return normal, midx, code
@@ -1113,6 +1118,7 @@ def march_tables(scene: FlatScene, rays: Rays, cfg: MarchConfig,
     return t0, miss0, length, cull
 
 
+@span("march")
 @torch.no_grad()
 def cuda_march_raw(scene: FlatScene, rays: Rays, cfg: MarchConfig,
                    want_surface: bool = False, occlusion: bool = False,

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..scene.flatten import FlatScene
 from ..types import norm, normalize
+from ..utils.profiling import span
 from . import deferred, sdf
 from .cuda.cull import _build_groups, _cull_pairs
 
@@ -193,6 +194,7 @@ def _gather_rows(params: Tensor, idx: Tensor) -> Tensor:
         idx.shape + (params.shape[-1],))
 
 
+@span("cull")
 def build_culled_eval(scene: FlatScene, pos: Tensor,
                       hit: Tensor | None = None,
                       m: int = 128, threshold: int = 192,

@@ -30,6 +30,7 @@ import torch
 from ..scene.flatten import FlatScene
 from ..scene.nodes import LIGHT_DIRECTIONAL, LIGHT_POINT
 from ..types import Rays, SurfaceHit, dot
+from ..utils.profiling import span
 from . import deferred, sdf
 from .march import (MarchConfig, check_config, chunked, hit_points, march,
                     march_occlusion, march_surface)
@@ -104,6 +105,7 @@ def resolve_material(scene: FlatScene, pos: Tensor, hit: Tensor,
     return out.reshape(midx.shape)
 
 
+@span("surface")
 def surface_hit(scene: FlatScene, rays: Rays,
                 cfg: MarchConfig = MarchConfig()) -> SurfaceHit:
     """March + shading-ready hit info (reference ``SdfObject.tryTrace``):
@@ -166,6 +168,7 @@ def light_dir_and_dist(scene: FlatScene, i: int, pos: Tensor):
     raise ValueError(f"bad light kind {kind}")
 
 
+@span("shade")
 def shade_with_stats(scene: FlatScene, rays: Rays, hit: SurfaceHit,
                      cfg: MarchConfig = MarchConfig()):
     """Shade surface hits → ``(linear RGB [..., 3], n_shadow)``, where

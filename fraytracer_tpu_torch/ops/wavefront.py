@@ -38,6 +38,7 @@ import torch
 from ..scene.flatten import FlatScene
 from ..scene.nodes import LIGHT_POINT, MAT_DIELECTRIC, MAT_MIRROR, MAT_SOLID
 from ..types import Rays, _map_fields, dot, normalize
+from ..utils.profiling import span
 from . import sdf, spectral
 from .march import MarchConfig, march_occlusion, march_surface
 from .shade import light_dir_and_dist, resolve_material
@@ -138,6 +139,7 @@ def _repeat(x: Tensor, b: int) -> Tensor:
         .reshape((x.shape[0] * b,) + tuple(x.shape[1:]))
 
 
+@span("shade")
 def _shade_local(scene: FlatScene, pos: Tensor, normal: Tensor,
                  eps: Tensor, cfg: WavefrontConfig):
     """Direct lighting at points (Lambert + hard shadows), RGB ``[..., 3]``,
@@ -166,17 +168,19 @@ def _shade_local(scene: FlatScene, pos: Tensor, normal: Tensor,
     return light_acc, n_shadow
 
 
+@span("wavefront")
 def _surface_terms(scene: FlatScene, rays: Rays, res, nrm: Tensor,
                    midx: Tensor, hit: Tensor, cfg: WavefrontConfig):
     """The shading inputs at a march's hits: the backed-off point, the
     repaired material (``resolve_material``; misses → 0), its kind, the
     diffuse weight (solids 1, mirrors 1 − ρ, dielectrics 0), the Lambert
     + emission term and the shadow rays marched."""
-    pos = rays.at(res.t - rays.epsilon)
-    midx = torch.clamp_min(resolve_material(scene, pos, hit, midx,
-                                            backend=cfg.march.backend), 0)
-    rows = midx.long()
-    albedo = sdf.albedo_of(scene, midx, pos)
+    with span("surface"):
+        pos = rays.at(res.t - rays.epsilon)
+        midx = torch.clamp_min(resolve_material(
+            scene, pos, hit, midx, backend=cfg.march.backend), 0)
+        rows = midx.long()
+        albedo = sdf.albedo_of(scene, midx, pos)
     kind = sdf.mat_kinds(scene.mat_kind, midx.device)[rows]
     refl = sdf.take_rows(scene.mat_reflectivity, rows)
     light_rgb, n_shadow = _shade_local(scene, pos, nrm, rays.epsilon, cfg)
@@ -228,6 +232,7 @@ def _face(nrm: Tensor, direction: Tensor) -> Tensor:
     return torch.where(dot(nrm, direction)[..., None] > 0.0, -nrm, nrm)
 
 
+@span("wavefront")
 def _bounce(scene: FlatScene, q: RayQueue, image: Tensor,
             cfg: WavefrontConfig, is_last: bool):
     """One wavefront round: march → shade and accumulate → spawn children
@@ -305,17 +310,21 @@ def render_spectral_with_stats(scene: FlatScene, camera, width: int,
     ``ops.cuda.graph_counts()`` (no keys of their own).  On the CPU, or on
     the "torch" backend, the frame runs eagerly.  The outputs are the
     caller's own."""
-    if not _graph_spectral(scene, camera, cfg):
-        return _spectral_frame(scene, camera, width, height, cfg)
     from ..render import _FrameGraph, _run_graph, spectral_key
+    with span("spectral"):
+        with span("graph.key"):
+            key = spectral_key(scene, camera, width, height, cfg) \
+                if _graph_spectral(scene, camera, cfg) else None
+        if key is None:
+            return _spectral_frame(scene, camera, width, height, cfg)
 
-    def body(s, c, w):
-        return _spectral_frame(s, c, width, height, w)
-    return _run_graph(
-        spectral_key(scene, camera, width, height, cfg),
-        lambda: _FrameGraph(body, scene, camera, cfg, promote=True),
-        lambda: _spectral_frame(scene, camera, width, height, cfg),
-        (scene, camera))
+        def body(s, c, w):
+            return _spectral_frame(s, c, width, height, w)
+        return _run_graph(
+            key, lambda: _FrameGraph(body, scene, camera, cfg, promote=True,
+                                     name="spectral"),
+            lambda: _spectral_frame(scene, camera, width, height, cfg),
+            (scene, camera))
 
 
 @torch.no_grad()
@@ -382,18 +391,21 @@ def _spectral_frame(scene: FlatScene, camera, width: int, height: int,
         return _repeat(x, B)
 
     rows = s["rows"]
-    wl = torch.arange(B, dtype=torch.int32, device=dev).repeat(npix)
-    pixel = rep(torch.arange(npix, dtype=torch.int32, device=dev))
-    both = _children(
-        torch.full((B * npix,), 1.0 / B, dtype=torch.float32, device=dev),
-        rep(d0), rep(_face(nrm, d0)), rep(rays0.at(res.t)), rep(rays0.epsilon),
-        rep(torch.clamp_min(rays0.length - res.t, 0.0)), rep(s["refl"]),
-        spectral.cauchy_ior(rep(sdf.take_rows(scene.mat_ior, rows)), wl),
-        rep(sdf.take_rows(scene.mat_tint, rows)), rep(s["is_mirror"]),
-        rep(s["is_diel"]), rep(hit),
-        torch.zeros((B * npix,), dtype=torch.bool, device=dev), pixel, wl,
-        cfg)
-    q = _compact(both, B * npix, cfg)
+    with span("wavefront"):
+        wl = torch.arange(B, dtype=torch.int32, device=dev).repeat(npix)
+        pixel = rep(torch.arange(npix, dtype=torch.int32, device=dev))
+        both = _children(
+            torch.full((B * npix,), 1.0 / B, dtype=torch.float32,
+                       device=dev),
+            rep(d0), rep(_face(nrm, d0)), rep(rays0.at(res.t)),
+            rep(rays0.epsilon),
+            rep(torch.clamp_min(rays0.length - res.t, 0.0)), rep(s["refl"]),
+            spectral.cauchy_ior(rep(sdf.take_rows(scene.mat_ior, rows)), wl),
+            rep(sdf.take_rows(scene.mat_tint, rows)), rep(s["is_mirror"]),
+            rep(s["is_diel"]), rep(hit),
+            torch.zeros((B * npix,), dtype=torch.bool, device=dev), pixel,
+            wl, cfg)
+        q = _compact(both, B * npix, cfg)
 
     for bounce in range(1, cfg.depth):
         q, image, n_m = _bounce(scene, q, image, cfg,

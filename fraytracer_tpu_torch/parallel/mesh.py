@@ -367,7 +367,7 @@ def render_spectral_sharded(scene: FlatScene, camera: cam.Camera, width: int,
     if mesh.backend == "nccl":
         def make():
             return _FrameGraph(full, scene, camera, wcfg, promote=True,
-                               group=mesh.group)
+                               group=mesh.group, name="spectral")
     elif rebalance:
         ops_cuda.GRAPH["eager_frames"] += 1
         return eager()
@@ -377,7 +377,8 @@ def render_spectral_sharded(scene: FlatScene, camera: cam.Camera, width: int,
                 functools.partial(_spectral_rounds, mesh, width, height,
                                   False),
                 scene, camera, wcfg, promote=True, group=mesh.group,
-                finish=functools.partial(_gathered_counts, mesh))
+                finish=functools.partial(_gathered_counts, mesh),
+                name="spectral")
     return _run_graph(
         ("sharded", spectral_key(scene, camera, width, height, wcfg),
          mesh.rank, mesh.size, rebalance), make, eager, (scene, camera))
@@ -524,14 +525,16 @@ def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
             if mesh.backend == "nccl":
                 def make():
                     return _FrameGraph(full, scene, camera, cfg, (target,),
-                                       grad=True, group=mesh.group)
+                                       grad=True, group=mesh.group,
+                                       name="step")
             else:
                 def make():
                     return _FrameGraph(
                         functools.partial(_step_local, mesh, grad_chunks),
                         scene, camera, cfg, (target,), grad=True,
                         group=mesh.group,
-                        finish=functools.partial(_step_reduced, mesh, lr))
+                        finish=functools.partial(_step_reduced, mesh, lr),
+                        name="step")
             key = ("sharded_step", frame_key(scene, camera, cfg),
                    (tuple(target.shape), target.dtype, target.device),
                    mesh.rank, mesh.size)

@@ -63,6 +63,7 @@ from .ops.march import MarchConfig, check_config
 from .scene.flatten import FlatScene, flatten
 from .scene.nodes import Scene
 from .types import Rays
+from .utils.profiling import capture_layers, span
 
 Tensor = torch.Tensor
 
@@ -207,11 +208,15 @@ def _step(loss_fn, scene: FlatScene, camera: cam.Camera, cfg: RenderConfig,
     autograd did not reach (as ``jax.value_and_grad`` gives them)."""
     leaves = list(scene.tensors().values())
     with torch.enable_grad():
-        loss = loss_fn(_frame(scene, camera, cfg)[0], *args)
+        image = _frame(scene, camera, cfg)[0]
+        with span("loss"):
+            loss = loss_fn(image, *args)
+        del image       # what the backward needs autograd keeps
         if loss.ndim != 0:
             raise ValueError(f"loss_fn returned shape {tuple(loss.shape)}, "
                              "want a scalar")
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with span("vjp"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return (loss.detach(),) + tuple(
         torch.zeros_like(x) if g is None else g
         for x, g in zip(leaves, grads))
@@ -264,12 +269,16 @@ class _FrameGraph:
     collective is the first of its communicator inside a capture.
     ``finish(scene, outputs)``: the work that follows a replay whose flag
     is clear, and the first run (a gloo body's collectives, eagerly); the
-    call's result is what it returns."""
+    call's result is what it returns.
+
+    ``layers``: the graph's layer table (``utils/profiling.py``), named
+    ``name``, built by the spans of its capture; it counts the replays."""
 
     def __init__(self, body, scene: FlatScene, camera: cam.Camera,
                  cfg, args=(), grad: bool = False, promote: bool = False,
-                 group=None, finish=None):
+                 group=None, finish=None, name: str = "frame"):
         t0 = time.perf_counter()
+        self.name, self.layers = name, None
         self.device = scene.device
         self.inputs = [x.detach().clone()
                        for x in _inputs(scene, camera) + list(args)]
@@ -334,7 +343,8 @@ class _FrameGraph:
         try:
             with torch.no_grad(), on_device(self.device), \
                     torch.cuda.graph(graph, pool=_pools[index],
-                                     capture_error_mode=mode):
+                                     capture_error_mode=mode), \
+                    capture_layers(self.name) as layers:
                 self.outputs = self._run(agree=self.agree_in_graph)
         except BaseException:
             # a capture that fails leaves its pool bound to it: the
@@ -345,7 +355,7 @@ class _FrameGraph:
         self.launches = {k: after[k] - before[k] for k in after}
         # captured, not launched: the replays count them
         ops_cuda.add_launch_counts({k: -v for k, v in self.launches.items()})
-        self.graph = graph
+        self.graph, self.layers = graph, layers
         ops_cuda.GRAPH["captures"] += 1
 
     def replay(self, scene: FlatScene, camera: cam.Camera, args=()):
@@ -353,18 +363,25 @@ class _FrameGraph:
         key): clones of the outputs, or ``None`` when the replay raised the
         flag."""
         with torch.no_grad(), on_device(self.device):
-            for dst, src in zip(self.inputs,
-                                _inputs(scene, camera) + list(args)):
-                dst.copy_(src)
-            self.graph.replay()
-            if not self.agree_in_graph:
-                self.frame.agree()
-            out = tuple(x.clone() for x in self.outputs)
-            flagged = bool(self.frame.flag)      # the body's one host read
+            with span("graph.copy_in"):
+                for dst, src in zip(self.inputs,
+                                    _inputs(scene, camera) + list(args)):
+                    dst.copy_(src)
+            with span("graph.launch"):
+                self.graph.replay()
+            if self.frame.group is not None and not self.agree_in_graph:
+                with span("graph.agree"):
+                    self.frame.agree()
+            with span("graph.out"):
+                out = tuple(x.clone() for x in self.outputs)
+                flagged = bool(self.frame.flag)  # the body's one host read
             if not flagged and self.finish is not None:
-                out = self.finish(scene, out)
+                with span("graph.finish"):
+                    out = self.finish(scene, out)
         ops_cuda.add_launch_counts(self.launches)
         ops_cuda.GRAPH["replays"] += 1
+        if self.layers is not None:
+            self.layers.replays += 1
         return None if flagged else out
 
 
@@ -384,21 +401,25 @@ def _run_graph(key, make, eager, replay_args, graphs=None):
     counted.  ``graphs``: where the key's graph is kept (this module's
     ``_graphs`` by default)."""
     graphs = _graphs if graphs is None else graphs
-    fg = graphs.get(key)
+    with span("graph.key"):
+        fg = graphs.get(key)
     if fg is None:
-        fg = graphs[key] = make()
+        with span("graph.capture"):
+            fg = graphs[key] = make()
         out, fg.first = fg.first, None
     elif fg.graph is None:
         # the key's first run raised the flag: its calls run eagerly, as
         # a replay that raised it would pay the graph, then the eager body
         ops_cuda.GRAPH["eager_frames"] += 1
-        return eager()
+        with span("graph.eager"):
+            return eager()
     else:
         out = fg.replay(*replay_args)
     if out is None:
         # an overflowing table, a material repair or a failing certificate
         ops_cuda.GRAPH["eager_reruns"] += 1
-        out = eager()
+        with span("graph.eager"):
+            out = eager()
     return out
 
 
@@ -417,13 +438,16 @@ def render_with_stats(scene: FlatScene, camera: cam.Camera,
     grad; when none does, no graph is built.  On the kernels of a CUDA
     device a frame autograd need not see replays a captured CUDA graph (the
     module docstring); its outputs are the caller's own."""
-    check_config(cfg.march)
-    if not _graph_frame(scene, camera, cfg):
-        return _frame(scene, camera, cfg)
-    return _run_graph(
-        frame_key(scene, camera, cfg),
-        lambda: _FrameGraph(_frame, scene, camera, cfg),
-        lambda: _frame(scene, camera, cfg), (scene, camera))
+    with span("frame"):
+        with span("graph.key"):
+            check_config(cfg.march)
+            key = frame_key(scene, camera, cfg) \
+                if _graph_frame(scene, camera, cfg) else None
+        if key is None:
+            return _frame(scene, camera, cfg)
+        return _run_graph(
+            key, lambda: _FrameGraph(_frame, scene, camera, cfg),
+            lambda: _frame(scene, camera, cfg), (scene, camera))
 
 
 def spectral_graph(scene: FlatScene, camera: cam.Camera, width: int,
@@ -468,20 +492,24 @@ def render_value_and_grad(loss_fn, scene: FlatScene, camera: cam.Camera,
     count as frames in ``ops.cuda.graph_counts()``.  On the CPU, or on the
     "torch" backend, the step runs eagerly.  The scene's tensors are not
     changed and gain no ``.grad``."""
-    check_config(cfg.march)
-    names = list(scene.tensors())
+    with span("step"):
+        with span("graph.key"):
+            check_config(cfg.march)
+            names = list(scene.tensors())
+            key = step_key(loss_fn, scene, camera, cfg, *args) \
+                if _graph_step(scene, camera, cfg, args) else None
 
-    def eager():
-        return _eager_step(loss_fn, scene, camera, cfg, *args)
-    if _graph_step(scene, camera, cfg, args):
-        out = _run_graph(
-            step_key(loss_fn, scene, camera, cfg, *args),
-            lambda: _FrameGraph(functools.partial(_step, loss_fn), scene,
-                                camera, cfg, args, grad=True),
-            eager, (scene, camera, args))
-    else:
-        out = eager()
-    return out[0], dict(zip(names, out[1:]))
+        def eager():
+            return _eager_step(loss_fn, scene, camera, cfg, *args)
+        if key is not None:
+            out = _run_graph(
+                key, lambda: _FrameGraph(
+                    functools.partial(_step, loss_fn), scene, camera, cfg,
+                    args, grad=True, name="step"),
+                eager, (scene, camera, args))
+        else:
+            out = eager()
+        return out[0], dict(zip(names, out[1:]))
 
 
 def render_grid(scene: FlatScene, rays: Rays, cfg: RenderConfig):
