@@ -6,6 +6,12 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
 
 1. device  — the card's name and power limit (nvidia-smi), torch/CUDA.
 2. build   — compile the kernels from fraytracer_tpu_torch/csrc (nvcc).
+2b. cull   — the table build's kernels (csrc/cull.cu) against the plain
+   build at the three sites of the 1024² / 1000-torus frame and a bounce
+   site of the 512² spectral frame: the tables as the card tests check
+   them (tests/test_torch_cull_cuda.py), one cones and one select launch
+   a site, device ms of both builds beside the bytes-from-shapes bound.
+   ``--cull-only`` stops after it.
 3. kernels — each kernel against its plain PyTorch version on the same
    CUDA tensors: K4 block gather (exact), dense K1/K2/K3 on small scenes,
    culled K1/K2/K3 on the 96-torus scene, a 256-sphere intersect and
@@ -455,15 +461,19 @@ def check(cond: bool, msg: str) -> None:
 def plain_route():
     """Send the "cuda" backend's host glue to the plain versions (on CUDA
     tensors) instead of the kernels, for kernel-vs-plain comparisons."""
-    from fraytracer_tpu_torch.ops.cuda import gather, march_kernel as mk
-    saved = (mk.march_kernel, mk.surface_kernel, gather._gather_blocks)
+    from fraytracer_tpu_torch.ops.cuda import cull, gather, \
+        march_kernel as mk
+    saved = (mk.march_kernel, mk.surface_kernel, gather._gather_blocks,
+             mk.build_pair_tables)
     mk.march_kernel = mk.march_plain
     mk.surface_kernel = mk.surface_plain
     gather._gather_blocks = gather.block_gather_plain
+    mk.build_pair_tables = cull.build_pair_tables_plain
     try:
         yield
     finally:
-        mk.march_kernel, mk.surface_kernel, gather._gather_blocks = saved
+        (mk.march_kernel, mk.surface_kernel, gather._gather_blocks,
+         mk.build_pair_tables) = saved
 
 
 # ---------------------------------------------------------------------------
@@ -833,6 +843,139 @@ def phase_dense_unstaged(dev, n_tori=8000, size=64):
                     mk.surface_plain(scene, *args), k[1],
                     f"K3 dense, {scene.num_prims} entries unstaged")
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# [cull]: the table build's kernels (csrc/cull.cu) against the plain build
+# ---------------------------------------------------------------------------
+
+def load_test(name):
+    """The module ``tests/<name>.py`` loaded by path (for the checks the
+    card tests share with this script)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def build_sites(fn):
+    """The arguments of each culled site's table build in ``fn()``, in
+    order (a spy on the march's ``build_pair_tables``)."""
+    from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
+    real, sites = mk.build_pair_tables, []
+
+    def spy(*args):
+        sites.append(args)
+        return real(*args)
+    mk.build_pair_tables = spy
+    try:
+        fn()
+    finally:
+        mk.build_pair_tables = real
+    return sites
+
+
+def table_bytes(args, tables) -> int:
+    """Bytes a site's table build has to move: each lane's origin,
+    direction, t0, length and epsilon read once, its oa / ca and the cones
+    written; each pair's rows read once and its tables written."""
+    from fraytracer_tpu_torch.ops.cuda import cull_kernel as ck
+    from fraytracer_tpu_torch.scene.flatten import PARAM_WIDTH
+    grid = -(-args[1].shape[0] // 1024)
+    b = nbytes(*args[1:6], tables.oa, tables.ca) + grid * ck.CONES \
+        * ck.CONE_W * 4
+    for q in tables.tables:
+        b += (q.row_hi - q.row_lo) * (PARAM_WIDTH[q.kind] + 2) * 4
+        b += nbytes(q.idx, q.count, q.table, q.keys, q.misc, q.hsuf)
+    return b
+
+
+def phase_cull(dev):
+    """The table build at the three sites of the 1024² / 1000-torus frame
+    (primary rays, the directional and the point light's shadow rays) and
+    at a bounce site of the 512² spectral frame (m 1000, ``sign`` lanes):
+    the kernels' tables checked against the plain build's as the card
+    tests check them, one cones and one select launch a site, device ms
+    of the kernels (the cones launch alone beside them), of the plain
+    build, and the bytes-from-shapes bound."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    from fraytracer_tpu_torch.ops.cuda import cull, cull_kernel as ck
+    from fraytracer_tpu_torch.ops.wavefront import _spectral_frame
+    from fraytracer_tpu_torch.scene.generators import spectral_csg_scene, \
+        torus_csg_scene
+    tt = load_test("test_torch_cull_cuda")
+    device_ms = device_timer()
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    scene = ft.flatten(torus_csg_scene(19, BENCH_N_TORI), device=dev)
+    frame = build_sites(lambda: eager_frame(scene, cam, bench_config(SIZE)))
+    check(len(frame) == 3, f"[cull] {len(frame)} sites in the frame")
+    sscene = ft.flatten(spectral_csg_scene(19, BENCH_N_TORI), device=dev)
+    spectral = build_sites(lambda: _spectral_frame(
+        sscene, cam, SPECTRAL_SIZE, SPECTRAL_SIZE, spectral_config()))
+    bounce = spectral[1 + sscene.num_lights]    # round 1's march
+    sites = list(zip(("primary", "light0", "light1"), frame)) + \
+        [("spectral_bounce", bounce)]
+    out = {}
+    for label, args in sites:
+        ops_cuda.reset_launch_counts()
+        got = cull.build_pair_tables(*args)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops_cuda.launch_counts().items() if v}
+        check(counts == {"cull_cones": 1, "cull_select": 1},
+              f"[cull] {label}: launches {counts}")
+        # the cones within 1e-5 of the plain build's, the tables exactly
+        # the plain build's on the kernel's cones (the lane sums' order
+        # moves a member lying on its test's boundary), and the members
+        # the plain cones move counted
+        try:
+            cones = tt.assert_cones_close(args[1:6], args[9])
+            tt.assert_tables_match(args[0], args[1:6], args[9], got,
+                                   tt.plain_tables(args, cones))
+        except AssertionError as e:
+            check(False, f"[cull] {label}: tables differ from the plain "
+                  f"build's: {e!r}")
+        want = cull.build_pair_tables_plain(*args)
+        moved = sum(int((q.count - w.count).abs().sum())
+                    for q, w in zip(got.tables, want.tables))
+        moved_tiles = sum(int((q.count != w.count).sum())
+                          for q, w in zip(got.tables, want.tables))
+        ms = device_ms(lambda: cull.build_pair_tables(*args))
+        cones_ms = device_ms(lambda: ck.tile_cones(*args[1:6], args[9]))
+        plain_ms = device_ms(lambda: cull.build_pair_tables_plain(*args),
+                             reps=10)
+        b = table_bytes(args, got)
+        q = got.tables[0]
+        counts_f = q.count.float()
+        r = {"ms": ms, "cones_ms": cones_ms, "plain_ms": plain_ms,
+             "bound_ms": b / PEAK_BYTES_S * 1e3, "bytes": b,
+             "lanes": args[1].shape[0], "m": [t.m for t in got.tables],
+             "group": [t.row_hi - t.row_lo for t in got.tables],
+             "candidates_max": int(q.count.max()),
+             "candidates_mean": float(counts_f.mean()),
+             "overflow": None if got.overflow is None
+             else bool(got.overflow),
+             "moved_by_plain_cones": moved, "tiles_moved": moved_tiles,
+             "tests": 4 * sum(t.count.numel() * (t.row_hi - t.row_lo)
+                              for t in got.tables)}
+        out[label] = r
+        log(f"  [cull] {label}: {r['lanes']} lanes, m {r['m']} of "
+            f"{r['group']}, candidates max {r['candidates_max']} mean "
+            f"{r['candidates_mean']:.1f}: kernels {ms:.4f} ms (cones "
+            f"{cones_ms:.4f}), plain {plain_ms:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({b} bytes, "
+            f"{100 * r['bound_ms'] / ms:.1f} % of the roofline); tables "
+            "the plain build's on the kernel's cones; the plain cones move "
+            f"{moved} members' candidacy in {moved_tiles} tiles "
+            f"({r['tests']} tests)")
+    frame_ms = sum(out[k]["ms"] for k in ("primary", "light0", "light1"))
+    frame_plain = sum(out[k]["plain_ms"] for k in ("primary", "light0",
+                                                    "light1"))
+    log(f"  [cull] the frame's three sites: kernels {frame_ms:.4f} ms, "
+        f"plain {frame_plain:.3f} ms ({nvidia_smi()})")
+    return out
 
 
 def phase_culled_kernels(dev):
@@ -1593,7 +1736,8 @@ def profile_frame(scene, cam, cfg, trace_path, fn=None, ops=0, record=None,
     # a template instantiation is named "void march_kernel<...>(...)"
     port = ("march_kernel", "surface_kernel", "surface_ad_kernel",
             "block_gather_kernel", "march_dense_kernel",
-            "surface_dense_kernel", "surface_ad_dense_kernel")
+            "surface_dense_kernel", "surface_ad_dense_kernel",
+            "cull_cones_kernel", "cull_select_kernel")
     ours = [e for e in sorted(evs, key=lambda e: e.time_range.start)
             if any(k in e.name.split("(")[0] for k in port)]
     log("  profile, port kernels in launch order: " + ", ".join(
@@ -1724,10 +1868,10 @@ GRAPH_CHAIN = 32      # chained frames of the sustained time (JAX's K)
 # one frame's launches, per replay and in the eager frame, by form
 GRAPH_LAUNCHES = {
     "culled": {"march_culled": 1, "surface_culled": 1,
-               "occlusion_culled": 2},
+               "occlusion_culled": 2, "cull_cones": 3, "cull_select": 3},
     "dense": {"march": 1, "surface": 1, "occlusion": 2},
     "blend": {"march_culled": 1, "surface_ad_culled": 1,
-              "occlusion_culled": 2},
+              "occlusion_culled": 2, "cull_cones": 3, "cull_select": 3},
     "blend_dense": {"march": 1, "surface_ad": 1, "occlusion": 2}}
 # a launch count's kernel as a trace names it (K1 and K2 are one kernel)
 TRACE_NAMES = {"march_culled": "march_kernel",
@@ -1737,7 +1881,9 @@ TRACE_NAMES = {"march_culled": "march_kernel",
                "march": "march_dense_kernel", "occlusion": "march_dense_kernel",
                "surface": "surface_dense_kernel",
                "surface_ad": "surface_ad_dense_kernel",
-               "block_gather": "block_gather_kernel"}
+               "block_gather": "block_gather_kernel",
+               "cull_cones": "cull_cones_kernel",
+               "cull_select": "cull_select_kernel"}
 NO_GRAPH = {"captures": 0, "replays": 0, "eager_reruns": 0, "eager_frames": 0}
 
 
@@ -2499,7 +2645,9 @@ SPECTRAL_SIZE = 512
 # one frame at depth 4 when no march overflows its tables: K1 and K3 once a
 # round, K2 once a light a round, K4 once a field (8) a compaction (3)
 SPECTRAL_LAUNCHES = {"march_culled": 4, "surface_culled": 4,
-                     "occlusion_culled": 8, "block_gather": 24}
+                     "occlusion_culled": 8, "block_gather": 24,
+                     # a table build (cones, select) at each culled site
+                     "cull_cones": 12, "cull_select": 12}
 # (a)'s bound, kernels vs plain route on one card and the same inputs: the
 # readings were max |diff| 2.06e-6 (96 tori) and 4.53e-6 (1000 tori), two
 # runs of one route differ by up to 6e-8 (index_add_'s atomic order); one
@@ -3014,6 +3162,8 @@ def phase_spectral(dev, build_dir, reps=5):
     want["surface_culled"] += reruns["march"]
     want["occlusion_culled"] += reruns["occlusion"]
     want["block_gather"] += block_repairs
+    for k in ("cull_cones", "cull_select"):
+        want[k] += reruns["march"] + reruns["occlusion"]
     got = {k: v for k, v in counts.items() if v}
     log(f"  (b) expected launches {want} (re-runs {reruns}, block-tier "
         f"repairs {block_repairs})")
@@ -3644,7 +3794,7 @@ def phase_grad(dev, scene, blend, build_dir, fwd_med, blend_fwd_med):
 # ---------------------------------------------------------------------------
 
 FRAME_LAUNCHES = {"march_culled": 1, "surface_culled": 1,
-                  "occlusion_culled": 2}
+                  "occlusion_culled": 2, "cull_cones": 3, "cull_select": 3}
 # the culled spectral bound's mean (tests/test_torch_wavefront_culled.py):
 # the sharded queue marches a lane a bin in round 0 where render_spectral
 # marches one a pixel, and rebalancing reorders lanes, so culled hits land
@@ -5299,6 +5449,8 @@ def main() -> int:
                     help="time the culled torus frame alone")
     ap.add_argument("--kernels-only", action="store_true",
                     help="device times of K4, culled K1/K2 and dense K1")
+    ap.add_argument("--cull-only", action="store_true",
+                    help="the build, then the [cull] phase alone")
     ap.add_argument("--tree", help="with --frame-only or --kernels-only: "
                     "import the package of the commit unpacked in this "
                     "directory")
@@ -5339,6 +5491,16 @@ def main() -> int:
         if "entry function" in line or "registers" in line \
                 or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    log("[cull] the table build's kernels against the plain build: the "
+        f"{SIZE}^2 frame's three sites and a spectral bounce site")
+    cull_times = phase_cull(dev)
+    if args.cull_only:
+        print(json.dumps({"cull": cull_times}))
+        print(nvidia_smi())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     log("[kernels] kernel vs plain on the card")
     phase_kernels(dev)
@@ -5667,7 +5829,7 @@ def main() -> int:
     log(f"[summary] oracle gate: {oracle['seconds']:.1f} s, (d) "
         f"{oracle['d_budget_stopped_1.4']} rays of the sample stopped on the "
         "budget where the oracle hits (omega 1.4, 192 steps)")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "cull": cull_times}))
     print(nvidia_smi())
     import torch.distributed as dist
     dist.destroy_process_group()

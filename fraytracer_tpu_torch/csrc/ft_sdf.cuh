@@ -13,6 +13,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #define FT_BIG 3.0e38f
 #define FT_PSTRIDE 10    // floats per primitive row (widest kind: triangle)
@@ -124,6 +125,44 @@ struct FtDenseStage {
   int ms_off;       // -1: (material, slot) from device memory (ent_ms)
   int rows_off;     // -1: the packed rows from device memory
   int rows_bytes;   // bytes of the packed rows, a multiple of 16
+};
+
+// The table build (csrc/cull.cu, ops/cuda/cull_kernel.py): a tile's cone
+// and its FT_SUBF sub-tiles' cones, FT_CONE_W floats each (the fields of
+// ops/cuda/cull.py TileCones in its order, `any_active` as 0/1, one float
+// of padding), then one select block a (tile, pair).
+#define FT_SUBF 4          // sub-tiles whose candidacy masks are OR-ed
+#define FT_CONES 5         // cones a tile: its own, then its sub-tiles'
+#define FT_CONE_W 20       // floats of one cone's statistics
+#define FT_SEL_THREADS 256 // threads of a select block
+
+// One culled pair of a table build: its members' raw rows in, the
+// PairTable fields out (each [G, ...] of the launch's G tiles).
+struct FtBuildPair {
+  const float* params;  // [g, width] the pair's parameter rows
+  const float* ids;     // [g, 2] CSG-visible material, global slot
+  int64_t* idx;         // [G, m] candidate rows relative to the first
+  int* count;           // [G] true candidate count
+  float* table;         // [G, m, FT_TABLE_W]
+  float* keys;          // [G, 2, m / FT_CAND_UNROLL] chunk lo_c, hi_c
+  float* misc;          // [G, 4] count, cos_lo, window clamp, margin
+  float* hsuf;          // [G, m / FT_CAND_UNROLL] suffix minima
+  float* scratch;       // [G, scratch_words] the large path's buffers;
+                        // null: shared memory
+  int kind, width, g, m;
+  float reach;          // blend reach k of the group (0: none)
+  int scratch_words;    // 4-byte words of one block's buffers
+};
+
+// A site's select launch: every pair of the site, grid (G, n_pairs).
+struct FtBuild {
+  const float* cones;          // [G, FT_CONES, FT_CONE_W]
+  uint8_t* overflow;           // bool flag: a count > m (null: impossible)
+  float window_clamp;
+  int converging;              // point-light cone (two-sided tangents)
+  int n_pairs;
+  int pad_;
+  FtBuildPair pairs[FT_MAX_PAIRS];
 };
 
 // A lane as the culled passes see it.  K1/K2 call the scene with every

@@ -13,7 +13,7 @@ raised it; a step of ``render_value_and_grad`` (a frame and its backward
 in one graph) and a spectral frame of ``render_spectral_with_stats`` count
 as frames under the same keys.
 """
-from . import gather, march_kernel
+from . import cull_kernel, gather, march_kernel
 
 GRAPH = {"captures": 0, "replays": 0, "eager_reruns": 0, "eager_frames": 0}
 
@@ -22,7 +22,8 @@ def _tables():
     # ``probe`` also runs as a program (``python -m ...probe``): it is
     # imported here at first use, not with the package
     from . import probe
-    return (march_kernel.LAUNCHES, gather.LAUNCHES, probe.LAUNCHES)
+    return (march_kernel.LAUNCHES, cull_kernel.LAUNCHES, gather.LAUNCHES,
+            probe.LAUNCHES)
 
 
 def launch_counts() -> dict:

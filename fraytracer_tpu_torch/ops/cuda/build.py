@@ -70,6 +70,12 @@ SIGNATURES = {
     "ft_probe_dyn_loop": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # table, x, out, trips, g, m, p, use_smem, stream
     "ft_probe_while": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the table build (csrc/cull.cu): origin, direction, t0, length,
+    # epsilon, n, cone apex (or null); outputs cones, oa, ca; the overflow
+    # flag to clear (or null); stream
+    "ft_cull_cones": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    # FtBuild*, tiles, dynamic shared memory bytes, stream
+    "ft_cull_select": [_P, _I, _I, _P],
     # host only (csrc/capture.cu): stream under capture, kinds (char
     # [cap] or null), cap, out n_ops (int64 [1])
     "ft_capture_ops": [_P, _P, _I, _P],

@@ -1,5 +1,6 @@
 """Host prep of the culled kernels: per-tile cones and axially sorted
-candidate tables, as torch ops on the rays' device.
+candidate tables, and the shared-memory plans of the kernels that read
+them.
 
 Counterpart of the jnp host prep in
 ``fraytracer_tpu/ops/pallas/march_kernel.py``; the JAX names are kept:
@@ -11,7 +12,10 @@ Counterpart of the jnp host prep in
   conservative candidacy test and the axially sorted selection (:539, :588);
 * :func:`_pair_m` — table rows per pair in whole chunks (:700);
 * :func:`build_pair_tables` — the per-pair tables ``pallas_march_raw``
-  builds before its ``pallas_call`` (:1857-1977);
+  builds before its ``pallas_call`` (:1857-1977): on CUDA tensors two
+  kernel launches a site (``cull_kernel.py``, ``csrc/cull.cu``), on CPU
+  tensors :func:`build_pair_tables_plain`, the plain version in PyTorch
+  ops;
 * :func:`stage_plan` — where a K1/K2/K3 block keeps a tile's slices of
   those tables in shared memory, and :func:`dense_stage_plan` where a
   dense-form block keeps the program's packed rows (no JAX counterpart:
@@ -376,16 +380,8 @@ def _tile_cones(origin: Tensor, direction: Tensor, t_lo: Tensor,
     tangents of :505-524."""
     o = origin.reshape(grid, tile, 3)
     d = direction.reshape(grid, tile, 3)
-    lo = t_lo.reshape(grid, tile)
-    hi = t_hi.reshape(grid, tile)
-    ep = epsilon.reshape(grid, tile)
-
-    act = hi > lo
-    actf = act.to(o.dtype)
-    n_act = actf.sum(1)
-    any_active = n_act > 0.0
-    safe_n = torch.clamp_min(n_act, 1.0)
-
+    actf = (t_hi > t_lo).reshape(grid, tile).to(o.dtype)
+    safe_n = torch.clamp_min(actf.sum(1), 1.0)
     if conv_apex is None:
         apex = (o * actf[..., None]).sum(1) / safe_n[:, None]
     else:
@@ -397,6 +393,25 @@ def _tile_cones(origin: Tensor, direction: Tensor, t_lo: Tensor,
     # (0, 0, 1) where no lane is active, made on the device
     axis = torch.where(nrm > 1e-12, axis / torch.clamp_min(nrm, 1e-12),
                        torch.nn.functional.pad(torch.ones_like(nrm), (2, 0)))
+    return _cones_in_frame(origin, direction, t_lo, t_hi, epsilon, grid,
+                           tile, apex, axis, conv_apex is not None)
+
+
+def _cones_in_frame(origin: Tensor, direction: Tensor, t_lo: Tensor,
+                    t_hi: Tensor, epsilon: Tensor, grid: int, tile: int,
+                    apex: Tensor, axis: Tensor,
+                    converging: bool) -> TileCones:
+    """The statistics of :func:`_tile_cones` in a given frame: each tile's
+    ``apex`` and unit ``axis [G, 3]`` (the lanes' sums, the cones'
+    first pass), then every lane projected on them."""
+    o = origin.reshape(grid, tile, 3)
+    d = direction.reshape(grid, tile, 3)
+    lo = t_lo.reshape(grid, tile)
+    hi = t_hi.reshape(grid, tile)
+    ep = epsilon.reshape(grid, tile)
+    act = hi > lo
+    actf = act.to(o.dtype)
+    any_active = actf.sum(1) > 0.0
     o_rel = o - apex[:, None, :]
     o_par = (o_rel * axis[:, None, :]).sum(-1)
     rho2 = torch.clamp_min((o_rel * o_rel).sum(-1) - o_par * o_par, 0.0)
@@ -422,7 +437,7 @@ def _tile_cones(origin: Tensor, direction: Tensor, t_lo: Tensor,
         act, torch.minimum(ax0, ax1), _BIG).amin(1), 0.0)
     ax_hi = torch.where(any_active, torch.where(
         act, torch.maximum(ax0, ax1), -_BIG).amax(1), 0.0)
-    if conv_apex is None:
+    if not converging:
         margin = rho + 2.0 * eps_max + 1e-3
         tan_conv = torch.full_like(margin, -1.0)
         tan_neg = torch.zeros_like(margin)
@@ -578,6 +593,31 @@ def kind_offset(scene: FlatScene, kind: str) -> int:
     raise KeyError(kind)
 
 
+def padded_lanes(origin: Tensor, direction: Tensor, t0: Tensor,
+                 length: Tensor, epsilon: Tensor) -> tuple:
+    """A flat batch ``[n]`` padded to whole tiles as the cones take it:
+    ``(origin, direction, t_lo, t_hi, epsilon)``, the march range ``[t0,
+    length]`` (``length`` 0: a lane that never marches, as the padding)."""
+    pad = (-origin.shape[0]) % TILE
+    f = torch.nn.functional.pad
+    return (f(origin, (0, 0, 0, pad)), f(direction, (0, 0, 0, pad)),
+            f(t0, (0, pad)), f(torch.where(length > 0.0, length, t0),
+                               (0, pad)), f(epsilon, (0, pad)))
+
+
+def lane_cones(origin: Tensor, direction: Tensor, t0: Tensor,
+               length: Tensor, epsilon: Tensor,
+               cone_apex: Optional[Tensor] = None):
+    """The cones of a flat batch ``[n]`` as the table build takes them
+    (:func:`padded_lanes`).  Returns ``(tile cones, sub-tile cones, padded
+    origins, padded directions)``."""
+    lanes = padded_lanes(origin, direction, t0, length, epsilon)
+    grid = lanes[0].shape[0] // TILE
+    cones = _tile_cones(*lanes, grid, TILE, cone_apex)
+    cones_f = _tile_cones(*lanes, grid * SUBF, TILE // SUBF, cone_apex)
+    return cones, cones_f, lanes[0], lanes[1]
+
+
 @span("cull")
 @torch.no_grad()
 def build_pair_tables(scene: FlatScene, origin: Tensor, direction: Tensor,
@@ -585,7 +625,30 @@ def build_pair_tables(scene: FlatScene, origin: Tensor, direction: Tensor,
                       pairs, cull_m: int, window_clamp: float,
                       cone_apex: Optional[Tensor] = None,
                       early_out: bool = False) -> CullTables:
-    """The culled kernels' inputs for a flat batch ``[n]``: one
+    """The culled kernels' inputs for a flat batch ``[n]``
+    (:func:`build_pair_tables_plain` says what they are): CUDA tensors
+    launch the table build's kernels (``cull_kernel.build_tables``, which
+    raises on what they do not take), CPU tensors take the plain build;
+    any other device raises."""
+    args = (scene, origin, direction, t0, length, epsilon, pairs, cull_m,
+            window_clamp, cone_apex, early_out)
+    if origin.device.type == "cuda":
+        from .cull_kernel import build_tables
+        return build_tables(*args)
+    if origin.device.type != "cpu":
+        raise ValueError(f"build_pair_tables: unsupported device "
+                         f"{origin.device}")
+    return build_pair_tables_plain(*args)
+
+
+@torch.no_grad()
+def build_pair_tables_plain(scene: FlatScene, origin: Tensor,
+                            direction: Tensor, t0: Tensor, length: Tensor,
+                            epsilon: Tensor, pairs, cull_m: int,
+                            window_clamp: float,
+                            cone_apex: Optional[Tensor] = None,
+                            early_out: bool = False) -> CullTables:
+    """Plain version of the table build, PyTorch ops on any device: one
     :class:`PairTable` per pair, the per-lane axial coordinates ``oa``/``ca``
     and the overflow flag.
 
@@ -608,18 +671,9 @@ def build_pair_tables(scene: FlatScene, origin: Tensor, direction: Tensor,
             f"{len(pairs)} culled pairs > {MAX_PAIRS} (csrc/ft_sdf.cuh "
             "FT_MAX_PAIRS)")
     n = origin.shape[0]
-    pad = (-n) % TILE
-    grid = (n + pad) // TILE
-    f = torch.nn.functional.pad
-    origin_p = f(origin, (0, 0, 0, pad))
-    dir_p = f(direction, (0, 0, 0, pad))
-    tlo_p = f(t0, (0, pad))
-    thi_p = f(torch.where(length > 0.0, length, t0), (0, pad))
-    eps_p = f(epsilon, (0, pad))
-    cones = _tile_cones(origin_p, dir_p, tlo_p, thi_p, eps_p, grid, TILE,
-                        cone_apex)
-    cones_f = _tile_cones(origin_p, dir_p, tlo_p, thi_p, eps_p,
-                          grid * SUBF, TILE // SUBF, cone_apex)
+    cones, cones_f, origin_p, dir_p = lane_cones(origin, direction, t0,
+                                                 length, epsilon, cone_apex)
+    grid = origin_p.shape[0] // TILE
     # per-lane exact axial coordinate p_ax = oa + t·ca (:1884-1896)
     oa = ((origin_p.reshape(grid, TILE, 3) - cones.apex[:, None, :])
           * cones.axis[:, None, :]).sum(-1).reshape(-1)[:n].contiguous()

@@ -49,7 +49,7 @@ import torch
 
 import fraytracer_tpu_torch as ft
 from fraytracer_tpu_torch.ops import cuda as ops_cuda
-from fraytracer_tpu_torch.ops.cuda import gather, march_kernel as mk
+from fraytracer_tpu_torch.ops.cuda import cull, gather, march_kernel as mk
 from fraytracer_tpu_torch.ops.march import bound_skip_start
 from fraytracer_tpu_torch.scene.generators import csg_demo_scene, \
     torus_csg_scene
@@ -62,6 +62,15 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
+
+
+def with_tables(counts):
+    """``counts`` of culled K1/K2 launches with their sites' table builds:
+    one cones and one select launch a culled march or occlusion launch."""
+    sites = counts.get("march_culled", 0) + counts.get("occlusion_culled", 0)
+    if not sites:
+        return dict(counts)
+    return {**counts, "cull_cones": sites, "cull_select": sites}
 
 
 def lanes(scene, size, dev):
@@ -610,8 +619,8 @@ def test_graph_frame_is_the_eager_frame(dev, cull):
         assert torch.equal(img, want) and int(n) == int(wn)
     counts = {k: v for k, v in ops_cuda.launch_counts().items() if v}
     sfx = "_culled" if cull else ""
-    assert counts == {"march" + sfx: 2, "surface" + sfx: 2,
-                      "occlusion" + sfx: 4}
+    assert counts == with_tables({"march" + sfx: 2, "surface" + sfx: 2,
+                                  "occlusion" + sfx: 4})
     assert ops_cuda.graph_counts() == {"captures": 1, "replays": 1,
                                        "eager_reruns": 0, "eager_frames": 0}
     # the outputs are the caller's: a later replay leaves them alone
@@ -777,8 +786,8 @@ def test_graph_step_is_the_eager_step(dev, cull):
                                                     cfg), want)
     counts = {k: v for k, v in ops_cuda.launch_counts().items() if v}
     sfx = "_culled" if cull else ""
-    assert counts == {"march" + sfx: 2, "surface" + sfx: 2,
-                      "occlusion" + sfx: 4}
+    assert counts == with_tables({"march" + sfx: 2, "surface" + sfx: 2,
+                                  "occlusion" + sfx: 4})
     assert ops_cuda.graph_counts() == {"captures": 1, "replays": 1,
                                        "eager_reruns": 0, "eager_frames": 0}
     assert R.step_graph(_sum_sq, scene, cam, cfg).graph is not None
@@ -963,10 +972,11 @@ def test_frame_gradient_kernels_match_plain_route(dev):
     def run(plain, mask=None):
         scene = ft.flatten(torus_csg_scene(19, 96),
                            device=dev).requires_grad_(True)
-        saved = (mk.march_kernel, mk.surface_kernel)
+        saved = (mk.march_kernel, mk.surface_kernel, mk.build_pair_tables)
         if plain:
             mk.march_kernel, mk.surface_kernel = mk.march_plain, \
                 mk.surface_plain
+            mk.build_pair_tables = cull.build_pair_tables_plain
         try:
             ops_cuda.reset_launch_counts()
             img = ft.render(scene, cam, cfg)
@@ -974,7 +984,7 @@ def test_frame_gradient_kernels_match_plain_route(dev):
                 (img * mask[..., None]).pow(2).sum().backward()
             counts = ops_cuda.launch_counts()
         finally:
-            mk.march_kernel, mk.surface_kernel = saved
+            mk.march_kernel, mk.surface_kernel, mk.build_pair_tables = saved
         return img.detach(), scene, counts
 
     ik, _s, counts = run(False)
@@ -983,8 +993,8 @@ def test_frame_gradient_kernels_match_plain_route(dev):
     assert same.float().mean().item() >= 0.995
     _i, sk, counts = run(False, same)
     _i, sp, _c = run(True, same)
-    assert {k: v for k, v in counts.items() if v} == {
-        "march_culled": 1, "surface_culled": 1, "occlusion_culled": 2}
+    assert {k: v for k, v in counts.items() if v} == with_tables({
+        "march_culled": 1, "surface_culled": 1, "occlusion_culled": 2})
     for (name, a), b in zip(sk.tensors().items(), sp.tensors().values()):
         if b.grad is None or float(b.grad.norm()) == 0:
             continue
@@ -1010,10 +1020,12 @@ def test_spectral_frame_kernels_match_plain_route(dev):
     cfg = ft.WavefrontConfig(depth=3, march=ft.MarchConfig(relax_omega=1.4))
 
     def run(plain):
-        saved = (mk.march_kernel, mk.surface_kernel, gather._gather_blocks)
+        saved = (mk.march_kernel, mk.surface_kernel, gather._gather_blocks,
+                 mk.build_pair_tables)
         if plain:
             mk.march_kernel, mk.surface_kernel = mk.march_plain, \
                 mk.surface_plain
+            mk.build_pair_tables = cull.build_pair_tables_plain
             gather._gather_blocks = gather.block_gather_plain
         try:
             ops_cuda.reset_launch_counts()
@@ -1021,7 +1033,8 @@ def test_spectral_frame_kernels_match_plain_route(dev):
             torch.cuda.synchronize()
             return img, int(n), ops_cuda.launch_counts()
         finally:
-            mk.march_kernel, mk.surface_kernel, gather._gather_blocks = saved
+            (mk.march_kernel, mk.surface_kernel, gather._gather_blocks,
+             mk.build_pair_tables) = saved
 
     ik, nk, counts = run(False)
     ip, np_, plain_counts = run(True)
@@ -1033,6 +1046,9 @@ def test_spectral_frame_kernels_match_plain_route(dev):
     assert counts["march_culled"] >= 3 and counts["surface_culled"] >= 3
     assert counts["occlusion_culled"] >= 6
     assert counts["block_gather"] >= 16        # 8 fields × 2 compactions
+    # a table build at every culled site, re-runs included
+    assert counts["cull_cones"] == counts["cull_select"] == \
+        counts["march_culled"] + counts["occlusion_culled"]
     assert counts["march"] == counts["surface"] == counts["occlusion"] == 0
 
 
@@ -1043,8 +1059,8 @@ def test_spectral_frame_kernels_match_plain_route(dev):
 # the graph spectral frame against the eager frame: each sums the image
 # with index_add_, whose atomic adds land in another order run to run
 SPECTRAL_GRAPH_MAX = 1e-5
-SPECTRAL_REPLAY = {"march_culled": 4, "surface_culled": 4,
-                   "occlusion_culled": 8, "block_gather": 24}
+SPECTRAL_REPLAY = with_tables({"march_culled": 4, "surface_culled": 4,
+                               "occlusion_culled": 8, "block_gather": 24})
 
 
 def _spectral_setup(dev, size=128):
@@ -1233,8 +1249,9 @@ def test_graph_sharded_frame_on_one_nccl_rank(dev):
         for _ in range(2):
             assert torch.equal(pm.render_sharded(scene, cam, cfg, mesh),
                                want)
-        assert {k: v for k, v in ops_cuda.launch_counts().items() if v} == {
-            "march_culled": 2, "surface_culled": 2, "occlusion_culled": 4}
+        assert {k: v for k, v in ops_cuda.launch_counts().items() if v} \
+            == with_tables({"march_culled": 2, "surface_culled": 2,
+                            "occlusion_culled": 4})
         assert ops_cuda.graph_counts() == {"captures": 1, "replays": 1,
                                            "eager_reruns": 0,
                                            "eager_frames": 0}

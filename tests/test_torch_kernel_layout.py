@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from fraytracer_tpu_torch.ops.cuda import cull as TC
+from fraytracer_tpu_torch.ops.cuda import cull_kernel as CK
 from fraytracer_tpu_torch.ops.cuda import march_kernel as MK
 
 HEADER = (Path(MK.__file__).resolve().parents[2] / "csrc"
@@ -33,6 +34,9 @@ def define(name: str) -> int:
     ("FT_MAX_PAIRS", TC.MAX_PAIRS),
     ("FT_MAX_STACK", MK.MAX_STACK),
     ("FT_SURF_LIST_BYTES", TC.SURF_LIST_BYTES),
+    ("FT_SUBF", TC.SUBF),
+    ("FT_CONES", CK.CONES),
+    ("FT_CONE_W", CK.CONE_W),
 ])
 def test_header_defines_match_python(name, want):
     assert define(name) == want
@@ -73,7 +77,7 @@ def struct_fields(name: str):
         decl = " ".join(decl.split())
         if not decl:
             continue
-        d = re.fullmatch(r"(const \w+\*|\w+) (.+)", decl)
+        d = re.fullmatch(r"(const \w+\*|\w+\*|\w+) (.+)", decl)
         assert d, decl
         for item in d.group(2).split(","):
             a = re.fullmatch(r"\s*(\w+)(?:\[(\w+)\])?\s*", item)
@@ -104,7 +108,8 @@ def c_layout(fields):
 @pytest.mark.parametrize("name,mirror", [
     ("FtProgram", MK.FtProgram), ("FtPair", MK.FtPair),
     ("FtCull", MK.FtCull), ("FtStage", MK.FtStage),
-    ("FtDenseStage", MK.FtDenseStage)])
+    ("FtDenseStage", MK.FtDenseStage), ("FtBuildPair", CK.FtBuildPair),
+    ("FtBuild", CK.FtBuild)])
 def test_struct_mirrors_header(name, mirror):
     """Field names in order, each field's type, and the struct's size."""
     fields = struct_fields(name)

@@ -256,7 +256,8 @@ def test_replay_ops_are_the_layer_table(dev, kind):
     """One replay under the profiler: the graph's device ops are exactly
     the table's (their number, each op's kind, the port's kernels at the
     anchors), the replay's other ops are copies, and its outputs are
-    those of a replay without the profiler."""
+    those of a replay without the profiler; the table build's two kernels
+    are anchors of each culled site's `cull` entry."""
     trender._graphs.clear()
     call, graph = _call(kind, dev)
     call()
@@ -295,3 +296,15 @@ def test_replay_ops_are_the_layer_table(dev, kind):
     port = {k for _a, k in t.anchors}
     assert sorted(i for i, (n, _s) in enumerate(ops[p:p + t.n_ops])
                   if _short(n) in port) == [a for a, _k in t.anchors]
+    # the table build's kernels: a cones and a select launch inside a
+    # `cull` entry before each culled march launch, nothing else there
+    culls = [(first, first + n) for name, _par, first, n in t.layers
+             if name == "cull"]
+    build = [(a, k) for a, k in t.anchors if k.startswith("cull_")]
+    marches = [a for a, k in t.anchors if k == "march_kernel"]
+    assert [k for _a, k in build] == \
+        ["cull_cones_kernel", "cull_select_kernel"] * len(marches)
+    for (a0, _k0), (a1, _k1) in zip(build[::2], build[1::2]):
+        lo, hi = next(c for c in culls if c[0] <= a0 < c[1])
+        assert lo <= a1 < hi
+    assert all(b < m for (b, _k), m in zip(build[1::2], marches))
