@@ -456,12 +456,15 @@ struct DenseRays {
 // order; a lane counts its own steps against max_steps; a ray that does
 // not march (a zero budget, t0 past it) is written out at once.  Every
 // ray's outputs are those of a fixed lane, bit for bit.  `issued` (or
-// null) receives the warps' march iterations, 32 evaluations each.
+// null) receives the warps' march iterations, 32 evaluations each;
+// `evals` (or null) the lane-steps, the scene evaluations the lanes made
+// (a ray that does not march makes none): one atomicAdd a warp at exit.
 template <bool STAGED>
 __device__ __forceinline__ void march_dense_lanes(
     const unsigned char* smem, const FtProgram& P, const FtDenseStage& S,
     const DenseRays& R, int* __restrict__ next,
-    unsigned long long* __restrict__ issued) {
+    unsigned long long* __restrict__ issued,
+    unsigned long long* __restrict__ evals) {
   const DenseCtx X = dense_ctx<STAGED>(smem, P, S);
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
@@ -477,6 +480,7 @@ __device__ __forceinline__ void march_dense_lanes(
   int ray = 0, steps = 0;
   bool hit = false, active = false, done = false;
   unsigned long long iters = 0;
+  unsigned lane_steps = 0;
   for (;;) {
     // refill every lane that neither marches nor has run out of rays
     unsigned need;
@@ -524,6 +528,7 @@ __device__ __forceinline__ void march_dense_lanes(
     const float d = sgn * march_distance(X, none, ox + t * dx, oy + t * dy,
                                          oz + t * dz, hook);
     ++steps;
+    ++lane_steps;
     if (relaxed) {
       // as march_kernel: the overstep revert and the budget-crossing rule
       const bool over = step_taken > d_start + d;
@@ -559,20 +564,26 @@ __device__ __forceinline__ void march_dense_lanes(
     }
   }
   if (issued != nullptr && lane == 0) atomicAdd(issued, iters);
+  // every lane leaves the loop above together
+  const unsigned warp_steps = __reduce_add_sync(FT_FULL_MASK, lane_steps);
+  if (evals != nullptr && lane == 0) {
+    atomicAdd(evals, (unsigned long long)warp_steps);
+  }
 }
 
 __global__ void __launch_bounds__(FT_DENSE_BLOCK, FT_DENSE_BLOCKS)
 march_dense_kernel(DenseRays R, FtProgram P, FtDenseStage S,
                    int* __restrict__ next,
-                   unsigned long long* __restrict__ issued) {
+                   unsigned long long* __restrict__ issued,
+                   unsigned long long* __restrict__ evals) {
   extern __shared__ __align__(16) unsigned char ft_smem[];
   dense_stage_begin(ft_smem, P, S);
   __syncthreads();  // the threads' own copies, and the barrier's init
   if (S.rows_off >= 0) {
     mbar_wait(smem_addr(ft_smem), 0);
-    march_dense_lanes<true>(ft_smem, P, S, R, next, issued);
+    march_dense_lanes<true>(ft_smem, P, S, R, next, issued, evals);
   } else {
-    march_dense_lanes<false>(ft_smem, P, S, R, next, issued);
+    march_dense_lanes<false>(ft_smem, P, S, R, next, issued, evals);
   }
 }
 
@@ -842,7 +853,7 @@ extern "C" int ft_march_dense(const float* origin, const float* dir,
                               float omega, int occlusion, float* t_out,
                               int* hit_out, float* d_out, int* steps_out,
                               int* next, unsigned long long* issued,
-                              void* stream) {
+                              unsigned long long* evals, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   cudaError_t err;
   if (stage->bytes > 48 * 1024) {
@@ -866,7 +877,7 @@ extern "C" int ft_march_dense(const float* origin, const float* dir,
                        d_out, steps_out, n, max_steps, occlusion, omega};
   march_dense_kernel<<<grid, FT_DENSE_BLOCK, stage->bytes,
                        (cudaStream_t)stream>>>(R, *prog, *stage, next,
-                                               issued);
+                                               issued, evals);
   return (int)cudaGetLastError();
 }
 

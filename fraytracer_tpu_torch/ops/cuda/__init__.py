@@ -12,6 +12,11 @@ their flag, and the frames of keys run eagerly because their first frame
 raised it; a step of ``render_value_and_grad`` (a frame and its backward
 in one graph) and a spectral frame of ``render_spectral_with_stats`` count
 as frames under the same keys.
+
+:func:`dense_counts` reads the dense form's counters: the program its
+last launches lowered (ops, kind runs, value-stack depth, the bytes a
+block stages against those it reads from device memory) and the
+lane-steps its K1/K2 evaluated, counted on the device.
 """
 from . import cull_kernel, gather, march_kernel
 
@@ -46,8 +51,19 @@ def graph_counts() -> dict:
     return dict(GRAPH)
 
 
+def dense_counts() -> dict:
+    """The dense form's program (``march_kernel.DENSE``) and ``lane_steps``:
+    the scene evaluations its K1/K2 made since the last reset, graph
+    replays included (a read of the device)."""
+    steps = sum(int(c.sum()) for c in march_kernel.LANE_STEPS.values())
+    return {**march_kernel.DENSE, "lane_steps": steps}
+
+
 def reset_launch_counts() -> None:
-    """Set every launch count and the graph counts to zero."""
+    """Set every launch count, the graph counts and the lane-steps to
+    zero."""
     for table in _tables() + (GRAPH,):
         for k in table:
             table[k] = 0
+    for c in march_kernel.LANE_STEPS.values():
+        c.zero_()

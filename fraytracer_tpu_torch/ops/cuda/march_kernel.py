@@ -39,6 +39,7 @@ device raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -54,7 +55,8 @@ from .. import deferred, sdf
 from ..march import (MarchConfig, bound_skip_start, check_config, chunked,
                      _chunk_elems, sphere_trace)
 from .build import check, library, on_device
-from .cull import (CAND_UNROLL, MAX_PAIRS, PSTRIDE, SURF_LIST_BYTES, TABLE_W,
+from .cull import (CAND_UNROLL, MAX_PAIRS, PSTRIDE, STAGE_MEMBER_BYTES,
+                   STAGE_OP_BYTES, STAGE_RUN_BYTES, SURF_LIST_BYTES, TABLE_W,
                    TILE, WINDOW_LANES, CullTables, DenseStagePlan, PairTable,
                    StagePlan, _build_groups, _cull_pairs, build_pair_tables,
                    dense_stage_plan, kind_offset, stage_plan)
@@ -66,6 +68,18 @@ LAUNCHES = {"march": 0, "occlusion": 0, "surface": 0, "surface_ad": 0,
             "surface_ad_culled": 0}
 
 MAX_STACK = 16    # CSG value-stack depth (FT_MAX_STACK)
+
+# The dense form's program as its last K1/K2 and K3 launches lowered it:
+# its ops, kind runs and value-stack depth, and the bytes of it a block
+# keeps in shared memory against those it reads from device memory
+# (``ops.cuda.dense_counts()``)
+DENSE = {"ops": 0, "kind_runs": 0, "stack": 0, "march_staged_bytes": 0,
+         "march_device_bytes": 0, "surface_staged_bytes": 0,
+         "surface_device_bytes": 0}
+# per device, int64 [1]: the scene evaluations the dense K1/K2 made, counted
+# by the kernel (the plain version adds its lanes' steps), summed over
+# launches and graph replays
+LANE_STEPS: dict = {}
 _BIG = 3.0e38
 
 _OPCODE = {"union": 1, "intersect": 2, "subtract": 3, "smooth_union": 4}
@@ -201,6 +215,7 @@ class Program:
     #                      at its kind's width rounded up to 16 bytes
     ent_ms: Tensor       # int32 [E, 2] (material, slot) of each entry
     n_dense: int = 0     # entries inside the groups' ranges (not culled)
+    stack: int = 0       # the value stack's largest depth
 
     def struct(self) -> FtProgram:
         """The program as the kernels take it (its tensors never change:
@@ -267,6 +282,14 @@ def _kind_runs(rows, entries, kind_of_slot):
         np.concatenate(pack) if pack else np.zeros(0, np.int64)
 
 
+def _tree_depth(node) -> int:
+    """Combinators on the longest path from the root of a group tree
+    (``cull._build_groups``) to a group."""
+    if node[0] == "g":
+        return 0
+    return 1 + max(_tree_depth(kid) for kid in node[2])
+
+
 @functools.lru_cache(maxsize=32)
 def _lower_static(plan: Plan, kind_counts, prim_material, pairs=()):
     """The static part of the program as numpy arrays (cached per scene
@@ -291,26 +314,39 @@ def _lower_static(plan: Plan, kind_counts, prim_material, pairs=()):
     ops, op_k = [], []
     depth = max_depth = 0
 
-    def emit(node):
+    def push(op, arg, k=0.0):
         nonlocal depth, max_depth
+        ops.append((op, arg))
+        op_k.append(float(k))
+        depth += 1 - (arg if op else 0)
+        max_depth = max(max_depth, depth)
+
+    def emit(node):
         if node[0] == "g":
-            ops.append((0, node[1]))
-            op_k.append(0.0)
-            depth += 1
-            max_depth = max(max_depth, depth)
+            push(0, node[1])
             return
         op, k, kids = node
-        for kid in kids:
+        if op == "smooth_union":
+            # n-ary: refolding smooth_fold would change its rounding
+            for kid in kids:
+                emit(kid)
+            push(_OPCODE[op], len(kids), k)
+            return
+        # union / intersect / subtract fold left, two operands a combine:
+        # the kernels' csg_pick folds an n-ary combine left to right, so
+        # values and ties are the same, and a union of subtrees keeps the
+        # stack at its widest operand's depth plus one
+        emit(kids[0])
+        for kid in kids[1:]:
             emit(kid)
-        ops.append((_OPCODE[op], len(kids)))
-        op_k.append(float(k))
-        depth -= len(kids) - 1
+            push(_OPCODE[op], 2, k)
 
     emit(tree)
     if max_depth > MAX_STACK:
         raise NotImplementedError(
             f"CSG plan needs a value stack of {max_depth} > {MAX_STACK} "
-            "(csrc/ft_sdf.cuh FT_MAX_STACK)")
+            f"(csrc/ft_sdf.cuh FT_MAX_STACK): its tree is "
+            f"{_tree_depth(tree)} combinators deep")
 
     kind_of_slot = np.concatenate(
         [np.full(c, KINDS.index(k), np.int32) for k, c in kind_counts])
@@ -333,6 +369,7 @@ def _lower_static(plan: Plan, kind_counts, prim_material, pairs=()):
         group_runs=np.asarray(group_runs, np.int32).reshape(-1, 2),
         pack_idx=pack_idx.astype(np.int64),
         n_dense=n_dense,
+        stack=max_depth,
     )
 
 
@@ -376,7 +413,8 @@ def _lower_values(scene: FlatScene, st: dict) -> Program:
                    runs=st["runs"], group_runs=st["group_runs"],
                    packed=padded.reshape(-1).index_select(0, st["pack_idx"])
                    .contiguous(),
-                   ent_ms=st["ent_ms"], n_dense=st["n_dense"])
+                   ent_ms=st["ent_ms"], n_dense=st["n_dense"],
+                   stack=st["stack"])
 
 
 def lower_program(scene: FlatScene, device, pairs=()) -> Program:
@@ -796,6 +834,40 @@ def surface_stage_plan(prog: Program, cull: CullTables | None):
     return march_stage_plan(prog, cull, SURF_LIST_BYTES, members=True)
 
 
+def _note_dense(prog: Program, plan: DenseStagePlan, launch: str) -> None:
+    """Record in :data:`DENSE` the program of a dense ``launch``
+    (``march`` for K1/K2, ``surface`` for K3) and where its block finds
+    it: the ops and runs always staged, the packed rows and (K3) each
+    entry's material and slot where ``plan`` stages them."""
+    staged = (STAGE_OP_BYTES * prog.ops.shape[0]
+              + STAGE_RUN_BYTES * prog.runs.shape[0])
+    parts = [(plan.rows_off, plan.rows_bytes)]
+    if launch == "surface":
+        parts.append((plan.ms_off, STAGE_MEMBER_BYTES * prog.ent_ms.shape[0]))
+    device = 0
+    for off, n in parts:
+        if off >= 0:
+            staged += n
+        else:
+            device += n
+    DENSE.update({"ops": prog.ops.shape[0], "kind_runs": prog.runs.shape[0],
+                  "stack": prog.stack, f"{launch}_staged_bytes": staged,
+                  f"{launch}_device_bytes": device})
+
+
+def _lane_steps(dev: torch.device) -> Tensor | None:
+    """The lane-step counter of ``dev`` (:data:`LANE_STEPS`), made at the
+    first dense launch outside a graph capture: one made inside would be
+    zeroed again by each replay.  ``None`` while capturing without one."""
+    key = str(dev)
+    c = LANE_STEPS.get(key)
+    if c is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            return None
+        c = LANE_STEPS[key] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return c
+
+
 def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
                   direction: Tensor, length: Tensor, epsilon: Tensor,
                   t0: Tensor, max_steps: int, omega: float, occlusion: bool,
@@ -804,8 +876,8 @@ def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
     ``entry``: ``ft_march`` (the culled form) or its instrumented twin,
     which take the tables and the plan, or ``ft_march_dense`` (the dense
     form), which takes the plan alone; ``extra`` goes before the stream
-    (the twin's sections buffer; the dense form's ray counter and issue
-    count).  Returns ``(t, hit int32, d, steps)`` with ``t`` and ``d``
+    (the twin's sections buffer; the dense form's ray counter, issue
+    count and lane-step counter).  Returns ``(t, hit int32, d, steps)`` with ``t`` and ``d``
     None for occlusion."""
     n = origin.shape[0]
     _check_lanes(n, origin=_f32("origin", origin),
@@ -827,6 +899,8 @@ def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
     s = prog.struct()
     # what the blocks stage in shared memory: sized from shapes alone
     plan = march_stage_plan(prog, cull)
+    if cull is None:
+        _note_dense(prog, plan, "march")
     tables = () if cull is None else (ctypes.byref(_cull_struct(cull)),)
     stage = _dense_stage_struct(plan) if cull is None \
         else _stage_struct(plan)
@@ -858,12 +932,23 @@ def march_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
     distance per lane, -1 marching inside the solid.  ``issued``: an int64
     ``[1]`` CUDA tensor to which the dense form adds its warps' march
     iterations (32 issued evaluations each: the denominator of its lane
-    efficiency; a diagnostic).  Returns ``(t, hit, d, steps)``, or
-    ``(hit, steps)`` for occlusion."""
+    efficiency; a diagnostic).  The dense form runs in the span
+    ``march.dense`` and adds its lane-steps to :data:`LANE_STEPS`.
+    Returns ``(t, hit, d, steps)``, or ``(hit, steps)`` for occlusion."""
+    with span("march.dense") if cull is None else contextlib.nullcontext():
+        return _march(scene, origin, direction, length, epsilon, t0,
+                      max_steps, omega, occlusion, cull, sign, issued)
+
+
+def _march(scene, origin, direction, length, epsilon, t0, max_steps, omega,
+           occlusion, cull, sign, issued):
     if not _route(origin):
-        return march_plain(scene, origin, direction, length, epsilon, t0,
-                           max_steps=max_steps, omega=omega,
-                           occlusion=occlusion, cull=cull, sign=sign)
+        out = march_plain(scene, origin, direction, length, epsilon, t0,
+                          max_steps=max_steps, omega=omega,
+                          occlusion=occlusion, cull=cull, sign=sign)
+        if cull is None:
+            _lane_steps(origin.device).add_(out[-1].sum())
+        return out
     extra = ()
     if cull is None:
         if issued is not None and (issued.dtype != torch.int64
@@ -875,8 +960,10 @@ def march_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
         if origin.shape[0] > 2 ** 31 - 2 ** 20:
             raise ValueError("too many rays for one dense launch")
         nxt = torch.empty(1, dtype=torch.int32, device=origin.device)
+        evals = _lane_steps(origin.device)
         extra = (nxt.data_ptr(),
-                 None if issued is None else issued.data_ptr())
+                 None if issued is None else issued.data_ptr(),
+                 None if evals is None else evals.data_ptr())
     t, hit, d, steps = _launch_march(
         "ft_march" if cull is not None else "ft_march_dense", scene, origin,
         direction, length, epsilon, t0, max_steps, omega, occlusion, cull,
@@ -1016,7 +1103,13 @@ def surface_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
     """K3: ``(normal [N, 3], material [N] int32, code [N])`` at the epsilon
     backed-off hit points of the lanes where ``hit [N]`` (bool) is set —
     slot mode for plans of min/max alone, AD mode for plans with a smooth
-    union (see :func:`surface_plain`, :func:`surface_ad_plain`)."""
+    union (see :func:`surface_plain`, :func:`surface_ad_plain`).  The
+    dense form runs in the span ``surface.dense``."""
+    with span("surface.dense") if cull is None else contextlib.nullcontext():
+        return _surface(scene, origin, direction, t, epsilon, hit, cull)
+
+
+def _surface(scene, origin, direction, t, epsilon, hit, cull):
     ad = not slot_surface_mode(scene.plan)
     if not _route(origin):
         return surface_plain(scene, origin, direction, t, epsilon, hit,
@@ -1038,6 +1131,7 @@ def surface_kernel(scene: FlatScene, origin: Tensor, direction: Tensor,
     # list: from shapes
     plan = surface_stage_plan(prog, cull)
     if cull is None:
+        _note_dense(prog, plan, "surface")
         tables, stage = (), _dense_stage_struct(plan)
     else:
         tables = (ctypes.byref(_cull_struct(cull)),)

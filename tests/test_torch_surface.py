@@ -197,6 +197,7 @@ def test_deep_plan_stack_limit():
     node = tft.sphere((0, 0, 0), 1.0)
     for i in range(20):
         node = tft.subtract(tft.sphere((0, 0, 0.1 * i), 2.0), node)
-    with pytest.raises(NotImplementedError, match="stack"):
+    with pytest.raises(NotImplementedError,
+                       match="stack of 21 > 16.*20 combinators deep"):
         tmk.lower_program(tft.flatten(tft.Scene(root=node), device="cpu"),
                           "cpu")
