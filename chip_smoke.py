@@ -12,6 +12,14 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    them (tests/test_torch_cull_cuda.py), one cones and one select launch
    a site, device ms of both builds beside the bytes-from-shapes bound.
    ``--cull-only`` stops after it.
+2c. scatter — the row scatter's kernel (csrc/scatter.cu) on the six
+   scatters of one eager 1024² step of the 1000-torus scene, their
+   gradients and rows as the backward hands them over: each table against
+   ``index_add_`` in float64 as the card tests check it, one launch a
+   scatter on the shared-memory path, device ms of the kernel and of a
+   float32 ``index_add_`` beside the bytes-from-shapes bound.
+   ``--scatter-only`` runs the build and this phase alone; the full run
+   runs it so, in a process of its own.
 3. kernels — each kernel against its plain PyTorch version on the same
    CUDA tensors: K4 block gather (exact), dense K1/K2/K3 on small scenes,
    culled K1/K2/K3 on the 96-torus scene, a 256-sphere intersect and
@@ -978,6 +986,115 @@ def phase_cull(dev):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# [scatter]: the row scatter's kernel (csrc/scatter.cu) against index_add_
+# ---------------------------------------------------------------------------
+
+def step_scatters(fn):
+    """The gradient, rows, axis and table shape of each row scatter that
+    ``fn()``'s backward runs, in order (a spy on ``scatter.scatter_rows``,
+    which ``scatter._ScatterRows`` calls)."""
+    from fraytracer_tpu_torch.ops.cuda import scatter
+    real, calls = scatter.scatter_rows, []
+
+    def spy(grad, idx, dim, shape):
+        calls.append((grad.detach().clone(), idx.clone(), dim, tuple(shape)))
+        return real(grad, idx, dim, shape)
+    scatter.scatter_rows = spy
+    try:
+        fn()
+    finally:
+        scatter.scatter_rows = real
+    return calls
+
+
+def phase_scatter(dev):
+    """The row scatters of one eager 1024² step of the 1000-torus scene
+    (the bench's loss), their gradients and rows taken as the backward
+    hands them over: each checked on the kernel against ``index_add_`` on
+    the gradient in float64 as the card tests check it, within 1e-5 of the
+    table's largest entry with its one launch counted on the path its
+    table's bytes give (``tests/test_torch_scatter_cuda.py::_check``);
+    device ms of the kernel, of the plain version (a float32
+    ``index_add_``) and the bytes-from-shapes bound; both sums' distance
+    from the float64 one."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops.cuda import scatter
+    from fraytracer_tpu_torch.scene.generators import torus_csg_scene
+    tt = load_test("test_torch_scatter_cuda")
+    device_ms = device_timer()
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    scene = ft.flatten(torus_csg_scene(19, BENCH_N_TORI), device=dev)
+    calls = step_scatters(lambda: eager_step(scene, cam, bench_config(SIZE)))
+    check(len(calls) == STEP_SCATTERS["culled"],
+          f"[scatter] {len(calls)} scatters in the step, want "
+          f"{STEP_SCATTERS['culled']}")
+    out = {}
+    for i, (g, idx, dim, shape) in enumerate(calls):
+        label = f"{i}:" + "x".join(map(str, shape))
+        path = scatter.scatter_path(shape)
+        check(path == "smem", f"[scatter] {label}: path {path}")
+        try:
+            got, _want = tt._check(g, idx, dim, shape, path)
+        except AssertionError as e:
+            check(False, f"[scatter] {label}: the kernel's table against "
+                  f"index_add_ in float64: {e!r}")
+        want = torch.zeros(shape, dtype=torch.float64, device=dev) \
+            .index_add_(dim, idx, g.double())
+        scale = float(want.abs().max())
+        plain = scatter.scatter_rows_plain(g, idx, dim, shape)
+        live = g.movedim(dim, 0).reshape(idx.shape[0], -1).ne(0).any(1)
+        ms = device_ms(lambda: scatter.scatter_rows(g, idx, dim, shape))
+        plain_ms = device_ms(
+            lambda: scatter.scatter_rows_plain(g, idx, dim, shape), reps=10)
+        b = nbytes(g, idx) + 4 * torch.Size(shape).numel()
+        r = {"shape": list(shape), "dim": dim, "lanes": idx.shape[0],
+             "live_lanes": int(live.sum()),
+             "rows": int(idx[live].unique().numel()), "path": path,
+             "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b / PEAK_BYTES_S * 1e3, "bytes": b,
+             "err": float((got.double() - want).abs().max()) / scale,
+             "plain_err": float((plain.double() - want).abs().max())
+             / scale}
+        out[label] = r
+        log(f"  [scatter] {label} along {dim}: {r['lanes']} lanes, "
+            f"{r['live_lanes']} with a gradient on {r['rows']} rows, path "
+            f"{path}: kernel {ms:.4f} ms, index_add_ {plain_ms:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({b} bytes, "
+            f"{100 * r['bound_ms'] / ms:.1f} % of the roofline); from the "
+            f"float64 sum, of the largest entry: kernel {r['err']:.2e}, "
+            f"index_add_ {r['plain_err']:.2e}")
+    step = {k: sum(r[k] for r in out.values())
+            for k in ("ms", "plain_ms", "bound_ms")}
+    out["step"] = step
+    log(f"  [scatter] the step's {len(calls)} scatters: kernel "
+        f"{step['ms']:.4f} ms, index_add_ {step['plain_ms']:.3f} ms, bound "
+        f"{step['bound_ms']:.4f} ms ({nvidia_smi()})")
+    return out
+
+
+def scatter_process():
+    """The ``[scatter]`` phase in a process of its own (``--scatter-only``),
+    its lines echoed and its readings returned.  Run in this process
+    before ``[graph]``, it was followed there by profiled frames short of
+    device records (the profiler returned 162 and 218 of 316 and 338 ops,
+    in two runs on the H100, and none short without it); the phases after
+    it see nothing of a process of its own."""
+    here = Path(__file__).resolve()
+    proc = subprocess.run([sys.executable, str(here), "--scatter-only"],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=str(here.parent))
+    for line in proc.stdout.splitlines():
+        if line.startswith("  [scatter]"):
+            log(line)
+    check(proc.returncode == 0, f"[scatter] exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    lines = [l for l in proc.stdout.splitlines()
+             if l.startswith('{"scatter"')]
+    check(len(lines) == 1, f"[scatter] printed {len(lines)} JSON lines")
+    return json.loads(lines[0])["scatter"]
+
 def phase_culled_kernels(dev):
     """Culled K1/K2/K3 against their plain versions on the same tables."""
     import fraytracer_tpu_torch as ft
@@ -1737,7 +1854,7 @@ def profile_frame(scene, cam, cfg, trace_path, fn=None, ops=0, record=None,
     port = ("march_kernel", "surface_kernel", "surface_ad_kernel",
             "block_gather_kernel", "march_dense_kernel",
             "surface_dense_kernel", "surface_ad_dense_kernel",
-            "cull_cones_kernel", "cull_select_kernel")
+            "cull_cones_kernel", "cull_select_kernel", "rows_scatter_kernel")
     ours = [e for e in sorted(evs, key=lambda e: e.time_range.start)
             if any(k in e.name.split("(")[0] for k in port)]
     log("  profile, port kernels in launch order: " + ", ".join(
@@ -1873,6 +1990,20 @@ GRAPH_LAUNCHES = {
     "blend": {"march_culled": 1, "surface_ad_culled": 1,
               "occlusion_culled": 2, "cull_cones": 3, "cull_select": 3},
     "blend_dense": {"march": 1, "surface_ad": 1, "occlusion": 2}}
+# a step's row scatters (ops/cuda/scatter.py) beside its frame's launches:
+# the backward of the leaf rows of the sphere and torus tables, read twice
+# (the hit distance and the normal), and of the albedo and emission rows;
+# a blended step differentiates its leaves through point_eval and scatters
+# only the material rows
+STEP_SCATTERS = {"culled": 6, "dense": 6, "blend": 2}
+
+
+def step_launches(tag):
+    """The launches of one step of ``tag``: its frame's and its scatters'
+    (every table of the torus scene fits the shared-memory path)."""
+    return {**GRAPH_LAUNCHES[tag], "rows_scatter_smem": STEP_SCATTERS[tag]}
+
+
 # a launch count's kernel as a trace names it (K1 and K2 are one kernel)
 TRACE_NAMES = {"march_culled": "march_kernel",
                "occlusion_culled": "march_kernel",
@@ -1883,7 +2014,9 @@ TRACE_NAMES = {"march_culled": "march_kernel",
                "surface_ad": "surface_ad_dense_kernel",
                "block_gather": "block_gather_kernel",
                "cull_cones": "cull_cones_kernel",
-               "cull_select": "cull_select_kernel"}
+               "cull_select": "cull_select_kernel",
+               "rows_scatter_smem": "rows_scatter_kernel",
+               "rows_scatter_global": "rows_scatter_kernel"}
 NO_GRAPH = {"captures": 0, "replays": 0, "eager_reruns": 0, "eager_frames": 0}
 
 
@@ -2325,10 +2458,10 @@ def graph_step_case(dev, tag, scene, cam, cfg, build_dir):
     eager = launched(ops_cuda.launch_counts())
     eloss2, egrads2 = eager_step(scene, cam, cfg)
     check(replay == eager == first_counts == launched(sg.launches)
-          == GRAPH_LAUNCHES[tag],
+          == step_launches(tag),
           f"[step] {tag}: launches per replay {replay}, recorded "
           f"{launched(sg.launches)}, eager {eager}, first call "
-          f"{first_counts}, want {GRAPH_LAUNCHES[tag]}")
+          f"{first_counts}, want {step_launches(tag)}")
     err = compare_grads(grads, egrads, f"[step] {tag}: the graph step's "
                         "gradients against the eager step's")
     err2 = compare_grads(egrads2, egrads, f"[step] {tag}: two eager steps' "
@@ -2395,7 +2528,7 @@ def graph_step_case(dev, tag, scene, cam, cfg, build_dir):
                       fn=fn, ops=6 if name == "graph" else 0, record=rec)
         prof[name] = rec
     want = collections.Counter()
-    for k, v in GRAPH_LAUNCHES[tag].items():
+    for k, v in step_launches(tag).items():
         want[TRACE_NAMES[k]] += v
     traced = {name: traced_launches(rec) for name, rec in prof.items()}
     log(f"  {tag}: the port's kernels in the profiled replay "
@@ -2471,7 +2604,7 @@ def step_kept_eager_case(dev, scene, cam, cfg, label):
     check(gc == dict(NO_GRAPH, eager_frames=1), f"[step] {label}: {gc}")
     check(route == {"certificate_reads": 1, "culled": 0, "dense": 1},
           f"[step] {label}: the eager step's route {route}")
-    check(counts == GRAPH_LAUNCHES["blend"],
+    check(counts == step_launches("blend"),
           f"[step] {label}: launches {counts}")
     errs = [compare_grads(g, eg, f"[step] {label}: call {i} against the "
                           "eager step") for i, g in enumerate((g0, g1))]
@@ -3694,16 +3827,19 @@ def grad_full_width(dev, scene, build_dir, fwd_med, tag="grad",
 
 
 def gather_transpose_times(table, idx):
-    """Device ms of the transpose (the backward) of two ways to read
-    ``table[idx]``: advanced indexing (a sort of all the lanes) and the
-    port's ``sdf.take_rows`` (``index_select``: atomic adds; every miss
-    lane names row 0)."""
+    """Device ms of the transpose (the backward) of three ways to read
+    ``table[idx]``: advanced indexing (a sort of all the lanes),
+    ``index_select`` (``index_add_``: an atomic add a lane and column) and
+    the port's ``sdf.take_rows`` (``rows_scatter_kernel``); every miss
+    lane names row 0."""
     from fraytracer_tpu_torch.ops import sdf
     ct = torch.randn(tuple(idx.shape) + tuple(table.shape[1:]),
                      device=table.device)
     out = {}
     for name, read in (("advanced indexing", lambda t: t[idx]),
-                       ("take_rows (index_select)",
+                       ("index_select (index_add_)",
+                        lambda t: t.index_select(0, idx)),
+                       ("take_rows (rows_scatter_kernel)",
                         lambda t: sdf.take_rows(t, idx))):
         t = table.detach().clone().requires_grad_(True)
         y = read(t)
@@ -3801,8 +3937,8 @@ FRAME_LAUNCHES = {"march_culled": 1, "surface_culled": 1,
 # elsewhere in the ε shell (tests/test_torch_sharding_spectral.py)
 SHARDED_SPECTRAL_MEAN = 2e-3
 # gradients of the same frame and lanes summed in another order, as a
-# share of each leaf's largest |g|: the backward's index_add_ sums ~1M lane
-# terms a leaf in float32 atomics in no fixed order (√N · 2⁻²⁴ ≈ 6e-5 of
+# share of each leaf's largest |g|: the backward's row scatters sum ~1M
+# lane terms a leaf in float32 atomics in no fixed order (√N · 2⁻²⁴ ≈ 6e-5 of
 # the terms' scale), and the chunks and ranks add their sums in another
 # order again; read 7.7e-6–3.6e-5 over five runs on the H100.  A missing,
 # doubled or foreign chunk moves a leaf by 1e-1 or more.
@@ -3934,6 +4070,7 @@ def phase_multi_world1(dev, scene, sscene, build_dir):
         path = paths[f"step{chunks}"]
         step = path["step"]
         launches = {k: chunks * v for k, v in FRAME_LAUNCHES.items()}
+        launches["rows_scatter_smem"] = chunks * STEP_SCATTERS["culled"]
         for call in ("capture", "replay"):
             ops_cuda.reset_launch_counts()
             s1, loss = step(scene, cam, target)
@@ -5451,6 +5588,8 @@ def main() -> int:
                     help="device times of K4, culled K1/K2 and dense K1")
     ap.add_argument("--cull-only", action="store_true",
                     help="the build, then the [cull] phase alone")
+    ap.add_argument("--scatter-only", action="store_true",
+                    help="the build, then the [scatter] phase alone")
     ap.add_argument("--tree", help="with --frame-only or --kernels-only: "
                     "import the package of the commit unpacked in this "
                     "directory")
@@ -5491,11 +5630,18 @@ def main() -> int:
         if "entry function" in line or "registers" in line \
                 or "spill" in line:
             log(f"  ptxas: {line.strip()}")
-    log("[cull] the table build's kernels against the plain build: the "
-        f"{SIZE}^2 frame's three sites and a spectral bounce site")
-    cull_times = phase_cull(dev)
-    if args.cull_only:
-        print(json.dumps({"cull": cull_times}))
+    only = {}
+    if not args.scatter_only:
+        log("[cull] the table build's kernels against the plain build: "
+            f"the {SIZE}^2 frame's three sites and a spectral bounce site")
+        only["cull"] = cull_times = phase_cull(dev)
+    if not args.cull_only:
+        log(f"[scatter] the row scatter's kernel against index_add_: the "
+            f"scatters of one eager {SIZE}^2 step")
+        only["scatter"] = scatter_times = phase_scatter(dev) \
+            if args.scatter_only else scatter_process()
+    if args.cull_only or args.scatter_only:
+        print(json.dumps(only))
         print(nvidia_smi())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -5829,7 +5975,8 @@ def main() -> int:
     log(f"[summary] oracle gate: {oracle['seconds']:.1f} s, (d) "
         f"{oracle['d_budget_stopped_1.4']} rays of the sample stopped on the "
         "budget where the oracle hits (omega 1.4, 192 steps)")
-    print(json.dumps({"kernels": kernels, "cull": cull_times}))
+    print(json.dumps({"kernels": kernels, "cull": cull_times,
+                      "scatter": scatter_times}))
     print(nvidia_smi())
     import torch.distributed as dist
     dist.destroy_process_group()

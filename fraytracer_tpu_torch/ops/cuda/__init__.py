@@ -18,7 +18,7 @@ last launches lowered (ops, kind runs, value-stack depth, the bytes a
 block stages against those it reads from device memory) and the
 lane-steps its K1/K2 evaluated, counted on the device.
 """
-from . import cull_kernel, gather, march_kernel
+from . import cull_kernel, gather, march_kernel, scatter
 
 GRAPH = {"captures": 0, "replays": 0, "eager_reruns": 0, "eager_frames": 0}
 
@@ -28,7 +28,7 @@ def _tables():
     # imported here at first use, not with the package
     from . import probe
     return (march_kernel.LAUNCHES, cull_kernel.LAUNCHES, gather.LAUNCHES,
-            probe.LAUNCHES)
+            scatter.LAUNCHES, probe.LAUNCHES)
 
 
 def launch_counts() -> dict:

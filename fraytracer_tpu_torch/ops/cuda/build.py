@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
@@ -76,6 +77,10 @@ SIGNATURES = {
     "ft_cull_cones": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     # FtBuild*, tiles, dynamic shared memory bytes, stream
     "ft_cull_select": [_P, _I, _I, _P],
+    # the gather's transpose (csrc/scatter.cu): g, its lane and column
+    # strides, idx (int64), n, K, W, shared-memory path, out (a zeroed
+    # K x W table), stream
+    "ft_rows_scatter": [_P, _L, _L, _P, _L, _I, _I, _I, _P, _P],
     # host only (csrc/capture.cu): stream under capture, kinds (char
     # [cap] or null), cap, out n_ops (int64 [1])
     "ft_capture_ops": [_P, _P, _I, _P],

@@ -270,11 +270,12 @@ def leaf_distance(kind_counts, code: Tensor):
     ``scene_d(params, x)`` over ``params`` (kind → ``[K_t, P_t]``) and
     ``x [n, 3]``, differentiable in both; lanes with code 0 (a miss, or a
     blend's AD mode) give 0.  Each lane's row is read with
-    ``index_select``, whose transpose is one ``index_add_``."""
+    ``index_select`` (``ops/cuda/scatter.py::gather_rows``), whose transpose
+    is one row scatter a kind."""
+    from .cuda.scatter import gather_rows
     code = code.detach()
     slot = code.abs().long() - 1
     sgn = torch.sign(code)
-    lane_id = torch.arange(code.shape[0], device=code.device)
 
     def scene_d(params, x: Tensor) -> Tensor:
         px, py, pz = x.unbind(-1)
@@ -282,12 +283,11 @@ def leaf_distance(kind_counts, code: Tensor):
         off = 0
         for kind, cnt in kind_counts:
             in_kind = (slot >= off) & (slot < off + cnt)
-            # lanes of another kind read any row (the ``where`` below drops
-            # it), spread over the table so that the transpose's atomic
-            # adds do not all land on one row
-            row = torch.where(in_kind, slot - off, lane_id % cnt)
+            # lanes of another kind read row 0: the ``where`` below drops
+            # it, and the transpose skips their zero gradient rows
+            row = torch.where(in_kind, slot - off, 0)
             # [P, n]: each parameter one contiguous row over the lanes
-            lane = params[kind].t().index_select(1, row)
+            lane = gather_rows(params[kind].t(), row, 1)
             d = GEN_FNS[kind](lambda j, lane=lane: lane[j], px, py, pz)
             out = torch.where(in_kind, d, out)
             off += cnt
@@ -388,10 +388,11 @@ def scene_normal(scene: FlatScene, p: Tensor) -> Tensor:
 
 
 def take_rows(table: Tensor, idx: Tensor) -> Tensor:
-    """``table[idx]`` over the leading axis through ``index_select``: its
-    transpose is one ``index_add_`` (atomic adds), where advanced
-    indexing's is a sort of all the lanes."""
-    return table.index_select(0, idx.reshape(-1)).reshape(
+    """``table[idx]`` over the leading axis through ``index_select``
+    (``ops/cuda/scatter.py::gather_rows``): its transpose is one row
+    scatter, where advanced indexing's is a sort of all the lanes."""
+    from .cuda.scatter import gather_rows
+    return gather_rows(table, idx.reshape(-1), 0).reshape(
         tuple(idx.shape) + tuple(table.shape[1:]))
 
 

@@ -727,8 +727,8 @@ def test_graph_frames_of_two_keys_share_one_pool(dev):
 # the graph step (render.py::render_value_and_grad)
 # ---------------------------------------------------------------------------
 
-# two steps of one key sum the backward's index_add_ in another order (its
-# atomic adds): the gradients are held within 2e-4 of each leaf's largest
+# two steps of one key sum the backward's row scatters in another order
+# (their atomic adds): the gradients are held within 2e-4 of each leaf's largest
 # |g|, as the sharded step is (chip_smoke.py GRAD_REL); the loss is exact
 STEP_GRAD_REL = 2e-4
 
@@ -777,7 +777,8 @@ def _blend96(dev):
 @pytest.mark.parametrize("cull", [True, False])
 def test_graph_step_is_the_eager_step(dev, cull):
     """The first call captures the step, the second replays it: each the
-    eager step (loss bit for bit), with one frame's launches each."""
+    eager step (loss bit for bit), with one frame's launches and six row
+    scatters each (the sphere and torus rows twice, albedo, emission)."""
     scene, cam, cfg, R = _graph_setup(dev, cull=cull)
     want = _eager_step(scene, cam, cfg)
     ops_cuda.reset_launch_counts()
@@ -787,7 +788,8 @@ def test_graph_step_is_the_eager_step(dev, cull):
     counts = {k: v for k, v in ops_cuda.launch_counts().items() if v}
     sfx = "_culled" if cull else ""
     assert counts == with_tables({"march" + sfx: 2, "surface" + sfx: 2,
-                                  "occlusion" + sfx: 4})
+                                  "occlusion" + sfx: 4,
+                                  "rows_scatter_smem": 12})
     assert ops_cuda.graph_counts() == {"captures": 1, "replays": 1,
                                        "eager_reruns": 0, "eager_frames": 0}
     assert R.step_graph(_sum_sq, scene, cam, cfg).graph is not None
@@ -994,7 +996,8 @@ def test_frame_gradient_kernels_match_plain_route(dev):
     _i, sk, counts = run(False, same)
     _i, sp, _c = run(True, same)
     assert {k: v for k, v in counts.items() if v} == with_tables({
-        "march_culled": 1, "surface_culled": 1, "occlusion_culled": 2})
+        "march_culled": 1, "surface_culled": 1, "occlusion_culled": 2,
+        "rows_scatter_smem": 6})
     for (name, a), b in zip(sk.tensors().items(), sp.tensors().values()):
         if b.grad is None or float(b.grad.norm()) == 0:
             continue
