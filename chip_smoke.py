@@ -59,13 +59,15 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    profile and peak memory; the same frame with cull=False once; culled
    against dense; the 256² blended frame kernels against plain.
 7b. graph  — ``render_with_stats`` as one captured CUDA graph a key (the
-   counterpart of jax.jit, ``render.py``): (a) the culled, dense,
+   counterpart of jax.jit, ``ops/graph.py``): (a) the culled, dense,
    blended culled and blended dense 1024² frames: the capture's time, the
    memory the graph keeps, the replay bit for bit the eager frame
    (``render_grid``, digests printed), the launches per replay equal to
    the eager frame's (1 / 1 / 2, K4 0); (b) a forced overflow (cull_m 8)
-   and a forced material repair at 256²: the flag set, one eager re-run,
-   its launches and its frame equal to the eager frame; (c) a torus moved
+   at 256²: the flag set, the overflowed sites promoted, the promoted
+   frame captured and replayed; a forced material repair at 256²: the flag
+   set, one eager re-run, its launches equal to the eager frame's; each
+   frame equal to the eager frame; (c) a torus moved
    in place between two replays against the eager frame of the edited
    scene; (d) the deferred frame under sync debug mode "error" (0 syncs);
    (e) graph and eager frames paired (median of 9 each), 32 chained frames
@@ -74,7 +76,7 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    spies read the device) run the eager frame.
 7c. step   — ``render_value_and_grad`` as one captured CUDA graph a key,
    forward and backward (the counterpart of jax.jit(jax.value_and_grad),
-   ``render.py``): the culled and the dense 1024² bench steps (loss
+   ``ops/graph.py``): the culled and the dense 1024² bench steps (loss
    ``sum(render²)``): captures / replays from ``graph_counts()``, the loss
    bit for bit the eager step's and the gradients within 2e-4 of each
    leaf's largest |g| (two eager steps' difference beside), 0 syncs in a
@@ -104,7 +106,7 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    plain version on the same inputs and tables (m 1000, sign -1 lanes, the
    point light's converging cone); (e) the graph spectral frame:
    ``render_spectral_with_stats`` at the same size as one captured CUDA
-   graph (``render.py``), the culled march calls whose tables overflowed
+   graph (``ops/graph.py``), the culled march calls whose tables overflowed
    in the key's first run promoted to full-group tables — the promoted
    sites by round and call (round 0's point light expected), the first
    call's launches (two deferred runs) and a replay's (``SPECTRAL_LAUNCHES``
@@ -224,6 +226,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -520,10 +523,10 @@ def primary_lanes(scene, size, length, dev, omega=1.4, pos=(0, 0, -10)):
     clamped budget, as cuda_march_raw hands them to K1."""
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.ops.march import bound_skip_start
-    from fraytracer_tpu_torch.render import _to_blocks
+    from fraytracer_tpu_torch.camera import to_blocks
     cam = ft.look_at(pos, (0, 0, 0), fov_degrees=60.0, device=dev)
     rays = ft.camera_rays(cam, size, size, EPS, length)
-    rays = rays.map(lambda x: _to_blocks(x, size, size, 32).contiguous())
+    rays = rays.map(lambda x: to_blocks(x, size, size, 32).contiguous())
     t0, miss0, t_exit = bound_skip_start(scene, rays)
     ln = torch.where(miss0, 0.0, torch.minimum(rays.length, t_exit))
     return dict(origin=rays.origin, direction=rays.direction,
@@ -1775,9 +1778,9 @@ def forced_repair(scene, cam, cfg):
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.ops import cuda as ops_cuda, sdf, shade
     from fraytracer_tpu_torch.ops.cuda.gather import BLOCK
-    from fraytracer_tpu_torch.render import _to_blocks
+    from fraytracer_tpu_torch.camera import to_blocks
     rays = ft.camera_rays(cam, SIZE, SIZE, EPS, cfg.length).map(
-        lambda x: _to_blocks(x, SIZE, SIZE, 32).contiguous())
+        lambda x: to_blocks(x, SIZE, SIZE, 32).contiguous())
     h = shade.surface_hit(scene, rays, cfg.march)
     nb = h.hit.numel() // BLOCK
     hit_blocks = torch.nonzero(h.hit.reshape(nb, BLOCK).any(1)).squeeze(1)
@@ -1889,15 +1892,15 @@ def frame_and_masks(scene, cam, cfg):
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.ops import shade
     from fraytracer_tpu_torch.ops.march import march_occlusion
-    from fraytracer_tpu_torch.render import (_auto_block, _from_blocks,
-                                             _to_blocks)
+    from fraytracer_tpu_torch.camera import (auto_block, from_blocks,
+                                             to_blocks)
     from fraytracer_tpu_torch.scene.nodes import LIGHT_POINT
     img = ft.render(scene, cam, cfg)
     # in the frame's 32x32 block order: the culled tiles are blocks
     hh, ww = cfg.height, cfg.width
-    b = _auto_block(hh, ww)
+    b = auto_block(hh, ww)
     rays = ft.camera_rays(cam, ww, hh, cfg.epsilon, cfg.length).map(
-        lambda x: _to_blocks(x, hh, ww, b))
+        lambda x: to_blocks(x, hh, ww, b))
     h = shade.surface_hit(scene, rays, cfg.march)
     masks = [h.hit, h.material]
     for i in range(scene.num_lights):
@@ -1910,7 +1913,7 @@ def frame_and_masks(scene, cam, cfg):
             if scene.light_kind[i] == LIGHT_POINT else None
         masks += [facing, march_occlusion(scene, sr, cfg.march,
                                           cone_apex=apex)]
-    back = lambda x: _from_blocks(x, hh, ww, b)
+    back = lambda x: from_blocks(x, hh, ww, b)
     return img, [back(m) for m in masks], back(h.t)
 
 
@@ -1977,7 +1980,7 @@ def phase_parity(dev, scene, culled_cfg, tag="frame"):
 
 
 # ---------------------------------------------------------------------------
-# [graph]: the graph frame (render.py), the counterpart of jax.jit
+# [graph]: the graph frame (ops/graph.py), the counterpart of jax.jit
 # ---------------------------------------------------------------------------
 
 GRAPH_REPS = 9        # paired graph / eager frames, median of each
@@ -2051,6 +2054,13 @@ def render_module():
     function of that name)."""
     import fraytracer_tpu_torch  # noqa: F401
     return sys.modules["fraytracer_tpu_torch.render"]
+
+
+def graph_layer():
+    """``fraytracer_tpu_torch/ops/graph.py``: the captured calls' keys,
+    graphs and memory pools."""
+    from fraytracer_tpu_torch.ops import graph
+    return graph
 
 
 def launched(counts):
@@ -2189,16 +2199,20 @@ def graph_frame_case(dev, tag, scene, cam, cfg, build_dir):
     return res
 
 
-def graph_eager_key_case(dev, scene, cam, cfg, label, patch=None):
-    """A key whose first frame raises the flag: that call runs the eager
-    frame again and captures nothing, and the key's later calls run the
-    eager frame; each equal to the eager frame bit for bit, with its
-    launches.  Then its calls against the eager frame's, paired.
-    ``patch``: a context that forces the flag's cause (a material repair)
-    in every frame."""
+def graph_eager_key_case(dev, scene, cam, cfg, label, patch=None,
+                         captured=False):
+    """A key whose first frame raises the flag.  ``captured`` (an
+    overflow): that call promotes the overflowed sites to full-group
+    tables, runs once more and captures that frame, and the key's later
+    calls replay it; else (a material repair, forced in every frame by
+    ``patch``) that call runs the eager frame again and captures nothing,
+    and the key's later calls run the eager frame.  Each call equal to the
+    eager frame bit for bit, a later call with the replay's recorded
+    launches or the eager frame's.  Then its calls against the eager
+    frame's, paired."""
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.ops import cuda as ops_cuda
-    R = render_module()
+    R, G = render_module(), graph_layer()
     with patch() if patch else contextlib.nullcontext():
         ops_cuda.reset_launch_counts()
         img0, n0 = ft.render_with_stats(scene, cam, cfg)
@@ -2212,21 +2226,32 @@ def graph_eager_key_case(dev, scene, cam, cfg, label, patch=None):
         eager = ops_cuda.launch_counts()
         k_ms, e_ms = paired_ms((lambda: ft.render_with_stats(scene, cam, cfg),
                                 lambda: eager_frame(scene, cam, cfg)))
-    R._graphs.pop(R.frame_key(scene, cam, cfg))
-    check(first == dict(NO_GRAPH, eager_reruns=1) and fg.graph is None,
-          f"[graph] {label}: first call {first}, graph {fg.graph}")
-    check(gc == dict(NO_GRAPH, eager_frames=1), f"[graph] {label}: {gc}")
-    check(counts == eager, f"[graph] {label}: launches {launched(counts)}, "
-          f"want {launched(eager)}")
+    G._graphs.pop(G.key("frame", scene, cam, cfg))
+    promoted = sorted(fg.frame.promoted)
+    if captured:
+        check(first == dict(NO_GRAPH, captures=1) and fg.graph is not None
+              and promoted, f"[graph] {label}: first call {first}, graph "
+              f"{fg.graph}, promoted sites {promoted}")
+        check(gc == dict(NO_GRAPH, replays=1), f"[graph] {label}: {gc}")
+        want = fg.launches
+    else:
+        check(first == dict(NO_GRAPH, eager_reruns=1) and fg.graph is None,
+              f"[graph] {label}: first call {first}, graph {fg.graph}")
+        check(gc == dict(NO_GRAPH, eager_frames=1), f"[graph] {label}: {gc}")
+        want = eager
+    check(counts == want, f"[graph] {label}: launches {launched(counts)}, "
+          f"want {launched(want)}")
     check(all(torch.equal(x, eimg) for x in (img0, img))
           and int(n0) == int(n) == int(en),
           f"[graph] {label}: the key's frames are not the eager frame")
     res = {"launches": launched(counts), "key_ms": statistics.median(k_ms),
            "eager_ms": statistics.median(e_ms), "key_times_ms": k_ms,
-           "eager_times_ms": e_ms}
-    log(f"  {label}: the first frame raised the flag (first call {first}), "
-        f"no graph; a later call {gc}, launches {launched(counts)} = the "
-        f"eager frame's; equal to the eager frame bit for bit (digest "
+           "eager_times_ms": e_ms, "promoted": promoted}
+    log(f"  {label}: the first frame raised the flag (first call {first}, "
+        f"sites promoted {promoted}, "
+        f"{'captured' if captured else 'no graph'}); a later call {gc}, "
+        f"launches {launched(counts)} (the eager frame's "
+        f"{launched(eager)}); equal to the eager frame bit for bit (digest "
         f"{digest(img, n)}); the key's frame {res['key_ms']:.3f} ms, eager "
         f"{res['eager_ms']:.3f} ms (medians of {GRAPH_REPS}, paired; "
         f"{nvidia_smi()})")
@@ -2309,16 +2334,16 @@ def forced_repair_frames():
 
 
 def phase_graph(dev, scene, blend, build_dir):
-    """[graph]: ``render_with_stats`` as a captured CUDA graph (render.py)
-    on the culled, dense, ``blend1000`` culled and ``blend1000`` dense
-    1024² frames (:func:`graph_frame_case`: (a), (d), (e)), the four graphs
-    in one memory pool, replayed again in reverse order; (b) a forced
-    overflow (cull_m 8) and a forced material repair at 256², keys kept
-    eager, and a replay that overflows; (c) one torus moved in place
+    """[graph]: ``render_with_stats`` as a captured CUDA graph
+    (``ops/graph.py``) on the culled, dense, ``blend1000`` culled and
+    ``blend1000`` dense 1024² frames (:func:`graph_frame_case`: (a), (d),
+    (e)), the four graphs in one memory pool, replayed again in reverse
+    order; (b) a forced overflow (cull_m 8) at 256², its sites promoted
+    and captured, a forced material repair at 256², its key kept eager,
+    and a replay that overflows; (c) one torus moved in place
     between two replays against the eager frame of the edited scene."""
     import fraytracer_tpu_torch as ft
-    R = render_module()
-    R._graphs.clear()
+    graph_layer()._graphs.clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved0 = torch.cuda.memory_reserved()
@@ -2348,7 +2373,7 @@ def phase_graph(dev, scene, blend, build_dir):
     out["overflow"] = graph_eager_key_case(
         dev, scene, cam, dataclasses.replace(small, march=dataclasses.replace(
             small.march, cull_m=8, cull_m_shadow=8)), "forced overflow "
-        "(256^2, cull_m 8)")
+        "(256^2, cull_m 8)", captured=True)
     out["repair"] = graph_eager_key_case(
         dev, scene, cam, small, "forced repair (256^2, lanes of every "
         "seventh block marked -1)", patch=forced_repair_frames)
@@ -2386,8 +2411,8 @@ def phase_graph(dev, scene, blend, build_dir):
     return out
 
 
-# [step]: the graph step (render.py::render_value_and_grad), the
-# counterpart of jax.jit(jax.value_and_grad(...))
+# [step]: the graph step (render.py::render_value_and_grad through
+# ops/graph.py), the counterpart of jax.jit(jax.value_and_grad(...))
 # ---------------------------------------------------------------------------
 
 STEP_REPS = 9         # paired graph / eager steps, median of each
@@ -2404,11 +2429,17 @@ def masked_step_loss(img, mask):
     return (img * mask[..., None]).double().pow(2).sum()
 
 
+def eager_step_out(scene, cam, cfg):
+    """The eager step (``ops/graph.py::eager`` of ``render.py::_step``):
+    what a flagged replay and a key kept eager run; ``(loss, *grads)``."""
+    return graph_layer().eager(functools.partial(render_module()._step,
+                                                 step_loss),
+                               scene, cam, cfg, grad=True)
+
+
 def eager_step(scene, cam, cfg):
-    """The eager step (``render.py::_eager_step``): what a flagged replay
-    and a key kept eager run; ``(loss, grads by leaf)``."""
-    R = render_module()
-    out = R._eager_step(step_loss, scene, cam, cfg)
+    """:func:`eager_step_out` as ``(loss, grads by leaf)``."""
+    out = eager_step_out(scene, cam, cfg)
     return out[0], dict(zip(scene.tensors(), out[1:]))
 
 
@@ -2481,7 +2512,7 @@ def graph_step_case(dev, tag, scene, cam, cfg, build_dir):
 
     # 0 syncs inside the replay and in the deferred step
     with torch.no_grad():
-        for dst, src in zip(sg.inputs, R._inputs(scene, cam)):
+        for dst, src in zip(sg.inputs, graph_layer()._inputs(scene, cam)):
             dst.copy_(src)
     torch.cuda.synchronize()
     mode = torch.cuda.get_sync_debug_mode()
@@ -2490,7 +2521,7 @@ def graph_step_case(dev, tag, scene, cam, cfg, build_dir):
     try:
         sg.graph.replay()
         with deferred.deferring(frame):
-            dout = R._eager_step(step_loss, scene, cam, cfg)
+            dout = eager_step_out(scene, cam, cfg)
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     check(torch.equal(dout[0], eloss) and not bool(frame.flag),
@@ -2503,7 +2534,7 @@ def graph_step_case(dev, tag, scene, cam, cfg, build_dir):
         return ft.render_value_and_grad(step_loss, scene, cam, cfg)
 
     def eager_fn():
-        return R._eager_step(step_loss, scene, cam, cfg)
+        return eager_step_out(scene, cam, cfg)
 
     g_ms, e_ms = paired_ms((graph_fn, eager_fn), reps=STEP_REPS)
     chain = {}
@@ -2574,7 +2605,7 @@ def step_kept_eager_case(dev, scene, cam, cfg, label):
     frame = deferred.Frame(dev)
     stats0 = dict(point_eval.STATS)
     with deferred.deferring(frame):
-        R._eager_step(step_loss, scene, cam, cfg)
+        eager_step_out(scene, cam, cfg)
     check(bool(frame.flag) and point_eval.STATS == stats0,
           f"[step] {label}: the deferred step's flag {bool(frame.flag)}, "
           f"certificate reads {point_eval.STATS} against {stats0}")
@@ -2611,7 +2642,8 @@ def step_kept_eager_case(dev, scene, cam, cfg, label):
     check(torch.equal(l0, el) and torch.equal(l1, el),
           f"[step] {label}: the key's losses are not the eager step's: "
           f"{float(l0)} {float(l1)} {float(el)}")
-    R._graphs.pop(R.step_key(step_loss, scene, cam, cfg))
+    graph_layer()._graphs.pop(graph_layer().key("step", scene, cam, cfg,
+                                                extra=(step_loss,)))
     log(f"  {label}: kept eager — the deferred step raised the flag (the "
         "backward's certificate fails on the overlapping tori; the forward "
         f"raises none); first call {first}, {first_s:.3f} s; a later call "
@@ -2711,18 +2743,18 @@ def step_fit_vs_eager(build_dir):
     against the same fit with every step eager: the losses within rtol
     1e-5."""
     from fraytracer_tpu_torch import cli
-    R = render_module()
+    G = graph_layer()
     reports = {}
     for name in ("graph", "eager"):
         report = build_dir / f"chip_smoke_step_fit_{name}.json"
-        real = R._graph_step
+        real = G.capturable
         if name == "eager":
-            R._graph_step = lambda *a: False
+            G.capturable = lambda *a: False
         try:
             rc = cli.main(["fit", "--size", "256", "--tori", "100",
                            "--steps", "10", "--out-report", str(report)])
         finally:
-            R._graph_step = real
+            G.capturable = real
         check(rc == 0, f"[step] fit ({name}) returned {rc}")
         reports[name] = json.loads(report.read_text())
     g, e = reports["graph"]["losses"], reports["eager"]["losses"]
@@ -2738,13 +2770,12 @@ def step_fit_vs_eager(build_dir):
 
 def phase_step(dev, scene, blend, build_dir):
     """[step]: ``render_value_and_grad`` as one captured CUDA graph a key
-    (render.py): the culled and the dense 1024² bench steps
+    (ops/graph.py): the culled and the dense 1024² bench steps
     (:func:`graph_step_case`), the graph memory pool with the frame graphs
     of ``[graph]`` and these steps, ``blend1000``'s step kept eager, a
     replay that overflows, the captured 256² step against the plain route,
     and ``cli fit`` against the eager fit."""
     import fraytracer_tpu_torch as ft
-    R = render_module()
     cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
     out = {}
     for tag, cull in (("culled", True), ("dense", False)):
@@ -2752,8 +2783,9 @@ def phase_step(dev, scene, blend, build_dir):
                                    bench_config(SIZE, cull), build_dir)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    out["pool_mib"] = pool_mib(R._pools[dev.index])
-    frames = sum(1 for k in R._graphs if k[0] != "step")
+    G = graph_layer()
+    out["pool_mib"] = pool_mib(G._pools[dev.index])
+    frames = sum(1 for k in G._graphs if k[0] != "step")
     log(f"  the graph memory pool holds {out['pool_mib']} MiB with "
         f"{frames} frame graphs and the two step graphs (each step "
         "capture's own growth: " + ", ".join(
@@ -3032,7 +3064,7 @@ def spectral_sites(scene, sites):
 def spectral_graph_case(dev, scene, cam, cfg, build_dir, eager_peak,
                         eager_prof):
     """(e) the graph spectral frame: ``render_spectral_with_stats`` at the
-    full width, one captured CUDA graph (``render.py``; the sites whose
+    full width, one captured CUDA graph (``ops/graph.py``; the sites whose
     tables overflowed in the key's first run promoted to full-group
     tables): the promoted sites by round and call; the first call's
     launches (two deferred runs) and a replay's, counted by the wrappers
@@ -3048,7 +3080,6 @@ def spectral_graph_case(dev, scene, cam, cfg, build_dir, eager_peak,
     from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred
     from fraytracer_tpu_torch.ops import wavefront as tw
     from fraytracer_tpu_torch.scene.nodes import LIGHT_POINT
-    R = render_module()
     S = SPECTRAL_SIZE
     graph = lambda: ft.render_spectral_with_stats(scene, cam, S, S, cfg)
     eager = lambda: tw._spectral_frame(scene, cam, S, S, cfg)
@@ -3056,7 +3087,7 @@ def spectral_graph_case(dev, scene, cam, cfg, build_dir, eager_peak,
     def pool_now():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        pool = R._pools.get(dev.index)
+        pool = graph_layer()._pools.get(dev.index)
         return 0.0 if pool is None else pool_mib(pool)
     pool0 = pool_now()
     ops_cuda.reset_launch_counts()
@@ -3066,7 +3097,7 @@ def spectral_graph_case(dev, scene, cam, cfg, build_dir, eager_peak,
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     capture_peak = torch.cuda.max_memory_allocated()
-    sg = R.spectral_graph(scene, cam, S, S, cfg)
+    sg = tw.spectral_graph(scene, cam, S, S, cfg)
     gc = ops_cuda.graph_counts()
     check(sg is not None and sg.graph is not None
           and gc == dict(NO_GRAPH, captures=1),
@@ -3115,7 +3146,7 @@ def spectral_graph_case(dev, scene, cam, cfg, build_dir, eager_peak,
 
     # 0 syncs inside a replay and in the deferred frame (promoted sites)
     with torch.no_grad():
-        for dst, src in zip(sg.inputs, R._inputs(scene, cam)):
+        for dst, src in zip(sg.inputs, graph_layer()._inputs(scene, cam)):
             dst.copy_(src)
     torch.cuda.synchronize()
     frame = deferred.Frame(dev)
@@ -3471,14 +3502,14 @@ def outcome_masks(scene, cam, cfg):
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.ops import shade
     from fraytracer_tpu_torch.ops.march import march_occlusion
-    from fraytracer_tpu_torch.render import (_auto_block, _from_blocks,
-                                             _to_blocks)
+    from fraytracer_tpu_torch.camera import (auto_block, from_blocks,
+                                             to_blocks)
     from fraytracer_tpu_torch.scene.nodes import LIGHT_POINT
     hh, ww = cfg.height, cfg.width
-    b = _auto_block(hh, ww)
+    b = auto_block(hh, ww)
     with torch.no_grad():
         rays = ft.camera_rays(cam, ww, hh, cfg.epsilon, cfg.length).map(
-            lambda x: _to_blocks(x, hh, ww, b))
+            lambda x: to_blocks(x, hh, ww, b))
         h = shade.surface_hit(scene, rays, cfg.march)
         masks = [h.hit, h.material]
         for i in range(scene.num_lights):
@@ -3493,7 +3524,7 @@ def outcome_masks(scene, cam, cfg):
                                               cone_apex=apex)]
         den = (h.normal * rays.direction).sum(-1).abs()
         clamped = h.hit & (den < cfg.march.min_denom)
-    back = lambda x: _from_blocks(x, hh, ww, b)
+    back = lambda x: from_blocks(x, hh, ww, b)
     return [back(m) for m in masks], back(h.t), back(clamped), \
         back(h.normal)
 
@@ -3613,7 +3644,7 @@ def grad_culled_point_eval(dev, size=256):
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.ops import point_eval, sdf
     from fraytracer_tpu_torch.ops.march import march
-    from fraytracer_tpu_torch.render import _auto_block, _to_blocks
+    from fraytracer_tpu_torch.camera import auto_block, to_blocks
     # a narrow view of the lattice's middle: the hits stay near the tori
     cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=20.0, device=dev)
     cfg = bench_config(size)
@@ -3644,10 +3675,10 @@ def grad_culled_point_eval(dev, size=256):
     check(err_bwd <= 1e-4, f"(d') culled vs dense backward {err_bwd}")
 
     union = lattice_scene(dev)
-    b = _auto_block(size, size)
+    b = auto_block(size, size)
     with torch.no_grad():
         rays = ft.camera_rays(cam, size, size, cfg.epsilon, cfg.length).map(
-            lambda x: _to_blocks(x, size, size, b))
+            lambda x: to_blocks(x, size, size, b))
         res = march(union, rays, cfg.march)
         pos = rays.at(res.t - rays.epsilon)
         stats0 = dict(point_eval.STATS)
@@ -4028,7 +4059,7 @@ def phase_multi_world1(dev, scene, sscene, build_dir):
     from fraytracer_tpu_torch.ops import cuda as ops_cuda
     from fraytracer_tpu_torch.parallel import mesh as pm
     from fraytracer_tpu_torch.parallel import multihost
-    R = render_module()
+    G = graph_layer()
     multihost.initialize()
     mesh = pm.make_mesh()
     check((mesh.size, mesh.backend, mesh.device) == (1, "nccl", dev),
@@ -4042,7 +4073,7 @@ def phase_multi_world1(dev, scene, sscene, build_dir):
 
     frame = paths["frame"]
     counts, rows, fg = capture_and_replay(frame, "[multi] a frame",
-                                          lambda: R._graphs[frame["key"]])
+                                          lambda: G._graphs[frame["key"]])
     check_frame_launches(counts, "[multi] a sharded frame")
     check(torch.equal(rows, single), "[multi] a: the sharded frame is not "
           "render's bit for bit")
@@ -4119,7 +4150,7 @@ def phase_multi_world1(dev, scene, sscene, build_dir):
     check(first["march_culled"] >= 4 and first["surface_culled"] >= 4
           and first["occlusion_culled"] >= 8 and first["block_gather"] >= 24,
           f"[multi] a spectral launches {first}")
-    sg = R._graphs[path["key"]]
+    sg = G._graphs[path["key"]]
     ops_cuda.reset_launch_counts()
     img, scounts = path["graph"]()
     torch.cuda.synchronize()
@@ -4180,15 +4211,15 @@ def multi_paths(mesh, scene, sscene, cam, cfg):
     ``GRAD_LR`` on the bench's target, the rebalanced spectral frame."""
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.parallel import mesh as pm
-    R = render_module()
+    G = graph_layer()
     S = SPECTRAL_SIZE
     target = torch.full((SIZE, SIZE, 3), 0.05, device=mesh.device)
     wcfg = spectral_config()
     paths = {"target": target, "frame": {
         "graph": lambda: pm.render_sharded(scene, cam, cfg, mesh),
         "eager": lambda: pm._band_frame(mesh, scene, cam, cfg),
-        "key": ("sharded", R.frame_key(scene, cam, cfg), mesh.rank,
-                mesh.size)}}
+        "key": G.key("frame", scene, cam, cfg,
+                     extra=("sharded", mesh.rank, mesh.size))}}
     for chunks in (4, 1):
         step = pm.make_train_step(cfg, mesh, lr=GRAD_LR, grad_chunks=chunks)
 
@@ -4207,8 +4238,8 @@ def multi_paths(mesh, scene, sscene, cam, cfg):
             sscene, cam, S, S, wcfg, mesh, rebalance=True),
         "eager": lambda: pm._spectral_band(mesh, S, S, True, sscene, cam,
                                            wcfg),
-        "key": ("sharded", R.spectral_key(sscene, cam, S, S, wcfg),
-                mesh.rank, mesh.size, True)}
+        "key": G.key("spectral", sscene, cam, wcfg,
+                     extra=(S, S, "sharded", mesh.rank, mesh.size, True))}
     return paths
 
 
@@ -4217,7 +4248,7 @@ def graph_pool_mib(dev):
     device's first capture)."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    pool = render_module()._pools.get(dev.index)
+    pool = graph_layer()._pools.get(dev.index)
     return 0.0 if pool is None else pool_mib(pool)
 
 
@@ -4343,7 +4374,7 @@ def _multi_rank():
     from fraytracer_tpu_torch.parallel import mesh as pm
     from fraytracer_tpu_torch.scene.generators import (spectral_csg_scene,
                                                        torus_csg_scene)
-    R = render_module()
+    G = graph_layer()
     mesh = pm.make_mesh()
     dev = mesh.device
 
@@ -4357,7 +4388,7 @@ def _multi_rank():
     out = {"rank": mesh.rank, "backend": mesh.backend, "device": str(dev)}
     barrier()
     counts, rows, fg = capture_and_replay(paths["frame"], "[multi] b frame",
-                                          lambda: R._graphs[
+                                          lambda: G._graphs[
                                               paths["frame"]["key"]])
     out.update(rows=rows.cpu(), counts=counts)
     out["frame"] = graph_and_eager(paths["frame"], f"rank {mesh.rank} "
@@ -4389,9 +4420,9 @@ def _multi_rank():
     later = pm.render_sharded(scene, cam, small, mesh)
     out["forced_first"] = (
         torch.equal(first, forced_small) and torch.equal(later, want_small),
-        ops_cuda.graph_counts(), R._graphs[(
-            "sharded", R.frame_key(scene, cam, small), mesh.rank,
-            mesh.size)].graph is None)
+        ops_cuda.graph_counts(), G._graphs[G.key(
+            "frame", scene, cam, small, extra=("sharded", mesh.rank,
+                                               mesh.size))].graph is None)
 
     path = paths["step4"]
     barrier()
@@ -4724,7 +4755,7 @@ def phase_periphery(dev, scene, build_dir):
     import shutil
 
     import fraytracer_tpu_torch as ft
-    from fraytracer_tpu_torch.render import _to_blocks
+    from fraytracer_tpu_torch.camera import to_blocks
     from fraytracer_tpu_torch.utils import debug, profiling
     check(debug.validate_scene(scene) == [], "validate_scene: problems on "
           "the benchmark scene")
@@ -4750,7 +4781,7 @@ def phase_periphery(dev, scene, build_dir):
         f"NaN put in; nan_guard silent over a clean 256^2 frame and its "
         f"backward, raised on the NaN: {raised}")
     flat = ft.camera_rays(cam, SIZE, SIZE, EPS, 30.0).map(
-        lambda x: _to_blocks(x, SIZE, SIZE, 32))
+        lambda x: to_blocks(x, SIZE, SIZE, 32))
     stats = profiling.march_stats(scene, flat, bench_config(SIZE).march)
     log(f"  march_stats {SIZE}^2 primary rays: {stats.to_json()}")
     check(stats.n_rays == SIZE * SIZE and 0.0 < stats.hit_fraction < 1.0
@@ -5129,13 +5160,13 @@ def primary_steps(scene, cam, cfg, pixels):
     frame's block order (so the culled tables are the frame's)."""
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.ops.march import march
-    from fraytracer_tpu_torch.render import (_auto_block, _from_blocks,
-                                             _to_blocks)
+    from fraytracer_tpu_torch.camera import (auto_block, from_blocks,
+                                             to_blocks)
     hh, ww = cfg.height, cfg.width
-    b = _auto_block(hh, ww)
+    b = auto_block(hh, ww)
     rays = ft.camera_rays(cam, ww, hh, cfg.epsilon, cfg.length).map(
-        lambda x: _to_blocks(x, hh, ww, b))
-    steps = _from_blocks(march(scene, rays, cfg.march).steps, hh, ww, b)
+        lambda x: to_blocks(x, hh, ww, b))
+    steps = from_blocks(march(scene, rays, cfg.march).steps, hh, ww, b)
     idx = torch.as_tensor(pixels, device=steps.device)
     return steps.reshape(-1)[idx].cpu().numpy()
 
@@ -5946,9 +5977,12 @@ def main() -> int:
             f" / eager "
             f"{1 - g['eager_busy_ms'] / g['eager_span_ms'] if 'eager_busy_ms' in g else None}")
     log(f"[summary] graph frames: the four graphs keep "
-        f"{graph['graphs_mib']:.1f} MiB in one pool; a key kept eager "
-        f"(forced overflow) {graph['overflow']['key_ms']:.3f} ms against "
-        f"eager {graph['overflow']['eager_ms']:.3f} ms; a replay that "
+        f"{graph['graphs_mib']:.1f} MiB in one pool; a forced overflow's "
+        f"key (its sites promoted, captured) "
+        f"{graph['overflow']['key_ms']:.3f} ms against eager "
+        f"{graph['overflow']['eager_ms']:.3f} ms; a forced repair's key "
+        f"(kept eager) {graph['repair']['key_ms']:.3f} ms against eager "
+        f"{graph['repair']['eager_ms']:.3f} ms; a replay that "
         f"overflows + its re-run {graph['flagged_replay']['flagged_ms']:.3f} "
         f"ms against eager {graph['flagged_replay']['eager_ms']:.3f} ms")
     for tag in ("culled", "dense"):

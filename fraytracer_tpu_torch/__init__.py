@@ -9,9 +9,9 @@ that requires grad (implicit differentiation at the hit points,
 ``ops/march.py``).  The entry points default to the GPU and the kernels;
 name ``device="cpu"`` to run the plain versions.  On the card a frame
 that autograd need not see replays one captured CUDA graph per scene
-structure, shapes and config (``render.py``; ``render_grid`` is the eager
-frame), and so does a step of ``render_value_and_grad`` (forward and
-backward).  Importing the package builds nothing and needs no GPU.
+structure, shapes and config (``ops/graph.py``; ``render_grid`` is the
+eager frame), and so does a step of ``render_value_and_grad`` (forward
+and backward).  Importing the package builds nothing and needs no GPU.
 
 Quick start::
 

@@ -152,8 +152,8 @@ def main(argv=None) -> int:
     import fraytracer_tpu_torch as ft
     from .ops.cuda import launch_counts, probe
     from .ops.march import MarchConfig
-    from .ops.wavefront import _spectral_frame
-    from .render import frame_graph, spectral_graph, step_graph
+    from .ops.wavefront import _spectral_frame, spectral_graph
+    from .render import frame_graph, step_graph
     from .scene.generators import torus_csg_scene
 
     if args.device == "cuda" and not torch.cuda.is_available():

@@ -41,15 +41,15 @@ def setup(size: int, tori: int, device):
     march configuration, and the frame's flat primary rays in 32×32 block
     order (the culled tiles)."""
     import fraytracer_tpu_torch as ft
-    from .render import _auto_block, _to_blocks
+    from .camera import auto_block, to_blocks
     from .scene.generators import torus_csg_scene
     scene = ft.flatten(torus_csg_scene(seed=19, n_tori=tori), device=device)
     camera = ft.look_at((0.0, 0.0, -10.0), (0.0, 0.0, 0.0),
                         fov_degrees=60.0, device=device)
     base = ft.MarchConfig(max_steps=192, bound_skip=True, relax_omega=1.4)
-    b = _auto_block(size, size)
+    b = auto_block(size, size)
     flat = ft.camera_rays(camera, size, size, 0.01, 30.0).map(
-        lambda x: _to_blocks(x, size, size, b))
+        lambda x: to_blocks(x, size, size, b))
     return scene, camera, base, flat
 
 

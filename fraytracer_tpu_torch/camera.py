@@ -2,7 +2,11 @@
 
 Counterpart of ``fraytracer_tpu.camera`` (reference ``Camera.fs``), with the
 same two deliberate fixes: field-of-view in degrees, and a near-plane
-half-size of ``tan(fov/2)``.  Also provides the orthographic projection.
+half-size of ``tan(fov/2)``.  Also provides the orthographic projection,
+and the screen-block order the culled kernels march camera rays in: each
+32×32 block is one 1024-ray tile of their candidate tables
+(``ops/cuda/cull.py``), so a tile's rays are coherent and its cone is
+tight.
 """
 from __future__ import annotations
 
@@ -12,6 +16,8 @@ import math
 import torch
 
 from .types import Rays, cross, normalize
+
+BLOCK_EDGE = 32   # screen-block edge: one 1024-ray tile per block
 
 
 @dataclasses.dataclass
@@ -79,3 +85,28 @@ def camera_rays(camera: Camera, width: int, height: int,
                 direction=direction.contiguous(),
                 length=torch.full((height, width), float(length), **f32),
                 epsilon=torch.full((height, width), float(epsilon), **f32))
+
+
+def auto_block(height: int, width: int) -> int:
+    """Screen-block edge: 32 (the non-TPU ray tile of 1024 rays), halved
+    until it divides both image sides."""
+    b = BLOCK_EDGE
+    while height % b or width % b:
+        b //= 2
+    return max(b, 1)
+
+
+def to_blocks(x: torch.Tensor, height: int, width: int,
+              b: int) -> torch.Tensor:
+    """[H, W, ...] → flat [H·W, ...] in b×b-block order."""
+    t = x.reshape((height // b, b, width // b, b) + tuple(x.shape[2:]))
+    order = (0, 2, 1, 3) + tuple(range(4, t.ndim))
+    return t.permute(order).reshape((height * width,) + tuple(x.shape[2:]))
+
+
+def from_blocks(x: torch.Tensor, height: int, width: int,
+                b: int) -> torch.Tensor:
+    """flat [H·W, ...] in block order → [H, W, ...]."""
+    t = x.reshape((height // b, width // b, b, b) + tuple(x.shape[1:]))
+    order = (0, 2, 1, 3) + tuple(range(4, t.ndim))
+    return t.permute(order).reshape((height, width) + tuple(x.shape[1:]))

@@ -4,10 +4,10 @@ compiled on the first launch (``build.library``).
 
 Each wrapper counts its launches; :func:`launch_counts` reads the counts
 and :func:`reset_launch_counts` sets them to zero.  A wrapper does not run
-when a captured CUDA graph replays (``render.py``'s graph frame): each
-replay adds the launches recorded at its capture (:func:`add_launch_counts`),
-so the counts still mean kernels launched on the card.  ``GRAPH`` counts
-the frames captured, the replays, the eager re-runs of frames that raised
+when a captured CUDA graph replays (``ops/graph.py``): each replay adds
+the launches recorded at its capture (:func:`add_launch_counts`), so the
+counts still mean kernels launched on the card.  ``GRAPH`` counts the
+frames captured, the replays, the eager re-runs of frames that raised
 their flag, and the frames of keys run eagerly because their first frame
 raised it; a step of ``render_value_and_grad`` (a frame and its backward
 in one graph) and a spectral frame of ``render_spectral_with_stats`` count

@@ -22,7 +22,7 @@ Counterpart of the jnp host prep in
   the TPU kernel's BlockSpecs did this).
 
 A tile is :data:`TILE` consecutive lanes of the flat ray batch: one 32×32
-screen block in ``render.py``'s block order, and the JAX kernel's
+screen block in ``camera.to_blocks``' order, and the JAX kernel's
 interpret-mode ``RAY_TILE``.  Lanes past the batch end are padded inactive,
 as :1822-1838 do.  The kernels (``csrc/march.cu``) read one table per tile
 and compute each march step's candidate window over :data:`WINDOW_LANES`

@@ -13,7 +13,7 @@ of them instead.  Inside :func:`deferring`, those sites read nothing:
 each ORs the condition of its branch into the frame's flag, a bool on the
 frame's device, and goes on as if the branch needed no repair.  Whoever
 ran the frame reads the flag once at its end and, where it is set, runs
-the frame (or the step) again eagerly (``render.py``): that re-run takes
+the frame (or the step) again eagerly (``ops/graph.py``): that re-run takes
 the branches as the eager frame always has, so a flagged result is exact.
 A step's backward runs in its forward's frame (``ops/march.py::_MarchFn``
 hands it over: autograd may run a backward on a thread of its own, where
@@ -26,8 +26,8 @@ a *site*, and the frame keeps each site's overflow bool (``None`` where
 its tables cannot overflow).  A site may be *promoted*: it then builds its
 tables on the full group at once, the tables the eager re-run and JAX's
 fallback march on, and cannot overflow — the counterpart of a ``lax.cond``
-taken per call site (``render.py``'s spectral graph promotes the sites its
-first run saw overflow).
+taken per call site (a captured call's first run promotes the sites it saw
+overflow, ``ops/graph.py``).
 
 A :class:`Frame` also keeps the scene's lowered kernel program for the
 frame's marches (``ops/cuda/march_kernel.py::lower_program``), so that the

@@ -35,11 +35,13 @@ import math
 
 import torch
 
+from ..camera import auto_block, camera_rays, from_blocks, to_blocks
 from ..scene.flatten import FlatScene
 from ..scene.nodes import LIGHT_POINT, MAT_DIELECTRIC, MAT_MIRROR, MAT_SOLID
 from ..types import Rays, _map_fields, dot, normalize
 from ..utils.profiling import span
-from . import sdf, spectral
+from . import graph, sdf, spectral
+from .cuda import gather
 from .march import MarchConfig, march_occlusion, march_surface
 from .shade import light_dir_and_dist, resolve_material
 
@@ -108,20 +110,19 @@ def _compact(both: RayQueue, cap: int, cfg: WavefrontConfig) -> RayQueue:
     the partition is taken over blocks (:func:`block_compact_key`) and each
     field is moved by the K4 block gather; a kept block may carry dead
     lanes, which march as no-ops.  Otherwise lanes are sorted."""
-    from .cuda.gather import BLOCK, flat_block_gather
     low = both.active & (both.throughput < cfg.overflow_drop_threshold)
     klass = (~both.active).to(torch.int32) * 2 + low.to(torch.int32)
-    if cfg.march.backend == "cuda" and cap % BLOCK == 0:
-        nb = cap // BLOCK
-        keep = torch.argsort(block_compact_key(klass, BLOCK),
+    if cfg.march.backend == "cuda" and cap % gather.BLOCK == 0:
+        nb = cap // gather.BLOCK
+        keep = torch.argsort(block_compact_key(klass, gather.BLOCK),
                              stable=True)[:nb].to(torch.int32)
 
-        def gather(x):
+        def move(x):
             if x.dtype == torch.bool:
-                return flat_block_gather(x.to(torch.int32), keep,
-                                         nb).to(torch.bool)
-            return flat_block_gather(x, keep, nb)
-        return both.map(gather)
+                return gather.flat_block_gather(x.to(torch.int32), keep,
+                                                nb).to(torch.bool)
+            return gather.flat_block_gather(x, keep, nb)
+        return both.map(move)
     keep = torch.argsort(klass, stable=True)[:cap]
     return both.map(lambda x: x[keep])
 
@@ -279,12 +280,13 @@ def _bounce(scene: FlatScene, q: RayQueue, image: Tensor,
     return _compact(both, C, cfg), image, n_marched
 
 
-def _graph_spectral(scene: FlatScene, camera, cfg: WavefrontConfig) -> bool:
-    """True when the spectral frame runs as a captured graph: the kernels,
-    and every tensor of the scene and the camera on a CUDA device."""
-    from ..render import _inputs
-    return cfg.march.backend == "cuda" and all(
-        x.is_cuda for x in _inputs(scene, camera))
+def spectral_graph(scene: FlatScene, camera, width: int, height: int,
+                   cfg: WavefrontConfig):
+    """What the first call of this key of
+    :func:`render_spectral_with_stats` made, if any
+    (``ops/graph.py::find``): its ``capture_s``, its ``graph`` and its
+    ``frame.promoted``, the sites that build full-group tables."""
+    return graph.find("spectral", scene, camera, cfg, extra=(width, height))
 
 
 @torch.no_grad()
@@ -298,33 +300,21 @@ def render_spectral_with_stats(scene: FlatScene, camera, width: int,
     The JAX package jits this function (static ``width``, ``height`` and
     ``cfg``): its culled marches' overflow fallbacks are ``lax.cond``s on
     the device.  On the kernels of a CUDA device the frame is one captured
-    CUDA graph a :func:`render.spectral_key` (``render.py``'s graph frame):
-    the key's first call runs the frame with its host reads deferred; where
-    that run's culled march calls (its sites, in their fixed order)
-    overflowed their tables, those sites are promoted to full-group tables
-    (the tables JAX's fallback and the eager re-run march on) and the frame
-    runs once more, deferred, then is captured.  A replay reads one device
-    flag, set where another site overflows or a material repair is needed,
-    and on it runs the eager frame again; a key whose promoted run still
-    raises it runs eagerly.  Spectral frames count as frames in
+    CUDA graph a key, by the rule every entry point shares
+    (``ops/graph.py``): the key's first call runs the frame with its host
+    reads deferred; where culled march calls overflowed their tables there,
+    those sites are promoted to full-group tables and the frame runs once
+    more, deferred, and is captured unless that run raises the flag too.  A
+    replay reads one device flag, set where another site overflows or a
+    material repair is needed, and on it runs the eager frame again.  Spectral frames count as frames in
     ``ops.cuda.graph_counts()`` (no keys of their own).  On the CPU, or on
     the "torch" backend, the frame runs eagerly.  The outputs are the
     caller's own."""
-    from ..render import _FrameGraph, _run_graph, spectral_key
+    def body(s, c, w):
+        return _spectral_frame(s, c, width, height, w)
     with span("spectral"):
-        with span("graph.key"):
-            key = spectral_key(scene, camera, width, height, cfg) \
-                if _graph_spectral(scene, camera, cfg) else None
-        if key is None:
-            return _spectral_frame(scene, camera, width, height, cfg)
-
-        def body(s, c, w):
-            return _spectral_frame(s, c, width, height, w)
-        return _run_graph(
-            key, lambda: _FrameGraph(body, scene, camera, cfg, promote=True,
-                                     name="spectral"),
-            lambda: _spectral_frame(scene, camera, width, height, cfg),
-            (scene, camera))
+        return graph.run(body, scene, camera, cfg, name="spectral",
+                         extra=(width, height))
 
 
 @torch.no_grad()
@@ -342,8 +332,6 @@ def _spectral_frame(scene: FlatScene, camera, width: int, height: int,
     neighbouring parents, so its cone stays narrow), and rounds
     1 … depth−1 run the queue.  A scene without mirror or dielectric
     materials skips the queue."""
-    from ..camera import camera_rays
-    from ..render import _auto_block, _from_blocks, _to_blocks
     base = camera_rays(camera, width, height, cfg.epsilon, cfg.length)
     dev = base.origin.device
     npix = width * height
@@ -352,9 +340,9 @@ def _spectral_frame(scene: FlatScene, camera, width: int, height: int,
     blocked = (cfg.march.backend == "cuda" and height % 32 == 0
                and width % 32 == 0)
     if blocked:
-        bsz = _auto_block(height, width)
-        o0 = _to_blocks(base.origin, height, width, bsz)
-        d0 = _to_blocks(base.direction, height, width, bsz)
+        bsz = auto_block(height, width)
+        o0 = to_blocks(base.origin, height, width, bsz)
+        d0 = to_blocks(base.direction, height, width, bsz)
     else:
         o0 = base.origin.reshape(npix, 3)
         d0 = base.direction.reshape(npix, 3)
@@ -378,7 +366,7 @@ def _spectral_frame(scene: FlatScene, camera, width: int, height: int,
         # the image lives in the rays' (block) order; children carry
         # block-order pixel ids
         if blocked:
-            return _from_blocks(img, height, width, bsz)
+            return from_blocks(img, height, width, bsz)
         return img.reshape(height, width, 3)
 
     has_specular = any(k in (MAT_MIRROR, MAT_DIELECTRIC)

@@ -25,8 +25,8 @@ rank of every host.
 **Compiled.**  The JAX package jits each sharded function as one device
 program a rank, collectives inside (``jax.jit(shard_map(...))``).  Here, on
 the kernels of a CUDA device, each is one captured CUDA graph a key and
-rank (``render.py::_FrameGraph``), its host reads deferred to one device
-flag as in the one-process graphs; the flag is ORed over the mesh's group
+rank, by the rule of the one-process graphs (``ops/graph.py``), its host
+reads deferred to one device flag; the flag is ORed over the mesh's group
 (``deferred.Frame.agree``) before any decision is taken on it, so that the
 ranks capture, run again after a promotion, or re-run eagerly all alike
 and always issue the same collectives.
@@ -62,11 +62,9 @@ import torch
 import torch.distributed as dist
 
 from .. import camera as cam
-from ..ops import cuda as ops_cuda
-from ..render import (BLOCK_EDGE, RenderConfig, _FrameGraph, _from_blocks,
-                      _graph_frame, _graph_step, _run_graph, _to_blocks,
-                      frame_key, render_grid, spectral_key)
+from ..ops import graph, wavefront
 from ..ops.march import check_config
+from ..render import RenderConfig, render_grid
 from ..scene.flatten import FlatScene
 
 Tensor = torch.Tensor
@@ -167,18 +165,15 @@ def render_sharded(scene: FlatScene, camera: cam.Camera, cfg: RenderConfig,
     inside the ε shell.
 
     On the kernels of a CUDA device a frame autograd need not see replays
-    one captured CUDA graph a ``("sharded", frame key, rank, size)`` (the
-    band's rows are baked into it), with the graph frame's rule and its
-    flag agreed over the mesh (module docstring)."""
+    one captured CUDA graph a frame key, rank and size (the band's rows
+    are baked into it), its flag agreed over the mesh (module
+    docstring)."""
     check_config(cfg.march)
     _shard_rows(mesh, cfg.height)
-    body = functools.partial(_band_frame, mesh)
-    if not _graph_frame(scene, camera, cfg):
-        return body(scene, camera, cfg)[0]
-    return _run_graph(
-        ("sharded", frame_key(scene, camera, cfg), mesh.rank, mesh.size),
-        lambda: _FrameGraph(body, scene, camera, cfg, group=mesh.group),
-        lambda: body(scene, camera, cfg), (scene, camera))[0]
+    return graph.run(functools.partial(_band_frame, mesh), scene, camera,
+                     cfg, name="frame", extra=("sharded", mesh.rank,
+                                               mesh.size),
+                     group=mesh.group)[0]
 
 
 def exposure_max_sharded(image: Tensor, mesh: Mesh) -> Tensor:
@@ -208,15 +203,13 @@ def _pack(q) -> Tensor:
 
 
 def _unpack(rows: Tensor):
-    from ..ops.wavefront import RayQueue
-
     def bits(j):
         return rows[:, j].contiguous().view(torch.int32)
-    return RayQueue(origin=rows[:, 0:3].contiguous(),
-                    direction=rows[:, 3:6].contiguous(), pixel=bits(6),
-                    wl=bits(7), throughput=rows[:, 8].contiguous(),
-                    length=rows[:, 9].contiguous(), inside=bits(10) != 0,
-                    active=bits(11) != 0)
+    return wavefront.RayQueue(
+        origin=rows[:, 0:3].contiguous(), direction=rows[:, 3:6].contiguous(),
+        pixel=bits(6), wl=bits(7), throughput=rows[:, 8].contiguous(),
+        length=rows[:, 9].contiguous(), inside=bits(10) != 0,
+        active=bits(11) != 0)
 
 
 def _rebalance_exchange(q, k: int, n_dev: int, C: int, tmin: float,
@@ -235,7 +228,6 @@ def _rebalance_exchange(q, k: int, n_dev: int, C: int, tmin: float,
     5. received and kept lanes merge and compact back to ``C`` by a
        lane-granular stable sort of the class (live, live below ``tmin``,
        dead), as JAX does at :147."""
-    from ..ops.wavefront import _concat
     order = torch.argsort((~q.active).to(torch.int32), stable=True)
     q = q.map(lambda x: x[order])
     dev = q.active.device
@@ -258,7 +250,8 @@ def _rebalance_exchange(q, k: int, n_dev: int, C: int, tmin: float,
     recv = torch.empty((n_dev * S, _LANE_WIDTH), dtype=torch.float32,
                        device=dev)
     dist.all_to_all_single(recv, send[:-1], group=mesh.group)
-    both = _concat(dataclasses.replace(q, active=keep), _unpack(recv))
+    both = wavefront._concat(dataclasses.replace(q, active=keep),
+                             _unpack(recv))
     low = both.active & (both.throughput < tmin)
     klass = (~both.active).to(torch.int32) * 2 + low.to(torch.int32)
     take = torch.argsort(klass, stable=True)[:C]
@@ -270,16 +263,16 @@ def _spectral_rounds(mesh: Mesh, width: int, height: int, rebalance: bool,
     """This rank's rounds of :func:`render_spectral_sharded` (with
     ``rebalance`` the exchanges and the frame's ``all_reduce``): ``(rows,
     live lanes entering each round [depth])``."""
-    from ..ops.wavefront import RayQueue, _bounce, _repeat
     rows = _shard_rows(mesh, height)
     n, k = mesh.size, mesh.rank
     base = cam.camera_rays(camera, width, height, wcfg.epsilon, wcfg.length)
     band = base.map(lambda x: _band(x, mesh, rows))
-    blocked = (wcfg.march.backend == "cuda" and rows % BLOCK_EDGE == 0
-               and width % BLOCK_EDGE == 0)
+    edge = cam.BLOCK_EDGE
+    blocked = (wcfg.march.backend == "cuda" and rows % edge == 0
+               and width % edge == 0)
     if blocked:
-        o = _to_blocks(band.origin, rows, width, BLOCK_EDGE)
-        d = _to_blocks(band.direction, rows, width, BLOCK_EDGE)
+        o = cam.to_blocks(band.origin, rows, width, edge)
+        d = cam.to_blocks(band.direction, rows, width, edge)
     else:
         o = band.origin.reshape(-1, 3)
         d = band.direction.reshape(-1, 3)
@@ -289,10 +282,12 @@ def _spectral_rounds(mesh: Mesh, width: int, height: int, rebalance: bool,
     C = npix * B
     pix0 = k * npix if rebalance else 0
     f32 = dict(dtype=torch.float32, device=dev)
-    q = RayQueue(
-        origin=_repeat(o, B), direction=_repeat(d, B),
-        pixel=pix0 + _repeat(torch.arange(npix, dtype=torch.int32,
-                                          device=dev), B),
+
+    def rep(x):
+        return wavefront._repeat(x, B)
+    q = wavefront.RayQueue(
+        origin=rep(o), direction=rep(d),
+        pixel=pix0 + rep(torch.arange(npix, dtype=torch.int32, device=dev)),
         wl=torch.arange(B, dtype=torch.int32, device=dev).repeat(npix),
         throughput=torch.full((C,), 1.0 / B, **f32),
         length=torch.full((C,), wcfg.length, **f32),
@@ -304,12 +299,12 @@ def _spectral_rounds(mesh: Mesh, width: int, height: int, rebalance: bool,
         if rebalance and bounce > 0:
             q = _rebalance_exchange(q, k, n, C, wcfg.min_throughput, mesh)
         counts.append(q.active.sum())
-        q, image, _n = _bounce(scene, q, image, wcfg,
-                               is_last=(bounce == wcfg.depth - 1))
+        q, image, _n = wavefront._bounce(scene, q, image, wcfg,
+                                         is_last=(bounce == wcfg.depth - 1))
     if rebalance:
         dist.all_reduce(image, group=mesh.group)
         image = image[k * npix:(k + 1) * npix]
-    image = _from_blocks(image, rows, width, BLOCK_EDGE) if blocked \
+    image = cam.from_blocks(image, rows, width, edge) if blocked \
         else image.reshape(rows, width, 3)
     return image, torch.stack(counts)
 
@@ -349,39 +344,24 @@ def render_spectral_sharded(scene: FlatScene, camera: cam.Camera, width: int,
     the exchange), gathered to every rank.
 
     On the kernels of a CUDA device the frame is one captured CUDA graph a
-    ``("sharded", spectral key, rank, size, rebalance)``, with the
-    one-process spectral graph's rule (the sites that overflow in the
-    key's first run promoted) and its flag agreed over the mesh: on NCCL
-    every collective inside; on gloo the graph holds the rank's rounds and
-    the counts' ``all_gather`` follows the replay, and a rebalanced frame
-    (a collective in every round) runs eagerly, counted as an eager frame
-    (module docstring)."""
-    from ..ops.wavefront import _graph_spectral
+    spectral key, rank, size and ``rebalance``, its flag agreed over the
+    mesh: on NCCL every collective inside; on gloo the graph holds the
+    rank's rounds and the counts' ``all_gather`` follows the replay, and a
+    rebalanced frame (a collective in every round) runs eagerly, counted
+    as an eager frame (module docstring)."""
     _shard_rows(mesh, height)
-    full = functools.partial(_spectral_band, mesh, width, height, rebalance)
-
-    def eager():
-        return full(scene, camera, wcfg)
-    if not _graph_spectral(scene, camera, wcfg):
-        return eager()
-    if mesh.backend == "nccl":
-        def make():
-            return _FrameGraph(full, scene, camera, wcfg, promote=True,
-                               group=mesh.group, name="spectral")
-    elif rebalance:
-        ops_cuda.GRAPH["eager_frames"] += 1
-        return eager()
-    else:
-        def make():
-            return _FrameGraph(
-                functools.partial(_spectral_rounds, mesh, width, height,
-                                  False),
-                scene, camera, wcfg, promote=True, group=mesh.group,
-                finish=functools.partial(_gathered_counts, mesh),
-                name="spectral")
-    return _run_graph(
-        ("sharded", spectral_key(scene, camera, width, height, wcfg),
-         mesh.rank, mesh.size, rebalance), make, eager, (scene, camera))
+    capture = finish = None
+    if mesh.backend != "nccl" and rebalance:
+        capture = False
+    elif mesh.backend != "nccl":
+        capture = functools.partial(_spectral_rounds, mesh, width, height,
+                                    False)
+        finish = functools.partial(_gathered_counts, mesh)
+    return graph.run(
+        functools.partial(_spectral_band, mesh, width, height, rebalance),
+        scene, camera, wcfg, name="spectral",
+        extra=(width, height, "sharded", mesh.rank, mesh.size, rebalance),
+        group=mesh.group, capture=capture, finish=finish)
 
 
 # ---------------------------------------------------------------------------
@@ -499,8 +479,8 @@ def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
     **Compiled** (the counterpart of ``@jax.jit`` on JAX's step): on the
     kernels of a CUDA device the step replays one captured CUDA graph a
     frame key, target shape and dtype, rank and size, kept by ``step``
-    (``step.graphs``; ``lr`` and ``grad_chunks`` are the closure's), with
-    the graph frame's rule and its flag agreed over the mesh.  On NCCL the
+    (``step.graphs``; ``lr`` and ``grad_chunks`` are the closure's), by
+    ``ops/graph.py``'s rule, its flag agreed over the mesh.  On NCCL the
     graph is the whole step above, collectives, waits and update inside.
     On gloo it is the rank's chunks, their gradients summed over the
     chunks before the sum over the ranks (within float32 reassociation of
@@ -513,33 +493,15 @@ def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
     def step(scene: FlatScene, camera: cam.Camera, target: Tensor):
         check_config(cfg.march)
         _shard_rows(mesh, cfg.height)
-        full = functools.partial(_step_overlapped, mesh, lr, grad_chunks)
-
-        def eager():
-            leaves = {k: v.detach().requires_grad_(True)
-                      for k, v in scene.tensors().items()}
-            return full(scene.with_tensors(leaves), camera, cfg, target)
-        if not _graph_step(scene, camera, cfg, (target,)):
-            out = eager()
-        else:
-            if mesh.backend == "nccl":
-                def make():
-                    return _FrameGraph(full, scene, camera, cfg, (target,),
-                                       grad=True, group=mesh.group,
-                                       name="step")
-            else:
-                def make():
-                    return _FrameGraph(
-                        functools.partial(_step_local, mesh, grad_chunks),
-                        scene, camera, cfg, (target,), grad=True,
-                        group=mesh.group,
-                        finish=functools.partial(_step_reduced, mesh, lr),
-                        name="step")
-            key = ("sharded_step", frame_key(scene, camera, cfg),
-                   (tuple(target.shape), target.dtype, target.device),
-                   mesh.rank, mesh.size)
-            out = _run_graph(key, make, eager, (scene, camera, (target,)),
-                             graphs)
+        capture = finish = None
+        if mesh.backend != "nccl":
+            capture = functools.partial(_step_local, mesh, grad_chunks)
+            finish = functools.partial(_step_reduced, mesh, lr)
+        out = graph.run(
+            functools.partial(_step_overlapped, mesh, lr, grad_chunks),
+            scene, camera, cfg, (target,), name="step",
+            extra=("sharded", mesh.rank, mesh.size), grad=True,
+            group=mesh.group, capture=capture, finish=finish, graphs=graphs)
         return scene.with_tensors(dict(zip(scene.tensors(), out[1:]))), \
             out[0]
 

@@ -10,22 +10,23 @@ rays/s, march-iteration statistics and profiler traces.
 frame's device work (``cull``, ``march``, ``surface``, ``shade``,
 ``wavefront``, ``loss``, ``vjp``) where that work is issued, and the host
 phases of a call (``frame``, ``step``, ``spectral``, ``graph.*``) on the
-entry and replay path (``render.py``).  A span costs a few flag reads
-when nothing watches it; it records where something does:
+entry and replay path (``render.py``, ``ops/graph.py``).  A span costs a
+few flag reads when nothing watches it; it records where something does:
 
 * a ``torch.profiler`` session (:func:`trace`, or any other): the span is
   a ``record_function`` range named ``ft.<name>``, in the same timeline as
   the device ops and on the same clock;
 * a recorder (:func:`spans`): the span's name, parent and host times from
   ``time.perf_counter_ns()``, with no profiler;
-* a graph's capture (:func:`capture_layers`, which ``render._FrameGraph``
-  opens around its capture): the span takes the count of the capture's op
-  nodes (kernels, memcpys, memsets: what a replay runs on the device, in
-  capture order) at its entry and exit, through ``ft_capture_ops``
-  (``csrc/capture.cu``).  That builds the graph's *layer table*, which
-  says which layer issued which of a replay's device ops; a replay runs
-  no host code, so nothing else can.  :func:`graph_layers` lists the
-  tables of the graphs captured in the process.
+* a graph's capture (:func:`capture_layers`, which
+  ``ops/graph.py::_FrameGraph`` opens around its capture): the span takes
+  the count of the capture's op nodes (kernels, memcpys, memsets: what a
+  replay runs on the device, in capture order) at its entry and exit,
+  through ``ft_capture_ops`` (``csrc/capture.cu``).  That builds the
+  graph's *layer table*, which says which layer issued which of a
+  replay's device ops; a replay runs no host code, so nothing else can.
+  :func:`graph_layers` lists the tables of the graphs captured in the
+  process.
 
 The open spans form one stack shared by every thread: a step's backward
 runs on autograd's own thread while the thread that called

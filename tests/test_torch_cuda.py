@@ -48,7 +48,9 @@ import pytest
 import torch
 
 import fraytracer_tpu_torch as ft
-from fraytracer_tpu_torch.ops import cuda as ops_cuda
+from fraytracer_tpu_torch.camera import to_blocks
+from fraytracer_tpu_torch.ops import cuda as ops_cuda, graph as tgraph
+from fraytracer_tpu_torch.ops import wavefront as tw
 from fraytracer_tpu_torch.ops.cuda import cull, gather, march_kernel as mk
 from fraytracer_tpu_torch.ops.march import bound_skip_start
 from fraytracer_tpu_torch.scene.generators import csg_demo_scene, \
@@ -121,7 +123,6 @@ def culled_inputs(name, dev):
     block order on the 96-torus scene or a 256-sphere intersect, or
     point-light shadow rays with the converging cone."""
     from fraytracer_tpu_torch.ops.cuda import cull
-    from fraytracer_tpu_torch.render import _to_blocks
     if name == "intersect256":
         g = torch.Generator().manual_seed(11)
         c = (torch.rand(256, 3, generator=g) - 0.5).tolist()
@@ -135,7 +136,7 @@ def culled_inputs(name, dev):
     size, apex = 128, None
     cam = ft.look_at(pos, (0, 0, 0), device=dev)
     rays = ft.camera_rays(cam, size, size, 0.01, 30.0).map(
-        lambda x: _to_blocks(x, size, size, 32).contiguous())
+        lambda x: to_blocks(x, size, size, 32).contiguous())
     if name == "point_light":
         apex = torch.tensor([-0.5, 0.0, -2.0], device=dev)
         o = rays.origin + 9.0 * rays.direction
@@ -237,13 +238,12 @@ def test_surface_ad_kernel_matches_plain_and_dense(dev, name, cull):
     """K3 AD mode on (t, hit) from K1, dense and on candidate tables."""
     from fraytracer_tpu_torch.ops import sdf
     from fraytracer_tpu_torch.ops.cuda import cull as C
-    from fraytracer_tpu_torch.render import _to_blocks
     scene = ft.flatten(smooth_scene(name), device=dev)
     assert not mk.slot_surface_mode(scene.plan)
     size = 128
     cam = ft.look_at((0, 0, -7), (0, 0, 0), device=dev)
     rays = ft.camera_rays(cam, size, size, 0.01, 30.0).map(
-        lambda x: _to_blocks(x, size, size, 32).contiguous())
+        lambda x: to_blocks(x, size, size, 32).contiguous())
     t0, miss0, t_exit = bound_skip_start(scene, rays)
     length = torch.where(miss0, 0.0,
                          torch.minimum(rays.length, t_exit)).contiguous()
@@ -402,10 +402,9 @@ def overbudget_scene(dev, groups=5, per_group=1024):
 def block_lanes(scene, size, dev, z=-10.0):
     """Camera rays in 32×32 block order with the root-bound start and
     budget, as ``cuda_march_raw`` hands them to K1."""
-    from fraytracer_tpu_torch.render import _to_blocks
     cam = ft.look_at((0, 0, z), (0, 0, 0), device=dev)
     rays = ft.camera_rays(cam, size, size, 0.01, 30.0).map(
-        lambda x: _to_blocks(x, size, size, 32).contiguous())
+        lambda x: to_blocks(x, size, size, 32).contiguous())
     t0, miss0, t_exit = bound_skip_start(scene, rays)
     length = torch.where(miss0, 0.0, torch.minimum(rays.length, t_exit))
     return (rays.origin, rays.direction, length.contiguous(), rays.epsilon,
@@ -596,7 +595,7 @@ def _graph_setup(dev, size=128, **march):
     cfg = ft.RenderConfig(width=size, height=size, march=ft.MarchConfig(
         max_steps=192, relax_omega=1.4, **march))
     render_mod = sys.modules["fraytracer_tpu_torch.render"]
-    render_mod._graphs.clear()
+    tgraph._graphs.clear()
     ops_cuda.reset_launch_counts()
     return scene, cam, cfg, render_mod
 
@@ -643,7 +642,7 @@ def test_graph_frame_after_a_parameter_edit(dev):
                                 for k, v in scene.tensors().items()})
     img, _n = ft.render_with_stats(other, cam, cfg)
     assert torch.equal(img, _eager(other, cam, cfg)[0])
-    assert len(R._graphs) == 1
+    assert len(tgraph._graphs) == 1
     assert ops_cuda.graph_counts()["captures"] == 1
 
 
@@ -661,7 +660,7 @@ def test_graph_capture_failure_raises(dev, monkeypatch):
     ops_cuda.reset_launch_counts()
     with pytest.raises(RuntimeError):
         ft.render_with_stats(scene, cam, cfg)
-    assert not R._graphs
+    assert not tgraph._graphs
     assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
                                        "eager_reruns": 0, "eager_frames": 0}
     monkeypatch.setattr(shade, "resolve_material", real)
@@ -673,17 +672,20 @@ def test_graph_capture_failure_raises(dev, monkeypatch):
 
 
 def test_graph_frame_overflow_reruns_eagerly(dev):
-    """cull_m 8 overflows: the key's first frame raises the flag and runs
-    again eagerly, nothing is captured, and the key's later frames run
-    eagerly; exact and counted."""
+    """cull_m 8 overflows: the key's first frame raises the flag, promotes
+    the overflowed sites to full-group tables, runs once more and is
+    captured with them; that call and the replays are the eager frame bit
+    for bit (its overflowing calls re-run on full-group tables), and
+    nothing runs eagerly."""
     scene, cam, cfg, R = _graph_setup(dev, cull_m=8, cull_m_shadow=8)
-    want = _eager(scene, cam, cfg)[0]
-    for _ in range(2):
-        img, _n = ft.render_with_stats(scene, cam, cfg)
-        assert torch.equal(img, want)
-    assert R.frame_graph(scene, cam, cfg).graph is None
-    assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
-                                       "eager_reruns": 1, "eager_frames": 1}
+    want, wn = _eager(scene, cam, cfg)
+    for _ in range(3):
+        img, n = ft.render_with_stats(scene, cam, cfg)
+        assert torch.equal(img, want) and int(n) == int(wn)
+    fg = R.frame_graph(scene, cam, cfg)
+    assert fg.graph is not None and fg.frame.promoted
+    assert ops_cuda.graph_counts() == {"captures": 1, "replays": 2,
+                                       "eager_reruns": 0, "eager_frames": 0}
 
 
 def test_graph_frame_flagged_replay_reruns_eagerly(dev):
@@ -738,9 +740,11 @@ def _sum_sq(img):
 
 
 def _eager_step(scene, cam, cfg, loss_fn=_sum_sq, *args):
+    import functools
     import sys
-    out = sys.modules["fraytracer_tpu_torch.render"]._eager_step(
-        loss_fn, scene, cam, cfg, *args)
+    out = tgraph.eager(functools.partial(
+        sys.modules["fraytracer_tpu_torch.render"]._step, loss_fn), scene,
+        cam, cfg, args, grad=True)
     return out[0], dict(zip(scene.tensors(), out[1:]))
 
 
@@ -871,7 +875,7 @@ def test_graph_step_capture_failure_raises(dev, monkeypatch):
     monkeypatch.setattr(M, "implicit_vjp", reads_the_host)
     with pytest.raises(RuntimeError):
         ft.render_value_and_grad(_sum_sq, scene, cam, cfg)
-    assert not R._graphs
+    assert not tgraph._graphs
     assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
                                        "eager_reruns": 0, "eager_frames": 0}
     monkeypatch.setattr(M, "implicit_vjp", real)
@@ -940,11 +944,10 @@ def test_backward_on_card_matches_cpu(dev):
     """``implicit_vjp`` fed the kernels' own t, hit and leaf code, on the
     card and on the CPU."""
     from fraytracer_tpu_torch.ops import march as M
-    from fraytracer_tpu_torch.render import _to_blocks
     scene = ft.flatten(torus_csg_scene(19, 96), device=dev)
     cam = ft.look_at((0, 0, -10), (0, 0, 0), device=dev)
     rays = ft.camera_rays(cam, 128, 128, 0.01, 30.0).map(
-        lambda x: _to_blocks(x, 128, 128, 32).contiguous())
+        lambda x: to_blocks(x, 128, 128, 32).contiguous())
     cfg = ft.MarchConfig(max_steps=192, relax_omega=1.4)
     raw, _n, _m, code = mk.cuda_march_raw(scene, rays, cfg,
                                           want_surface=True)
@@ -1079,7 +1082,7 @@ def _spectral_setup(dev, size=128):
                                                   bound_skip=True,
                                                   relax_omega=1.4))
     R = sys.modules["fraytracer_tpu_torch.render"]
-    R._graphs.clear()
+    tgraph._graphs.clear()
     ops_cuda.reset_launch_counts()
     return (scene, cam, cfg, R,
             lambda s=scene: _spectral_frame(s, cam, size, size, cfg),
@@ -1104,7 +1107,7 @@ def test_graph_spectral_frame_is_the_eager_frame(dev):
     _assert_spectral_close(graph(), want)
     assert ops_cuda.graph_counts() == {"captures": 1, "replays": 0,
                                        "eager_reruns": 0, "eager_frames": 0}
-    sg = R.spectral_graph(scene, cam, 128, 128, cfg)
+    sg = tw.spectral_graph(scene, cam, 128, 128, cfg)
     assert sg.graph is not None and sg.frame.promoted
     assert max(sg.frame.promoted) < 1 + scene.num_lights
     assert {k: v for k, v in sg.launches.items() if v} == SPECTRAL_REPLAY
@@ -1130,7 +1133,7 @@ def test_graph_spectral_frame_after_a_parameter_edit(dev):
     other = scene.with_tensors({k: v * 1.01
                                 for k, v in scene.tensors().items()})
     _assert_spectral_close(graph(other), eager(other))
-    assert len(R._graphs) == 1
+    assert len(tgraph._graphs) == 1
     assert ops_cuda.graph_counts()["captures"] == 1
 
 
@@ -1144,12 +1147,10 @@ def test_spectral_promotion_is_exact_on_the_kernels(dev):
     from fraytracer_tpu_torch.ops.shade import light_dir_and_dist
     from fraytracer_tpu_torch.scene.generators import spectral_csg_scene
     from fraytracer_tpu_torch.types import Rays
-    import sys
-    R = sys.modules["fraytracer_tpu_torch.render"]
     scene = ft.flatten(spectral_csg_scene(19, 1000), device=dev)
     cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
     flat = ft.camera_rays(cam, 1024, 1024, 0.01, 30.0).map(
-        lambda x: R._to_blocks(x, 1024, 1024, 32))
+        lambda x: to_blocks(x, 1024, 1024, 32))
     own, full = (MarchConfig(max_steps=192, bound_skip=True,
                              relax_omega=1.4, cull_m=m, cull_m_shadow=m)
                  for m in (512, 1000))
@@ -1200,7 +1201,7 @@ def test_graph_spectral_capture_failure_raises(dev, monkeypatch):
     monkeypatch.setattr(tw, "resolve_material", reads_the_host)
     with pytest.raises(RuntimeError):
         graph()
-    assert not R._graphs
+    assert not tgraph._graphs
     assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
                                        "eager_reruns": 0, "eager_frames": 0}
     monkeypatch.setattr(tw, "resolve_material", real)
@@ -1215,7 +1216,7 @@ def test_graph_spectral_frame_shares_the_frame_graphs_pool(dev):
     replayed in turns: each its eager counterpart."""
     scene, cam, cfg, R, eager, graph = _spectral_setup(dev)
     # tables of the whole group: a 128² tile's candidates would overflow
-    # the default tables, and the forward key would then run eagerly
+    # the default tables, and the forward key's first call would promote
     rcfg = ft.RenderConfig(width=128, height=128, march=dataclasses.replace(
         cfg.march, cull_m=1000, cull_m_shadow=1000))
     frame = _eager(scene, cam, rcfg)
@@ -1226,7 +1227,7 @@ def test_graph_spectral_frame_shares_the_frame_graphs_pool(dev):
         _assert_spectral_close(graph(), want)
     assert ops_cuda.graph_counts()["captures"] == 2
     assert R.frame_graph(scene, cam, rcfg).graph.pool() == \
-        R.spectral_graph(scene, cam, 128, 128, cfg).graph.pool()
+        tw.spectral_graph(scene, cam, 128, 128, cfg).graph.pool()
 
 
 # ---------------------------------------------------------------------------
@@ -1258,7 +1259,8 @@ def test_graph_sharded_frame_on_one_nccl_rank(dev):
         assert ops_cuda.graph_counts() == {"captures": 1, "replays": 1,
                                            "eager_reruns": 0,
                                            "eager_frames": 0}
-        fg = R._graphs[("sharded", R.frame_key(scene, cam, cfg), 0, 1)]
+        fg = tgraph._graphs[tgraph.key("frame", scene, cam, cfg,
+                                       extra=("sharded", 0, 1))]
         assert fg.agree_in_graph
         torch.cuda.synchronize()
         mode = torch.cuda.get_sync_debug_mode()

@@ -22,11 +22,14 @@ plain cones' last bits move.)  A culled graph frame and graph
 step on the kernels' tables against the eager ones on the plain tables
 (the bounds of ``tests/test_torch_cuda.py``), with one cones and one select
 launch at every culled site."""
+import functools
+
 import pytest
 import torch
 
 import fraytracer_tpu_torch as ft
-from fraytracer_tpu_torch.ops import cuda as ops_cuda
+from fraytracer_tpu_torch.camera import to_blocks
+from fraytracer_tpu_torch.ops import cuda as ops_cuda, graph
 from fraytracer_tpu_torch.ops.cuda import cull, cull_kernel as ck, \
     march_kernel as mk
 from fraytracer_tpu_torch.ops.march import bound_skip_start
@@ -126,12 +129,11 @@ def table_case(name, dev):
     32×32 block order with the root-bound start and budget (``sign``:
     every other lane at -1, its start taken inside), or point-light shadow
     rays with the converging cone."""
-    from fraytracer_tpu_torch.render import _to_blocks
     cull_m, threshold, point, z, size, _path = CASES[name]
     scene = ft.flatten(_scene(name), device=dev)
     cam = ft.look_at((0, 0, z), (0, 0, 0), device=dev)
     rays = ft.camera_rays(cam, size, size, 0.01, 30.0).map(
-        lambda x: _to_blocks(x, size, size, 32).contiguous())
+        lambda x: to_blocks(x, size, size, 32).contiguous())
     apex = sign = None
     if point:
         apex = torch.tensor([-0.5, 0.0, -2.0], device=dev)
@@ -310,12 +312,11 @@ def _with_plain_tables(fn):
 
 
 def _graph_setup(dev, size=128):
-    import sys
     scene = ft.flatten(torus_csg_scene(19, 96), device=dev)
     cam = ft.look_at((0, 0, -10), (0, 0, 0), device=dev)
     cfg = ft.RenderConfig(width=size, height=size, march=ft.MarchConfig(
         max_steps=192, relax_omega=1.4))
-    sys.modules["fraytracer_tpu_torch.render"]._graphs.clear()
+    graph._graphs.clear()
     return scene, cam, cfg
 
 
@@ -356,7 +357,8 @@ def test_graph_step_on_kernel_tables_is_the_plain_tables_step(dev):
 
     def loss(img):
         return (img ** 2).sum()
-    out = _with_plain_tables(lambda: R._eager_step(loss, scene, cam, cfg))
+    out = _with_plain_tables(lambda: graph.eager(
+        functools.partial(R._step, loss), scene, cam, cfg, grad=True))
     want = (out[0], dict(zip(scene.tensors(), out[1:])))
     ft.render_value_and_grad(loss, scene, cam, cfg)
     ops_cuda.reset_launch_counts()

@@ -12,10 +12,10 @@ import pytest
 import torch
 
 import fraytracer_tpu_torch as ft
+from fraytracer_tpu_torch.camera import to_blocks
 from fraytracer_tpu_torch.ops import cuda as ops_cuda
 from fraytracer_tpu_torch.ops.cuda import cull, cull_kernel as ck
 from fraytracer_tpu_torch.ops.march import bound_skip_start
-from fraytracer_tpu_torch.render import _to_blocks
 from fraytracer_tpu_torch.scene.generators import torus_csg_scene
 
 SOURCE = (Path(ck.__file__).resolve().parents[2] / "csrc"
@@ -29,7 +29,7 @@ def case():
     scene = ft.flatten(torus_csg_scene(19, 96), device="cpu")
     cam = ft.look_at((0, 0, -10), (0, 0, 0), device="cpu")
     rays = ft.camera_rays(cam, 64, 64, 0.01, 30.0).map(
-        lambda x: _to_blocks(x, 64, 64, 32).contiguous())
+        lambda x: to_blocks(x, 64, 64, 32).contiguous())
     t0, miss0, t_exit = bound_skip_start(scene, rays)
     length = torch.where(miss0, 0.0, torch.minimum(rays.length, t_exit))
     lanes = (rays.origin, rays.direction, t0, length.contiguous(),

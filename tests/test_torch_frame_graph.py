@@ -18,10 +18,14 @@ JAX frame's ``lax.cond``s.
   frame bit for bit (the frame on full-group tables) and JAX's
   ``pallas_interpret`` frame, which takes its ``lax.cond`` fallback,
   within the culled frame's bounds (``tests/test_torch_render.py``).
-* (e) ``frame_key``: a parameter's value is not in it; a static field, a
-  shape and the config are.
-* A key whose first frame raises the flag captures nothing and runs its
-  frames eagerly (``render_with_stats``' routing, taken on the CPU).
+* (e) ``ops/graph.py::key`` of a frame: a parameter's value is not in
+  it; a static field, a shape and the config are.
+* ``render_with_stats`` routed as on the card (``ops/graph.py``, taken on
+  the CPU): a key whose first frame overflows promotes the overflowed
+  sites and runs once more, and captures that frame unless it raises the
+  flag too (a later site overflows once the promoted site's hits are
+  exact); a key whose first frame needs a material repair captures
+  nothing.  Every call is the eager frame bit for bit.
 * The device constants a deferred frame reads live with the frame: its
   second run takes every one from the frame, none from the caches.
 
@@ -37,12 +41,14 @@ import fraytracer_tpu as jft
 import fraytracer_tpu_torch as tft
 from fraytracer_tpu.ops import sdf as jsdf
 from fraytracer_tpu.ops.march import MarchConfig as JMC
-from fraytracer_tpu_torch.ops import deferred, sdf as tsdf, shade as tshade
+from fraytracer_tpu_torch.ops import deferred, graph, sdf as tsdf
+from fraytracer_tpu_torch.ops import shade as tshade
 from fraytracer_tpu_torch.ops.cuda import gather, march_kernel as mk
 from fraytracer_tpu_torch.ops.march import MarchConfig as TMC
 from test_torch_render import jax_masks, port_camera, port_masks
 from test_torch_scene import scene_pair, smooth_materials
-from torch_deferred import PLAIN_VERSIONS, NoHostRead, suspended
+from torch_deferred import (PLAIN_VERSIONS, NoHostRead, forced_repair,
+                            recorded_capture, suspended)
 from fraytracer_tpu.scene import generators as JG, nodes as JN
 from fraytracer_tpu_torch.scene import generators as TG, nodes as TN
 
@@ -240,33 +246,37 @@ def test_overflowing_frame_flags_and_reruns_exactly():
     assert float(np.median(diff)) < 1e-5
 
 
+def frame_key(scene, camera, cfg):
+    """The key ``render_with_stats`` keeps a frame under."""
+    return graph.key("frame", scene, camera, cfg)
+
+
 def test_frame_key_is_what_jit_keys_on():
     ts = scene_pair("torus96")[1]
     cam = port_camera()
     cfg = tft.RenderConfig(width=SIZE, height=SIZE)
-    key = trender.frame_key(ts, cam, cfg)
+    key = frame_key(ts, cam, cfg)
     # parameter values and the scene object are not in the key
     moved = {k: v + 0.25 for k, v in ts.tensors().items()}
-    assert trender.frame_key(ts.with_tensors(moved), cam, cfg) == key
-    assert trender.frame_key(ts, port_camera(fov=30.0), cfg) == key
+    assert frame_key(ts.with_tensors(moved), cam, cfg) == key
+    assert frame_key(ts, port_camera(fov=30.0), cfg) == key
     # static fields, shapes, the camera's projection and the config are
     other = scene_pair("torus48")[1]
-    assert trender.frame_key(other, cam, cfg) != key
+    assert frame_key(other, cam, cfg) != key
     lights = dataclasses.replace(ts, light_kind=ts.light_kind[::-1])
-    assert trender.frame_key(lights, cam, cfg) != key
+    assert frame_key(lights, cam, cfg) != key
     mats = dataclasses.replace(ts, prim_material=(0,) * len(
         ts.prim_material))
-    assert trender.frame_key(mats, cam, cfg) != key
+    assert frame_key(mats, cam, cfg) != key
     wide = dict(ts.tensors(), background=torch.zeros(4))
-    assert trender.frame_key(ts.with_tensors(wide), cam, cfg) != key
+    assert frame_key(ts.with_tensors(wide), cam, cfg) != key
     ortho = dataclasses.replace(cam, ortho_scale=2.0)
-    assert trender.frame_key(ts, ortho, cfg) != key
-    assert trender.frame_key(ts, cam, dataclasses.replace(
-        cfg, width=32)) != key
-    assert trender.frame_key(ts, cam, dataclasses.replace(
+    assert frame_key(ts, ortho, cfg) != key
+    assert frame_key(ts, cam, dataclasses.replace(cfg, width=32)) != key
+    assert frame_key(ts, cam, dataclasses.replace(
         cfg, march=TMC(cull_m=64))) != key
     # the CPU, and a frame autograd must see, stay eager
-    assert not trender._graph_frame(ts, cam, cfg)
+    assert not graph.capturable(ts, cam, cfg)
 
 
 def test_deferred_frame_lowers_its_own_program():
@@ -289,27 +299,99 @@ def test_deferred_frame_lowers_its_own_program():
     assert mk.lower_program(ts, "cpu") is not eager
 
 
-def test_key_whose_first_frame_flags_runs_eagerly(monkeypatch):
-    """``render_with_stats`` routed as on the card (the graph frame taken
-    on the CPU): an overflowing key's first frame raises the flag and runs
-    again eagerly, nothing is captured, and its later frames run eagerly;
-    each is the eager frame bit for bit, and counted."""
+def routed_frames(monkeypatch, ts, cam, cfg, calls=2):
+    """``calls`` frames of ``render_with_stats`` routed as on the card (the
+    graph frame taken on the CPU, a capture recorded: ``recorded``, the
+    promoted sites each capture saw), from counts of 0: ``(frames, graph
+    counts, the key's graph, recorded)``."""
     from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    recorded = []
+
+    def capture(self):
+        recorded.append(self.frame.promoted)
+        recorded_capture(self)
+    monkeypatch.setattr(graph, "capturable", lambda *a: True)
+    monkeypatch.setattr(graph, "_graphs", {})
+    monkeypatch.setattr(graph._FrameGraph, "_capture", capture)
+    ops_cuda.reset_launch_counts()
+    frames = [tft.render_with_stats(ts, cam, cfg) for _ in range(calls)]
+    counts = ops_cuda.graph_counts()
+    ops_cuda.reset_launch_counts()
+    return frames, counts, trender.frame_graph(ts, cam, cfg), recorded
+
+
+def overflow_case(**tables):
+    """The 96-torus 32² culled frame with small tables: ``(scene, camera,
+    config, the eager frame, the sites its first deferred run saw
+    overflow)``."""
     ts = scene_pair("torus96")[1]
     cam = port_camera()
     cfg = tft.RenderConfig(width=32, height=32, march=TMC(
-        backend="cuda", **dict(CULL, cull_m=8, cull_m_shadow=8)))
-    want, wn = trender._frame(ts, cam, cfg)
-    monkeypatch.setattr(trender, "_graph_frame", lambda *a: True)
-    monkeypatch.setattr(trender, "_graphs", {})
-    ops_cuda.reset_launch_counts()
-    for call in range(2):
-        img, n = tft.render_with_stats(ts, cam, cfg)
+        backend="cuda", **dict(CULL, **tables)))
+    first = deferred_frame(ts, cfg, cam)[2]
+    assert bool(first.flag)
+    return ts, cam, cfg, trender._frame(ts, cam, cfg), \
+        first.overflowed_sites()
+
+
+def test_key_whose_first_frame_flags_runs_eagerly(monkeypatch):
+    """Tables of 8 everywhere: the key's first frame overflows the primary
+    march (site 0), which is promoted; the frame runs once more, and its
+    shadow marches, fed the now exact hits, overflow their tables: that
+    run raises the flag too, so nothing is captured, the call runs the
+    eager frame again and the key's later frames run eagerly; each is the
+    eager frame bit for bit, and counted."""
+    ts, cam, cfg, (want, wn), sites = overflow_case(cull_m=8,
+                                                    cull_m_shadow=8)
+    assert sites == {0}
+    frames, counts, fg, recorded = routed_frames(monkeypatch, ts, cam, cfg)
+    for img, n in frames:
         assert torch.equal(img, want) and int(n) == int(wn)
-    assert trender.frame_graph(ts, cam, cfg).graph is None
-    assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
-                                       "eager_reruns": 1, "eager_frames": 1}
-    ops_cuda.reset_launch_counts()
+    assert fg.graph is None and fg.frame.promoted == sites
+    assert not recorded and bool(fg.frame.flag)
+    assert fg.frame.overflowed_sites() == {1, 2}
+    assert counts == {"captures": 0, "replays": 0, "eager_reruns": 1,
+                      "eager_frames": 1}
+
+
+def test_key_whose_first_frame_overflows_captures_the_promoted_frame(
+        monkeypatch):
+    """Tables of 8 for the primary march alone (the shadow marches' hold
+    the group): the key's first frame overflows site 0, which is promoted
+    to full-group tables; the frame runs once more deferred, raises no
+    flag and is captured with that site; that call and the replay are the
+    eager frame bit for bit, and nothing runs eagerly."""
+    ts, cam, cfg, (want, wn), sites = overflow_case(cull_m=8,
+                                                    cull_m_shadow=96)
+    assert sites == {0}
+    frames, counts, fg, recorded = routed_frames(monkeypatch, ts, cam, cfg)
+    for img, n in frames:
+        assert torch.equal(img, want) and int(n) == int(wn)
+    assert recorded == [sites] and fg.frame.promoted == sites
+    assert fg.graph is not None and not bool(fg.frame.flag)
+    assert counts == {"captures": 1, "replays": 1, "eager_reruns": 0,
+                      "eager_frames": 0}
+
+
+def test_key_whose_first_frame_needs_a_repair_runs_eagerly(monkeypatch):
+    """A key whose first frame raises the flag with no overflowed site (a
+    material repair, forced in every frame): nothing is promoted or
+    captured, that call runs the eager frame again and the key's later
+    frames run eagerly; each is the eager frame bit for bit, and
+    counted."""
+    ts = scene_pair("torus96")[1]
+    cam = port_camera()
+    cfg = tft.RenderConfig(width=32, height=32,
+                           march=TMC(backend="cuda", **CULL))
+    with forced_repair():
+        want, wn = trender._frame(ts, cam, cfg)
+        frames, counts, fg, recorded = routed_frames(monkeypatch, ts, cam,
+                                                     cfg)
+    for img, n in frames:
+        assert torch.equal(img, want) and int(n) == int(wn)
+    assert fg.graph is None and not fg.frame.promoted and not recorded
+    assert counts == {"captures": 0, "replays": 0, "eager_reruns": 1,
+                      "eager_frames": 1}
 
 
 @pytest.mark.parametrize("name,made", [

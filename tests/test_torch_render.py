@@ -80,10 +80,10 @@ def port_camera(fov=60.0):
 
 
 def port_masks(ts, cfg, w, h, with_t=False):
-    from fraytracer_tpu_torch.render import _from_blocks, _to_blocks
+    from fraytracer_tpu_torch.camera import from_blocks, to_blocks
     cam = port_camera()
     rays = tft.camera_rays(cam, w, h, EPS, 30.0).map(
-        lambda x: _to_blocks(x, h, w, 32))
+        lambda x: to_blocks(x, h, w, 32))
     sh = tshade.surface_hit(ts, rays, cfg)
     masks = [sh.hit]
     for i in range(ts.num_lights):
@@ -96,8 +96,8 @@ def port_masks(ts, cfg, w, h, with_t=False):
         masks += [facing, tocclusion(ts, sr, cfg, cone_apex=apex)]
     if with_t:
         masks.insert(1, sh.material)
-    out = [_from_blocks(m, h, w, 32).numpy() for m in masks]
-    return (out, _from_blocks(sh.t, h, w, 32).numpy()) if with_t else out
+    out = [from_blocks(m, h, w, 32).numpy() for m in masks]
+    return (out, from_blocks(sh.t, h, w, 32).numpy()) if with_t else out
 
 
 @pytest.mark.parametrize("size", [64])

@@ -13,11 +13,13 @@ exactly.  A graph
 step of the torus scene against the eager step within
 ``tests/test_torch_cuda.py``'s 2e-4 of each leaf's largest |g|, its
 scatters on the shared-memory path."""
+import functools
+
 import pytest
 import torch
 
 import fraytracer_tpu_torch as ft
-from fraytracer_tpu_torch.ops import cuda as ops_cuda
+from fraytracer_tpu_torch.ops import cuda as ops_cuda, graph
 from fraytracer_tpu_torch.ops.cuda import scatter
 from fraytracer_tpu_torch.scene.generators import torus_csg_scene
 
@@ -139,11 +141,12 @@ def test_graph_step_scatters_on_the_shared_memory_path(dev):
     cam = ft.look_at((0, 0, -10), (0, 0, 0), device=dev)
     cfg = ft.RenderConfig(width=128, height=128, march=ft.MarchConfig(
         max_steps=192, relax_omega=1.4))
-    R._graphs.clear()
+    graph._graphs.clear()
 
     def loss(img):
         return (img ** 2).sum()
-    out = R._eager_step(loss, scene, cam, cfg)
+    out = graph.eager(functools.partial(R._step, loss), scene, cam, cfg,
+                      grad=True)
     want = (out[0], dict(zip(scene.tensors(), out[1:])))
     ft.render_value_and_grad(loss, scene, cam, cfg)
     ops_cuda.reset_launch_counts()

@@ -18,9 +18,10 @@ and 4 ranks (16-row bands), started once each for the file.
   deferred under ``torch_deferred.NoHostRead``, culled and dense, reads
   nothing on the host and is its eager form bit for bit, flag clear;
   routed as on the card (``torch_deferred.graph_route``) at 32², a flag
-  forced on rank 0 alone (a material repair) (b) at the key's first call: no rank
-  captures, both run the eager frame at that call and the next, (c) at a
-  later replay: both run the eager frame again; each call is its eager
+  forced on rank 0 alone (a material repair) (b) at the key's first call:
+  both ranks run the first run again, no rank captures, both run the
+  eager frame at that call and the next, (c) at a later replay: both run
+  the eager frame again; each call is its eager
   frame bit for bit and the graph counts agree on both ranks.
 
 The ranks import this module; JAX is imported only in the test process.
@@ -72,8 +73,8 @@ def _render_rank(scene):
 def _graph_cases(scene, mesh):
     """One of 2 ranks: (a), (b) and (c) of the module docstring."""
     from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred
-    from torch_deferred import (forced_repair, graph_route, no_host_read,
-                                trender)
+    from fraytracer_tpu_torch.ops import graph
+    from torch_deferred import forced_repair, graph_route, no_host_read
     cam = camera()
     out = {}
     for name, march in (("culled", {}), ("dense", {"cull": False})):
@@ -97,7 +98,7 @@ def _graph_cases(scene, mesh):
     with graph_route():
         same = [call(forced, force=True), call(want)]
         out["capture"] = (same, ops_cuda.graph_counts(), [
-            fg.graph is None for fg in trender._graphs.values()])
+            fg.graph is None for fg in graph._graphs.values()])
     with graph_route():
         same = [call(want), call(want), call(forced, force=True),
                 call(want)]

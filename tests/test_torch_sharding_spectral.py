@@ -95,8 +95,9 @@ def _spectral_rank(runs):
 def _graph_cases(scene):
     """(a), (b) and (c) of the module docstring, on one of 2 ranks."""
     from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred
+    from fraytracer_tpu_torch.ops import graph
     from torch_deferred import (forced_repair, graph_route, no_host_read,
-                                patched, trender)
+                                patched)
     mesh = tmesh.make_mesh(devices="cpu")
     cam, w, h, cfg = camera(), GLUE["width"], GLUE["height"], \
         wcfg("cuda", GLUE)
@@ -116,7 +117,7 @@ def _graph_cases(scene):
     with forced_repair(mesh.rank == 0):
         forced = tmesh.render_spectral_sharded(scene, cam, w, h, cfg, mesh)
     runs = []
-    real_run = trender._FrameGraph._run
+    real_run = graph._FrameGraph._run
 
     def counted(self, agree):
         runs.append(agree)
@@ -126,10 +127,10 @@ def _graph_cases(scene):
         with forced_repair(force and mesh.rank == 0):
             return same(tmesh.render_spectral_sharded(scene, cam, w, h, cfg,
                                                       mesh), want)
-    with graph_route(), patched([(trender._FrameGraph, "_run", counted)]):
+    with graph_route(), patched([(graph._FrameGraph, "_run", counted)]):
         calls = [call(forced, force=True), call(want)]
         out["capture"] = (calls, ops_cuda.graph_counts(), len(runs), [
-            fg.graph is None for fg in trender._graphs.values()])
+            fg.graph is None for fg in graph._graphs.values()])
     with graph_route():
         calls = [call(want), call(want)]
         out["replay"] = (calls, ops_cuda.graph_counts())

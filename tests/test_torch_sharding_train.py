@@ -26,7 +26,8 @@ rank's part, captured on gloo — on the culled (threshold 16) and the dense
 "cuda" route read nothing on the host and are their eager forms bit for
 bit, flag clear; routed as on the card (``torch_deferred.graph_route``),
 (b) a flag forced on rank 0 alone (a material repair) at the key's first
-call: no rank captures, both run the eager step at that call and the next;
+call: both ranks run the first run again, no rank captures, both run the
+eager step at that call and the next;
 (c) replays give the gloo graph's step (the rank's part, then one
 ``all_reduce``, then the update) bit for bit, within the chunked bound of
 the eager step, and a flag forced on rank 0 at a later replay makes both
@@ -72,8 +73,8 @@ def live(scene):
 def _graph_cases(scene, target, mesh):
     """(a), (b) and (c) of the module docstring, on one rank."""
     from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred
-    from torch_deferred import (forced_repair, graph_route, no_host_read,
-                                trender)
+    from fraytracer_tpu_torch.ops import graph as tgraph
+    from torch_deferred import forced_repair, graph_route, no_host_read
     cam = camera()
     out = {}
     for name, march in (("culled", {"cull_threshold": 16}),
@@ -116,7 +117,7 @@ def _graph_cases(scene, target, mesh):
         step = tmesh.make_train_step(cfg, mesh, lr=LR)
         calls = [call(step, forced, force=True), call(step, want)]
         out["capture"] = (calls, ops_cuda.graph_counts(), [
-            fg.graph is None for fg in step.graphs.values()], trender._graphs)
+            fg.graph is None for fg in step.graphs.values()], tgraph._graphs)
     with graph_route():
         step = tmesh.make_train_step(cfg, mesh, lr=LR)
         calls = [call(step, graph), call(step, graph),
@@ -243,7 +244,7 @@ def test_flag_on_one_rank_at_the_first_step_keeps_every_rank_eager(ranks):
     for r in ranks:
         calls, counts, eager_key, module_graphs = r["capture"]
         assert calls == [True, True] and eager_key == [True]
-        # the step keeps its graphs: none in render.py's
+        # the step keeps its graphs: none in ops/graph.py's
         assert module_graphs == {}
         assert counts == {"captures": 0, "replays": 0, "eager_reruns": 1,
                           "eager_frames": 1}

@@ -18,6 +18,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import fraytracer_tpu_torch as ft
+from fraytracer_tpu_torch.ops import graph as tgraph, wavefront as tw
 from fraytracer_tpu_torch.scene.generators import (spectral_csg_scene,
                                                    torus_csg_scene)
 from fraytracer_tpu_torch.utils import profiling as P
@@ -235,7 +236,7 @@ def _call(kind, dev):
             return ft.render_spectral_with_stats(scene, cam, 64, 64, cfg)
 
         def graph():
-            return trender.spectral_graph(scene, cam, 64, 64, cfg)
+            return tw.spectral_graph(scene, cam, 64, 64, cfg)
         return call, graph
     scene, cam, cfg = _small(dev, n_tori=96, size=128)
     if kind == "frame":
@@ -258,7 +259,7 @@ def test_replay_ops_are_the_layer_table(dev, kind):
     anchors), the replay's other ops are copies, and its outputs are
     those of a replay without the profiler; the table build's two kernels
     are anchors of each culled site's `cull` entry."""
-    trender._graphs.clear()
+    tgraph._graphs.clear()
     call, graph = _call(kind, dev)
     call()
     fg = graph()

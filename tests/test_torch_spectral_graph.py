@@ -1,6 +1,6 @@
 """The compiled spectral frame's glue on the CPU: on the card
 ``ops/wavefront.py::render_spectral_with_stats`` replays one captured CUDA
-graph a ``render.spectral_key`` (the counterpart of JAX's jitted
+graph a key (``ops/graph.py``, the counterpart of JAX's jitted
 wavefront), and a culled march call whose tables overflowed in the key's
 first run is a promoted site: it builds full-group tables at once, as
 JAX's ``lax.cond`` fallback marches on them (``ops/deferred.py``).  Here the
@@ -37,7 +37,7 @@ the bounce rounds' tables hold the whole group.
   queue lane by lane where the port keeps whole blocks, so the counts
   differ by design ("jnp", whose plain march does not cull, is no
   fallback and lands 0.64 off on a pixel at ω 1.4).
-* (e) ``spectral_key`` holds what ``jax.jit`` keys on.
+* (e) The spectral frame's key holds what ``jax.jit`` keys on.
 * (f) Routed as on the card, a key whose promoted run still raises the
   flag (a forced material repair) runs eagerly, and is counted.
 * (g) ``spectral.table`` lives with its frame, as the other device
@@ -46,7 +46,6 @@ the bounce rounds' tables hold the whole group.
 About 49 s alone on one worker, 34 s of it JAX's two interpreted
 frames."""
 import dataclasses
-import importlib
 
 import pytest
 import torch
@@ -56,7 +55,9 @@ import fraytracer_tpu_torch as tft
 from fraytracer_tpu.ops import wavefront as jw
 from fraytracer_tpu.ops.march import MarchConfig as JMC
 from fraytracer_tpu.scene import generators as JG
-from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred, spectral
+from fraytracer_tpu_torch.camera import to_blocks
+from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred, graph
+from fraytracer_tpu_torch.ops import spectral
 from fraytracer_tpu_torch.ops import wavefront as tw
 from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
 from fraytracer_tpu_torch.ops.shade import light_dir_and_dist
@@ -67,7 +68,6 @@ from test_torch_frame_graph import NoHostRead, no_host_read  # noqa: F401
 from test_torch_render import port_camera
 from test_torch_wavefront_culled import assert_bound
 
-trender = importlib.import_module("fraytracer_tpu_torch.render")
 SIZE = 32
 DEPTH = 3
 MARCH = dict(max_steps=192, relax_omega=1.4)
@@ -175,14 +175,14 @@ def test_first_call_promotes_and_captures_the_promoted_frame(monkeypatch):
     ts, cfg = scene(), wcfg(SMALL)
     want = eager(ts, cfg)
     captured = []
-    monkeypatch.setattr(tw, "_graph_spectral", lambda *a: True)
-    monkeypatch.setattr(trender, "_graphs", {})
-    monkeypatch.setattr(trender._FrameGraph, "_capture",
+    monkeypatch.setattr(graph, "capturable", lambda *a: True)
+    monkeypatch.setattr(graph, "_graphs", {})
+    monkeypatch.setattr(graph._FrameGraph, "_capture",
                         lambda self: captured.append(self.frame.promoted))
     ops_cuda.reset_launch_counts()
     got = tft.render_spectral_with_stats(ts, CAM, SIZE, SIZE, cfg)
     assert same(got, want)
-    fg = trender.spectral_graph(ts, CAM, SIZE, SIZE, cfg)
+    fg = tw.spectral_graph(ts, CAM, SIZE, SIZE, cfg)
     assert captured == [ROUND0] and fg.frame.promoted == ROUND0
     assert not bool(fg.frame.flag) and fg.capture_s > 0
     assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
@@ -191,7 +191,7 @@ def test_first_call_promotes_and_captures_the_promoted_frame(monkeypatch):
 
 def _primary_lanes(ts, size=64):
     rays = tft.camera_rays(CAM, size, size, 0.01, 30.0)
-    return rays.map(lambda x: trender._to_blocks(x, size, size, 32))
+    return rays.map(lambda x: to_blocks(x, size, size, 32))
 
 
 @pytest.mark.parametrize("call", ["march", "occlusion_point", "surface"])
@@ -253,36 +253,39 @@ def test_promoted_frame_matches_jax_fallback(depth):
         assert abs(int(n) - float(jn)) <= 5e-3 * float(jn), (int(n), jn)
 
 
+def spectral_key(scene, camera, width, height, cfg):
+    """The key ``render_spectral_with_stats`` keeps a frame under."""
+    return graph.key("spectral", scene, camera, cfg, extra=(width, height))
+
+
 def test_spectral_key_is_what_jit_keys_on():
     ts, cam = scene(), CAM
     cfg = wcfg(MARCH)
-    key = trender.spectral_key(ts, cam, SIZE, SIZE, cfg)
+    key = spectral_key(ts, cam, SIZE, SIZE, cfg)
     # parameter values and the scene object are not in the key
     moved = {k: v + 0.25 for k, v in ts.tensors().items()}
-    assert trender.spectral_key(ts.with_tensors(moved), cam, SIZE, SIZE,
-                                cfg) == key
-    assert trender.spectral_key(ts, port_camera(fov=30.0), SIZE, SIZE,
-                                cfg) == key
+    assert spectral_key(ts.with_tensors(moved), cam, SIZE, SIZE,
+                        cfg) == key
+    assert spectral_key(ts, port_camera(fov=30.0), SIZE, SIZE, cfg) == key
     # the static arguments, static fields, shapes and projection are
-    assert trender.spectral_key(ts, cam, SIZE, 64, cfg) != key
-    assert trender.spectral_key(ts, cam, 64, SIZE, cfg) != key
-    assert trender.spectral_key(ts, cam, SIZE, SIZE,
-                                dataclasses.replace(cfg, depth=2)) != key
-    assert trender.spectral_key(ts, cam, SIZE, SIZE, wcfg(SMALL)) != key
+    assert spectral_key(ts, cam, SIZE, 64, cfg) != key
+    assert spectral_key(ts, cam, 64, SIZE, cfg) != key
+    assert spectral_key(ts, cam, SIZE, SIZE,
+                        dataclasses.replace(cfg, depth=2)) != key
+    assert spectral_key(ts, cam, SIZE, SIZE, wcfg(SMALL)) != key
     mats = dataclasses.replace(ts, mat_kind=(0,) * len(ts.mat_kind))
-    assert trender.spectral_key(mats, cam, SIZE, SIZE, cfg) != key
+    assert spectral_key(mats, cam, SIZE, SIZE, cfg) != key
     lights = dataclasses.replace(ts, light_kind=ts.light_kind[::-1])
-    assert trender.spectral_key(lights, cam, SIZE, SIZE, cfg) != key
+    assert spectral_key(lights, cam, SIZE, SIZE, cfg) != key
     wide = dict(ts.tensors(), background=torch.zeros(4))
-    assert trender.spectral_key(ts.with_tensors(wide), cam, SIZE, SIZE,
-                                cfg) != key
+    assert spectral_key(ts.with_tensors(wide), cam, SIZE, SIZE, cfg) != key
     ortho = dataclasses.replace(cam, ortho_scale=2.0)
-    assert trender.spectral_key(ts, ortho, SIZE, SIZE, cfg) != key
+    assert spectral_key(ts, ortho, SIZE, SIZE, cfg) != key
     # a spectral frame never shares a key with a forward frame
-    assert key != trender.frame_key(ts, cam, tft.RenderConfig(
+    assert key != graph.key("frame", ts, cam, tft.RenderConfig(
         width=SIZE, height=SIZE, march=cfg.march))
     # the CPU stays eager
-    assert not tw._graph_spectral(ts, cam, cfg)
+    assert not graph.capturable(ts, cam, cfg)
 
 
 def test_key_whose_promoted_run_flags_runs_eagerly(monkeypatch):
@@ -299,13 +302,13 @@ def test_key_whose_promoted_run_flags_runs_eagerly(monkeypatch):
         return normal, torch.where(lane % 7 == 3, -1, midx), code
     monkeypatch.setattr(mk, "surface_kernel", marked)
     want = eager(ts, cfg)
-    monkeypatch.setattr(tw, "_graph_spectral", lambda *a: True)
-    monkeypatch.setattr(trender, "_graphs", {})
+    monkeypatch.setattr(graph, "capturable", lambda *a: True)
+    monkeypatch.setattr(graph, "_graphs", {})
     ops_cuda.reset_launch_counts()
     for _ in range(2):
         got = tft.render_spectral_with_stats(ts, CAM, SIZE, SIZE, cfg)
         assert same(got, want)
-    fg = trender.spectral_graph(ts, CAM, SIZE, SIZE, cfg)
+    fg = tw.spectral_graph(ts, CAM, SIZE, SIZE, cfg)
     assert fg.graph is None and fg.frame.promoted == ROUND0
     assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
                                        "eager_reruns": 1, "eager_frames": 1}

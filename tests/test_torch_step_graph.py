@@ -21,15 +21,22 @@ eagerly with its host reads deferred (``ops/deferred.py``).
   eager step's certificate fails.
 * (c) The flag, routed as on the card (the graph step taken on the CPU):
   an overflowing table (``cull_m`` 8) and a failing certificate (lists of
-  1) raise it at the key's first step, which runs again eagerly; nothing is
-  captured, the key's later steps run eagerly, each equal to the eager
-  step bit for bit, and counted.
+  1) raise it at the key's first step.  The overflowed site (the primary
+  march) is promoted to full-group tables and the step runs once more
+  deferred: with tables of 8 for the primary march alone that run raises
+  no flag and is captured with the site, and that call and the replay are
+  the eager step bit for bit.  With tables of 8 everywhere the shadow
+  marches overflow in that run, and a failing certificate leaves no site
+  to promote: nothing is captured, the call runs again eagerly and the
+  key's later steps run eagerly, each equal to the eager step bit for
+  bit, and counted.
 * (d) A backward driven from a fresh thread, which does not inherit the
   forward's context variables (autograd runs a CUDA backward on a thread of
   its own), still defers to the forward's frame.
 
 Sizes: 32²–64² frames, at most 100 tori."""
 import dataclasses
+import functools
 import importlib
 import threading
 
@@ -43,7 +50,8 @@ import fraytracer_tpu as jft
 import fraytracer_tpu_torch as tft
 from fraytracer_tpu.ops.march import MarchConfig as JMC
 from fraytracer_tpu.scene import generators as JG
-from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred, point_eval
+from fraytracer_tpu_torch.ops import cuda as ops_cuda, deferred, graph
+from fraytracer_tpu_torch.ops import point_eval
 from fraytracer_tpu_torch.ops.march import MarchConfig as TMC
 from fraytracer_tpu_torch.scene import generators as TG, nodes as TN
 from test_torch_frame_graph import (CULL, NoHostRead, blend_pair,  # noqa
@@ -53,6 +61,7 @@ from test_torch_grad import (assert_leaves_close, jax_grads, port_of,
 from test_torch_render import port_camera
 from test_torch_scene import scene_pair
 from test_torch_vjp import lattice
+from torch_deferred import recorded_capture
 
 trender = importlib.import_module("fraytracer_tpu_torch.render")
 
@@ -67,7 +76,8 @@ def sum_sq(img):
 
 def eager_step(loss_fn, scene, cam, cfg, *args):
     """The eager step as ``render_value_and_grad`` returns it."""
-    out = trender._eager_step(loss_fn, scene, cam, cfg, *args)
+    out = graph.eager(functools.partial(trender._step, loss_fn), scene, cam,
+                      cfg, args, grad=True)
     return out[0], dict(zip(scene.tensors(), out[1:]))
 
 
@@ -164,6 +174,10 @@ def step_case(name):
     elif name == "overflow":
         ts = scene_pair("torus96")[1]
         march.update(cull_m=8, cull_m_shadow=8)
+    elif name == "overflow_primary":
+        # tables of 8 for the primary march alone
+        ts = scene_pair("torus96")[1]
+        march.update(cull_m=8, cull_m_shadow=96)
     else:
         raise ValueError(name)
     return ts, cam, tft.RenderConfig(width=32, height=32,
@@ -209,53 +223,99 @@ def test_deferred_step_reads_nothing_on_the_host(no_host_read, name):
 # (c) the flag, routed as on the card
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["overflow", "blend_lattice_m1"])
-def test_flagged_step_reruns_eagerly(monkeypatch, name):
-    ts, cam, cfg = step_case(name)
-    want = eager_step(sum_sq, ts, cam, cfg)
-    # the first run of the key, deferred, raises the flag
+def routed_steps(monkeypatch, ts, cam, cfg, calls=2):
+    """``calls`` steps of ``render_value_and_grad`` routed as on the card
+    (the graph step taken on the CPU, a capture recorded: ``recorded``,
+    the promoted sites each capture saw), from counts of 0: ``(steps,
+    graph counts, the key's graph, recorded)``."""
+    recorded = []
+
+    def capture(self):
+        recorded.append(self.frame.promoted)
+        recorded_capture(self)
+    monkeypatch.setattr(graph, "capturable", lambda *a: True)
+    monkeypatch.setattr(graph, "_graphs", {})
+    monkeypatch.setattr(graph._FrameGraph, "_capture", capture)
+    ops_cuda.reset_launch_counts()
+    steps = [tft.render_value_and_grad(sum_sq, ts, cam, cfg)
+             for _ in range(calls)]
+    counts = ops_cuda.graph_counts()
+    ops_cuda.reset_launch_counts()
+    return steps, counts, trender.step_graph(sum_sq, ts, cam, cfg), recorded
+
+
+def first_step_sites(ts, cam, cfg):
+    """The sites the key's first run, deferred, saw overflow; it raises
+    the flag."""
     frame = deferred.Frame("cpu")
     leaves = {k: v.detach().requires_grad_(True)
               for k, v in ts.tensors().items()}
     with deferred.deferring(frame):
         trender._step(sum_sq, ts.with_tensors(leaves), cam, cfg)
     assert bool(frame.flag)
+    return frame.overflowed_sites()
+
+
+@pytest.mark.parametrize("name", ["overflow", "blend_lattice_m1"])
+def test_flagged_step_reruns_eagerly(monkeypatch, name):
+    ts, cam, cfg = step_case(name)
+    want = eager_step(sum_sq, ts, cam, cfg)
+    sites = first_step_sites(ts, cam, cfg)
+    # the overflow's primary march, promoted; the certificate leaves none
+    assert sites == ({0} if name == "overflow" else set())
     if name == "blend_lattice_m1":
         # the certificate, not the forward, raised it: lists of 32 do not
         _ts, _cam, ok_cfg = step_case("blend_lattice")
         frame = deferred.Frame("cpu")
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in ts.tensors().items()}
         with deferred.deferring(frame):
             trender._step(sum_sq, ts.with_tensors(leaves), cam, ok_cfg)
         assert not bool(frame.flag)
-    monkeypatch.setattr(trender, "_graph_step", lambda *a: True)
-    monkeypatch.setattr(trender, "_graphs", {})
-    ops_cuda.reset_launch_counts()
-    for _ in range(2):
-        assert_same_step(tft.render_value_and_grad(sum_sq, ts, cam, cfg),
-                         want)
-    assert trender.step_graph(sum_sq, ts, cam, cfg).graph is None
-    assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
-                                       "eager_reruns": 1, "eager_frames": 1}
-    ops_cuda.reset_launch_counts()
+    steps, counts, fg, recorded = routed_steps(monkeypatch, ts, cam, cfg)
+    for got in steps:
+        assert_same_step(got, want)
+    assert fg.graph is None and not recorded
+    assert fg.frame.promoted == sites and bool(fg.frame.flag)
+    assert counts == {"captures": 0, "replays": 0, "eager_reruns": 1,
+                      "eager_frames": 1}
+
+
+def test_overflowing_step_captures_the_promoted_step(monkeypatch):
+    ts, cam, cfg = step_case("overflow_primary")
+    want = eager_step(sum_sq, ts, cam, cfg)
+    sites = first_step_sites(ts, cam, cfg)
+    assert sites == {0}
+    steps, counts, fg, recorded = routed_steps(monkeypatch, ts, cam, cfg)
+    for got in steps:
+        assert_same_step(got, want)
+    assert recorded == [sites] and fg.frame.promoted == sites
+    assert fg.graph is not None and not bool(fg.frame.flag)
+    assert counts == {"captures": 1, "replays": 1, "eager_reruns": 0,
+                      "eager_frames": 0}
+
+
+def step_key(loss_fn, scene, cam, cfg, *args):
+    """The key ``render_value_and_grad`` keeps a step under."""
+    return graph.key("step", scene, cam, cfg, args, (loss_fn,))
 
 
 def test_step_key():
-    """A step's key is its frame's key, the loss function and the args'
-    shapes, dtypes and devices; never a value."""
+    """A step's key is its frame's static parts, the loss function and the
+    args' shapes, dtypes and devices; never a value."""
     ts, cam, cfg = step_case("culled")
     t = torch.zeros(32, 32, 3)
-    key = trender.step_key(mse, ts, cam, cfg, t)
+    key = step_key(mse, ts, cam, cfg, t)
     moved = {k: v + 0.25 for k, v in ts.tensors().items()}
-    assert trender.step_key(mse, ts.with_tensors(moved), cam, cfg,
-                            t + 1) == key
-    assert trender.step_key(sum_sq, ts, cam, cfg) != key
-    assert trender.step_key(mse, ts, cam, cfg, torch.zeros(32, 32, 4)) != key
-    assert trender.step_key(mse, ts, cam, dataclasses.replace(
+    assert step_key(mse, ts.with_tensors(moved), cam, cfg, t + 1) == key
+    assert step_key(sum_sq, ts, cam, cfg) != key
+    assert step_key(mse, ts, cam, cfg, torch.zeros(32, 32, 4)) != key
+    assert step_key(mse, ts, cam, dataclasses.replace(
         cfg, width=64), t) != key
-    assert trender.frame_key(ts, cam, cfg) not in (key, trender.step_key(
+    assert graph.key("frame", ts, cam, cfg) not in (key, step_key(
         sum_sq, ts, cam, cfg))
     # the CPU stays eager
-    assert not trender._graph_step(ts, cam, cfg, (t,))
+    assert not graph.capturable(ts, cam, cfg, (t,), grad=True)
 
 
 # ---------------------------------------------------------------------------

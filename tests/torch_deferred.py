@@ -6,27 +6,23 @@ module imports no JAX, so a rank may import it).
   device on the host, or at a tensor of more than one element made from
   host data; :func:`no_host_read` takes it off inside the kernels' plain
   versions, which the card does not run.
-* :func:`graph_route`: the graph route of ``render.py`` taken on the CPU,
-  where nothing can be captured: a capture records the body's outputs and
-  a replay runs the captured body again, deferred, into them.
+* :func:`graph_route`: the graph route of ``ops/graph.py`` taken on the
+  CPU, where nothing can be captured: a capture records the body's outputs
+  and a replay runs the captured body again, deferred, into them.
 * :func:`forced_repair`: every surface pass marks some hit lanes as
   unresolved, so that the frame needs a material repair (the eager frame
   repairs them; a deferred frame raises its flag).
 """
 import contextlib
-import importlib
 import types
 
 import torch
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes)
 
-from fraytracer_tpu_torch.ops import cuda as ops_cuda, wavefront
+from fraytracer_tpu_torch.ops import cuda as ops_cuda, graph
 from fraytracer_tpu_torch.ops.cuda import gather, march_kernel as mk
-from fraytracer_tpu_torch.parallel import mesh as tmesh
 
-# the module (the package's ``render`` is the function)
-trender = importlib.import_module("fraytracer_tpu_torch.render")
 _aten = torch.ops.aten
 HOST_READS = {_aten._local_scalar_dense, _aten.nonzero, _aten.masked_select,
               _aten.unique_consecutive, _aten._unique, _aten._unique2,
@@ -76,8 +72,8 @@ def no_host_read():
         yield
 
 
-def _recorded_capture(self):
-    """Stands in for ``_FrameGraph._capture``: the captured body's run
+def recorded_capture(self):
+    """Stands in for ``graph._FrameGraph._capture``: the captured body's run
     gives the graph's outputs, and its replay runs the body again, deferred
     (the flag agreed as the capture would agree it), into them."""
     self.outputs = self._run(agree=self.agree_in_graph)
@@ -92,14 +88,13 @@ def _recorded_capture(self):
 
 @contextlib.contextmanager
 def graph_route():
-    """The sharded functions routed as on the card, with no graph made
-    before the scope and none kept after it; the counts set to 0."""
+    """Every call routed as on the card (:func:`recorded_capture`), with
+    no graph made before the scope and none kept after it; the counts set
+    to 0."""
     ops_cuda.reset_launch_counts()
-    with patched([(tmesh, "_graph_frame", lambda *a: True),
-                  (tmesh, "_graph_step", lambda *a: True),
-                  (wavefront, "_graph_spectral", lambda *a: True),
-                  (trender, "_graphs", {}),
-                  (trender._FrameGraph, "_capture", _recorded_capture)]):
+    with patched([(graph, "capturable", lambda *a: True),
+                  (graph, "_graphs", {}),
+                  (graph._FrameGraph, "_capture", recorded_capture)]):
         yield
 
 
