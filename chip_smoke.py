@@ -208,13 +208,16 @@ graph frame and the eager frame in turns;
 (kernel, plain, library), culled K1, culled K2 of both lights, culled K3
 in both modes, dense K1, dense K2 of both lights and dense K3 in both
 modes, the marches' lane efficiency and ray evaluations, the twin's
-section shares and the output digests.  ``DIR`` is a directory inside the
-checkout (``_checkout/`` is ignored by git) that holds another commit,
-e.g. ``git archive HEAD | tar -x -C _checkout/parent``; ``--compare`` runs
-the two trees in turns, a fresh process each: first ``--kernels-only``
-(other, this, this, other; the digests of both trees held against each
-other), then the frame pairs with the paired differences of their
-medians, culled and dense.
+section shares and the output digests, then dense K1 and K2 of the
+benchmark's 1,000 machined parts (their device ms, lane efficiency under
+refill, the block's threads and blocks an SM, digests, and the outputs
+on every 16th ray against the plain version).  ``DIR`` is a directory
+inside the checkout (``_checkout/`` is ignored by git) that holds another
+commit, e.g. ``git archive HEAD | tar -x -C _checkout/parent``;
+``--compare`` runs the two trees in turns, a fresh process each: first
+``--kernels-only`` (other, this, this, other; the digests of both trees
+held against each other), then the frame pairs with the paired
+differences of their medians, culled and dense.
 
 The second-to-last line of output is the card's name and power limit, the
 line before it a JSON object with each kernel's launches, error and times;
@@ -1405,6 +1408,77 @@ def phase_kernel_times(dev, bench_scene):
         f"{r['plain_host_call_ms']:.5f}, library x[idx] "
         f"{r['library_ms']:.5f} / {r['library_host_call_ms']:.5f}")
     log_times(out)
+    return out
+
+
+def parts_scene(dev, seed=19):
+    """The benchmark's 1,000 machined parts
+    (``benchmark/configs/parts1000.json``, ``benchmark/parts.py``) in
+    ``seed``'s order."""
+    from benchmark import parts
+    spec = json.loads((Path(__file__).resolve().parent / "benchmark"
+                       / "configs" / "parts1000.json").read_text())
+    return parts.port_scene(parts.draw(spec, seed), dev)
+
+
+def parts_dense_times(dev):
+    """Dense K1 on the 1024² primary rays of the 1,000 machined parts and
+    dense K2 of both lights on its shadow batches (the program the
+    ``parts1000.frame`` cell marches): device ms (CUDA events around a
+    launch, median of 3 after one: a launch runs for hundreds of ms), lane
+    efficiency under refill, the block's threads and blocks an SM as
+    ``dense_counts()`` reads them after the launch (None where the tree
+    keeps no such count; else one block of 768 threads an SM, which the
+    176 KB stage leaves room for), output digests; then each launch's
+    outputs on every 16th ray against the plain version (K1 as
+    :func:`compare_march`, K2's hit flags on >= 99.9% of the rays)."""
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
+    from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
+    scene = parts_scene(dev)
+    lanes, kw = primary_lanes(scene, SIZE, 30.0, dev)
+    plan = mk.march_stage_plan(mk.lower_program(scene, dev), None)
+    out = {"parts_leaves": scene.num_prims, "parts_stage_bytes": plan.bytes,
+           "parts_rows_staged": plan.staged}
+    k = mk.march_kernel(scene, **lanes, **kw)
+    okw = dict(kw, occlusion=True)
+    batches = [("march_dense_parts", lanes, kw, k)] + [
+        (f"occlusion_dense_parts_light{light}", sl, okw,
+         mk.march_kernel(scene, **sl, **okw))
+        for light, (sl, _f) in enumerate(dense_shadow_lanes(scene, lanes,
+                                                            k))]
+    for name, ln, lkw, o in batches:
+        out[name + "_ms"] = cuda_ms(
+            lambda: mk.march_kernel(scene, **ln, **lkw), reps=3)
+        counts = ops_cuda.dense_counts()
+        out[name + "_threads"] = counts.get("march_threads")
+        out[name + "_blocks_per_sm"] = counts.get("march_blocks_per_sm")
+        if out[name + "_threads"] is not None:
+            check((out[name + "_threads"], out[name + "_blocks_per_sm"])
+                  == (768, 1), f"{name}: dense K1/K2 launched "
+                  f"{out[name + '_threads']} threads x "
+                  f"{out[name + '_blocks_per_sm']} blocks an SM")
+        out.update({f"{name}_{key}": v for key, v in dense_lane_stats(
+            mk, scene, ln, lkw, o[-1]).items()})
+        out[name + "_digest"] = digest(*o)
+        log(f"  [parts] {name}: {out[name + '_ms']:.3f} ms, "
+            f"{out[name + '_threads']} threads x "
+            f"{out[name + '_blocks_per_sm']} blocks an SM, lane efficiency "
+            f"{out[name + '_lane_efficiency']:.4f}")
+    out["parts_dense_ms"] = sum(out[b[0] + "_ms"] for b in batches)
+    every = slice(None, None, 16)
+    for name, ln, lkw, o in batches:
+        p = mk.march_plain(scene, **{a: v[every].contiguous()
+                                     for a, v in ln.items()}, **lkw)
+        o = tuple(x[every] for x in o)
+        if lkw.get("occlusion"):
+            agree = (o[0] == p[0]).float().mean().item()
+            log(f"  [parts] {name} every 16th ray: hit agreement "
+                f"{agree:.6f} with the plain version")
+            check(agree >= 0.999, f"{name}: hit agreement {agree}")
+            out[name + "_plain_agreement"] = agree
+        else:
+            out[name + "_plain_t_error"] = compare_march(
+                o, p, f"[parts] {name} every 16th ray")
     return out
 
 
@@ -5408,12 +5482,14 @@ def kernels_only(tree, dump=None) -> int:
     efficiencies and output digests, the culled K1/K2 lane efficiency and
     ray evaluations and, where the tree has the instrumented twin, its
     section shares; then the dense form: K3 in both modes, K1, K2 of both
-    lights, each with its lane efficiency (K1/K2) and output digest.
+    lights, each with its lane efficiency (K1/K2), block width and output
+    digest; then the machined parts' dense K1/K2 (:func:`parts_dense_times`).
     ``tree`` as in :func:`frame_only`; ``dump``: a file to save the K3
     outputs in."""
     if tree:
         sys.path.insert(0, str(Path(tree).resolve()))
     import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import cuda as ops_cuda
     from fraytracer_tpu_torch.ops.cuda import march_kernel as mk
     from fraytracer_tpu_torch.ops.cuda.gather import (
         _gather_blocks, block_gather_plain)
@@ -5475,6 +5551,15 @@ def kernels_only(tree, dump=None) -> int:
     out.update({"march_dense_" + key: v for key, v in dense_lane_stats(
         mk, scene, lanes, kw, kd[3]).items()})
     out["march_dense_digest"] = digest(*kd)
+    counts = ops_cuda.dense_counts()
+    out["march_dense_threads"] = counts.get("march_threads")
+    out["march_dense_blocks_per_sm"] = counts.get("march_blocks_per_sm")
+    if out["march_dense_threads"] is not None:
+        # the tori's 32 KB stage fits six blocks an SM: 128 threads each
+        check((out["march_dense_threads"], out["march_dense_blocks_per_sm"])
+              == (128, 6), "dense K1 of the tori launched "
+              f"{out['march_dense_threads']} threads x "
+              f"{out['march_dense_blocks_per_sm']} blocks an SM")
     okw = dict(kw, occlusion=True)
     for light, (sl, _f) in enumerate(dense_shadow_lanes(scene, lanes, k)):
         name = f"occlusion_dense_light{light}"
@@ -5496,6 +5581,7 @@ def kernels_only(tree, dump=None) -> int:
         lambda: _gather_blocks(xb, bidx), reps=20)
     out["block_gather_library_host_call_ms"] = cuda_ms(lambda: xb[lidx],
                                                        reps=20)
+    out.update(parts_dense_times(dev))
     from fraytracer_tpu_torch.ops.cuda import build
     out["ptxas"] = [l.strip() for l in build.BuildInfo.log.splitlines()
                     if "registers" in l or "Compiling entry" in l

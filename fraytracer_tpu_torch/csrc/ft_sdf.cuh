@@ -27,6 +27,10 @@
                            // a block reads one tile's tables
 #define FT_SURF_LIST_BYTES 144  // K3's hit-lane list after the staged plan:
                                 // FT_BLOCK / 32 warp counts, FT_BLOCK lanes
+#define FT_DENSE_THREADS 768  // the dense K1/K2's threads an SM: six warps a
+                              // scheduler under its register budget; a
+                              // block of up to as many (ops/cuda/cull.py
+                              // dense_march_threads)
 #define FT_FULL_MASK 0xffffffffu
 
 // primitive kinds, in the flattener's KINDS order

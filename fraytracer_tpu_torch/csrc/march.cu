@@ -371,11 +371,12 @@ march_kernel(const float* __restrict__ origin, const float* __restrict__ dir,
 // K1 / K2, the dense form
 // ---------------------------------------------------------------------------
 
-// Occupancy of the dense march: FT_DENSE_BLOCK threads x FT_DENSE_BLOCKS
-// blocks an SM (the staged rows of the benchmark scene take 32,032 bytes a
-// block).
-#define FT_DENSE_BLOCK 128
-#define FT_DENSE_BLOCKS 6
+// Occupancy of the dense march: registers for FT_DENSE_THREADS threads an
+// SM, in blocks as wide as the stage lets them be (the host's rule,
+// cull.py dense_march_threads): 6 x 128 where six stages fit an SM (the
+// benchmark tori's 32,256 bytes), 1 x 768 where one does (1,000 machined
+// parts' 176,144).  The prologue's copies stride by blockDim.x and refill
+// is per warp, so the width changes no output.
 
 // A dense block's prologue: thread 0 starts the bulk copy of the packed
 // rows where the plan stages them; every thread copies its share of the
@@ -571,7 +572,7 @@ __device__ __forceinline__ void march_dense_lanes(
   }
 }
 
-__global__ void __launch_bounds__(FT_DENSE_BLOCK, FT_DENSE_BLOCKS)
+__global__ void __launch_bounds__(FT_DENSE_THREADS, 1)
 march_dense_kernel(DenseRays R, FtProgram P, FtDenseStage S,
                    int* __restrict__ next,
                    unsigned long long* __restrict__ issued,
@@ -842,18 +843,24 @@ extern "C" int ft_march(const float* origin, const float* dir,
                                   stream);
 }
 
-// The dense form: a persistent grid of as many blocks as fit the card at
-// once (no more than the rays need), the ray counter zeroed on the
-// launch's stream first.
+// The dense form: a persistent grid of blocks of `threads` (whole warps,
+// at most FT_DENSE_THREADS), as many as fit the card at once (no more than
+// the rays need), the ray counter zeroed on the launch's stream first;
+// the blocks an SM go to *blocks_per_sm (or nowhere).
 extern "C" int ft_march_dense(const float* origin, const float* dir,
                               const float* length, const float* eps,
                               const float* t0, const float* sign, int n,
                               const FtProgram* prog,
-                              const FtDenseStage* stage, int max_steps,
-                              float omega, int occlusion, float* t_out,
-                              int* hit_out, float* d_out, int* steps_out,
-                              int* next, unsigned long long* issued,
-                              unsigned long long* evals, void* stream) {
+                              const FtDenseStage* stage, int threads,
+                              int max_steps, float omega, int occlusion,
+                              float* t_out, int* hit_out, float* d_out,
+                              int* steps_out, int* next,
+                              unsigned long long* issued,
+                              unsigned long long* evals, int* blocks_per_sm,
+                              void* stream) {
+  if (threads <= 0 || threads % 32 != 0 || threads > FT_DENSE_THREADS) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (n <= 0) return (int)cudaGetLastError();
   cudaError_t err;
   if (stage->bytes > 48 * 1024) {
@@ -867,15 +874,16 @@ extern "C" int ft_march_dense(const float* origin, const float* dir,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, march_dense_kernel, FT_DENSE_BLOCK, stage->bytes);
+      &per_sm, march_dense_kernel, threads, stage->bytes);
   if (err != cudaSuccess) return (int)err;
+  if (blocks_per_sm != nullptr) *blocks_per_sm = per_sm;
   const int grid = std::min(std::max(per_sm, 1) * sms,
-                            blocks_for(n, FT_DENSE_BLOCK));
+                            blocks_for(n, threads));
   err = cudaMemsetAsync(next, 0, sizeof(int), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const DenseRays R = {origin, dir, length, eps, t0, sign, t_out, hit_out,
                        d_out, steps_out, n, max_steps, occlusion, omega};
-  march_dense_kernel<<<grid, FT_DENSE_BLOCK, stage->bytes,
+  march_dense_kernel<<<grid, threads, stage->bytes,
                        (cudaStream_t)stream>>>(R, *prog, *stage, next,
                                                issued, evals);
   return (int)cudaGetLastError();

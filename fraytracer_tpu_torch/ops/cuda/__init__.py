@@ -15,8 +15,9 @@ as frames under the same keys.
 
 :func:`dense_counts` reads the dense form's counters: the program its
 last launches lowered (ops, kind runs, value-stack depth, the bytes a
-block stages against those it reads from device memory) and the
-lane-steps its K1/K2 evaluated, counted on the device.
+block stages against those it reads from device memory), the last K1/K2
+launch's threads a block and blocks an SM, and the lane-steps its K1/K2
+evaluated, counted on the device.
 """
 from . import cull_kernel, gather, march_kernel, scatter
 
@@ -52,9 +53,11 @@ def graph_counts() -> dict:
 
 
 def dense_counts() -> dict:
-    """The dense form's program (``march_kernel.DENSE``) and ``lane_steps``:
-    the scene evaluations its K1/K2 made since the last reset, graph
-    replays included (a read of the device)."""
+    """The dense form's program and its last K1/K2 launch's width
+    (``march_kernel.DENSE``: ``march_threads`` a block,
+    ``march_blocks_per_sm``) and ``lane_steps``: the scene evaluations its
+    K1/K2 made since the last reset, graph replays included (a read of the
+    device)."""
     steps = sum(int(c.sum()) for c in march_kernel.LANE_STEPS.values())
     return {**march_kernel.DENSE, "lane_steps": steps}
 

@@ -46,11 +46,12 @@ SIGNATURES = {
     # buffer (uint64 [SEC_N + CNT_N]) before the stream
     "ft_march_sections": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _F, _I,
                           _P, _P, _P, _P, _P, _P],
-    # the dense form: ft_march's arguments without cull*, with the ray
-    # counter (int32 [1]), the issue count and the lane-step count (uint64
-    # [1] each, or null) before the stream
-    "ft_march_dense": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _I, _P,
-                       _P, _P, _P, _P, _P, _P, _P],
+    # the dense form: ft_march's arguments without cull*, with the block's
+    # threads after stage*, and the ray counter (int32 [1]), the issue
+    # count and the lane-step count (uint64 [1] each, or null) and the
+    # blocks an SM (int [1] on the host, or null) before the stream
+    "ft_march_dense": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F, _I,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # origin, direction, t, epsilon, hit (bool), n; program*, cull*,
     # stage*; outputs normal [n,3], midx, code; stream (slot mode / AD mode)
     "ft_surface": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],

@@ -17,9 +17,10 @@ Counterpart of the jnp host prep in
   tensors :func:`build_pair_tables_plain`, the plain version in PyTorch
   ops;
 * :func:`stage_plan` — where a K1/K2/K3 block keeps a tile's slices of
-  those tables in shared memory, and :func:`dense_stage_plan` where a
+  those tables in shared memory, :func:`dense_stage_plan` where a
   dense-form block keeps the program's packed rows (no JAX counterpart:
-  the TPU kernel's BlockSpecs did this).
+  the TPU kernel's BlockSpecs did this), and :func:`dense_march_threads`
+  how wide a dense K1/K2 block is for that plan.
 
 A tile is :data:`TILE` consecutive lanes of the flat ray batch: one 32×32
 screen block in ``camera.to_blocks``' order, and the JAX kernel's
@@ -68,6 +69,12 @@ SURF_LIST_BYTES = 144    # K3's hit-lane list at the plan's end: a count a
 DENSE_HEADER = 16        # the copy barrier
 STAGE_RUN_BYTES = 16     # one run of the program's dense entries (int4)
 STAGE_MEMBER_BYTES = 8   # K3: an entry's (material, slot) (int2)
+# How wide a dense K1/K2 block is (dense_march_threads)
+BLOCK = 128              # threads of a K1/K2/K3 block (FT_BLOCK)
+DENSE_THREADS = 768      # the dense K1/K2's threads an SM, as its register
+#                          budget allows them (FT_DENSE_THREADS)
+SMEM_BLOCK_RESERVED = 1024   # shared memory the system keeps a block
+SMEM_PER_SM = SMEM_LIMIT + SMEM_BLOCK_RESERVED   # an H100 SM's (228 KB)
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +350,19 @@ def dense_stage_plan(n_ops: int, n_runs: int, rows_bytes: int,
     return DenseStagePlan(bytes=at + reserve, ops_off=ops_off,
                           runs_off=runs_off, ms_off=ms_off,
                           rows_off=rows_off, rows_bytes=rows_bytes)
+
+
+def dense_march_threads(stage_bytes: int) -> int:
+    """The width of a dense K1/K2 block whose plan takes ``stage_bytes``
+    of shared memory: the smallest multiple of BLOCK at which the blocks
+    an SM holds by shared memory reach DENSE_THREADS threads, and no more
+    than DENSE_THREADS.  A stage six blocks fit gets BLOCK (six warps a
+    scheduler as six blocks); one that fits only one block an SM gets one
+    block of DENSE_THREADS, where BLOCK would leave a warp a scheduler to
+    wait out its dependent loads alone."""
+    blocks = max(SMEM_PER_SM // (stage_bytes + SMEM_BLOCK_RESERVED), 1)
+    per_block = -(-DENSE_THREADS // blocks)
+    return min(-(-per_block // BLOCK) * BLOCK, DENSE_THREADS)
 
 
 # ---------------------------------------------------------------------------

@@ -59,7 +59,8 @@ from .cull import (CAND_UNROLL, MAX_PAIRS, PSTRIDE, STAGE_MEMBER_BYTES,
                    STAGE_OP_BYTES, STAGE_RUN_BYTES, SURF_LIST_BYTES, TABLE_W,
                    TILE, WINDOW_LANES, CullTables, DenseStagePlan, PairTable,
                    StagePlan, _build_groups, _cull_pairs, build_pair_tables,
-                   dense_stage_plan, kind_offset, stage_plan)
+                   dense_march_threads, dense_stage_plan, kind_offset,
+                   stage_plan)
 
 Tensor = torch.Tensor
 
@@ -71,11 +72,13 @@ MAX_STACK = 16    # CSG value-stack depth (FT_MAX_STACK)
 
 # The dense form's program as its last K1/K2 and K3 launches lowered it:
 # its ops, kind runs and value-stack depth, and the bytes of it a block
-# keeps in shared memory against those it reads from device memory
+# keeps in shared memory against those it reads from device memory; the
+# last K1/K2 launch's threads a block and blocks an SM
 # (``ops.cuda.dense_counts()``)
 DENSE = {"ops": 0, "kind_runs": 0, "stack": 0, "march_staged_bytes": 0,
          "march_device_bytes": 0, "surface_staged_bytes": 0,
-         "surface_device_bytes": 0}
+         "surface_device_bytes": 0, "march_threads": 0,
+         "march_blocks_per_sm": 0}
 # per device, int64 [1]: the scene evaluations the dense K1/K2 made, counted
 # by the kernel (the plain version adds its lanes' steps), summed over
 # launches and graph replays
@@ -875,10 +878,12 @@ def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
     """Check the lanes, allocate the outputs and call the C entry point
     ``entry``: ``ft_march`` (the culled form) or its instrumented twin,
     which take the tables and the plan, or ``ft_march_dense`` (the dense
-    form), which takes the plan alone; ``extra`` goes before the stream
-    (the twin's sections buffer; the dense form's ray counter, issue
-    count and lane-step counter).  Returns ``(t, hit int32, d, steps)`` with ``t`` and ``d``
-    None for occlusion."""
+    form), which takes the plan and its block's width
+    (:func:`cull.dense_march_threads`) and reports the blocks an SM;
+    ``extra`` goes before the stream (the twin's sections buffer; the
+    dense form's ray counter, issue count and lane-step counter).
+    Returns ``(t, hit int32, d, steps)`` with ``t`` and ``d`` None for
+    occlusion."""
     n = origin.shape[0]
     _check_lanes(n, origin=_f32("origin", origin),
                  direction=_f32("direction", direction),
@@ -899,8 +904,12 @@ def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
     s = prog.struct()
     # what the blocks stage in shared memory: sized from shapes alone
     plan = march_stage_plan(prog, cull)
+    width = ()
     if cull is None:
         _note_dense(prog, plan, "march")
+        # the block's width from the plan's size; the blocks an SM come back
+        width, per_sm = (dense_march_threads(plan.bytes),), ctypes.c_int(0)
+        extra = (*extra, ctypes.byref(per_sm))
     tables = () if cull is None else (ctypes.byref(_cull_struct(cull)),)
     stage = _dense_stage_struct(plan) if cull is None \
         else _stage_struct(plan)
@@ -909,12 +918,15 @@ def _launch_march(entry: str, scene: FlatScene, origin: Tensor,
             origin.data_ptr(), direction.data_ptr(), length.data_ptr(),
             epsilon.data_ptr(), t0.data_ptr(),
             None if sign is None else sign.data_ptr(), n, ctypes.byref(s),
-            *tables, ctypes.byref(stage), int(max_steps),
+            *tables, ctypes.byref(stage), *width, int(max_steps),
             float(omega), int(occlusion),
             None if occlusion else t.data_ptr(), hit.data_ptr(),
             None if occlusion else d.data_ptr(), steps.data_ptr(), *extra,
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, entry)
+    if width and n:
+        DENSE.update(march_threads=width[0],
+                     march_blocks_per_sm=per_sm.value)
     if n:
         anchor("march_kernel" if cull is not None else "march_dense_kernel")
     return t, hit, d, steps

@@ -357,6 +357,62 @@ def test_dense_refill_beyond_the_persistent_grid(dev):
     assert torch.equal(ho, hk) and torch.equal(so, sk)
 
 
+def test_dense_parts_march_one_wide_block_an_sm(dev):
+    """Dense K1/K2 on 1,000 machined parts (``benchmark/parts.py``, the
+    ``parts1000`` configuration): the 176,144-byte stage fits one block an
+    SM, so the block is 768 threads wide (``cull.dense_march_threads``),
+    as ``dense_counts()`` reads back; 512² rays, more than 132 × 768
+    resident lanes, so lanes refill.  Against the plain version on every
+    16th ray with the bounds of the refill test above; a slice launched
+    alone equals the batch bit for bit; the warps' issue count covers the
+    lane-steps.  The 1,000-torus program keeps 128 threads × 6 blocks.
+    The shared memory the width rule assumes is the card's."""
+    import json
+    from pathlib import Path
+    from benchmark import parts
+    spec = json.loads((Path(__file__).resolve().parents[1] / "benchmark"
+                       / "configs" / "parts1000.json").read_text())
+    scene = parts.port_scene(parts.draw(spec, 2 ** 31 + 11), dev)
+    props = torch.cuda.get_device_properties(dev)
+    assert props.shared_memory_per_multiprocessor == cull.SMEM_PER_SM
+    assert props.shared_memory_per_block_optin == cull.SMEM_LIMIT \
+        == cull.SMEM_PER_SM - cull.SMEM_BLOCK_RESERVED
+    args = block_lanes(scene, 512, dev)
+    assert args[0].shape[0] > props.multi_processor_count \
+        * cull.DENSE_THREADS
+    kw = dict(max_steps=192, omega=1.4)
+    issued = torch.zeros(1, dtype=torch.int64, device=dev)
+    ops_cuda.reset_launch_counts()
+    tk, hk, dk, sk = mk.march_kernel(scene, *args, **kw, issued=issued)
+    counts = ops_cuda.dense_counts()
+    assert (counts["march_threads"], counts["march_blocks_per_sm"]) \
+        == (cull.DENSE_THREADS, 1)
+    evals = int(sk.sum())
+    assert counts["lane_steps"] == evals
+    assert 0 < evals <= 32 * int(issued)
+    every = slice(None, None, 16)
+    tp, hp, _dp, sp = mk.march_plain(
+        scene, *[a[every].contiguous() for a in args], **kw)
+    hs, ss, ts = hk[every], sk[every], tk[every]
+    assert int(hs.sum()) > 1000
+    assert (hs == hp).float().mean().item() >= 0.999
+    same = hs & hp & (ss == sp)
+    assert int(same.sum()) >= 0.999 * int((hs & hp).sum())
+    assert (ts - tp).abs()[same].max().item() <= 1e-4
+    part = slice(100_003, 105_003)
+    alone = mk.march_kernel(scene, *[a[part].contiguous() for a in args],
+                            **kw)
+    for got, want in zip(alone, (tk, hk, dk, sk)):
+        assert torch.equal(got, want[part])
+    ho, so = mk.march_kernel(scene, *args, **kw, occlusion=True)
+    assert torch.equal(ho, hk) and torch.equal(so, sk)
+    tori = ft.flatten(torus_csg_scene(19, 1000), device=dev)
+    mk.march_kernel(tori, *block_lanes(tori, 64, dev), **kw)
+    counts = ops_cuda.dense_counts()
+    assert (counts["march_threads"], counts["march_blocks_per_sm"]) \
+        == (cull.BLOCK, 6)
+
+
 def test_dense_kernels_with_unstaged_rows(dev):
     """The dense form on 8002 entries at 64²: their packed rows (256,032
     bytes) exceed a block's shared memory, so K1/K2 and K3 read them from

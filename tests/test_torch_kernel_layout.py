@@ -1,23 +1,28 @@
 """The CUDA header and its Python mirrors say the same thing
 (``fraytracer_tpu_torch/csrc/ft_sdf.cuh`` against ``ops/cuda/cull.py`` and
 ``ops/cuda/march_kernel.py``): the ``#define``s of the table layout, the
-field order and size of the structs a launch passes by value, and the host
-function that sizes a K1/K2/K3 block's shared memory.  No kernel runs here:
-the header is parsed as text."""
+field order and size of the structs a launch passes by value, the host
+functions that size a K1/K2/K3 block's shared memory and a dense K1/K2
+block's width, and the C entry points' parameters against the ``ctypes``
+argument lists (``ops/cuda/build.py``).  No kernel runs here: the sources
+are parsed as text."""
 import ctypes
 import dataclasses
+import json
 import re
 from pathlib import Path
 
 import pytest
 import torch
 
+from fraytracer_tpu_torch.ops.cuda import build as BUILD
 from fraytracer_tpu_torch.ops.cuda import cull as TC
 from fraytracer_tpu_torch.ops.cuda import cull_kernel as CK
 from fraytracer_tpu_torch.ops.cuda import march_kernel as MK
 
-HEADER = (Path(MK.__file__).resolve().parents[2] / "csrc"
-          / "ft_sdf.cuh").read_text()
+CSRC = Path(MK.__file__).resolve().parents[2] / "csrc"
+HEADER = (CSRC / "ft_sdf.cuh").read_text()
+CONFIGS = Path(__file__).resolve().parents[1] / "benchmark" / "configs"
 
 
 def define(name: str) -> int:
@@ -37,6 +42,8 @@ def define(name: str) -> int:
     ("FT_SUBF", TC.SUBF),
     ("FT_CONES", CK.CONES),
     ("FT_CONE_W", CK.CONE_W),
+    ("FT_BLOCK", TC.BLOCK),
+    ("FT_DENSE_THREADS", TC.DENSE_THREADS),
 ])
 def test_header_defines_match_python(name, want):
     assert define(name) == want
@@ -238,3 +245,103 @@ def test_stage_plan_reserve_counts_against_the_limit():
     plan = TC.stage_plan((m,), 5, 2, TC.SURF_LIST_BYTES)
     assert plan.staged == (False,) and plan.bulk_bytes == 0
     assert plan.bytes == start + TC.SURF_LIST_BYTES
+
+
+def smem_blocks(stage_bytes: int) -> int:
+    """Blocks of a stage an SM holds by shared memory."""
+    return TC.SMEM_PER_SM // (stage_bytes + TC.SMEM_BLOCK_RESERVED)
+
+
+# dense plans of 5 ops and 3 runs by their packed rows' bytes: (rows,
+# blocks an SM by shared memory, the width of a block)
+WIDTHS = {
+    "bench_tori_1002_entries": (1000 * 32 + 2 * 16, 7, 128),
+    "six_blocks": (37000, 6, 128),
+    "four_blocks": (50000, 4, 256),
+    "three_blocks": (70000, 3, 256),
+    "two_blocks": (100000, 2, 384),
+    "one_block": (120000, 1, 768),
+    "one_block_at_the_limit": (TC.SMEM_LIMIT - 224, 1, 768),
+}
+
+
+@pytest.mark.parametrize("name", WIDTHS)
+def test_dense_march_threads(name):
+    """A dense K1/K2 block is the smallest multiple of FT_BLOCK at which
+    the blocks an SM holds by shared memory reach FT_DENSE_THREADS, at
+    most FT_DENSE_THREADS: the width the stage's size alone sets."""
+    rows, blocks, threads = WIDTHS[name]
+    plan = TC.dense_stage_plan(n_ops=5, n_runs=3, rows_bytes=rows)
+    assert plan.staged and smem_blocks(plan.bytes) == blocks
+    assert TC.dense_march_threads(plan.bytes) == threads
+    assert threads % TC.BLOCK == 0 and threads <= TC.DENSE_THREADS
+    resident = min(blocks, TC.DENSE_THREADS // threads) * threads
+    assert resident == TC.DENSE_THREADS
+
+
+def test_dense_march_threads_of_the_benchmark_programs():
+    """The two programs the dense form runs in the benchmark: the
+    1002-entry tori (a 32,256-byte stage, six blocks an SM by the register
+    budget) keep 128 threads; 1,000 machined parts (4,003 ops, 3,002 kind
+    runs staged, 144,032 bytes of rows read from device memory) fit one
+    block an SM, of 768 threads."""
+    from benchmark import parts
+    from fraytracer_tpu_torch.scene.generators import torus_csg_scene
+    import fraytracer_tpu_torch as ft
+    cpu = torch.device("cpu")
+    tori = MK.lower_program(ft.flatten(torus_csg_scene(19, 1000),
+                                       device="cpu"), cpu)
+    plan = MK.march_stage_plan(tori, None)
+    assert plan.bytes == 32256 and plan.staged
+    assert TC.dense_march_threads(plan.bytes) == TC.BLOCK
+    assert TC.DENSE_THREADS // TC.BLOCK == 6 <= smem_blocks(plan.bytes)
+    spec = json.loads((CONFIGS / "parts1000.json").read_text())
+    prog = MK.lower_program(parts.port_scene(parts.draw(spec, 19), "cpu"),
+                            cpu)
+    plan = MK.march_stage_plan(prog, None)
+    assert (prog.ops.shape[0], prog.runs.shape[0], plan.rows_bytes) \
+        == (4003, 3002, 144032)
+    assert plan.bytes == 176144 and not plan.staged
+    assert smem_blocks(plan.bytes) == 1
+    assert TC.dense_march_threads(plan.bytes) == TC.DENSE_THREADS
+
+
+def c_params(entry: str):
+    """``[(C type, name)]`` of the parameters of ``extern "C" int
+    entry(...)`` in ``csrc/*.cu``."""
+    for src in sorted(CSRC.glob("*.cu")):
+        m = re.search(rf'extern "C" int {entry}\((.*?)\)\s*\{{',
+                      src.read_text(), re.S)
+        if m:
+            out = []
+            for p in m.group(1).split(","):
+                d = re.fullmatch(r"(.*?)\s*(\w+)", " ".join(p.split()))
+                assert d, p
+                out.append((d.group(1), d.group(2)))
+            return out
+    raise AssertionError(f"no extern \"C\" {entry} in csrc")
+
+
+def ctypes_of(ctype: str):
+    if ctype.endswith("*"):
+        return ctypes.c_void_p
+    return {"int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong}[ctype]
+
+
+@pytest.mark.parametrize("entry", sorted(BUILD.SIGNATURES))
+def test_entry_point_arguments_match_the_source(entry):
+    """Each C entry point's parameters, one ``ctypes`` type each, as
+    ``build.SIGNATURES`` binds them."""
+    assert [ctypes_of(t) for t, _n in c_params(entry)] \
+        == BUILD.SIGNATURES[entry]
+
+
+def test_dense_march_takes_its_width():
+    """``ft_march_dense`` takes the block's threads after the plan and
+    hands the blocks an SM back before the stream."""
+    names = [n for _t, n in c_params("ft_march_dense")]
+    assert names[names.index("stage") + 1] == "threads"
+    assert names[-2:] == ["blocks_per_sm", "stream"]
+    sig = BUILD.SIGNATURES["ft_march_dense"]
+    assert sig[names.index("threads")] is ctypes.c_int
