@@ -6098,8 +6098,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "cull": cull_times,
                       "scatter": scatter_times}))
     print(nvidia_smi())
-    import torch.distributed as dist
-    dist.destroy_process_group()
+    from fraytracer_tpu_torch.parallel.mesh import teardown
+    teardown()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -43,6 +43,7 @@ carries the group: its flag decides which collectives the ranks issue next
 same flag.  :meth:`Frame.agree` ORs the flags over the group, one
 ``all_reduce(MAX)``; inside a graph captured on NCCL that is one more
 captured collective, on gloo it runs eagerly after the replay.
+:data:`COLLECTIVES` counts the collectives issued over process groups.
 """
 from __future__ import annotations
 
@@ -52,6 +53,12 @@ import functools
 
 import torch
 import torch.distributed as dist
+
+# collectives issued over process groups, by kind: each counted where it is
+# issued (:meth:`Frame.agree`, ``parallel/mesh.py``); those a graph
+# captured are counted again at each replay (``ops/graph.py``), as its
+# kernel launches are
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0}
 
 
 class Frame:
@@ -84,6 +91,7 @@ class Frame:
             return
         flag = self.flag.to(torch.int32)
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        COLLECTIVES["all_reduce"] += 1
         self.flag.copy_(flag != 0)
 
     def next_site_promoted(self) -> bool:

@@ -33,11 +33,16 @@ keeps one captured CUDA graph (:class:`_FrameGraph`) a :func:`key`:
   taken on the flag ORed over the mesh's group (``deferred.Frame.agree``),
   so that every rank issues the same collectives; a first run that raised
   the flag anywhere runs again on every rank.
+* A graph that holds a group's collectives is released before the group
+  is destroyed (:func:`release`, ``parallel/mesh.py::teardown``): NCCL
+  does not finalize a communicator while a graph that captured its
+  collectives lives.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -151,7 +156,9 @@ class _FrameGraph:
         self.agree_in_graph = (group is not None
                                and dist.get_backend(group) == "nccl")
         self.finish = finish
-        self.graph, self.launches = None, {}
+        self.graph, self.launches, self.collectives = None, {}, {}
+        if group is not None:
+            _grouped.add(self)
         with torch.no_grad(), on_device(self.device):
             out = self._run(agree=True)
             flagged = bool(self.frame.flag)
@@ -191,6 +198,7 @@ class _FrameGraph:
         if index not in _pools:
             _pools[index] = torch.cuda.graph_pool_handle()
         before = ops_cuda.launch_counts()
+        issued = dict(deferred.COLLECTIVES)
         # a group's NCCL watchdog thread may query the events of earlier
         # eager collectives while the capture runs; in the global mode
         # such a call from another thread would invalidate the capture
@@ -208,8 +216,12 @@ class _FrameGraph:
             raise
         after = ops_cuda.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
+        self.collectives = {k: v - issued[k]
+                            for k, v in deferred.COLLECTIVES.items()
+                            if v != issued[k]}
         # captured, not launched: the replays count them
         ops_cuda.add_launch_counts({k: -v for k, v in self.launches.items()})
+        _add_collectives({k: -v for k, v in self.collectives.items()})
         self.graph, self.layers = graph, layers
         ops_cuda.GRAPH["captures"] += 1
 
@@ -234,10 +246,26 @@ class _FrameGraph:
                 with span("graph.finish"):
                     out = self.finish(scene, out)
         ops_cuda.add_launch_counts(self.launches)
+        _add_collectives(self.collectives)
         ops_cuda.GRAPH["replays"] += 1
         if self.layers is not None:
             self.layers.replays += 1
         return None if flagged else out
+
+    def release(self) -> bool:
+        """Destroy the captured graph (its pool's blocks go back to the
+        pool) and drop its outputs: the key's later calls run eagerly.
+        True where there was a graph."""
+        had = self.graph is not None
+        if had:
+            self.graph.reset()
+        self.graph, self.outputs = None, ()
+        return had
+
+
+def _add_collectives(delta: dict) -> None:
+    for k, v in delta.items():
+        deferred.COLLECTIVES[k] += v
 
 
 # A graph's memory is its pool's, and every graph of a device shares one
@@ -247,6 +275,23 @@ class _FrameGraph:
 # handed to another capture.
 _pools: dict = {}
 _graphs: "dict[tuple, _FrameGraph]" = {}
+# every live graph made with a group, wherever its key is kept
+_grouped: "weakref.WeakSet[_FrameGraph]" = weakref.WeakSet()
+
+
+def release(group=None) -> int:
+    """Release the graph of every key made with ``group`` (with any group
+    where ``None``), wherever the key is kept, and forget this module's
+    keys of them: a graph that captured NCCL collectives keeps its
+    communicator from being finalized.  Call it with the group's work
+    finished on the device.  Returns the graphs destroyed."""
+    gone = [fg for fg in list(_grouped)
+            if group is None or fg.frame.group is group]
+    for k in [k for k, fg in _graphs.items() if fg in gone]:
+        del _graphs[k]
+    for fg in gone:
+        _grouped.discard(fg)
+    return sum(fg.release() for fg in gone)
 
 
 def find(kind: str, scene, camera, cfg, args=(), extra=()):

@@ -50,26 +50,44 @@ and always issue the same collectives.
 
 On the CPU, on the "torch" backend, and for a frame autograd must see, the
 functions run eagerly, as the one-process frame does.
+
+**Teardown.**  :func:`teardown` closes a mesh's group: the device's work
+finished, the group's graphs released (NCCL does not finalize a
+communicator while a graph that captured its collectives lives, and
+``destroy_process_group`` then waits for ever), the group destroyed, each
+wait bounded.  :func:`counts` reads the collectives issued, the graphs
+released and the teardown's seconds.
+
+**Spans** (``utils/profiling.py``): the step's ``mesh.chunk`` (a chunk's
+forward, ``loss`` and ``vjp``), ``mesh.reduce`` (the collectives of the
+gradients and losses, and their waits) and ``mesh.update`` (the SGD
+update).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import os
+import threading
+import time
 from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
 
 from .. import camera as cam
-from ..ops import graph, wavefront
+from ..ops import deferred, graph, wavefront
 from ..ops.march import check_config
 from ..render import RenderConfig, render_grid
 from ..scene.flatten import FlatScene
+from ..utils.profiling import span
 
 Tensor = torch.Tensor
 
 AXIS = "rays"
+# the longest each wait of :func:`teardown` may take, in seconds
+TEARDOWN_S = 120.0
+_TEARDOWN = {"graphs_released": 0, "teardown_s": 0.0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +158,7 @@ def all_gather(x: Tensor, mesh: Mesh) -> Tensor:
     out = torch.empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
+    deferred.COLLECTIVES["all_gather"] += 1
     return out.reshape((mesh.size,) + tuple(x.shape))
 
 
@@ -181,6 +200,7 @@ def exposure_max_sharded(image: Tensor, mesh: Mesh) -> Tensor:
     (the auto-exposure of ``Image.fs:40-43`` across ranks)."""
     m = image.detach().amax().reshape(1)
     dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.group)
+    deferred.COLLECTIVES["all_reduce"] += 1
     return m[0]
 
 
@@ -250,6 +270,7 @@ def _rebalance_exchange(q, k: int, n_dev: int, C: int, tmin: float,
     recv = torch.empty((n_dev * S, _LANE_WIDTH), dtype=torch.float32,
                        device=dev)
     dist.all_to_all_single(recv, send[:-1], group=mesh.group)
+    deferred.COLLECTIVES["all_to_all"] += 1
     both = wavefront._concat(dataclasses.replace(q, active=keep),
                              _unpack(recv))
     low = both.active & (both.throughput < tmin)
@@ -303,6 +324,7 @@ def _spectral_rounds(mesh: Mesh, width: int, height: int, rebalance: bool,
                                          is_last=(bounce == wcfg.depth - 1))
     if rebalance:
         dist.all_reduce(image, group=mesh.group)
+        deferred.COLLECTIVES["all_reduce"] += 1
         image = image[k * npix:(k + 1) * npix]
     image = cam.from_blocks(image, rows, width, edge) if blocked \
         else image.reshape(rows, width, 3)
@@ -387,18 +409,30 @@ def _chunk_grads(mesh: Mesh, grad_chunks: int, scene: FlatScene,
     flats, losses, issued = [], [], []
     with torch.enable_grad():
         for i in range(nc):
-            chunk = rays.map(lambda x: x[i * hc:(i + 1) * hc])
-            img, _n = render_grid(scene, chunk, cfg)
-            loss = torch.sum((img - tgt[i * hc:(i + 1) * hc]) ** 2)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            flat = torch.cat([
-                (torch.zeros_like(p) if g is None else g).reshape(-1)
-                for g, p in zip(grads, params)])
+            with span("mesh.chunk"):
+                chunk = rays.map(lambda x: x[i * hc:(i + 1) * hc])
+                img, _n = render_grid(scene, chunk, cfg)
+                with span("loss"):
+                    loss = torch.sum((img - tgt[i * hc:(i + 1) * hc]) ** 2)
+                with span("vjp"):
+                    grads = torch.autograd.grad(loss, params,
+                                                allow_unused=True)
+                flat = torch.cat([
+                    (torch.zeros_like(p) if g is None else g).reshape(-1)
+                    for g, p in zip(grads, params)])
             flats.append(flat)
             if issue is not None:
-                issued.append(issue(flat))
+                with span("mesh.reduce"):
+                    issued.append(issue(flat))
             losses.append(loss.detach())
     return flats, torch.stack(losses), issued
+
+
+def _all_reduce(x: Tensor, mesh: Mesh, async_op: bool = False):
+    """``all_reduce(SUM)`` of ``x`` over the mesh, counted; its handle
+    where ``async_op``."""
+    deferred.COLLECTIVES["all_reduce"] += 1
+    return dist.all_reduce(x, group=mesh.group, async_op=async_op)
 
 
 def _summed(flats: list) -> Tensor:
@@ -430,12 +464,13 @@ def _step_overlapped(mesh: Mesh, lr: float, grad_chunks: int,
     captured on NCCL."""
     flats, losses, handles = _chunk_grads(
         mesh, grad_chunks, scene, camera, cfg, target,
-        issue=lambda flat: dist.all_reduce(flat, group=mesh.group,
-                                           async_op=True))
-    dist.all_reduce(losses, group=mesh.group)
-    for handle in handles:
-        handle.wait()
-    return (losses.sum(),) + _sgd(scene, _summed(flats), lr)
+        issue=lambda flat: _all_reduce(flat, mesh, async_op=True))
+    with span("mesh.reduce"):
+        _all_reduce(losses, mesh)
+        for handle in handles:
+            handle.wait()
+    with span("mesh.update"):
+        return (losses.sum(),) + _sgd(scene, _summed(flats), lr)
 
 
 def _step_local(mesh: Mesh, grad_chunks: int, scene: FlatScene,
@@ -453,9 +488,11 @@ def _step_reduced(mesh: Mesh, lr: float, scene: FlatScene, out) -> tuple:
     """What follows a gloo replay whose flag is clear: the buffer's
     ``all_reduce``, then the update; ``(loss, *new leaves)``."""
     buf, = out
-    dist.all_reduce(buf, group=mesh.group)
-    n = sum(p.numel() for p in scene.tensors().values())
-    return (buf[n:].sum(),) + _sgd(scene, buf[:n], lr)
+    with span("mesh.reduce"):
+        _all_reduce(buf, mesh)
+    with span("mesh.update"):
+        n = sum(p.numel() for p in scene.tensors().values())
+        return (buf[n:].sum(),) + _sgd(scene, buf[:n], lr)
 
 
 def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
@@ -507,3 +544,93 @@ def make_train_step(cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
 
     step.graphs = graphs
     return step
+
+
+# ---------------------------------------------------------------------------
+# Teardown
+# ---------------------------------------------------------------------------
+
+def counts() -> dict:
+    """The mesh layer's counters, read beside ``ops.cuda.graph_counts()``:
+    the collectives issued over process groups by kind (``all_reduce``,
+    ``all_gather``, ``all_to_all``: ``ops/deferred.py::COLLECTIVES``, the
+    flag's reductions among them; a replay counts those its graph
+    captured), the graphs :func:`teardown` released
+    (``graphs_released``) and the seconds the last teardown took
+    (``teardown_s``)."""
+    return {**deferred.COLLECTIVES, **_TEARDOWN}
+
+
+def _bounded(what: str, fn, group) -> None:
+    """``fn()`` on a thread of its own, waited for at most
+    :data:`TEARDOWN_S` s; past that, ``group``'s communicators aborted
+    (that wait bounded alike) and a ``TimeoutError`` naming ``what``."""
+    done, failed = threading.Event(), []
+
+    def target():
+        try:
+            fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            failed.append(e)
+        finally:
+            done.set()
+    threading.Thread(target=target, name=f"mesh teardown: {what}",
+                     daemon=True).start()
+    if not done.wait(TEARDOWN_S):
+        aborted = threading.Event()
+
+        def abort():
+            group.abort()
+            aborted.set()
+        threading.Thread(target=abort, name="mesh teardown: abort",
+                         daemon=True).start()
+        aborted.wait(TEARDOWN_S)
+        raise TimeoutError(
+            f"mesh teardown: {what} took more than {TEARDOWN_S:g} s; the "
+            "group's communicators were "
+            + ("aborted" if aborted.is_set() else "not aborted either"))
+    if failed:
+        raise failed[0]
+
+
+def teardown(mesh: Optional[Mesh] = None) -> None:
+    """Close ``mesh``'s process group (the default group, and with it
+    every group, where ``mesh`` is ``None`` or spans the world):
+
+    1. wait for the device's work (``mesh``'s device; the current card
+       where ``mesh`` is ``None``);
+    2. release the captured graph of every key made with the group
+       (``ops/graph.py::release``; every group's for the world): NCCL does
+       not finalize a communicator while a graph that captured its
+       collectives lives, and ``destroy_process_group`` would wait for it
+       for ever;
+    3. destroy the group.
+
+    Every rank of the group calls it.  Each wait takes at most
+    :data:`TEARDOWN_S` s; past that the group's communicators are aborted
+    and ``TimeoutError`` names the wait.  A call on a group already
+    destroyed does nothing.  Counted in :func:`counts`."""
+    if not dist.is_initialized():
+        return
+    world = mesh is None or mesh.group is dist.group.WORLD
+    group = dist.group.WORLD if world else mesh.group
+    if not world:
+        try:
+            dist.get_backend(group)
+        except ValueError:     # destroyed already
+            return
+    t0 = time.perf_counter()
+    if mesh is not None:
+        device = mesh.device
+    elif torch.cuda.is_initialized():
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = None
+    if device is not None and device.type == "cuda":
+        _bounded("the device's synchronize",
+                 lambda: torch.cuda.synchronize(device), group)
+    _TEARDOWN["graphs_released"] += graph.release(None if world else group)
+    _bounded("destroy_process_group",
+             lambda: dist.destroy_process_group(None if world else group),
+             group)
+    _TEARDOWN["teardown_s"] = time.perf_counter() - t0

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import Mesh, all_gather, local_rank, make_mesh
+from .mesh import Mesh, all_gather, local_rank, make_mesh, teardown
 
 
 def default_backend(device: Optional[str] = None) -> str:
@@ -109,7 +109,7 @@ def _rank_main(fn, coordinator, n_ranks, rank, backend, args, results,
         # pickled here, whole: a tensor put on the queue as it is would
         # travel as a handle to this process's memory, gone once it exits
         out = pickle.dumps(fn(*args))
-        dist.destroy_process_group()
+        teardown()
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise

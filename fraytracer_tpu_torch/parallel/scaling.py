@@ -95,6 +95,7 @@ def scaling_report(size: int = 256, tori: int = 100, ranks: int = 1,
     import fraytracer_tpu_torch as ft
     from fraytracer_tpu_torch.bench import device_label
     from fraytracer_tpu_torch.ops.cuda import launch_counts, probe
+    from .mesh import teardown
     from .multihost import default_backend, initialize, run_ranks
 
     if device == "cuda" and not torch.cuda.is_available():
@@ -114,10 +115,9 @@ def scaling_report(size: int = 256, tori: int = 100, ranks: int = 1,
     t_single = _best(single, dev, reps)
     img_1 = out["img"].cpu().numpy()
     if ranks == 1:
-        import torch.distributed as dist
         initialize(backend=backend)
         rank = [_sharded_rank(size, tori, device, reps)]
-        dist.destroy_process_group()
+        teardown()
     else:
         rank = run_ranks(_sharded_rank, ranks, size, tori, device, reps,
                          device=device, backend=backend)

@@ -32,15 +32,31 @@ eager step at that call and the next;
 ``all_reduce``, then the update) bit for bit, within the chunked bound of
 the eager step, and a flag forced on rank 0 at a later replay makes both
 ranks run the eager step; the graph counts agree on both ranks.
+
+The mesh layer's spans, counters and teardown, in the same world: (d) the
+step's spans nest as ``parallel/mesh.py`` opens them, and its collectives
+are counted by kind; (e) two steps on the benchmark's seeded fit scene
+(``benchmark/configs/tori1000.json`` cut to 24 tori at 16×32) agree with
+the plain float64 fit of ``benchmark/reference/fit.py`` within the
+single-process bounds above; (f) last, ``mesh.teardown`` releases the
+step's graphs and destroys the group, and a second call does nothing.
 """
+import json
+import threading
+import time
+import types
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import fraytracer_tpu_torch as tft
 from fraytracer_tpu_torch.parallel import mesh as tmesh
 from fraytracer_tpu_torch.parallel.multihost import run_ranks
 
+ROOT = Path(__file__).resolve().parents[1]
 W, H = 16, 32
 LR = 1e-4
 # a step at this rate recovers its gradients, (s - s') / LR_G: a power of
@@ -48,6 +64,8 @@ LR = 1e-4
 LR_G = 2.0 ** 20
 CAM = ((0.0, 0.0, -10.0), (0.0, 0.0, 0.0))
 ROUTES = ("torch", "cuda")
+# (e): the fit cell's seed-drawn start, rate (on the mean) and perturbation
+FIT_SEED, FIT_LR, FIT_PERTURB = 2718281828, 0.5, 0.05
 
 
 def config(route, **march):
@@ -128,6 +146,69 @@ def _graph_cases(scene, target, mesh):
     return out
 
 
+def fit_spec() -> dict:
+    """The fit cell's configuration cut to 24 tori at 16×32."""
+    spec = json.loads((ROOT / "benchmark/configs/tori1000.json").read_text())
+    spec["scene"]["n_tori"] = 24
+    spec["render"].update(width=W, height=H)
+    return spec
+
+
+def _span_case(scene, target, mesh):
+    """(d): one eager step recorded by ``profiling.spans()``: each span's
+    name and its parent's index, and the collectives it issued."""
+    from fraytracer_tpu_torch.utils import profiling
+    step = tmesh.make_train_step(config("cuda", cull_threshold=16), mesh,
+                                 lr=LR)
+    before = tmesh.counts()
+    with profiling.spans() as rec:
+        step(scene, camera(), target)
+    after = tmesh.counts()
+    return ([(r.name, r.parent) for r in rec.records],
+            {k: after[k] - before[k] for k in ("all_reduce", "all_gather",
+                                               "all_to_all")})
+
+
+def _reference_case(mesh):
+    """(e): the losses (each over the frame's values) and the leaves after
+    each of two steps on the fit scene, its target the port's frame."""
+    from benchmark import program, scenes
+    spec = fit_spec()
+    arrays, start = scenes.perturbed(spec, FIT_PERTURB, FIT_SEED)
+    cam = program.camera(spec["camera"], "cpu")
+    cfg = program.render_config(spec["render"], spec["march"])
+    target = tft.render(program.scene(arrays, "cpu"), cam, cfg)
+    step = tmesh.make_train_step(cfg, mesh, lr=FIT_LR / target.numel())
+    s, losses, states = program.scene(start, "cpu"), [], []
+    for _ in range(2):
+        s, loss = step(s, cam, target)
+        losses.append(float(loss) / target.numel())
+        states.append(leaves(s))
+    return losses, states
+
+
+def _teardown_case(scene, target, mesh):
+    """(f): a step captured and replayed (``graph_route``), then
+    ``teardown`` twice: what each call left."""
+    from torch_deferred import graph_route
+    with graph_route():
+        step = tmesh.make_train_step(config("cuda"), mesh, lr=LR)
+        for _ in range(2):
+            step(scene, camera(), target)
+        captured = [fg.graph is not None for fg in step.graphs.values()]
+        before = tmesh.counts()
+        t0 = time.perf_counter()
+        tmesh.teardown(mesh)
+        seconds = time.perf_counter() - t0
+        after = tmesh.counts()
+        tmesh.teardown(mesh)
+        return dict(captured=captured, before=before, after=after,
+                    again=tmesh.counts(), seconds=seconds,
+                    released=[fg.graph is None
+                              for fg in step.graphs.values()],
+                    initialized=dist.is_initialized())
+
+
 def _train_rank(scene, target):
     mesh = tmesh.make_mesh(devices="cpu")
     cam = camera()
@@ -148,6 +229,9 @@ def _train_rank(scene, target):
                           requires_grad=any(
                               x.requires_grad for x in s1.tensors().values()))
     out.update(_graph_cases(scene, target, mesh))
+    out["spans"] = _span_case(scene, target, mesh)
+    out["reference"] = _reference_case(mesh)
+    out["teardown"] = _teardown_case(scene, target, mesh)
     return out
 
 
@@ -265,3 +349,78 @@ def test_flag_on_one_rank_at_a_replay_reruns_every_rank(ranks):
         np.testing.assert_array_equal(a[1][k], b[1][k], err_msg=k)
         np.testing.assert_allclose(a[1][k], a[3][k], atol=1e-6, rtol=1e-5,
                                    err_msg=k)
+
+
+def test_sharded_step_spans_nest_in_the_chunks(ranks):
+    for r in ranks:
+        records, issued = r["spans"]
+        names = [n for n, _p in records]
+
+        def chain(i):
+            out = []
+            while i is not None:
+                out.append(records[i][0])
+                i = records[i][1]
+            return out
+        assert names.count("mesh.chunk") == 4
+        # each chunk's gradient all_reduce issued, then the losses' and
+        # the waits
+        assert names.count("mesh.reduce") == 5
+        assert names.count("mesh.update") == 1
+        for i, (name, parent) in enumerate(records):
+            if name.startswith("mesh."):
+                assert parent is None or records[parent][0].startswith(
+                    "graph."), name
+            elif not name.startswith("graph."):
+                # the layers of a chunk's forward and backward
+                assert "mesh.chunk" in chain(i), name
+        for i in (i for i, (n, _p) in enumerate(records)
+                  if n == "mesh.chunk"):
+            children = {n for n, p in records if p == i}
+            assert {"loss", "vjp", "surface", "shade"} <= children
+            under = {n for j, (n, _p) in enumerate(records)
+                     if chain(j)[1:].count("mesh.chunk")}
+            assert {"march", "cull"} <= under
+        assert issued == {"all_reduce": 5, "all_gather": 0, "all_to_all": 0}
+
+
+def test_sharded_step_matches_the_benchmark_reference(ranks):
+    from benchmark import scenes
+    from benchmark.reference import fit as ref_fit, render as ref
+    spec = fit_spec()
+    arrays, start = scenes.perturbed(spec, FIT_PERTURB, FIT_SEED)
+    args = (arrays.light_kind, spec["camera"], spec["render"], spec["march"])
+    target, _res = ref_fit.frame(ref.leaves_of(arrays, "cpu", torch.float64),
+                                 *args)
+    losses, _first, states = ref_fit.fit(
+        ref.leaves_of(start, "cpu", torch.float64), *args, target, FIT_LR, 2)
+    got_losses, got_states = ranks[0]["reference"]
+    assert ranks[1]["reference"][0] == got_losses
+    np.testing.assert_allclose(got_losses, losses, rtol=1e-4)
+    for got, want in zip(got_states, states[1:]):
+        np.testing.assert_allclose(got["mat_albedo"],
+                                   want["mat_albedo"].numpy(), atol=1e-5)
+
+
+def test_teardown_releases_the_step_graphs_and_destroys_the_group(ranks):
+    for r in ranks:
+        t = r["teardown"]
+        assert t["captured"] == [True] and t["released"] == [True]
+        assert t["after"]["graphs_released"] > t["before"]["graphs_released"]
+        assert t["before"]["all_reduce"] > 0
+        assert not t["initialized"]
+        assert 0 < t["after"]["teardown_s"] <= t["seconds"] < 10
+        # a second call does nothing
+        assert t["again"] == t["after"]
+
+
+def test_teardown_wait_past_its_deadline_aborts_and_raises(monkeypatch):
+    aborted, hung = threading.Event(), threading.Event()
+    monkeypatch.setattr(tmesh, "TEARDOWN_S", 0.2)
+    group = types.SimpleNamespace(abort=aborted.set)
+    with pytest.raises(TimeoutError, match="destroy_process_group.*aborted"):
+        tmesh._bounded("destroy_process_group", hung.wait, group)
+    assert aborted.is_set()
+    hung.set()
+    with pytest.raises(ValueError, match="raised"):
+        tmesh._bounded("a wait", lambda: int("raised"), group)

@@ -82,7 +82,7 @@ def recorded_capture(self):
         for dst, src in zip(self.outputs,
                             self._run(agree=self.agree_in_graph)):
             dst.copy_(src)
-    self.graph = types.SimpleNamespace(replay=replay)
+    self.graph = types.SimpleNamespace(replay=replay, reset=lambda: None)
     ops_cuda.GRAPH["captures"] += 1
 
 
