@@ -12,7 +12,7 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    them (tests/test_torch_cull_cuda.py), one cones and one select launch
    a site, device ms of both builds beside the bytes-from-shapes bound.
    ``--cull-only`` stops after it.
-2c. scatter — the row scatter's kernel (csrc/scatter.cu) on the six
+2c. scatter — the row scatter's kernel (csrc/scatter.cu) on the three
    scatters of one eager 1024² step of the 1000-torus scene, their
    gradients and rows as the backward hands them over: each table against
    ``index_add_`` in float64 as the card tests check it, one launch a
@@ -20,6 +20,14 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
    float32 ``index_add_`` beside the bytes-from-shapes bound.
    ``--scatter-only`` runs the build and this phase alone; the full run
    runs it so, in a process of its own.
+2d. vjp   — the leaf backward's kernel (csrc/leaf_vjp.cu) on the march
+   backward of one eager 1024² step of the 1000-torus scene, its
+   residuals as ``_MarchFn._backward`` hands them over: its tables against
+   the composition's (``ops/march.py::implicit_vjp``) on the same
+   residuals, device ms of the kernel, of its whole path and of the
+   composition beside the bound (bytes and operations).  ``--vjp-only``
+   runs the build and this phase alone; the full run runs it so, in a
+   process of its own.
 3. kernels — each kernel against its plain PyTorch version on the same
    CUDA tensors: K4 block gather (exact), dense K1/K2/K3 on small scenes,
    culled K1/K2/K3 on the 96-torus scene, a 256-sphere intersect and
@@ -1080,26 +1088,145 @@ def phase_scatter(dev):
     return out
 
 
-def scatter_process():
-    """The ``[scatter]`` phase in a process of its own (``--scatter-only``),
-    its lines echoed and its readings returned.  Run in this process
-    before ``[graph]``, it was followed there by profiled frames short of
-    device records (the profiler returned 162 and 218 of 316 and 338 ops,
-    in two runs on the H100, and none short without it); the phases after
-    it see nothing of a process of its own."""
+def phase_process(tag):
+    """The ``[tag]`` phase (``scatter`` or ``vjp``) in a process of its own
+    (``--tag-only``), its lines echoed and its readings returned.  Run in
+    this process before ``[graph]``, ``[scatter]`` was followed there by
+    profiled frames short of device records (the profiler returned 162 and
+    218 of 316 and 338 ops, in two runs on the H100, and none short
+    without it); the phases after it see nothing of a process of its
+    own."""
     here = Path(__file__).resolve()
-    proc = subprocess.run([sys.executable, str(here), "--scatter-only"],
+    proc = subprocess.run([sys.executable, str(here), f"--{tag}-only"],
                           capture_output=True, text=True, timeout=600,
                           cwd=str(here.parent))
     for line in proc.stdout.splitlines():
-        if line.startswith("  [scatter]"):
+        if line.startswith(f"  [{tag}]"):
             log(line)
-    check(proc.returncode == 0, f"[scatter] exited {proc.returncode}:\n"
+    check(proc.returncode == 0, f"[{tag}] exited {proc.returncode}:\n"
           f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
     lines = [l for l in proc.stdout.splitlines()
-             if l.startswith('{"scatter"')]
-    check(len(lines) == 1, f"[scatter] printed {len(lines)} JSON lines")
-    return json.loads(lines[0])["scatter"]
+             if l.startswith(f'{{"{tag}"')]
+    check(len(lines) == 1, f"[{tag}] printed {len(lines)} JSON lines")
+    return json.loads(lines[0])[tag]
+
+
+# ---------------------------------------------------------------------------
+# [vjp]: the leaf backward's kernel (csrc/leaf_vjp.cu) against the
+# composition it replaces (ops/march.py::implicit_vjp)
+# ---------------------------------------------------------------------------
+
+# operations of a lane outside its three leaf evaluations: the clamp, the
+# normal's vjp, the row's sum (2 a parameter, counted apart)
+VJP_LANE_FLOPS = 40
+
+
+def step_vjp_calls(fn):
+    """The arguments of each ``leaf_vjp.leaf_vjp`` call of ``fn()``'s
+    backward, tensors cloned (a spy on the call ``_MarchFn._backward``
+    makes)."""
+    from fraytracer_tpu_torch.ops.cuda import leaf_vjp
+    real, calls = leaf_vjp.leaf_vjp, []
+
+    def spy(scene, *args):
+        calls.append((scene,) + tuple(
+            x.detach().clone() if isinstance(x, torch.Tensor) else x
+            for x in args))
+        return real(scene, *args)
+    leaf_vjp.leaf_vjp = spy
+    try:
+        fn()
+    finally:
+        leaf_vjp.leaf_vjp = real
+    return calls
+
+
+def vjp_flops(scene, hit, code) -> float:
+    """Operations of the kernel's live lanes: per lane its kind's distance
+    (``PRIM_FLOPS``) at the three evaluations' widths, an operation on a
+    dual of N tangents counted N + 1 as ``DUAL_FACTOR`` counts it (at x P +
+    2 with P parameters, at p 4, the nested one 2 (P + 2)), the lane's own
+    ``VJP_LANE_FLOPS`` and 2 a parameter."""
+    from fraytracer_tpu_torch.scene.flatten import PARAM_WIDTH
+    slot = code.abs().long() - 1
+    live = hit & (code != 0)
+    total, first = 0.0, 0
+    for kind, cnt in scene.kind_counts:
+        p = PARAM_WIDTH[kind]
+        lanes = int((live & (slot >= first) & (slot < first + cnt)).sum())
+        total += lanes * (PRIM_FLOPS[kind] * (3 * p + 6 + DUAL_FACTOR)
+                          + VJP_LANE_FLOPS + 2 * p)
+        first += cnt
+    return total
+
+
+def phase_vjp(dev):
+    """The march backward of one eager 1024² step of the 1000-torus scene
+    (the bench's loss), its residuals taken as ``_MarchFn._backward`` hands
+    them to the kernel: the kernel's tables against the composition's on
+    the same residuals (float32, the card; the largest difference over
+    each table's largest |entry|, and the lanes whose ``∇ₓf·d`` is under
+    1e-6, where rounding picks the clamp's sign); device ms of the
+    kernel's launch alone, of the whole kernel path (its scatter and the
+    torus rows' chain) and of the composition, beside the bound: bytes
+    from the shapes over 3.35 TB/s and ``vjp_flops`` over 67 TFLOP/s, the
+    larger."""
+    import fraytracer_tpu_torch as ft
+    from fraytracer_tpu_torch.ops import march as M
+    from fraytracer_tpu_torch.ops.cuda import leaf_vjp
+    from fraytracer_tpu_torch.scene.generators import torus_csg_scene
+    from fraytracer_tpu_torch.types import Rays
+    device_ms = device_timer()
+    cam = ft.look_at((0, 0, -10), (0, 0, 0), fov_degrees=60.0, device=dev)
+    scene = ft.flatten(torus_csg_scene(19, BENCH_N_TORI), device=dev)
+    calls = step_vjp_calls(
+        lambda: eager_step(scene, cam, bench_config(SIZE)))
+    check(len(calls) == 1, f"[vjp] {len(calls)} leaf_vjp calls in the step")
+    args = calls[0]
+    sc, origin, direction, eps, t, hit, code, ct_t, ct_n, sign, md = args
+
+    def composition():
+        rays = Rays(origin, direction, torch.zeros_like(t), eps)
+        return M.implicit_vjp(
+            sc, rays, torch.where(hit, t, 0.0), hit,
+            M._leaf_scene_d(sc, code), M.MarchConfig(min_denom=md), ct_t,
+            ct_n, sign, need_rays=False)[0]
+    got, want = leaf_vjp.leaf_vjp(*args), composition()
+    errs = {k: float((got[k] - w).abs().max()) / float(w.abs().max())
+            for k, w in want.items()}
+    # lanes whose denominator's sign is rounding's
+    x = origin + torch.where(hit, t, 0.0)[:, None] * direction
+    with torch.enable_grad():
+        q = x.detach().requires_grad_(True)
+        f = M.sdf.leaf_distance(sc.kind_counts, code)(
+            {k: v.detach() for k, v in sc.prim_params.items()}, q)
+        (gx,) = torch.autograd.grad(f.sum(), q)
+    live = hit & (code != 0)
+    ambiguous = int((live & ((gx * direction).sum(-1).abs() < 1e-6)).sum())
+    check(max(errs.values()) < 1e-3 and all(
+        torch.isfinite(v).all() for v in got.values()),
+        f"[vjp] the kernel's tables against the composition's: {errs}")
+    kernel_ms = device_ms(lambda: leaf_vjp.lane_cotangents(*args))
+    path_ms = device_ms(lambda: leaf_vjp.leaf_vjp(*args))
+    plain_ms = device_ms(composition, reps=10)
+    n = t.shape[0]
+    b = nbytes(origin, direction, t, eps, hit, code, ct_t, ct_n,
+               *(() if sign is None else (sign,))) \
+        + n * (4 * 10 + 8) + sc.num_prims * 10 * 4
+    flops = vjp_flops(sc, hit, code)
+    bound_ms, by = bound(b, flops)
+    out = {"lanes": n, "live_lanes": int(live.sum()),
+           "ambiguous_lanes": ambiguous, "err": errs, "kernel_ms": kernel_ms,
+           "path_ms": path_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": by, "bytes": b, "flops": flops}
+    log(f"  [vjp] {n} lanes, {out['live_lanes']} live, {ambiguous} with "
+        f"|∇f·d| < 1e-6: kernel {kernel_ms:.4f} ms, with its scatter and "
+        f"glue {path_ms:.4f} ms, composition {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms by {by} ({b} bytes, {flops:.3g} flops; "
+        f"{100 * bound_ms / kernel_ms:.1f} % of the roofline); against the "
+        f"composition, of each table's largest entry: {errs} "
+        f"({nvidia_smi()})")
+    return out
 
 def phase_culled_kernels(dev):
     """Culled K1/K2/K3 against their plain versions on the same tables."""
@@ -1931,7 +2058,8 @@ def profile_frame(scene, cam, cfg, trace_path, fn=None, ops=0, record=None,
     port = ("march_kernel", "surface_kernel", "surface_ad_kernel",
             "block_gather_kernel", "march_dense_kernel",
             "surface_dense_kernel", "surface_ad_dense_kernel",
-            "cull_cones_kernel", "cull_select_kernel", "rows_scatter_kernel")
+            "cull_cones_kernel", "cull_select_kernel", "rows_scatter_kernel",
+            "leaf_vjp_kernel")
     ours = [e for e in sorted(evs, key=lambda e: e.time_range.start)
             if any(k in e.name.split("(")[0] for k in port)]
     log("  profile, port kernels in launch order: " + ", ".join(
@@ -2068,17 +2196,25 @@ GRAPH_LAUNCHES = {
               "occlusion_culled": 2, "cull_cones": 3, "cull_select": 3},
     "blend_dense": {"march": 1, "surface_ad": 1, "occlusion": 2}}
 # a step's row scatters (ops/cuda/scatter.py) beside its frame's launches:
-# the backward of the leaf rows of the sphere and torus tables, read twice
-# (the hit distance and the normal), and of the albedo and emission rows;
-# a blended step differentiates its leaves through point_eval and scatters
-# only the material rows
-STEP_SCATTERS = {"culled": 6, "dense": 6, "blend": 2}
+# the leaf backward's one scatter of every leaf row (ops/cuda/leaf_vjp.py)
+# and the backward of the albedo and emission rows; a blended step
+# differentiates its leaves through point_eval and scatters only the
+# material rows
+STEP_SCATTERS = {"culled": 3, "dense": 3, "blend": 2}
+# the march backward of a step: the leaf backward's kernel in slot mode,
+# the composition (counted, no kernel) for a blended step
+STEP_VJP = {"culled": {"leaf_vjp": 1}, "dense": {"leaf_vjp": 1},
+            "blend": {"leaf_vjp_plain": 1}}
+# launch_counts() keys that count calls, not a kernel's launches
+NOT_KERNELS = ("leaf_vjp_plain",)
 
 
 def step_launches(tag):
-    """The launches of one step of ``tag``: its frame's and its scatters'
-    (every table of the torus scene fits the shared-memory path)."""
-    return {**GRAPH_LAUNCHES[tag], "rows_scatter_smem": STEP_SCATTERS[tag]}
+    """The launches of one step of ``tag``: its frame's, its scatters'
+    (every table of the torus scene fits the shared-memory path) and its
+    march backward's."""
+    return {**GRAPH_LAUNCHES[tag], "rows_scatter_smem": STEP_SCATTERS[tag],
+            **STEP_VJP[tag]}
 
 
 # a launch count's kernel as a trace names it (K1 and K2 are one kernel)
@@ -2093,7 +2229,8 @@ TRACE_NAMES = {"march_culled": "march_kernel",
                "cull_cones": "cull_cones_kernel",
                "cull_select": "cull_select_kernel",
                "rows_scatter_smem": "rows_scatter_kernel",
-               "rows_scatter_global": "rows_scatter_kernel"}
+               "rows_scatter_global": "rows_scatter_kernel",
+               "leaf_vjp": "leaf_vjp_kernel"}
 NO_GRAPH = {"captures": 0, "replays": 0, "eager_reruns": 0, "eager_frames": 0}
 
 
@@ -2634,7 +2771,8 @@ def graph_step_case(dev, tag, scene, cam, cfg, build_dir):
         prof[name] = rec
     want = collections.Counter()
     for k, v in step_launches(tag).items():
-        want[TRACE_NAMES[k]] += v
+        if k not in NOT_KERNELS:
+            want[TRACE_NAMES[k]] += v
     traced = {name: traced_launches(rec) for name, rec in prof.items()}
     log(f"  {tag}: the port's kernels in the profiled replay "
         f"{dict(traced['graph'])}, in the eager step "
@@ -4176,6 +4314,7 @@ def phase_multi_world1(dev, scene, sscene, build_dir):
         step = path["step"]
         launches = {k: chunks * v for k, v in FRAME_LAUNCHES.items()}
         launches["rows_scatter_smem"] = chunks * STEP_SCATTERS["culled"]
+        launches["leaf_vjp"] = chunks * STEP_VJP["culled"]["leaf_vjp"]
         for call in ("capture", "replay"):
             ops_cuda.reset_launch_counts()
             s1, loss = step(scene, cam, target)
@@ -5707,6 +5846,8 @@ def main() -> int:
                     help="the build, then the [cull] phase alone")
     ap.add_argument("--scatter-only", action="store_true",
                     help="the build, then the [scatter] phase alone")
+    ap.add_argument("--vjp-only", action="store_true",
+                    help="the build, then the [vjp] phase alone")
     ap.add_argument("--tree", help="with --frame-only or --kernels-only: "
                     "import the package of the commit unpacked in this "
                     "directory")
@@ -5748,16 +5889,22 @@ def main() -> int:
                 or "spill" in line:
             log(f"  ptxas: {line.strip()}")
     only = {}
-    if not args.scatter_only:
+    one = args.cull_only or args.scatter_only or args.vjp_only
+    if not one or args.cull_only:
         log("[cull] the table build's kernels against the plain build: "
             f"the {SIZE}^2 frame's three sites and a spectral bounce site")
         only["cull"] = cull_times = phase_cull(dev)
-    if not args.cull_only:
+    if not one or args.scatter_only:
         log(f"[scatter] the row scatter's kernel against index_add_: the "
             f"scatters of one eager {SIZE}^2 step")
         only["scatter"] = scatter_times = phase_scatter(dev) \
-            if args.scatter_only else scatter_process()
-    if args.cull_only or args.scatter_only:
+            if args.scatter_only else phase_process("scatter")
+    if not one or args.vjp_only:
+        log(f"[vjp] the leaf backward's kernel against the composition: "
+            f"the march backward of one eager {SIZE}^2 step")
+        only["vjp"] = vjp_times = phase_vjp(dev) \
+            if args.vjp_only else phase_process("vjp")
+    if one:
         print(json.dumps(only))
         print(nvidia_smi())
         print(json.dumps({"ok": True, "device": {
@@ -6096,7 +6243,7 @@ def main() -> int:
         f"{oracle['d_budget_stopped_1.4']} rays of the sample stopped on the "
         "budget where the oracle hits (omega 1.4, 192 steps)")
     print(json.dumps({"kernels": kernels, "cull": cull_times,
-                      "scatter": scatter_times}))
+                      "scatter": scatter_times, "vjp": vjp_times}))
     print(nvidia_smi())
     from fraytracer_tpu_torch.parallel.mesh import teardown
     teardown()

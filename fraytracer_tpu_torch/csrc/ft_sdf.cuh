@@ -178,60 +178,198 @@ struct Lane {
 };
 
 // ---------------------------------------------------------------------------
-// forward-mode dual number: value + gradient w.r.t. the query point
+// forward-mode dual number of N tangents over a scalar S (float, or a Jet:
+// nested, for mixed second derivatives).  Dual, a float and its gradient
+// w.r.t. the query point, is K3's; the leaf backward (leaf_vjp.cu) seeds
+// the parameters of a row (SeedRow) and a direction of the query point,
+// and a Jet over a Jet carries a second direction of the query point.
 // ---------------------------------------------------------------------------
 
-struct Dual {
-  float v, x, y, z;
+__device__ __forceinline__ float val(float a) { return a; }
+__device__ __forceinline__ float sqrt_(float a) { return sqrtf(a); }
+
+template <typename S, int N>
+struct Jet {
+  S v;
+  S t[N];
 };
 
-__device__ __forceinline__ Dual dual(float v) { return {v, 0.f, 0.f, 0.f}; }
-__device__ __forceinline__ Dual operator+(Dual a, Dual b) {
-  return {a.v + b.v, a.x + b.x, a.y + b.y, a.z + b.z};
+template <typename S, int N>
+__device__ __forceinline__ float val(const Jet<S, N>& a) { return val(a.v); }
+
+// Jet op Jet
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator+(const Jet<S, N>& a,
+                                               const Jet<S, N>& b) {
+  Jet<S, N> r;
+  r.v = a.v + b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] + b.t[i];
+  return r;
 }
-__device__ __forceinline__ Dual operator-(Dual a, Dual b) {
-  return {a.v - b.v, a.x - b.x, a.y - b.y, a.z - b.z};
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator-(const Jet<S, N>& a,
+                                               const Jet<S, N>& b) {
+  Jet<S, N> r;
+  r.v = a.v - b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] - b.t[i];
+  return r;
 }
-__device__ __forceinline__ Dual operator-(Dual a) {
-  return {-a.v, -a.x, -a.y, -a.z};
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator-(const Jet<S, N>& a) {
+  Jet<S, N> r;
+  r.v = -a.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = -a.t[i];
+  return r;
 }
-__device__ __forceinline__ Dual operator*(Dual a, Dual b) {
-  return {a.v * b.v, a.x * b.v + a.v * b.x, a.y * b.v + a.v * b.y,
-          a.z * b.v + a.v * b.z};
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator*(const Jet<S, N>& a,
+                                               const Jet<S, N>& b) {
+  Jet<S, N> r;
+  r.v = a.v * b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] * b.v + a.v * b.t[i];
+  return r;
 }
-__device__ __forceinline__ Dual operator/(Dual a, Dual b) {
-  float inv = 1.f / b.v;
-  float q = a.v / b.v;
-  return {q, (a.x - q * b.x) * inv, (a.y - q * b.y) * inv,
-          (a.z - q * b.z) * inv};
-}
-__device__ __forceinline__ Dual operator+(Dual a, float b) {
-  return {a.v + b, a.x, a.y, a.z};
-}
-__device__ __forceinline__ Dual operator+(float a, Dual b) { return b + a; }
-__device__ __forceinline__ Dual operator-(Dual a, float b) {
-  return {a.v - b, a.x, a.y, a.z};
-}
-__device__ __forceinline__ Dual operator-(float a, Dual b) {
-  return {a - b.v, -b.x, -b.y, -b.z};
-}
-__device__ __forceinline__ Dual operator*(Dual a, float b) {
-  return {a.v * b, a.x * b, a.y * b, a.z * b};
-}
-__device__ __forceinline__ Dual operator*(float a, Dual b) { return b * a; }
-__device__ __forceinline__ Dual operator/(Dual a, float b) {
-  return {a.v / b, a.x / b, a.y / b, a.z / b};
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator/(const Jet<S, N>& a,
+                                               const Jet<S, N>& b) {
+  const S inv = 1.f / b.v;
+  const S q = a.v / b.v;
+  Jet<S, N> r;
+  r.v = q;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = (a.t[i] - q * b.t[i]) * inv;
+  return r;
 }
 
-__device__ __forceinline__ float val(float a) { return a; }
-__device__ __forceinline__ float val(Dual a) { return a.v; }
-
-__device__ __forceinline__ float sqrt_(float a) { return sqrtf(a); }
-__device__ __forceinline__ Dual sqrt_(Dual a) {
-  float s = sqrtf(a.v);
-  float h = 0.5f / s;
-  return {s, a.x * h, a.y * h, a.z * h};
+// a Jet and a constant of its scalar type (for S = float: a float)
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator+(const Jet<S, N>& a,
+                                               const S& b) {
+  Jet<S, N> r = a;
+  r.v = a.v + b;
+  return r;
 }
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator+(const S& a,
+                                               const Jet<S, N>& b) {
+  return b + a;
+}
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator-(const Jet<S, N>& a,
+                                               const S& b) {
+  Jet<S, N> r = a;
+  r.v = a.v - b;
+  return r;
+}
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator-(const S& a,
+                                               const Jet<S, N>& b) {
+  Jet<S, N> r = -b;
+  r.v = a - b.v;
+  return r;
+}
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator*(const Jet<S, N>& a,
+                                               const S& b) {
+  Jet<S, N> r;
+  r.v = a.v * b;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] * b;
+  return r;
+}
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator*(const S& a,
+                                               const Jet<S, N>& b) {
+  return b * a;
+}
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator/(const Jet<S, N>& a,
+                                               const S& b) {
+  Jet<S, N> r;
+  r.v = a.v / b;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] / b;
+  return r;
+}
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> operator/(const S& a,
+                                               const Jet<S, N>& b) {
+  const S inv = 1.f / b.v;
+  const S q = a / b.v;
+  Jet<S, N> r;
+  r.v = q;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = -(q * b.t[i]) * inv;
+  return r;
+}
+
+// a nested Jet and a float constant
+template <typename S, int M, int N>
+__device__ __forceinline__ Jet<Jet<S, M>, N> operator+(
+    const Jet<Jet<S, M>, N>& a, float b) {
+  Jet<Jet<S, M>, N> r = a;
+  r.v = a.v + b;
+  return r;
+}
+template <typename S, int M, int N>
+__device__ __forceinline__ Jet<Jet<S, M>, N> operator+(
+    float a, const Jet<Jet<S, M>, N>& b) {
+  return b + a;
+}
+template <typename S, int M, int N>
+__device__ __forceinline__ Jet<Jet<S, M>, N> operator-(
+    const Jet<Jet<S, M>, N>& a, float b) {
+  Jet<Jet<S, M>, N> r = a;
+  r.v = a.v - b;
+  return r;
+}
+template <typename S, int M, int N>
+__device__ __forceinline__ Jet<Jet<S, M>, N> operator-(
+    float a, const Jet<Jet<S, M>, N>& b) {
+  Jet<Jet<S, M>, N> r = -b;
+  r.v = a - b.v;
+  return r;
+}
+template <typename S, int M, int N>
+__device__ __forceinline__ Jet<Jet<S, M>, N> operator*(
+    const Jet<Jet<S, M>, N>& a, float b) {
+  Jet<Jet<S, M>, N> r;
+  r.v = a.v * b;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] * b;
+  return r;
+}
+template <typename S, int M, int N>
+__device__ __forceinline__ Jet<Jet<S, M>, N> operator*(
+    float a, const Jet<Jet<S, M>, N>& b) {
+  return b * a;
+}
+template <typename S, int M, int N>
+__device__ __forceinline__ Jet<Jet<S, M>, N> operator/(
+    const Jet<Jet<S, M>, N>& a, float b) {
+  Jet<Jet<S, M>, N> r;
+  r.v = a.v / b;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] / b;
+  return r;
+}
+
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> sqrt_(const Jet<S, N>& a) {
+  const S s = sqrt_(a.v);
+  const S h = 0.5f / s;
+  Jet<S, N> r;
+  r.v = s;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.t[i] = a.t[i] * h;
+  return r;
+}
+
+using Dual = Jet<float, 3>;  // value, then d/dx, d/dy, d/dz
 template <typename T>
 __device__ __forceinline__ T max_(T a, T b) { return val(a) >= val(b) ? a : b; }
 template <typename T>
@@ -240,7 +378,12 @@ __device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ float min_(float a, float b) { return fminf(a, b); }
 // constant promoted to the scalar type of the second argument
 __device__ __forceinline__ float dual_or(float c, float) { return c; }
-__device__ __forceinline__ Dual dual_or(float c, Dual) { return dual(c); }
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> dual_or(float c, const Jet<S, N>&) {
+  Jet<S, N> r{};
+  r.v = dual_or(c, r.v);
+  return r;
+}
 template <typename T>
 __device__ __forceinline__ T cmax(T a, float b) {
   return val(a) >= b ? a : dual_or(b, a);
@@ -251,6 +394,13 @@ __device__ __forceinline__ T cmin(T a, float b) {
 }
 template <typename T>
 __device__ __forceinline__ T clamp01(T a) { return cmin(cmax(a, 0.f), 1.f); }
+// max with a float floor of a row-only quantity (float, or a Jet where the
+// row's parameters carry tangents)
+__device__ __forceinline__ float pmax(float a, float b) { return fmaxf(a, b); }
+template <typename S, int N>
+__device__ __forceinline__ Jet<S, N> pmax(const Jet<S, N>& a, float b) {
+  return cmax(a, b);
+}
 template <typename T>
 __device__ __forceinline__ T abs_(T a) { return val(a) < 0.f ? -a : a; }
 template <typename T>
@@ -300,8 +450,9 @@ __host__ __device__ constexpr int ft_kind_width(int kind) {
          : kind == K_CAPSULE || kind == K_BOX ? 7
          : kind == K_TRIANGLE ? 10 : 8;
 }
+// the j-th parameter of a row: a float, or a Jet for a SeedRow
 template <typename G>
-__device__ __forceinline__ float ld(const G& g, int j) {
+__device__ __forceinline__ auto ld(const G& g, int j) {
   return g[j];
 }
 template <typename G>
@@ -314,14 +465,31 @@ __device__ __forceinline__ float root(float a) {
     return sqrtf(a);
   }
 }
-template <typename G>
-__device__ __forceinline__ Dual root(Dual a) {
+template <typename G, typename S, int N>
+__device__ __forceinline__ Jet<S, N> root(const Jet<S, N>& a) {
   return sqrt_(a);
 }
+
+// A row in device memory whose parameters are the first P of N Jet
+// tangents (the leaf backward: derivatives w.r.t. the row as read).
+template <int N>
+struct SeedRow {
+  const float* p;
+  static constexpr bool fast = false;
+  __device__ __forceinline__ Jet<float, N> operator[](int j) const {
+    Jet<float, N> r{};
+    r.v = __ldg(p + j);
+    r.t[j] = 1.f;
+    return r;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // the seven distance functions (ops/sdf.py formulas)
 // ---------------------------------------------------------------------------
+//
+// T: the query point's scalar type; a row-only quantity has the type of
+// ld(g, j) (a float, or a Jet with parameter tangents).
 
 template <typename T, typename G>
 __device__ __forceinline__ T d_sphere(const G& g, T px, T py, T pz) {
@@ -331,10 +499,10 @@ __device__ __forceinline__ T d_sphere(const G& g, T px, T py, T pz) {
 
 template <typename T, typename G>
 __device__ __forceinline__ T d_capsule(const G& g, T px, T py, T pz) {
-  float ax = ld(g, 0), ay = ld(g, 1), az = ld(g, 2);
-  float bax = ld(g, 3) - ax, bay = ld(g, 4) - ay, baz = ld(g, 5) - az;
+  const auto ax = ld(g, 0), ay = ld(g, 1), az = ld(g, 2);
+  const auto bax = ld(g, 3) - ax, bay = ld(g, 4) - ay, baz = ld(g, 5) - az;
   T pax = px - ax, pay = py - ay, paz = pz - az;
-  float denom = fmaxf(bax * bax + bay * bay + baz * baz, 1e-20f);
+  const auto denom = pmax(bax * bax + bay * bay + baz * baz, 1e-20f);
   T h = clamp01((pax * bax + pay * bay + paz * baz) / denom);
   T ex = pax - h * bax, ey = pay - h * bay, ez = paz - h * baz;
   return root<G>(ex * ex + ey * ey + ez * ez + 1e-20f) - ld(g, 6);
@@ -343,7 +511,7 @@ __device__ __forceinline__ T d_capsule(const G& g, T px, T py, T pz) {
 template <typename T, typename G>
 __device__ __forceinline__ T d_torus(const G& g, T px, T py, T pz) {
   // axis (g[3..5]) is normalized host-side with the plain version's formula
-  float nx = ld(g, 3), ny = ld(g, 4), nz = ld(g, 5);
+  const auto nx = ld(g, 3), ny = ld(g, 4), nz = ld(g, 5);
   T qx = px - ld(g, 0), qy = py - ld(g, 1), qz = pz - ld(g, 2);
   T h = qx * nx + qy * ny + qz * nz;
   T wx = qx - h * nx, wy = qy - h * ny, wz = qz - h * nz;
@@ -351,10 +519,9 @@ __device__ __forceinline__ T d_torus(const G& g, T px, T py, T pz) {
   return root<G>(h * h + radial * radial + 1e-20f) - ld(g, 7);
 }
 
-template <typename T>
-__device__ __forceinline__ T edge_d2(float ex, float ey, float ez, T qx, T qy,
-                                     T qz) {
-  float denom = fmaxf(ex * ex + ey * ey + ez * ez, 1e-20f);
+template <typename T, typename P>
+__device__ __forceinline__ T edge_d2(P ex, P ey, P ez, T qx, T qy, T qz) {
+  const P denom = pmax(ex * ex + ey * ey + ez * ez, 1e-20f);
   T h = clamp01((qx * ex + qy * ey + qz * ez) / denom);
   T ux = qx - h * ex, uy = qy - h * ey, uz = qz - h * ez;
   return ux * ux + uy * uy + uz * uz;
@@ -362,14 +529,15 @@ __device__ __forceinline__ T edge_d2(float ex, float ey, float ez, T qx, T qy,
 
 template <typename T, typename G>
 __device__ __forceinline__ T d_triangle(const G& g, T px, T py, T pz) {
-  float v1x = ld(g, 0), v1y = ld(g, 1), v1z = ld(g, 2);
-  float v2x = ld(g, 3), v2y = ld(g, 4), v2z = ld(g, 5);
-  float v3x = ld(g, 6), v3y = ld(g, 7), v3z = ld(g, 8);
-  float ax = v2x - v1x, ay = v2y - v1y, az = v2z - v1z;  // v21
-  float bx = v3x - v2x, by = v3y - v2y, bz = v3z - v2z;  // v32
-  float cx = v1x - v3x, cy = v1y - v3y, cz = v1z - v3z;  // v13
+  const auto v1x = ld(g, 0), v1y = ld(g, 1), v1z = ld(g, 2);
+  const auto v2x = ld(g, 3), v2y = ld(g, 4), v2z = ld(g, 5);
+  const auto v3x = ld(g, 6), v3y = ld(g, 7), v3z = ld(g, 8);
+  const auto ax = v2x - v1x, ay = v2y - v1y, az = v2z - v1z;  // v21
+  const auto bx = v3x - v2x, by = v3y - v2y, bz = v3z - v2z;  // v32
+  const auto cx = v1x - v3x, cy = v1y - v3y, cz = v1z - v3z;  // v13
   // nor = cross(v21, v13)
-  float nx = ay * cz - az * cy, ny = az * cx - ax * cz, nz = ax * cy - ay * cx;
+  const auto nx = ay * cz - az * cy, ny = az * cx - ax * cz,
+             nz = ax * cy - ay * cx;
   T p1x = px - v1x, p1y = py - v1y, p1z = pz - v1z;
   T p2x = px - v2x, p2y = py - v2y, p2z = pz - v2z;
   T p3x = px - v3x, p3y = py - v3y, p3z = pz - v3z;
@@ -383,7 +551,7 @@ __device__ __forceinline__ T d_triangle(const G& g, T px, T py, T pz) {
                   (bx * ny - by * nx) * p2z) +
             sign_((cy * nz - cz * ny) * p3x + (cz * nx - cx * nz) * p3y +
                   (cx * ny - cy * nx) * p3z);
-  float nor2 = fmaxf(nx * nx + ny * ny + nz * nz, 1e-20f);
+  const auto nor2 = pmax(nx * nx + ny * ny + nz * nz, 1e-20f);
   T h = nx * p1x + ny * p1y + nz * p1z;
   T d2f = h * h / nor2;
   return root<G>((s >= 2.f ? d2f : d2e) + 1e-20f) - ld(g, 9);
@@ -402,18 +570,18 @@ __device__ __forceinline__ T d_box(const G& g, T px, T py, T pz) {
 
 template <typename T, typename G>
 __device__ __forceinline__ T d_cone(const G& g, T px, T py, T pz) {
-  float ax = ld(g, 0), ay = ld(g, 1), az = ld(g, 2);
-  float bax = ld(g, 3) - ax, bay = ld(g, 4) - ay, baz = ld(g, 5) - az;
-  float ra = ld(g, 6), rb = ld(g, 7);
-  float rba = rb - ra;
-  float baba = fmaxf(bax * bax + bay * bay + baz * baz, 1e-20f);
+  const auto ax = ld(g, 0), ay = ld(g, 1), az = ld(g, 2);
+  const auto bax = ld(g, 3) - ax, bay = ld(g, 4) - ay, baz = ld(g, 5) - az;
+  const auto ra = ld(g, 6), rb = ld(g, 7);
+  const auto rba = rb - ra;
+  const auto baba = pmax(bax * bax + bay * bay + baz * baz, 1e-20f);
   T pax = px - ax, pay = py - ay, paz = pz - az;
   T papa = pax * pax + pay * pay + paz * paz;
   T paba = (pax * bax + pay * bay + paz * baz) / baba;
   T x = root<G>(cmax(papa - paba * paba * baba, 1e-20f));
   T cax = cmax(x - (val(paba) < 0.5f ? ra : rb), 0.f);
   T cay = abs_(paba - 0.5f) - 0.5f;
-  float k = rba * rba + baba;
+  const auto k = rba * rba + baba;
   T f = clamp01((rba * (x - ra) + paba * baba) / k);
   T cbx = x - ra - f * rba;
   T cby = paba - f;
@@ -1187,7 +1355,7 @@ __device__ __forceinline__ void pair_fold(DistGrad& acc, const SPair* q, int,
   }
   const Dual g = row_dual<KIND>(
       (const float4*)q->tab + r.brow * (FT_TABLE_W / 4), px, py, pz);
-  acc = {r.bd, g.x, g.y, g.z};
+  acc = {r.bd, g.t[0], g.t[1], g.t[2]};
 }
 
 template <typename V>
@@ -1309,7 +1477,7 @@ __device__ __forceinline__ void finish_members(DistGrad& acc, int won,
   int kind;
   const RRow<false> r = entry_row(X, won, kind);
   const Dual g = prim_dual(kind, r, px, py, pz);
-  acc = {acc.v, g.x, g.y, g.z};
+  acc = {acc.v, g.t[0], g.t[1], g.t[2]};
 }
 
 // a sumexp group's members: sum e, and for DistGrad sum e * gradient
@@ -1342,9 +1510,9 @@ __device__ __forceinline__ DistGrad sumexp_members(const MarchCtx& X,
     material(g.v, __ldg(X.P.ent_mat + e), __ldg(X.P.ent_slot + e));
     const float w = expf(-g.v / o.k);
     s += w;
-    sx += w * g.x;
-    sy += w * g.y;
-    sz += w * g.z;
+    sx += w * g.t[0];
+    sy += w * g.t[1];
+    sz += w * g.t[2];
   }
   s = fmaxf(s, 1e-30f);
   return {-o.k * logf(s), sx / s, sy / s, sz / s};
@@ -1465,9 +1633,9 @@ __device__ __forceinline__ void sumexp_run(const DenseCtx& X, int4 u, float k,
     material(g.v, m.x, m.y);
     const float w = expf(-g.v / k);
     s.x += w;
-    s.y += w * g.x;
-    s.z += w * g.y;
-    s.w += w * g.z;
+    s.y += w * g.t[0];
+    s.z += w * g.t[1];
+    s.w += w * g.t[2];
   }
 }
 template <typename V>

@@ -647,9 +647,9 @@ __device__ __forceinline__ void write_surface(const DistCode& v,
   if (v.code != 0.f) {
     const Dual g = leaf_dual(X, v.at, px, py, pz);
     const float sgn = v.code < 0.f ? -1.f : 1.f;  // subtract flips the b side
-    gx = sgn * g.x;
-    gy = sgn * g.y;
-    gz = sgn * g.z;
+    gx = sgn * g.t[0];
+    gy = sgn * g.t[1];
+    gz = sgn * g.t[2];
   }
   write_normal(normal, i, gx, gy, gz);
   code[i] = v.code;

@@ -3,7 +3,10 @@ their host wrappers.  Importing this package builds nothing: the kernels are
 compiled on the first launch (``build.library``).
 
 Each wrapper counts its launches; :func:`launch_counts` reads the counts
-and :func:`reset_launch_counts` sets them to zero.  A wrapper does not run
+and :func:`reset_launch_counts` sets them to zero (``leaf_vjp_plain``
+counts the march backwards on CUDA tensors that took the plain version,
+``ops/march.py::implicit_vjp``, instead of ``leaf_vjp``'s kernel).  A
+wrapper does not run
 when a captured CUDA graph replays (``ops/graph.py``): each replay adds
 the launches recorded at its capture (:func:`add_launch_counts`), so the
 counts still mean kernels launched on the card.  ``GRAPH`` counts the
@@ -19,7 +22,7 @@ block stages against those it reads from device memory), the last K1/K2
 launch's threads a block and blocks an SM, and the lane-steps its K1/K2
 evaluated, counted on the device.
 """
-from . import cull_kernel, gather, march_kernel, scatter
+from . import cull_kernel, gather, leaf_vjp, march_kernel, scatter
 
 GRAPH = {"captures": 0, "replays": 0, "eager_reruns": 0, "eager_frames": 0}
 
@@ -29,7 +32,7 @@ def _tables():
     # imported here at first use, not with the package
     from . import probe
     return (march_kernel.LAUNCHES, cull_kernel.LAUNCHES, gather.LAUNCHES,
-            scatter.LAUNCHES, probe.LAUNCHES)
+            scatter.LAUNCHES, leaf_vjp.LAUNCHES, probe.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -82,6 +82,12 @@ SIGNATURES = {
     # strides, idx (int64), n, K, W, shared-memory path, out (a zeroed
     # K x W table), stream
     "ft_rows_scatter": [_P, _L, _L, _P, _L, _I, _I, _I, _P, _P],
+    # the leaf backward (csrc/leaf_vjp.cu): origin, direction, t,
+    # epsilon, hit (bool), code, sign (or null), ct_t, ct_n, n; rows
+    # [K, PSTRIDE], kinds (host ints: kind, first slot), n_kinds,
+    # min_denom; outputs bar [PSTRIDE, n], idx (int64); stream
+    "ft_leaf_vjp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _F,
+                    _P, _P, _P],
     # host only (csrc/capture.cu): stream under capture, kinds (char
     # [cap] or null), cap, out n_ops (int64 [1])
     "ft_capture_ops": [_P, _P, _I, _P],

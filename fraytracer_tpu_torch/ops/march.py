@@ -25,12 +25,15 @@ defines ``t*`` implicitly, so
 and :func:`march` / :func:`march_surface` are ``torch.autograd.Function``s
 whose forward runs the raw march without a graph and whose backward
 evaluates that formula at the hit point (O(1) memory, no backprop through
-iterations).  The backward is plain PyTorch on top of the forward
-kernels, per lane: the winning leaf's distance for min/max plans (the leaf
-code the surface kernel exports), per-tile candidate lists
-(``ops/point_eval.py``) for plans with a smooth union, the dense scene
-distance for ``sign`` lanes.  When no input requires grad the Functions
-are bypassed and a call costs what the raw march costs.
+iterations).  The backward of a slot-mode surface march (min/max plans:
+the winning leaf's distance, by the leaf code the surface kernel exports)
+on CUDA tensors, when the rays need no gradient, is one kernel
+(``ops/cuda/leaf_vjp.py``); otherwise it is :func:`implicit_vjp`, plain
+PyTorch on top of the forward kernels and the kernel's plain version, per
+lane: the winning leaf's distance for min/max plans, per-tile candidate
+lists (``ops/point_eval.py``) for plans with a smooth union, the dense
+scene distance for ``sign`` lanes.  When no input requires grad the
+Functions are bypassed and a call costs what the raw march costs.
 
 Grazing-hit guard: the denominator ``∇ₓf·d`` → 0 at silhouettes, where
 the exact sensitivity diverges.  It is clamped to ``sign(den)·max(|den|,
@@ -480,6 +483,10 @@ class _MarchFn(torch.autograd.Function):
 
     @staticmethod
     def _backward(ctx, ct_t, ct_n):
+        """The dispatch rule: on CUDA tensors, a slot-mode surface march
+        whose rays need no gradient takes the leaf backward's kernel
+        (``ops/cuda/leaf_vjp.py``); everything else, and every CPU tensor,
+        takes :func:`implicit_vjp`, its plain version."""
         saved = list(ctx.saved_tensors)
         origin, direction, epsilon, t, hit = saved[:5]
         rest = saved[5:]
@@ -487,8 +494,19 @@ class _MarchFn(torch.autograd.Function):
         sign = rest.pop(0) if ctx.has_sign else None
         scene = dataclasses.replace(
             ctx.scene, prim_params=dict(zip(ctx.scene.prim_params, rest)))
-        rays = Rays(origin, direction, torch.zeros_like(t), epsilon)
         cfg = ctx.cfg
+        need_rays = ctx.needs_input_grad[4] or ctx.needs_input_grad[5]
+        if t.is_cuda:
+            from .cuda import leaf_vjp
+            from .cuda.march_kernel import slot_surface_mode
+            if ctx.surface and not need_rays \
+                    and slot_surface_mode(scene.plan):
+                bar_p = leaf_vjp.leaf_vjp(
+                    scene, origin, direction, epsilon, t, hit, code, ct_t,
+                    ct_n, sign, cfg.min_denom)
+                return (None,) * 8 + tuple(bar_p.values())
+            leaf_vjp.LAUNCHES["leaf_vjp_plain"] += 1
+        rays = Rays(origin, direction, torch.zeros_like(t), epsilon)
         t = torch.where(hit, t, 0.0)      # see ``hit_points``
         if ctx.surface:
             scene_d = _surface_scene_d(scene, rays, t, hit, code, cfg, sign)
@@ -496,7 +514,6 @@ class _MarchFn(torch.autograd.Function):
             scene_d = _culled_scene_d(scene, rays.at(t), hit, cfg)
         else:
             scene_d = _dense_scene_d(scene, t.device)
-        need_rays = ctx.needs_input_grad[4] or ctx.needs_input_grad[5]
         bar_p, bar_o, bar_d = implicit_vjp(
             scene, rays, t, hit, scene_d, cfg, ct_t,
             ct_n if ctx.surface else None, sign, need_rays)

@@ -837,8 +837,9 @@ def _blend96(dev):
 @pytest.mark.parametrize("cull", [True, False])
 def test_graph_step_is_the_eager_step(dev, cull):
     """The first call captures the step, the second replays it: each the
-    eager step (loss bit for bit), with one frame's launches and six row
-    scatters each (the sphere and torus rows twice, albedo, emission)."""
+    eager step (loss bit for bit), with one frame's launches, the leaf
+    backward's kernel and three row scatters each (the leaf rows, albedo,
+    emission)."""
     scene, cam, cfg, R = _graph_setup(dev, cull=cull)
     want = _eager_step(scene, cam, cfg)
     ops_cuda.reset_launch_counts()
@@ -849,7 +850,7 @@ def test_graph_step_is_the_eager_step(dev, cull):
     sfx = "_culled" if cull else ""
     assert counts == with_tables({"march" + sfx: 2, "surface" + sfx: 2,
                                   "occlusion" + sfx: 4,
-                                  "rows_scatter_smem": 12})
+                                  "rows_scatter_smem": 6, "leaf_vjp": 2})
     assert ops_cuda.graph_counts() == {"captures": 1, "replays": 1,
                                        "eager_reruns": 0, "eager_frames": 0}
     assert R.step_graph(_sum_sq, scene, cam, cfg).graph is not None
@@ -919,22 +920,23 @@ def test_graph_step_failing_certificate_is_kept_eager(dev):
 
 
 def test_graph_step_capture_failure_raises(dev, monkeypatch):
-    """A host read inside the backward cannot be captured: the call
-    raises, keeps no graph, and does not fall back to the eager step."""
-    from fraytracer_tpu_torch.ops import march as M
+    """A host read inside the backward (the torus scene's: the leaf
+    backward's kernel) cannot be captured: the call raises, keeps no graph,
+    and does not fall back to the eager step."""
+    from fraytracer_tpu_torch.ops.cuda import leaf_vjp
     scene, cam, cfg, R = _graph_setup(dev)
-    real = M.implicit_vjp
+    real = leaf_vjp.leaf_vjp
 
-    def reads_the_host(scene_, rays, t, hit, *a, **k):
+    def reads_the_host(scene_, origin, direction, epsilon, t, hit, *a):
         int(hit.sum())
-        return real(scene_, rays, t, hit, *a, **k)
-    monkeypatch.setattr(M, "implicit_vjp", reads_the_host)
+        return real(scene_, origin, direction, epsilon, t, hit, *a)
+    monkeypatch.setattr(leaf_vjp, "leaf_vjp", reads_the_host)
     with pytest.raises(RuntimeError):
         ft.render_value_and_grad(_sum_sq, scene, cam, cfg)
     assert not tgraph._graphs
     assert ops_cuda.graph_counts() == {"captures": 0, "replays": 0,
                                        "eager_reruns": 0, "eager_frames": 0}
-    monkeypatch.setattr(M, "implicit_vjp", real)
+    monkeypatch.setattr(leaf_vjp, "leaf_vjp", real)
     for _ in range(2):
         _assert_step_close(ft.render_value_and_grad(_sum_sq, scene, cam,
                                                     cfg),
@@ -1056,7 +1058,7 @@ def test_frame_gradient_kernels_match_plain_route(dev):
     _i, sp, _c = run(True, same)
     assert {k: v for k, v in counts.items() if v} == with_tables({
         "march_culled": 1, "surface_culled": 1, "occlusion_culled": 2,
-        "rows_scatter_smem": 6})
+        "rows_scatter_smem": 3, "leaf_vjp": 1})
     for (name, a), b in zip(sk.tensors().items(), sp.tensors().values()):
         if b.grad is None or float(b.grad.norm()) == 0:
             continue
